@@ -1,0 +1,231 @@
+"""Job configuration and CLI-compatible argument parsing.
+
+The reference's positional CLI (``Usage`` at ``mpi/mpi_convolution.c:328-348``):
+``image width height repetitions {grey,rgb}``. Width/height are supplied by
+the user because ``.raw`` is headerless. On top of that the job subset of
+the JAX package's flags is accepted with the same names and the same
+validation messages, so one command line runs on both packages:
+``--filter --backend --boundary --schedule --block-h --fuse --frames
+--output --time --platform``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import enum
+import os
+from typing import Optional, Tuple
+
+# The JAX package's schedule names, all accepted. On Hopper every name but
+# "deep" runs the one fused kernel (the TPU schedules are lowerings of the
+# same integers); "deep" runs the resident kernel when the image fits the
+# L2 budget, else the fused kernel at the deep depth.
+PALLAS_SCHEDULES = ("pad", "shrink", "strips", "pack", "pack_strips", "deep")
+
+# The JAX package's backend names plus the port's own spellings:
+# "cuda" = "pallas" (the hand-written kernels), "torch" = "xla" (torch ops).
+BACKENDS = ("auto", "xla", "pallas", "reference", "autotune", "cuda", "torch")
+_BACKEND_ALIASES = {"cuda": "pallas", "torch": "xla"}
+
+
+def canonical_backend(name: str) -> str:
+    """The JAX package's name for a backend spelling (reports use it)."""
+    return _BACKEND_ALIASES.get(name, name)
+
+
+def _validate_common(cfg) -> None:
+    """The geometry/backend/filter field checks, with the JAX package's
+    messages."""
+    if cfg.width <= 0 or cfg.height <= 0:
+        raise ValueError(
+            f"width/height must be positive, got {cfg.width}x{cfg.height}"
+        )
+    if cfg.repetitions < 0:
+        raise ValueError(f"repetitions must be >= 0, got {cfg.repetitions}")
+    if cfg.backend not in BACKENDS:
+        raise ValueError(f"unknown backend {cfg.backend!r}")
+    if cfg.schedule is not None and cfg.schedule not in PALLAS_SCHEDULES:
+        raise ValueError(
+            f"unknown schedule {cfg.schedule!r}; expected one of "
+            f"{'|'.join(PALLAS_SCHEDULES)}"
+        )
+    if cfg.boundary not in ("zero", "periodic"):
+        raise ValueError(
+            f"unknown boundary {cfg.boundary!r}; expected zero|periodic"
+        )
+    if cfg.block_h is not None and (cfg.block_h < 8 or cfg.block_h % 8):
+        nearest = max(8, -(-cfg.block_h // 8) * 8)
+        raise ValueError(
+            f"block_h must be a positive multiple of 8 (Pallas DMA row "
+            f"windows are sublane-aligned), got {cfg.block_h}; nearest "
+            f"valid value is {nearest}"
+        )
+    if cfg.fuse is not None and cfg.fuse < 1:
+        raise ValueError(
+            f"fuse must be a positive rep count (reps per HBM "
+            f"round-trip), got {cfg.fuse}"
+        )
+
+
+class ImageType(enum.Enum):
+    """Pixel layout of a headerless raw image (1 or 3 bytes per pixel)."""
+
+    GREY = "grey"
+    RGB = "rgb"
+
+    @property
+    def channels(self) -> int:
+        return 1 if self is ImageType.GREY else 3
+
+
+@dataclasses.dataclass(frozen=True)
+class JobConfig:
+    """Everything needed to run one iterated-convolution job."""
+
+    image: str
+    width: int
+    height: int
+    repetitions: int
+    image_type: ImageType
+    filter_name: str = "gaussian"
+    backend: str = "auto"  # auto | xla | pallas | reference | autotune (+ aliases)
+    output: Optional[str] = None  # None -> blur_<basename> beside input
+    frames: int = 1  # >1: batched video mode (N concatenated raw frames)
+    schedule: Optional[str] = None  # kernel schedule (None = default)
+    boundary: str = "zero"  # zero (reference semantics) | periodic
+    # Kernel geometry (None = defaults): rows per tile and fused reps per
+    # device-memory round trip.
+    block_h: Optional[int] = None
+    fuse: Optional[int] = None
+
+    def __post_init__(self) -> None:
+        _validate_common(self)
+        if self.frames < 1:
+            raise ValueError(f"frames must be >= 1, got {self.frames}")
+
+    @property
+    def channels(self) -> int:
+        return self.image_type.channels
+
+    @property
+    def output_path(self) -> str:
+        """Reference-compatible output naming: ``blur_<input basename>``
+        (``mpi/mpi_convolution.c:244-247``), placed beside the input."""
+        if self.output is not None:
+            return self.output
+        d, base = os.path.split(self.image)
+        return os.path.join(d, f"blur_{base}")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="tpu_stencil_torch",
+        description=(
+            "Iterated image convolution on an NVIDIA GPU (PyTorch + "
+            "hand-written CUDA kernels). Positional arguments are "
+            "compatible with the reference CLI: image width height "
+            "repetitions {grey,rgb}."
+        ),
+    )
+    p.add_argument(
+        "image",
+        help="input image: headerless .raw, or any standard format "
+             "(png/jpg/ppm/bmp/tiff/...) decoded via its header",
+    )
+    p.add_argument(
+        "width", type=int,
+        help="image width in pixels (0 = from header, non-raw formats only)",
+    )
+    p.add_argument(
+        "height", type=int,
+        help="image height in pixels (0 = from header, non-raw formats only)",
+    )
+    p.add_argument("repetitions", type=int, help="number of filter applications")
+    p.add_argument(
+        "image_type", choices=[t.value for t in ImageType],
+        help="grey (1 byte/px) or rgb (3 interleaved bytes/px)",
+    )
+    p.add_argument(
+        "--filter", dest="filter_name", default="gaussian",
+        help="filter name (box|gaussian|edge|gaussian5|gaussian7|...); default gaussian",
+    )
+    p.add_argument(
+        "--backend", default="auto", choices=list(BACKENDS),
+        help="compute backend: pallas (alias cuda) runs the hand-written "
+             "CUDA kernels, xla (alias torch) runs torch ops, reference "
+             "the float32 plan in torch ops; auto and autotune run the "
+             "kernels on the GPU and torch ops on the CPU",
+    )
+    p.add_argument("--output", default=None, help="output path (default blur_<input>)")
+    p.add_argument(
+        "--frames", type=int, default=1, metavar="N",
+        help="batched video mode: the raw input holds N concatenated frames "
+             "(frames never mix). Raw-only",
+    )
+    p.add_argument(
+        "--boundary", default="zero", choices=["zero", "periodic"],
+        help="edge semantics: zero (the reference's calloc'd ghost ring) "
+             "or periodic (wraparound). Periodic runs torch ops",
+    )
+    p.add_argument(
+        "--schedule", default=None, choices=list(PALLAS_SCHEDULES),
+        help="kernel schedule: 'deep' keeps the whole image in L2 across "
+             "the rep loop in one cooperative launch when it fits (else the "
+             "fused kernel at the deep depth); every other name runs the "
+             "fused kernel",
+    )
+    p.add_argument(
+        "--block-h", dest="block_h", type=int, default=None, metavar="ROWS",
+        help="force the fused kernel's tile height (a positive multiple "
+             "of 8; clamped to the image and to shared memory)",
+    )
+    p.add_argument(
+        "--fuse", type=int, default=None, metavar="REPS",
+        help="force the fused kernel's reps per device-memory round trip "
+             "(clamped to block_h/(2*halo) and to shared memory; reps %% "
+             "fuse remainder runs as single-rep launches)",
+    )
+    p.add_argument(
+        "--platform", default=None, choices=["cpu", "gpu"],
+        help="cpu runs the torch-ops and plain versions of the kernels on "
+             "the CPU; default (or gpu) runs on the first CUDA device and "
+             "fails when there is none",
+    )
+    p.add_argument(
+        "--time", action="store_true",
+        help="additionally print whole-job time incl. I/O, the backend, "
+             "schedule and kernel launch counts; the compute-window line "
+             "is always printed",
+    )
+    return p
+
+
+def parse_args(argv=None) -> Tuple[JobConfig, argparse.Namespace]:
+    parser = build_parser()
+    ns = parser.parse_args(argv)
+    from tpu_stencil_torch.io import images as _images
+
+    try:
+        width, height = _images.resolve_size(ns.image, ns.width, ns.height)
+    except (ValueError, OSError) as e:
+        parser.error(str(e))
+    try:
+        cfg = JobConfig(
+            image=ns.image,
+            width=width,
+            height=height,
+            repetitions=ns.repetitions,
+            image_type=ImageType(ns.image_type),
+            filter_name=ns.filter_name,
+            backend=ns.backend,
+            output=ns.output,
+            frames=ns.frames,
+            schedule=ns.schedule,
+            boundary=ns.boundary,
+            block_h=ns.block_h,
+            fuse=ns.fuse,
+        )
+    except ValueError as e:
+        parser.error(str(e))
+    return cfg, ns

@@ -1,0 +1,168 @@
+"""End-to-end job driver: load -> iterate on the device -> store -> report.
+
+The port's counterpart of the JAX package's single-device driver (and of
+each reference variant's ``main``): CLI -> load -> [compute loop] ->
+store -> metrics. One device; ``--frames`` clips run as one batch on it.
+The compute window is fenced on the device at both ends, and excludes
+file I/O and the kernel build (the reference's headline metric).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from tpu_stencil_torch.config import JobConfig
+from tpu_stencil_torch.devices import resolve_device
+from tpu_stencil_torch.io import images as images_io
+from tpu_stencil_torch.io import raw as raw_io
+from tpu_stencil_torch.models.blur import IteratedConv2D
+from tpu_stencil_torch.ops import cuda_stencil
+from tpu_stencil_torch.utils.timing import Timer, max_across_processes
+
+
+def _load_input(cfg: JobConfig) -> np.ndarray:
+    """Whole-image host load, any supported container format.
+
+    ``frames > 1``: the raw file holds N concatenated frames; returns
+    (N, H, W[, C])."""
+    if images_io.is_raw(cfg.image, sniff=True):
+        img = raw_io.read_raw(
+            cfg.image, cfg.width, cfg.height * cfg.frames, cfg.channels
+        )
+        if cfg.channels == 1:
+            img = img[..., 0]
+        if cfg.frames > 1:
+            img = img.reshape((cfg.frames, cfg.height) + img.shape[1:])
+        return img
+    if cfg.frames > 1:
+        raise NotImplementedError(
+            "--frames requires a raw input (N concatenated headerless frames)"
+        )
+    return images_io.load_image(cfg.image, cfg.image_type)
+
+
+def _store_output(cfg: JobConfig, out: np.ndarray) -> None:
+    """Write the result in the container format of the output path."""
+    if cfg.frames > 1:
+        out = out.reshape((cfg.frames * cfg.height,) + out.shape[2:])
+    if images_io.is_raw(cfg.output_path):
+        raw_io.write_raw(cfg.output_path, out)
+    else:
+        images_io.save_image(cfg.output_path, out)
+
+
+def prepare_engine(model: IteratedConv2D, imgs: np.ndarray,
+                   frames: Optional[int] = None):
+    """Place ``imgs`` on the model's device and build the kernels it will
+    launch (no launch, so the build stays out of the timed window).
+
+    ``frames=None``: one (H, W[, C]) image; an int: an (N, H, W[, C]) clip.
+    Returns ``(img_dev, step_fn, fetch)``: ``step_fn(x, n)`` runs n reps on
+    the device, ``fetch`` brings the result to the host."""
+    img_dev = torch.from_numpy(np.array(imgs, np.uint8)).to(model.device)
+    if frames is not None:
+        model.prepare(tuple(imgs.shape[1:3]),
+                      imgs.shape[3] if imgs.ndim == 4 else 1)
+        step_fn = model.batch
+    else:
+        model.prepare(tuple(imgs.shape[:2]),
+                      imgs.shape[2] if imgs.ndim == 3 else 1)
+        step_fn = model
+
+    def fetch(x: torch.Tensor) -> np.ndarray:
+        return x.cpu().numpy()
+
+    return img_dev, step_fn, fetch
+
+
+@dataclasses.dataclass
+class JobResult:
+    output_path: str
+    compute_seconds: float  # reference-compatible: compute window only
+    total_seconds: float    # whole job incl. I/O
+    backend: str
+    mesh_shape: Optional[tuple]  # always None: one device
+    schedule: Optional[str] = None  # kernel schedule that ran
+    # Effective kernel geometry that launched (post align/clamp), reported
+    # when the user forced it, and for a deep run on K1; None otherwise.
+    block_h: Optional[int] = None
+    fuse: Optional[int] = None
+    # Kernel launches of this job's compute window, by kernel name.
+    launches: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+
+def _ran_geometry(model: IteratedConv2D, rows: int, w: int, channels: int,
+                  schedule: Optional[str]):
+    """The (block_h, fuse) to report for a ``rows``-tall kernel launch:
+    a deep run reports what ran (None, None for the resident kernel);
+    otherwise the effective geometry only when the user forced it."""
+    bh, fz = model.resolved_geometry((rows, w), channels)
+    if schedule == cuda_stencil.DEEP:
+        return cuda_stencil.deep_geometry(model.plan, rows, w, channels,
+                                          bh, fz, model.device)
+    if bh is None and fz is None:
+        return None, None
+    return cuda_stencil.effective_geometry(model.plan, rows, channels, bh, fz)
+
+
+def run_job(cfg: JobConfig,
+            device: Optional[torch.device] = None) -> JobResult:
+    """Run one iterated-convolution job end to end on ``device`` (default:
+    the GPU; raises when there is none)."""
+    device = resolve_device() if device is None else torch.device(device)
+    with Timer() as total_t:
+        model = IteratedConv2D(cfg.filter_name, backend=cfg.backend,
+                               schedule=cfg.schedule, boundary=cfg.boundary,
+                               block_h=cfg.block_h, fuse=cfg.fuse,
+                               device=device)
+        if cfg.frames > 1 and not (
+            images_io.is_raw(cfg.image, sniff=True)
+            and images_io.is_raw(cfg.output_path)
+        ):
+            raise NotImplementedError(
+                "--frames input and output are raw-only (N concatenated "
+                "headerless frames); single-image containers cannot hold "
+                "a clip"
+            )
+        img = _load_input(cfg)
+        img_dev, step_fn, fetch = prepare_engine(
+            model, img, frames=cfg.frames if cfg.frames > 1 else None,
+        )
+        before = cuda_stencil.launch_counts()
+        with Timer("iterate", device=device) as t:
+            out_dev = step_fn(img_dev, cfg.repetitions)
+        after = cuda_stencil.launch_counts()
+        out = fetch(out_dev)
+        compute_seconds = max_across_processes(t.elapsed)
+        _store_output(cfg, out)
+
+    if cfg.frames > 1:
+        backend, schedule = model.batch_config(
+            (cfg.height, cfg.width), cfg.channels
+        )
+        geo_rows = cuda_stencil.frames_rows(model.plan, cfg.height,
+                                            cfg.frames)
+    else:
+        backend, schedule = model.resolved_config(
+            (cfg.height, cfg.width), cfg.channels
+        )
+        geo_rows = cfg.height
+    bh, fz = (None, None)
+    if backend == "pallas":
+        bh, fz = _ran_geometry(model, geo_rows, cfg.width, cfg.channels,
+                               schedule)
+    return JobResult(
+        output_path=cfg.output_path,
+        compute_seconds=compute_seconds,
+        total_seconds=total_t.elapsed,
+        backend=backend,
+        mesh_shape=None,
+        schedule=schedule,
+        block_h=bh,
+        fuse=fz,
+        launches={k: after[k] - before[k] for k in after},
+    )
