@@ -29,11 +29,26 @@ these phases, each printing one JSON line:
    in this process with the launch counters set to 0 just before each run
    and read just after; the bytes written must equal the torch-ops path
    on the card.
-6. ``times`` — ms per rep at 1920x2520 RGB gaussian x40, each the median
+6. ``k3`` — K3 ``stencil_valid`` against its plain version, byte for
+   byte, on the ghost-extended tiles of every shard position of a 2x2
+   grid over a seeded 1920x2520 RGB image (corner, edge and interior
+   global origins), at fuse 1 and 8 for gaussian, box, edge and
+   gaussian5, grey gaussian at fuse 8, and a direct-int plan that shifts.
+7. ``sharded_path`` — the sharded runner on ``devices=[cuda:0] * R*C`` at
+   1920x2520 RGB gaussian x40 for meshes 1x1, 2x2, 1x4 and 4x1, each
+   byte-equal to K1's ``iterate`` and to the torch-ops path, with
+   ``(reps // fuse + reps % fuse) * R*C`` K3 launches; the indivisible
+   1921x2519 RGB image at 2x2 x9 (the pad mask, fuse 1) and gaussian5 at
+   2x2 x9; the CLI with ``--mesh 1x1``, cold and warm; and
+   ``driver.run_job`` with mesh 2x2 over ``[cuda:0] * 4`` writing the
+   file.
+8. ``times`` — ms per rep at 1920x2520 RGB gaussian x40, each the median
    of 7 runs after a warm-up (CUDA events, L2 flushed before each run):
-   both kernels, their plain version, the torch-ops path, and one
-   depthwise float32 ``F.conv2d`` rep (TF32 off) as the library yardstick,
-   which the port never calls; and each kernel's bound.
+   the three kernels (K3 alone on the one ext tile of a 1x1 mesh at fuse
+   8), the whole 2x2 sharded runner, their plain versions, the torch-ops
+   path, and one depthwise float32 ``F.conv2d`` rep (TF32 off) as the
+   library yardstick, which the port never calls; and each kernel's
+   bound.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -71,6 +86,9 @@ F32_OPS_PER_S = 67e12 / 2
 MAIN_W, MAIN_H, MAIN_C, MAIN_REPS = 1920, 2520, 3, 40
 BIG_W, BIG_H = 7680, 4320  # 2 x 99.5 MB: past the L2 budget
 FRAMES_SHAPE = (3, 320, 256, 3)
+ODD_W, ODD_H = 1921, 2519  # indivisible by a 2x2 grid: the pad mask
+MESHES = ((1, 1), (2, 2), (1, 4), (4, 1))
+NO_LAUNCHES = {"stencil_fused": 0, "stencil_resident": 0, "stencil_valid": 0}
 
 
 def emit(obj) -> None:
@@ -104,10 +122,19 @@ def require(cond: bool, what: str) -> None:
 
 
 def plan_of(name: str):
+    """The plan of a named filter; 'direct16' is a non-separable filter
+    with a power-of-two divisor (a direct-int plan that shifts)."""
     from tpu_stencil_torch import filters
     from tpu_stencil_torch.ops import lowering
 
+    if name == "direct16":
+        return lowering.plan_filter(filters.from_numpy(
+            np.array([[1, 1, 1], [1, 8, 1], [1, 1, 1]]), 16))
     return lowering.plan_filter(filters.get_filter(name))
+
+
+def launches(**counts) -> dict:
+    return {**NO_LAUNCHES, **counts}
 
 
 def flat_plain(img: torch.Tensor, plan, reps: int) -> torch.Tensor:
@@ -203,7 +230,7 @@ def phase_k2(dev) -> dict:
     cs.reset_launch_counts()
     deep = cs.iterate(rgb, MAIN_REPS, g, schedule="deep")
     counts = cs.launch_counts()
-    require(counts == {"stencil_fused": 0, "stencil_resident": 1},
+    require(counts == launches(stencil_resident=1),
             f"deep at 1920x2520 must be one K2 launch, got {counts}")
     err = max(err, max_err(deep, flat_plain(rgb, g, MAIN_REPS)))
     # The other plans (divide, direct, wide halo), grey, and frames.
@@ -221,7 +248,7 @@ def phase_k2(dev) -> dict:
             got = cs.iterate(img, reps, p, schedule="deep")
             want = flat_plain(img, p, reps)
         counts = cs.launch_counts()
-        require(counts == {"stencil_fused": 0, "stencil_resident": 1},
+        require(counts == launches(stencil_resident=1),
                 f"deep {name} {tuple(img.shape)}: launches {counts}")
         err = max(err, max_err(got, want))
     require(err == 0, f"K2 disagrees with its plain version (max {err})")
@@ -234,7 +261,7 @@ def phase_k2(dev) -> dict:
     out = cs.iterate(big, 8, g, schedule="deep")
     counts = cs.launch_counts()
     want_k1 = len(cs.launch_schedule(8, geo[1]))
-    require(counts == {"stencil_fused": want_k1, "stencil_resident": 0},
+    require(counts == launches(stencil_fused=want_k1),
             f"deep past L2 must run K1 x{want_k1}, got {counts}")
     big_err = max_err(out, flat_plain(big, g, 8))
     require(big_err == 0, f"deep K1 path disagrees (max {big_err})")
@@ -280,6 +307,16 @@ def run_cli_cold(args) -> tuple:
     return lines, counts
 
 
+def main_raw() -> tuple:
+    """The seeded 1920x2520 RGB raw file of the main path: (path, image)."""
+    WORK.mkdir(parents=True, exist_ok=True)
+    src = WORK / "waterfall_1920_2520.raw"
+    img = np.random.default_rng(6).integers(
+        0, 256, (MAIN_H, MAIN_W, MAIN_C), np.uint8)
+    img.tofile(src)
+    return src, img
+
+
 def phase_main_path(dev) -> dict:
     """The reference job through the CLI, default schedule (K1) and
     ``--schedule deep`` (K2): once in a fresh process (cold: the job a
@@ -289,11 +326,7 @@ def phase_main_path(dev) -> dict:
     from tpu_stencil_torch.ops import cuda_stencil as cs
     from tpu_stencil_torch.ops import lowering
 
-    WORK.mkdir(parents=True, exist_ok=True)
-    src = WORK / "waterfall_1920_2520.raw"
-    img = np.random.default_rng(6).integers(
-        0, 256, (MAIN_H, MAIN_W, MAIN_C), np.uint8)
-    img.tofile(src)
+    src, img = main_raw()
     g = plan_of("gaussian")
     want = lowering.iterate(torch.from_numpy(img).to(dev), MAIN_REPS,
                             g).cpu().numpy()
@@ -301,10 +334,9 @@ def phase_main_path(dev) -> dict:
     base = [str(src), str(MAIN_W), str(MAIN_H), str(MAIN_REPS), "rgb", "--time"]
     out = {}
     for label, extra, expect in (
-        ("default", [], {"stencil_fused": MAIN_REPS // fuse + MAIN_REPS % fuse,
-                         "stencil_resident": 0}),
-        ("deep", ["--schedule", "deep"], {"stencil_fused": 0,
-                                          "stencil_resident": 1}),
+        ("default", [], launches(
+            stencil_fused=MAIN_REPS // fuse + MAIN_REPS % fuse)),
+        ("deep", ["--schedule", "deep"], launches(stencil_resident=1)),
     ):
         for temp, runner in (("cold", run_cli_cold), ("warm", run_cli)):
             dst = WORK / f"blur_{label}_{temp}.raw"
@@ -322,6 +354,151 @@ def phase_main_path(dev) -> dict:
                                       "report": lines[1]}
     return {"phase": "main_path", "ok": True, "shape": list(img.shape),
             "reps": MAIN_REPS, "runs": out}
+
+
+def ext_tile(img: torch.Tensor, i: int, j: int, grid, g: int) -> torch.Tensor:
+    """The flat ghost-extended tile (i, j) of ``img`` (H, W[, C]) on an R x C
+    grid with ``g`` ghosts per side, zeros past the image: what the zero
+    boundary halo exchange hands K3."""
+    th, tw = img.shape[0] // grid[0], img.shape[1] // grid[1]
+    pad = [0, 0] * (img.dim() - 2) + [g, g, g, g]
+    ext = torch.nn.functional.pad(img, pad)[
+        i * th:(i + 1) * th + 2 * g, j * tw:(j + 1) * tw + 2 * g]
+    return ext.contiguous().reshape(th + 2 * g, -1)
+
+
+def phase_k3(dev) -> dict:
+    """K3 against its plain version at every shard position of a 2x2 grid
+    (corner, edge and interior origins all occur: each tile has two image
+    edges and two neighbour edges), at the sharded path's shapes."""
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+
+    rgb = seeded((MAIN_H, MAIN_W, 3), 11, dev)
+    grey = seeded((MAIN_H, MAIN_W), 12, dev)
+    grid = (2, 2)
+    runs = [(rgb, name, fuse) for name in ("gaussian", "box", "edge",
+                                           "gaussian5") for fuse in (1, 8)]
+    runs += [(grey, "gaussian", 8), (rgb, "direct16", 8)]
+    worst, cases = 0, []
+    for img, name, fuse in runs:
+        p = plan_of(name)
+        c = img.shape[2] if img.dim() == 3 else 1
+        th, tw = MAIN_H // grid[0], MAIN_W // grid[1]
+        glob = (MAIN_H, MAIN_W * c)
+        for i in range(grid[0]):
+            for j in range(grid[1]):
+                ext = ext_tile(img, i, j, grid, fuse * p.halo)
+                got = cs.valid_fused(ext, p, fuse, c, i * th, j * tw * c, glob)
+                want = cs.stencil_valid_plain(ext, p, c, fuse, i * th,
+                                              j * tw * c, glob)
+                err = max_err(got, want)
+                worst = max(worst, err)
+                cases.append({"case": f"{name} C={c} fuse={fuse} tile=({i},{j})",
+                              "err": err})
+    torch.cuda.synchronize()
+    bad = [c for c in cases if c["err"]]
+    require(not bad, f"K3 disagrees with its plain version: {bad}")
+    return {"phase": "k3", "ok": True, "cases": len(cases),
+            "max_abs_err": worst}
+
+
+def run_runner(img: np.ndarray, name: str, reps: int, mesh, dev) -> tuple:
+    """The sharded runner over ``[dev] * R*C``, counters set to 0 just
+    before ``run`` and read just after. Returns (output, counts, fuse)."""
+    from tpu_stencil_torch.models.blur import IteratedConv2D
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+    from tpu_stencil_torch.parallel.sharded import ShardedRunner
+
+    c = img.shape[2] if img.ndim == 3 else 1
+    runner = ShardedRunner(IteratedConv2D(name, device=dev), img.shape[:2], c,
+                           mesh_shape=mesh, devices=[dev] * (mesh[0] * mesh[1]))
+    require(runner.backend == "pallas", f"sharded {name} ran {runner.backend}")
+    tiles = runner.put(img)
+    runner.prepare()
+    cs.reset_launch_counts()
+    out = runner.run(tiles, reps)
+    torch.cuda.synchronize()
+    counts = cs.launch_counts()
+    return runner.fetch(out), counts, runner.fuse
+
+
+def phase_sharded_path(dev) -> dict:
+    """The sharded path: the runner at every mesh against K1 and the
+    torch-ops path, the pad mask, a wide halo, the CLI with --mesh 1x1
+    (cold and warm) and run_job over a 2x2 mesh on one card."""
+    from tpu_stencil_torch import config, driver
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+    from tpu_stencil_torch.ops import lowering
+
+    src, img = main_raw()
+    g = plan_of("gaussian")
+    img_dev = torch.from_numpy(img).to(dev)
+    want = lowering.iterate(img_dev, MAIN_REPS, g).cpu().numpy()
+    k1 = cs.iterate(img_dev, MAIN_REPS, g).cpu().numpy()
+    require(np.array_equal(k1, want), "K1 disagrees with torch ops")
+    out = {}
+    for mesh in MESHES:
+        n = mesh[0] * mesh[1]
+        got, counts, fuse = run_runner(img, "gaussian", MAIN_REPS, mesh, dev)
+        expect = launches(stencil_valid=(MAIN_REPS // fuse + MAIN_REPS % fuse)
+                          * n)
+        require(counts == expect,
+                f"mesh {mesh}: launches {counts}, expected {expect}")
+        err = int(np.abs(got.astype(int) - want.astype(int)).max())
+        require(err == 0, f"mesh {mesh} disagrees with K1 / torch ops ({err})")
+        out[f"{mesh[0]}x{mesh[1]}"] = {"fuse": fuse, "launches": counts,
+                                      "max_abs_err": err}
+    odd = np.random.default_rng(8).integers(0, 256, (ODD_H, ODD_W, 3),
+                                            np.uint8)
+    for label, im, name, reps, fuse_want in (
+            ("mask_1921x2519", odd, "gaussian", 9, 1),
+            ("gaussian5", img, "gaussian5", 9, None)):
+        got, counts, fuse = run_runner(im, name, reps, (2, 2), dev)
+        require(fuse_want is None or fuse == fuse_want,
+                f"{label}: fuse {fuse}, expected {fuse_want}")
+        expect = launches(stencil_valid=(reps // fuse + reps % fuse) * 4)
+        require(counts == expect, f"{label}: launches {counts}, expected "
+                f"{expect}")
+        ref = lowering.iterate(torch.from_numpy(im).to(dev), reps,
+                               plan_of(name)).cpu().numpy()
+        err = int(np.abs(got.astype(int) - ref.astype(int)).max())
+        require(err == 0, f"{label} disagrees with torch ops ({err})")
+        out[label] = {"mesh": [2, 2], "reps": reps, "fuse": fuse,
+                      "launches": counts, "max_abs_err": err}
+    base = [str(src), str(MAIN_W), str(MAIN_H), str(MAIN_REPS), "rgb",
+            "--time", "--mesh", "1x1"]
+    expect = launches(stencil_valid=MAIN_REPS // cs.DEFAULT_FUSE
+                      + MAIN_REPS % cs.DEFAULT_FUSE)
+    for temp, runner in (("cold", run_cli_cold), ("warm", run_cli)):
+        dst = WORK / f"blur_mesh1x1_{temp}.raw"
+        lines, counts = runner(base + ["--output", str(dst)])
+        require(counts == expect,
+                f"--mesh 1x1 {temp}: launches {counts}, expected {expect}")
+        require("mesh=(1, 1)" in lines[1], f"--mesh 1x1 {temp}: {lines[1]}")
+        got = np.fromfile(dst, np.uint8).reshape(img.shape)
+        err = int(np.abs(got.astype(int) - want.astype(int)).max())
+        require(err == 0, f"--mesh 1x1 {temp} disagrees with torch ops ({err})")
+        out[f"cli_mesh1x1_{temp}"] = {
+            "launches": counts, "max_abs_err": err,
+            "execution_time_s": float(lines[0].split()[2]),
+            "report": lines[1]}
+    dst = WORK / "blur_mesh2x2_run_job.raw"
+    cfg = config.JobConfig(image=str(src), width=MAIN_W, height=MAIN_H,
+                           repetitions=MAIN_REPS,
+                           image_type=config.ImageType.RGB, mesh_shape=(2, 2),
+                           output=str(dst))
+    res = driver.run_job(cfg, devices=[dev] * 4)
+    expect = launches(stencil_valid=5 * 4)
+    require(res.launches == expect and res.mesh_shape == (2, 2),
+            f"run_job 2x2: launches {res.launches} mesh {res.mesh_shape}")
+    got = np.fromfile(dst, np.uint8).reshape(img.shape)
+    err = int(np.abs(got.astype(int) - want.astype(int)).max())
+    require(err == 0, f"run_job 2x2 disagrees with torch ops ({err})")
+    out["run_job_mesh2x2"] = {"launches": res.launches, "max_abs_err": err,
+                              "compute_seconds": res.compute_seconds}
+    worst = max(v["max_abs_err"] for v in out.values())
+    return {"phase": "sharded_path", "ok": True, "shape": list(img.shape),
+            "reps": MAIN_REPS, "max_abs_err": worst, "runs": out}
 
 
 def plan_ops(plan) -> tuple:
@@ -345,11 +522,14 @@ def plan_ops(plan) -> tuple:
     return iops, 5
 
 
-def bound_ms_per_rep(plan, n_elems: int, reps: int) -> tuple:
+def bound_ms_per_rep(plan, n_elems: int, reps: int,
+                     n_bytes: int = None) -> tuple:
     """The least time per rep: the larger of the bytes the call must move
-    (input read once, output written once) over HBM's rate and the ops it
-    needs over the int32/float32 rates. Returns (ms, 'bytes'|'operations')."""
-    t_bytes = 2 * n_elems / HBM_BYTES_PER_S / reps
+    (input read once, output written once: ``n_bytes``, default 2 bytes
+    per element) over HBM's rate and the ops ``n_elems`` output elements
+    need over the int32/float32 rates. Returns (ms, 'bytes'|'operations')."""
+    n_bytes = 2 * n_elems if n_bytes is None else n_bytes
+    t_bytes = n_bytes / HBM_BYTES_PER_S / reps
     iops, fops = plan_ops(plan)
     t_ops = n_elems * (iops / INT32_OPS_PER_S + fops / F32_OPS_PER_S)
     if t_bytes >= t_ops:
@@ -392,6 +572,27 @@ def phase_times(dev) -> dict:
             lambda: cs.stencil_fused_plain(x2, g, MAIN_C, n), dev) / n,
         "torch_ops_ms": time_ms(lambda: lowering.iterate(img, n, g), dev) / n,
     }
+    # K3 alone: the one ext tile of a 1x1 mesh at fuse 8, per rep.
+    fz = cs.DEFAULT_FUSE
+    ext = ext_tile(img, 0, 0, (1, 1), fz * g.halo)
+    glob = (MAIN_H, MAIN_W * MAIN_C)
+    r["stencil_valid_ms"] = time_ms(
+        lambda: cs.valid_fused(ext, g, fz, MAIN_C, 0, 0, glob), dev) / fz
+    r["stencil_valid_plain_ms"] = time_ms(
+        lambda: cs.stencil_valid_plain(ext, g, MAIN_C, fz, 0, 0, glob),
+        dev) / fz
+    r["stencil_valid_bound_ms"], r["stencil_valid_bound_by"] = (
+        bound_ms_per_rep(g, MAIN_H * MAIN_W * MAIN_C, fz,
+                         n_bytes=ext.numel() + MAIN_H * MAIN_W * MAIN_C))
+    # The whole 2x2 sharded runner on one card: K3 plus the exchange.
+    from tpu_stencil_torch.models.blur import IteratedConv2D
+    from tpu_stencil_torch.parallel.sharded import ShardedRunner
+
+    runner = ShardedRunner(IteratedConv2D("gaussian", device=dev),
+                           (MAIN_H, MAIN_W), MAIN_C, mesh_shape=(2, 2),
+                           devices=[dev] * 4)
+    tiles = runner.put(img.cpu().numpy())
+    r["sharded_2x2_ms"] = time_ms(lambda: runner.run(tiles, n), dev) / n
     # Library yardstick: one depthwise float32 convolution rep (planar
     # layout prepared outside the window). Timed only.
     torch.backends.cudnn.allow_tf32 = False
@@ -440,6 +641,10 @@ def run(dev: torch.device) -> None:
     emit(k2)
     main_path = phase_main_path(dev)
     emit(main_path)
+    k3 = phase_k3(dev)
+    emit(k3)
+    sharded_path = phase_sharded_path(dev)
+    emit(sharded_path)
     times = phase_times(dev)
     emit(times)
 
@@ -465,6 +670,16 @@ def run(dev: torch.device) -> None:
          "max_abs_err": max(k2["max_abs_err"], runs["deep_warm"]["max_abs_err"],
                             runs["deep_cold"]["max_abs_err"]),
          "ms": times["stencil_resident_ms"], **common},
+        {"name": "stencil_valid",
+         "source": "tpu_stencil_torch/ops/csrc/stencil_valid.cu",
+         "replaces": "tpu_stencil/ops/pallas_stencil.py:909",
+         "launches": sharded_path["runs"]["cli_mesh1x1_warm"]["launches"][
+             "stencil_valid"],
+         "max_abs_err": max(k3["max_abs_err"], sharded_path["max_abs_err"]),
+         "ms": times["stencil_valid_ms"],
+         **common, "plain_ms": times["stencil_valid_plain_ms"],
+         "bound_ms": times["stencil_valid_bound_ms"],
+         "bound_by": times["stencil_valid_bound_by"]},
     ]})
     print(nvidia_smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -16,7 +16,7 @@ import sys
 
 from tpu_stencil_torch import driver
 from tpu_stencil_torch.config import parse_args
-from tpu_stencil_torch.devices import NoDeviceError, resolve_device
+from tpu_stencil_torch.devices import NoDeviceError, resolve_devices
 
 
 def main(argv=None) -> int:
@@ -24,11 +24,11 @@ def main(argv=None) -> int:
         argv = sys.argv[1:]
     cfg, ns = parse_args(argv)
     try:
-        device = resolve_device(ns.platform)
+        devices = resolve_devices(ns.platform)
     except NoDeviceError as e:
         print(f"tpu_stencil_torch: error: {e}", file=sys.stderr)
         return 2
-    result = driver.run_job(cfg, device=device)
+    result = driver.run_job(cfg, devices=devices)
     # Reference-format output line (mpi/mpi_convolution.c:274 prints seconds).
     print(f"Execution time: {result.compute_seconds:.3f} sec")
     if ns.time:

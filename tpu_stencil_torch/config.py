@@ -5,8 +5,8 @@ The reference's positional CLI (``Usage`` at ``mpi/mpi_convolution.c:328-348``):
 the user because ``.raw`` is headerless. On top of that the job subset of
 the JAX package's flags is accepted with the same names and the same
 validation messages, so one command line runs on both packages:
-``--filter --backend --boundary --schedule --block-h --fuse --frames
---output --time --platform``.
+``--filter --backend --mesh --boundary --schedule --block-h --fuse
+--frames --output --time --platform``.
 """
 
 from __future__ import annotations
@@ -90,6 +90,7 @@ class JobConfig:
     image_type: ImageType
     filter_name: str = "gaussian"
     backend: str = "auto"  # auto | xla | pallas | reference | autotune (+ aliases)
+    mesh_shape: Optional[Tuple[int, int]] = None  # (rows, cols); None = auto
     output: Optional[str] = None  # None -> blur_<basename> beside input
     frames: int = 1  # >1: batched video mode (N concatenated raw frames)
     schedule: Optional[str] = None  # kernel schedule (None = default)
@@ -101,6 +102,10 @@ class JobConfig:
 
     def __post_init__(self) -> None:
         _validate_common(self)
+        if self.mesh_shape is not None and (
+            len(self.mesh_shape) != 2 or any(d < 1 for d in self.mesh_shape)
+        ):
+            raise ValueError(f"mesh_shape must be two positive ints, got {self.mesh_shape}")
         if self.frames < 1:
             raise ValueError(f"frames must be >= 1, got {self.frames}")
 
@@ -157,6 +162,12 @@ def build_parser() -> argparse.ArgumentParser:
              "the float32 plan in torch ops; auto and autotune run the "
              "kernels on the GPU and torch ops on the CPU",
     )
+    p.add_argument(
+        "--mesh", default=None,
+        help="device mesh as RxC (e.g. 2x4); default: perimeter-minimizing grid "
+             "over all local devices. With --frames > 1 there is no spatial "
+             "sharding: RxC only selects R*C devices for batch-axis sharding",
+    )
     p.add_argument("--output", default=None, help="output path (default blur_<input>)")
     p.add_argument(
         "--frames", type=int, default=1, metavar="N",
@@ -201,9 +212,19 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _parse_mesh(parser: argparse.ArgumentParser, value: str) -> Tuple[int, int]:
+    r, sep, c = value.lower().partition("x")
+    if not sep or not r.isdigit() or not c.isdigit() or int(r) < 1 or int(c) < 1:
+        parser.error(f"--mesh must be RxC with positive integers, got {value!r}")
+    return (int(r), int(c))
+
+
 def parse_args(argv=None) -> Tuple[JobConfig, argparse.Namespace]:
     parser = build_parser()
     ns = parser.parse_args(argv)
+    mesh_shape = None
+    if ns.mesh is not None:
+        mesh_shape = _parse_mesh(parser, ns.mesh)
     from tpu_stencil_torch.io import images as _images
 
     try:
@@ -219,6 +240,7 @@ def parse_args(argv=None) -> Tuple[JobConfig, argparse.Namespace]:
             image_type=ImageType(ns.image_type),
             filter_name=ns.filter_name,
             backend=ns.backend,
+            mesh_shape=mesh_shape,
             output=ns.output,
             frames=ns.frames,
             schedule=ns.schedule,

@@ -1,8 +1,8 @@
-"""Which device a job runs on: the GPU unless the caller asks for the CPU."""
+"""Which devices a job runs on: the GPU unless the caller asks for the CPU."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -25,3 +25,13 @@ def resolve_device(platform: Optional[str] = None) -> torch.device:
             "False); pass --platform cpu to run on the CPU"
         )
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def resolve_devices(platform: Optional[str] = None) -> List[torch.device]:
+    """Every device a job may use, as ``jax.devices()`` gives them: the
+    one CPU for ``'cpu'``; else every visible CUDA device, raising
+    :class:`NoDeviceError` when there is none."""
+    first = resolve_device(platform)
+    if first.type == "cpu":
+        return [first]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]

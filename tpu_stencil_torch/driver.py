@@ -1,22 +1,24 @@
 """End-to-end job driver: load -> iterate on the device -> store -> report.
 
-The port's counterpart of the JAX package's single-device driver (and of
-each reference variant's ``main``): CLI -> load -> [compute loop] ->
-store -> metrics. One device; ``--frames`` clips run as one batch on it.
-The compute window is fenced on the device at both ends, and excludes
-file I/O and the kernel build (the reference's headline metric).
+The port's counterpart of the JAX package's driver (and of each reference
+variant's ``main``): CLI -> load -> [compute loop] -> store -> metrics.
+One image on one device, or spatially sharded over a mesh of devices
+(``--mesh RxC``, or more than one device); ``--frames`` clips run as one
+batch on one device. The compute window is fenced on every device of the
+job at both ends, and excludes file I/O and the kernel build (the
+reference's headline metric).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from tpu_stencil_torch.config import JobConfig
-from tpu_stencil_torch.devices import resolve_device
+from tpu_stencil_torch.devices import resolve_devices
 from tpu_stencil_torch.io import images as images_io
 from tpu_stencil_torch.io import raw as raw_io
 from tpu_stencil_torch.models.blur import IteratedConv2D
@@ -85,7 +87,7 @@ class JobResult:
     compute_seconds: float  # reference-compatible: compute window only
     total_seconds: float    # whole job incl. I/O
     backend: str
-    mesh_shape: Optional[tuple]  # always None: one device
+    mesh_shape: Optional[tuple]  # (R, C) of a sharded run, else None
     schedule: Optional[str] = None  # kernel schedule that ran
     # Effective kernel geometry that launched (post align/clamp), reported
     # when the user forced it, and for a deep run on K1; None otherwise.
@@ -109,25 +111,55 @@ def _ran_geometry(model: IteratedConv2D, rows: int, w: int, channels: int,
     return cuda_stencil.effective_geometry(model.plan, rows, channels, bh, fz)
 
 
-def run_job(cfg: JobConfig,
-            device: Optional[torch.device] = None) -> JobResult:
-    """Run one iterated-convolution job end to end on ``device`` (default:
-    the GPU; raises when there is none)."""
-    device = resolve_device() if device is None else torch.device(device)
+def run_job(cfg: JobConfig, device: Optional[torch.device] = None,
+            devices: Optional[List[torch.device]] = None) -> JobResult:
+    """Run one iterated-convolution job end to end.
+
+    ``devices``: the devices the job may use, as ``jax.devices()`` gives
+    them to the JAX package's driver (a device may repeat: a mesh of
+    several tiles on one card); None means ``[device]`` when ``device`` is
+    given, else every visible CUDA device (raising when there is none). A
+    single image with more than one device, or with any ``--mesh``, runs
+    sharded; ``--mesh RxC`` takes the first R*C devices."""
+    if devices is None:
+        devices = resolve_devices() if device is None else [device]
+    devices = [torch.device(d) for d in devices]
     with Timer() as total_t:
         model = IteratedConv2D(cfg.filter_name, backend=cfg.backend,
                                schedule=cfg.schedule, boundary=cfg.boundary,
                                block_h=cfg.block_h, fuse=cfg.fuse,
-                               device=device)
-        if cfg.frames > 1 and not (
-            images_io.is_raw(cfg.image, sniff=True)
-            and images_io.is_raw(cfg.output_path)
-        ):
-            raise NotImplementedError(
-                "--frames input and output are raw-only (N concatenated "
-                "headerless frames); single-image containers cannot hold "
-                "a clip"
-            )
+                               device=devices[0])
+        if cfg.frames > 1:
+            if not (images_io.is_raw(cfg.image, sniff=True)
+                    and images_io.is_raw(cfg.output_path)):
+                raise NotImplementedError(
+                    "--frames input and output are raw-only (N concatenated "
+                    "headerless frames); single-image containers cannot "
+                    "hold a clip"
+                )
+            if cfg.mesh_shape is not None:
+                n_b = cfg.mesh_shape[0] * cfg.mesh_shape[1]
+                if n_b > len(devices):
+                    raise ValueError(
+                        f"--mesh asks for {n_b} devices, have {len(devices)}"
+                    )
+            else:
+                n_b = min(len(devices), cfg.frames)
+            if n_b > 1:
+                raise NotImplementedError(
+                    f"--frames over {n_b} devices (batch-axis sharding) is "
+                    "not ported yet; it comes with the streaming slice. "
+                    "Run the clip on one device (--mesh 1x1)"
+                )
+        elif len(devices) > 1 or cfg.mesh_shape is not None:
+            if cfg.boundary != "zero" and cfg.mesh_shape is None:
+                # A periodic run that never asked for a mesh must not fail
+                # on an auto-chosen grid the image does not divide.
+                devices = devices[:1]
+            if cfg.mesh_shape is not None:
+                devices = devices[:cfg.mesh_shape[0] * cfg.mesh_shape[1]]
+            return _run_sharded(cfg, model, devices, total_t)
+        device = devices[0]
         img = _load_input(cfg)
         img_dev, step_fn, fetch = prepare_engine(
             model, img, frames=cfg.frames if cfg.frames > 1 else None,
@@ -164,5 +196,53 @@ def run_job(cfg: JobConfig,
         schedule=schedule,
         block_h=bh,
         fuse=fz,
+        launches={k: after[k] - before[k] for k in after},
+    )
+
+
+def _run_sharded(cfg: JobConfig, model: IteratedConv2D,
+                 devices: List[torch.device], total_t: Timer) -> JobResult:
+    """One image over a mesh of ``devices``: each mesh row's band read once
+    from a raw input (else the decoded image cut into tiles), K3 built
+    outside the window, the rep loop fenced on every mesh device, each
+    tile's rectangle written at its offsets into a raw output (else the
+    stitched image saved)."""
+    from tpu_stencil_torch.parallel import distributed, sharded
+
+    h, w, ch = cfg.height, cfg.width, cfg.channels
+    runner = sharded.ShardedRunner(model, (h, w), ch,
+                                   mesh_shape=cfg.mesh_shape,
+                                   devices=devices)
+    if images_io.is_raw(cfg.image, sniff=True):
+        tiles = distributed.read_sharded(cfg.image, h, w, ch, runner.mesh)
+    else:
+        tiles = runner.put(_load_input(cfg))
+    runner.prepare()
+    before = cuda_stencil.launch_counts()
+    with Timer("iterate", device=runner.devices) as t:
+        out = runner.run(tiles, cfg.repetitions)
+    after = cuda_stencil.launch_counts()
+    compute_seconds = max_across_processes(t.elapsed)
+    if images_io.is_raw(cfg.output_path):
+        distributed.write_sharded(cfg.output_path, out, h, w, ch)
+    else:
+        images_io.save_image(cfg.output_path, runner.fetch(out))
+    # Report forced geometry as what K3 launches at this tile.
+    sh_bh = sh_fuse = None
+    if runner.geo_applied:
+        sh_bh = runner.block_h_eff
+        if sh_bh is None:
+            sh_bh = cuda_stencil.valid_geometry(model.plan, runner.tile[0],
+                                                ch, runner.fuse)[0]
+        sh_fuse = runner.fuse
+    return JobResult(
+        output_path=cfg.output_path,
+        compute_seconds=compute_seconds,
+        total_seconds=total_t.elapsed,
+        backend=runner.backend,
+        mesh_shape=runner.mesh_shape,
+        schedule=runner.schedule,
+        block_h=sh_bh,
+        fuse=sh_fuse,
         launches={k: after[k] - before[k] for k in after},
     )

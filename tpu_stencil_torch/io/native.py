@@ -43,6 +43,8 @@ def _find_library() -> Optional[ctypes.CDLL]:
                     ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                     ctypes.c_int,
                 ]
+                lib.ts_ensure_size.restype = ctypes.c_int
+                lib.ts_ensure_size.argtypes = [ctypes.c_char_p, ctypes.c_int64]
             except AttributeError:
                 continue
             return lib
@@ -87,3 +89,24 @@ def pwrite_full(path: str, offset: int, data: bytes, truncate: bool = False) -> 
         f.seek(offset)
         f.write(data)
 
+
+def ensure_size(path: str, nbytes: int) -> None:
+    """Extend (never shrink) ``path`` to at least ``nbytes`` bytes."""
+    if _LIB is not None:
+        if _LIB.ts_ensure_size(path.encode(), nbytes) != 0:
+            raise IOError(f"{path}: ensure_size({nbytes}) failed")
+        return
+    if not os.path.exists(path) or os.path.getsize(path) < nbytes:
+        with open(path, "ab") as f:
+            f.truncate(nbytes)
+
+
+def set_size(path: str, nbytes: int) -> None:
+    """Set ``path`` to exactly ``nbytes`` bytes (creating it if missing);
+    idempotent, so every writer of a sharded output may call it before
+    writing its in-bounds tiles."""
+    with open(path, "ab"):
+        pass
+    if os.path.getsize(path) != nbytes:
+        with open(path, "r+b") as f:
+            f.truncate(nbytes)

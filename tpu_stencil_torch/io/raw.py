@@ -5,8 +5,9 @@ byte/pixel (H*W bytes), RGB = 3 interleaved bytes/pixel (H*W*3 bytes), no
 header — width/height supplied out of band.
 
 Whole-image reads and atomic writes (the CUDA variant's model,
-``cuda/main.c:22-44``) plus the row-range reader the per-rank MPI-IO
-pattern uses (``mpi/mpi_convolution.c:126-141``). The native C++ library
+``cuda/main.c:22-44``) plus the row-range reader and the row/block writers
+the per-rank MPI-IO pattern uses (``mpi/mpi_convolution.c:126-141,
+247-263``). The native C++ library
 from ``native/`` does the positional I/O when it is built; otherwise a
 pure-Python fallback with identical semantics.
 """
@@ -19,6 +20,22 @@ import stat as _stat
 import numpy as np
 
 from tpu_stencil_torch.io import native as _native
+
+
+def _expected_bytes(width: int, height: int, channels: int) -> int:
+    return width * height * channels
+
+
+def require_regular(path: str, why: str) -> None:
+    """Fail loudly when ``path`` is not a regular file: a caller that
+    issues several positioned reads of one path (the sharded per-band
+    read) cannot be served by a FIFO, whose every open goes on consuming
+    the same byte stream."""
+    if not _stat.S_ISREG(os.stat(path).st_mode):
+        raise ValueError(
+            f"{path}: not a regular file — {why} needs positioned "
+            "re-reads, which a FIFO/pipe cannot serve"
+        )
 
 
 def fsync_path(path: str) -> None:
@@ -142,3 +159,60 @@ def write_raw(path: str, img: np.ndarray) -> None:
                 pass
         raise
     fsync_dir(path)
+
+
+def write_raw_rows(
+    path: str, row_start: int, rows: np.ndarray, width: int, channels: int,
+    total_height: int,
+) -> None:
+    """Write a row shard at its global offset into a shared file, extended
+    to the full image size first — every MPI rank ``MPI_File_write``-ing
+    its rows at computed offsets (``mpi/mpi_convolution.c:247-263``)."""
+    arr = np.ascontiguousarray(np.asarray(rows, dtype=np.uint8))
+    if arr.ndim == 2:
+        arr = arr[..., None]
+    n_rows = arr.shape[0]
+    if arr.shape[1] != width or arr.shape[2] != channels:
+        raise ValueError(f"shard shape {arr.shape} != (*, {width}, {channels})")
+    if row_start < 0 or row_start + n_rows > total_height:
+        raise ValueError(f"rows [{row_start}, {row_start + n_rows}) outside image")
+    _native.ensure_size(path, _expected_bytes(width, total_height, channels))
+    offset = row_start * width * channels
+    _native.pwrite_full(path, offset, arr.tobytes(), truncate=False)
+
+
+def write_raw_block(
+    path: str, row_start: int, col_start: int, block: np.ndarray,
+    width: int, channels: int, total_height: int,
+) -> None:
+    """Write a rectangular (n_rows, n_cols, C) block at its global offsets
+    into a shared file, one positioned write per row — the MPI subarray
+    write (``mpi/mpi_convolution.c:247-263``) for column tiles. Bytes
+    outside the block's columns are never touched, so writers of
+    different column tiles of the same rows do not clobber each other."""
+    arr = np.ascontiguousarray(np.asarray(block, dtype=np.uint8))
+    if arr.ndim == 2:
+        arr = arr[..., None]
+    n_rows, n_cols = arr.shape[0], arr.shape[1]
+    if arr.shape[2] != channels:
+        raise ValueError(f"block shape {arr.shape} != (*, *, {channels})")
+    if col_start < 0 or col_start + n_cols > width:
+        raise ValueError(f"cols [{col_start}, {col_start + n_cols}) outside image")
+    if row_start < 0 or row_start + n_rows > total_height:
+        raise ValueError(f"rows [{row_start}, {row_start + n_rows}) outside image")
+    if n_cols == width:
+        write_raw_rows(path, row_start, arr, width, channels, total_height)
+        return
+    _native.ensure_size(path, _expected_bytes(width, total_height, channels))
+    fd = os.open(path, os.O_WRONLY)
+    try:
+        row_bytes = arr.reshape(n_rows, -1)
+        for k in range(n_rows):
+            offset = ((row_start + k) * width + col_start) * channels
+            view = memoryview(row_bytes[k]).cast("B")
+            while view:
+                written = os.pwrite(fd, view, offset)
+                view = view[written:]
+                offset += written
+    finally:
+        os.close(fd)

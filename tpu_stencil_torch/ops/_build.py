@@ -31,6 +31,7 @@ NVCC_FLAGS = (
 SOURCES: Dict[str, tuple] = {
     "stencil_fused": ("stencil_fused.cu", "stencil_tile.cuh"),
     "stencil_resident": ("stencil_resident.cu", "stencil_tile.cuh"),
+    "stencil_valid": ("stencil_valid.cu", "stencil_tile.cuh"),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -1,21 +1,27 @@
 // One tile of the iterated zero-boundary stencil, shared by the fused
-// kernel (stencil_fused.cu) and the resident kernel (stencil_resident.cu).
+// kernel (stencil_fused.cu), the resident kernel (stencil_resident.cu) and
+// the valid-ghost kernel (stencil_valid.cu).
 //
 // The image is viewed flat as (rows, wc) uint8 with wc = W * C: a
 // column-pass tap moves by C flat lanes, so channels never mix, and the
-// column boundary is the flat range [0, wc). A block computes one output
-// tile of tile_h rows by tile_w lanes:
+// column boundary is a flat lane range. A block computes one output tile
+// of tile_h rows by tile_w lanes:
 //   1. it loads the tile plus g = fuse*halo ghost rows and g*C ghost lanes
-//      per side into shared memory, zero outside the image;
+//      per side into shared memory;
 //   2. it runs `fuse` reps in shared memory; the trusted band contracts by
 //      halo rows and halo*C lanes each rep, so rep t only computes
 //      [t*halo, R - t*halo) x [t*halo*C, L - t*halo*C);
 //   3. each rep finishes as the plan says (>> shift then a clip where one
 //      can bind, or one correctly rounded float32 divide then a clip) and
-//      re-zeroes every pixel outside the image: rows < 0 or >= rows_real,
-//      lanes outside [0, wc), and under frames the gap rows where
-//      row % frame_stride >= frame_h;
+//      re-zeroes every pixel outside the image;
 //   4. it stores only the tile_h x tile_w interior.
+// What "outside the image" means, where the tile loads from and where it
+// stores, is the kernel's bounds policy (a struct with load, row_kept,
+// lane_kept and store, in the tile's own row/lane coordinates):
+// StencilImageBounds for K1 and K2 — zero ghosts at load, rows < 0 or
+// >= rows_real, lanes outside [0, wc), and under frames the gap rows where
+// row % frame_stride >= frame_h — and StencilValidBounds in
+// stencil_valid.cu for K3.
 // Shared memory holds the uint8 carry `cur` (R x L) and the int32
 // rows-pass intermediate `tmp` (R x L): 5 * R * L bytes. For separable
 // plans each thread owns whole lanes of the tile and walks down its rows,
@@ -163,13 +169,39 @@ __device__ __forceinline__ void stencil_rows_pass(const uint8_t* cur,
   }
 }
 
-// KT > 0 fixes the filter size at compile time (taps loops unroll);
-// KT == 0 reads it from p.k.
-template <int KT, bool COHERENT>
-__device__ void stencil_run_tile(const uint8_t* src, uint8_t* dst,
-                                 const StencilParams& p,
-                                 const StencilGeometry& g, int row0, int col0,
-                                 int fuse, uint8_t* cur, int* tmp) {
+// The bounds of K1 and K2: tile coordinates are image coordinates; ghosts
+// outside the image load as zero and every rep re-zeroes them.
+template <bool COHERENT>
+struct StencilImageBounds {
+  const uint8_t* src;
+  uint8_t* dst;
+  const StencilGeometry& g;
+
+  __device__ __forceinline__ uint8_t load(int row, int lane) const {
+    return stencil_kept(g, row, lane)
+               ? stencil_load<COHERENT>(src + (size_t)row * g.wc + lane)
+               : (uint8_t)0;
+  }
+  __device__ __forceinline__ bool row_kept(int row) const {
+    return stencil_row_kept(g, row);
+  }
+  __device__ __forceinline__ bool lane_kept(int lane) const {
+    return (unsigned)lane < (unsigned)g.wc;
+  }
+  __device__ __forceinline__ void store(int row, int lane, uint8_t v) const {
+    if (row < g.rows && lane < g.wc) dst[(size_t)row * g.wc + lane] = v;
+  }
+};
+
+// One tile whose output origin is (row0, col0) in the bounds' coordinates;
+// g supplies tile_h, tile_w and channels. KT > 0 fixes the filter size at
+// compile time (taps loops unroll); KT == 0 reads it from p.k.
+template <int KT, class Bounds>
+__device__ void stencil_run_bounded_tile(const Bounds& b,
+                                         const StencilParams& p,
+                                         const StencilGeometry& g, int row0,
+                                         int col0, int fuse, uint8_t* cur,
+                                         int* tmp) {
   const int k = KT > 0 ? KT : p.k;
   const int h = k / 2;
   const int C = g.channels;
@@ -178,14 +210,11 @@ __device__ void stencil_run_tile(const uint8_t* src, uint8_t* dst,
   const int gl = gr * C;             // ghost lanes per side
   const int R = g.tile_h + 2 * gr;   // tile rows in shared memory
   const int L = g.tile_w + 2 * gl;   // tile lanes in shared memory
-  const int rbase = row0 - gr;       // image row of tile row 0
-  const int cbase = col0 - gl;       // image lane of tile lane 0
+  const int rbase = row0 - gr;       // bounds row of tile row 0
+  const int cbase = col0 - gl;       // bounds lane of tile lane 0
 
   stencil_for_region(0, R, 0, L, [&](int r, int c) {
-    const int y = rbase + r, x = cbase + c;
-    cur[r * L + c] = stencil_kept(g, y, x)
-                         ? stencil_load<COHERENT>(src + (size_t)y * g.wc + x)
-                         : (uint8_t)0;
+    cur[r * L + c] = b.load(rbase + r, cbase + c);
   });
   __syncthreads();
 
@@ -200,7 +229,7 @@ __device__ void stencil_run_tile(const uint8_t* src, uint8_t* dst,
       __syncthreads();
       // ... then the cols pass, taps at flat offsets j*C, and the finish.
       for (int c = c0 + threadIdx.x; c < c1; c += blockDim.x) {
-        const bool lane_kept = (unsigned)(cbase + c) < (unsigned)g.wc;
+        const bool lane_kept = b.lane_kept(cbase + c);
         const int* row = tmp + r0 * L + c - hc;
         uint8_t* out = cur + r0 * L + c;
         for (int r = r0; r < r1; ++r, row += L, out += L) {
@@ -210,7 +239,7 @@ __device__ void stencil_run_tile(const uint8_t* src, uint8_t* dst,
             if (KT == 0 && j >= k) break;
             acc += p.col_taps[j] * row[j * C];
           }
-          *out = lane_kept && stencil_row_kept(g, rbase + r)
+          *out = lane_kept && b.row_kept(rbase + r)
                      ? (uint8_t)stencil_finish(acc, p)
                      : (uint8_t)0;
         }
@@ -230,8 +259,9 @@ __device__ void stencil_run_tile(const uint8_t* src, uint8_t* dst,
             acc += p.taps[i * k + j] * (int)win[i * L + j * C];
           }
         }
-        tmp[r * L + c] =
-            stencil_kept(g, rbase + r, cbase + c) ? stencil_finish(acc, p) : 0;
+        tmp[r * L + c] = b.lane_kept(cbase + c) && b.row_kept(rbase + r)
+                             ? stencil_finish(acc, p)
+                             : 0;
       });
       __syncthreads();
       stencil_for_region(r0, r1, c0, c1, [&](int r, int c) {
@@ -242,10 +272,22 @@ __device__ void stencil_run_tile(const uint8_t* src, uint8_t* dst,
   }
 
   stencil_for_region(gr, gr + g.tile_h, gl, gl + g.tile_w, [&](int r, int c) {
-    const int y = rbase + r, x = cbase + c;
-    if (y < g.rows && x < g.wc) dst[(size_t)y * g.wc + x] = cur[r * L + c];
+    b.store(rbase + r, cbase + c, cur[r * L + c]);
   });
   __syncthreads();  // the next tile of this block reuses shared memory
+}
+
+// K1 and K2: one tile of the image itself (tile coordinates = image
+// coordinates). COHERENT loads bypass L1 (see stencil_load).
+template <int KT, bool COHERENT>
+__device__ __forceinline__ void stencil_run_tile(const uint8_t* src,
+                                                 uint8_t* dst,
+                                                 const StencilParams& p,
+                                                 const StencilGeometry& g,
+                                                 int row0, int col0, int fuse,
+                                                 uint8_t* cur, int* tmp) {
+  const StencilImageBounds<COHERENT> b{src, dst, g};
+  stencil_run_bounded_tile<KT>(b, p, g, row0, col0, fuse, cur, tmp);
 }
 
 // Shared-memory layout of a tile: int32 `tmp` first (4-byte aligned), then

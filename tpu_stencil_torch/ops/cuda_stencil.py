@@ -13,10 +13,19 @@ kernel of the JAX package's ``ops/pallas_stencil.py``:
   a grid-wide sync per rep, for ``schedule='deep'`` when both buffers fit
   the L2 budget (:func:`resident_feasible`).
 
+One kernel carries the sharded path (:mod:`tpu_stencil_torch.parallel.
+sharded`):
+
+* **K3** :func:`stencil_valid` (``csrc/stencil_valid.cu``, replaces
+  ``_valid_kernel``; :func:`valid_fused` is the JAX package's entry):
+  ``fuse`` reps of one shard's ghost-extended tile, re-zeroing only the
+  pixels outside the global padded extent, returning the interior.
+
 Each wrapper takes its plain PyTorch version (int32 shifted slices, the
 same function) only for a tensor on the CPU. For a CUDA tensor it launches
-its kernel or raises; nothing falls back. ``stencil_fused.launches`` and
-``stencil_resident.launches`` count the launches and nothing else.
+its kernel or raises; nothing falls back. ``stencil_fused.launches``,
+``stencil_resident.launches`` and ``stencil_valid.launches`` count the
+launches and nothing else.
 
 The image is viewed flat as ``(rows, W*C)``: a column-pass tap moves by
 ``C`` flat lanes, so channels never mix, and the column boundary is the
@@ -165,6 +174,21 @@ def effective_geometry(plan: StencilPlan, n_rows: int, channels: int,
     return bh, fz
 
 
+def valid_geometry(plan: StencilPlan, th: int, channels: int, fuse: int,
+                   block_h: Optional[int] = None) -> Tuple[int, int]:
+    """The (block_h, fuse) K3 launches with on a ``th``-row interior:
+    K1's aligned and clamped tile height, cut until the tile and its
+    ``fuse * halo`` ghost band fit shared memory; then ``fuse`` cut where
+    even 8 rows do not fit. The sharded runner takes the fuse from here
+    (it sets the exchange width), :func:`valid_fused` the tile height."""
+    bh = effective_block_h(plan, th, channels, block_h)
+    while bh > 8 and tile_smem_bytes(plan, bh, fuse, channels) > SMEM_LIMIT:
+        bh -= 8
+    while fuse > 1 and tile_smem_bytes(plan, bh, fuse, channels) > SMEM_LIMIT:
+        fuse -= 1
+    return bh, fuse
+
+
 def launch_schedule(repetitions: int, fuse: int) -> List[int]:
     """The rep depth of each K1 launch: ``reps // fuse`` fused launches,
     then ``reps % fuse`` single-rep launches."""
@@ -267,6 +291,38 @@ def stencil_fused_plain(x2: torch.Tensor, plan: StencilPlan, channels: int,
 stencil_resident_plain = stencil_fused_plain
 
 
+def stencil_valid_plain(ext2: torch.Tensor, plan: StencilPlan, channels: int,
+                        fuse: int, row0: int, col0: int,
+                        global_shape: Tuple[int, int]) -> torch.Tensor:
+    """K3's function in torch ops: ``fuse`` reps of the flat ghost-extended
+    tile ``ext2`` (th + 2g, (tw + 2g) * C), g = fuse * halo, each one
+    :func:`lowering.valid_step` (which shrinks the tile by halo per side)
+    and then the re-zero of every pixel outside the global padded extent
+    ``global_shape`` = (rows, cols * C), placed by the interior's global
+    origin (``row0``, flat ``col0``). Returns the (th, tw * C) interior —
+    what ``_valid_kernel`` keeps after its re-pad by halo each rep, whose
+    padded band never reaches the interior."""
+    h = plan.halo
+    g = fuse * h
+    rows_ext, wc_ext = ext2.shape
+    shape = (rows_ext, wc_ext // channels, channels) if channels > 1 else (
+        rows_ext, wc_ext)
+    cur = ext2.reshape(shape)
+    rows_glob, cols_glob_c = global_shape
+    for t in range(1, fuse + 1):
+        cur = _lowering.valid_step(cur, plan)
+        first = t * h  # ext index of cur's first row and first pixel
+        rid = torch.arange(cur.shape[0], device=cur.device)
+        rid = rid + (row0 + first - g)
+        keep = (rid >= 0) & (rid < rows_glob)
+        cid = torch.arange(cur.shape[1] * channels, device=cur.device)
+        cid = cid + (col0 + (first - g) * channels)
+        kc = ((cid >= 0) & (cid < cols_glob_c)).reshape(cur.shape[1:])
+        keep = keep.reshape((-1,) + (1,) * (cur.dim() - 1)) & kc
+        cur = torch.where(keep, cur, 0)
+    return cur.reshape(rows_ext - 2 * g, wc_ext - 2 * g * channels)
+
+
 # ---------------------------------------------------------------------------
 # ctypes binding
 # ---------------------------------------------------------------------------
@@ -291,6 +347,19 @@ class _Geometry(ctypes.Structure):
         ("rows_real", ctypes.c_int), ("channels", ctypes.c_int),
         ("frame_stride", ctypes.c_int), ("frame_h", ctypes.c_int),
         ("tile_h", ctypes.c_int), ("tile_w", ctypes.c_int),
+    ]
+
+
+class _ValidGeometry(ctypes.Structure):
+    """Mirrors ``StencilValidGeometry`` in csrc/stencil_valid.cu."""
+
+    _fields_ = [
+        ("rows_ext", ctypes.c_int), ("wc_ext", ctypes.c_int),
+        ("rows_out", ctypes.c_int), ("wc_out", ctypes.c_int),
+        ("channels", ctypes.c_int), ("row0", ctypes.c_int),
+        ("col0", ctypes.c_int), ("rows_glob", ctypes.c_int),
+        ("cols_glob_c", ctypes.c_int), ("tile_h", ctypes.c_int),
+        ("tile_w", ctypes.c_int),
     ]
 
 
@@ -344,8 +413,17 @@ def _resident_lib() -> ctypes.CDLL:
     return lib
 
 
+def _valid_lib() -> ctypes.CDLL:
+    lib = _build.load("stencil_valid")
+    lib.stencil_valid_launch.argtypes = [_P, _P, _P, _P, ctypes.c_int, _P]
+    lib.stencil_valid_launch.restype = ctypes.c_int
+    lib.stencil_valid_error_string.argtypes = [ctypes.c_int]
+    lib.stencil_valid_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def build_kernels() -> Dict[str, str]:
-    """Build both kernel libraries (in parallel) and return name -> path."""
+    """Build every kernel library (in parallel) and return name -> path."""
     return {n: str(p) for n, p in _build.build().items()}
 
 
@@ -440,15 +518,66 @@ def stencil_resident(x2: torch.Tensor, plan: StencilPlan, channels: int,
 stencil_resident.launches = 0
 
 
+def stencil_valid(ext2: torch.Tensor, plan: StencilPlan, channels: int,
+                  fuse: int, row0: int, col0: int,
+                  global_shape: Tuple[int, int],
+                  block_h: int = DEFAULT_BLOCK_H,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K3: ``fuse`` reps of the flat ghost-extended shard tile ``ext2``
+    ((th + 2g, (tw + 2g) * C) uint8, g = fuse * halo) into the (th, tw * C)
+    interior ``out`` (allocated when None). ``row0``/``col0``: the global
+    row and flat lane of the interior's origin; ``global_shape``: the
+    padded global (rows, cols * C). CPU tensors run
+    :func:`stencil_valid_plain`."""
+    _check_input(ext2)
+    g = fuse * plan.halo
+    th = ext2.shape[0] - 2 * g
+    twc = ext2.shape[1] - 2 * g * channels
+    if th < 1 or twc < 1:
+        raise ValueError(
+            f"ext tile {tuple(ext2.shape)} leaves no interior inside its "
+            f"{g}-wide ghost band"
+        )
+    if ext2.device.type == "cpu":
+        res = stencil_valid_plain(ext2, plan, channels, fuse, row0, col0,
+                                  global_shape)
+        return res if out is None else out.copy_(res)
+    lib = _valid_lib()
+    if out is None:
+        out = torch.empty((th, twc), dtype=torch.uint8, device=ext2.device)
+    _check_cuda(ext2, out)
+    _check_input(out)
+    if tuple(out.shape) != (th, twc):
+        raise ValueError(f"out must be ({th}, {twc}), got {tuple(out.shape)}")
+    params = _params(plan)
+    geom = _ValidGeometry(ext2.shape[0], ext2.shape[1], th, twc, channels,
+                          row0, col0, global_shape[0], global_shape[1],
+                          block_h, TILE_W)
+    with torch.cuda.device(ext2.device):
+        rc = lib.stencil_valid_launch(
+            ext2.data_ptr(), out.data_ptr(), ctypes.addressof(params),
+            ctypes.addressof(geom), fuse,
+            torch.cuda.current_stream(ext2.device).cuda_stream,
+        )
+    _raise_on(rc, lib, "stencil_valid_error_string", "stencil_valid")
+    stencil_valid.launches += 1
+    return out
+
+
+stencil_valid.launches = 0
+
+
 def launch_counts() -> Dict[str, int]:
     """The kernels' launch counters, by kernel name."""
     return {"stencil_fused": stencil_fused.launches,
-            "stencil_resident": stencil_resident.launches}
+            "stencil_resident": stencil_resident.launches,
+            "stencil_valid": stencil_valid.launches}
 
 
 def reset_launch_counts() -> None:
     stencil_fused.launches = 0
     stencil_resident.launches = 0
+    stencil_valid.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -531,3 +660,16 @@ def padded_step(img_u8: torch.Tensor, plan: StencilPlan) -> torch.Tensor:
     """Single-step API matching :func:`lowering.padded_step` (zero
     boundary)."""
     return iterate(img_u8, 1, plan)
+
+
+def valid_fused(ext2: torch.Tensor, plan: StencilPlan, fuse: int,
+                channels: int, row0: int, col0: int,
+                global_shape: Tuple[int, int],
+                block_h: Optional[int] = None) -> torch.Tensor:
+    """The JAX package's ``valid_fused``: ``fuse`` reps of a ghost-extended
+    flat shard tile through K3, at the tile height :func:`valid_geometry`
+    picks for its interior (``block_h`` forces one)."""
+    th = ext2.shape[0] - 2 * fuse * plan.halo
+    bh, _ = valid_geometry(plan, th, channels, fuse, block_h)
+    return stencil_valid(ext2, plan, channels, fuse, row0, col0,
+                         global_shape, block_h=bh)

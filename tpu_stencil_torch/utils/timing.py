@@ -3,9 +3,9 @@
 The reference's MPI metric is: barrier, ``MPI_Wtime`` around the
 compute/comm loop only (file I/O excluded), then max across ranks
 (``mpi/mpi_convolution.c:151-155,242,264-275``). Here a
-``torch.cuda.synchronize()`` on the job's device plays the barrier at both
-ends of the window (PyTorch returns before the card finishes, so an
-unfenced host clock measures the enqueue), a monotonic clock times the
+``torch.cuda.synchronize()`` on every device of the job plays the barrier
+at both ends of the window (PyTorch returns before the card finishes, so
+an unfenced host clock measures the enqueue), a monotonic clock times the
 window, and the max across processes is the identity of a single-process
 job.
 """
@@ -13,23 +13,33 @@ job.
 from __future__ import annotations
 
 import time
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import torch
 
+Devices = Union[None, str, torch.device, Sequence]
 
-def fence(device: Optional[torch.device]) -> None:
-    """Wait until ``device`` has finished all queued work (no-op on CPU,
-    where torch ops run synchronously)."""
-    if device is not None and torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
+
+def fence(devices: Devices) -> None:
+    """Wait until ``devices`` (one device or a sequence, e.g. every
+    device of a mesh) have finished all queued work: one synchronize per
+    distinct CUDA device (no-op on the CPU, where torch ops run
+    synchronously)."""
+    if devices is None:
+        return
+    if isinstance(devices, (str, torch.device)):
+        devices = [devices]
+    for dev in dict.fromkeys(torch.device(d) for d in devices):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 class Timer:
     """Monotonic stopwatch; ``elapsed`` in seconds.
 
-    ``device``: a CUDA device is fenced on entry and on exit, so the
-    window covers exactly the device work queued inside it.
+    ``device``: a device, or a sequence of them (a mesh), fenced on
+    entry and on exit, so the window covers exactly the device work
+    queued inside it.
 
     ``elapsed`` is live: read inside the ``with`` block it returns the time
     accumulated so far; after exit it is frozen at the block's duration.
@@ -39,7 +49,7 @@ class Timer:
     """
 
     def __init__(self, label: Optional[str] = None,
-                 device: Optional[torch.device] = None) -> None:
+                 device: Devices = None) -> None:
         self.label = label
         self.device = device
         self._start: Optional[float] = None
