@@ -5,9 +5,13 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the hand-written kernels from ``tpu_stencil_torch/ops/csrc/``
-(one ``nvcc`` per source, in parallel, into ``build/kernels/``), then runs
-these phases, each printing one JSON line:
+It builds every hand-written kernel and every lab variant from
+``tpu_stencil_torch/ops/csrc/`` (one ``nvcc`` per library, all started
+together, into ``build/kernels/``), points the autotune cache at
+``build/chip_smoke/autotune.json``, then runs these phases, each printing
+one JSON line. The phases that pin launch counts name ``--backend pallas``
+(K1 at its default geometry); ``autotune_path`` drives the default
+``auto``/``autotune`` resolution.
 
 1. ``device`` — the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions, SM count and L2 size.
@@ -42,11 +46,35 @@ these phases, each printing one JSON line:
    2x2 x9; the CLI with ``--mesh 1x1``, cold and warm; and
    ``driver.run_job`` with mesh 2x2 over ``[cuda:0] * 4`` writing the
    file.
-8. ``times`` — ms per rep at 1920x2520 RGB gaussian x40, each the median
+8. ``l2`` — L2 ``stencil_lab``: every exact variant (``current``,
+   ``pair``, ``acc16``, ``swar``) against its plain version and against
+   K1's bytes at 1920x2520 RGB gaussian, fuse 8 at 32 rows and fuse 4 at
+   64 rows, plus gaussian5 and grey; the host's shared-memory model
+   against the library's own; then the kernel lab tool
+   (``tpu_stencil_torch.tools.kernel_lab``) over its whole table with the
+   launch counter set to 0 just before, and the timing table of all
+   variants and ablations (ms per rep x40, interleaved, median of 7, L2
+   flushed) with ``current / shipped``.
+9. ``l1`` — L1 ``op_chain``: every case at a chain of 3 (where no case's
+   output is constant, which is checked) and at both timed chains, 8 and
+   16, against its plain version (byte-equal; float cases within 1),
+   through the op cost tool (``tpu_stencil_torch.tools.op_cost``), which
+   then gives us per op-pass per case.
+10. ``autotune_path`` — ``python -m tpu_stencil_torch IMG 1920 2520 40
+   rgb --backend autotune --time`` in a fresh process with an empty cache
+   file: it measures, writes the cache and reports the verdict, and its
+   bytes equal the torch-ops path; a second run (``cli.main`` here) makes
+   zero probes by the autotuner's own counter and launches what the
+   verdict says; the same through ``run_job`` on a 2x2 mesh over
+   ``[cuda:0] * 4``; then ``bh_fuse_ab`` and a ``--quick`` benchmark
+   sweep run to the end with every row exact.
+11. ``times`` — ms per rep at 1920x2520 RGB gaussian x40, each the median
    of 7 runs after a warm-up (CUDA events, L2 flushed before each run):
-   the three kernels (K3 alone on the one ext tile of a 1x1 mesh at fuse
-   8), the whole 2x2 sharded runner, their plain versions, the torch-ops
-   path, and one depthwise float32 ``F.conv2d`` rep (TF32 off) as the
+   the three job kernels (K3 alone on the one ext tile of a 1x1 mesh at
+   fuse 8), L2's ``current`` body, one L1 launch (``add_i32``, chain of
+   8), the whole 2x2 sharded runner under ``pallas`` and under ``auto``
+   taking turns (``auto`` must not chunk shallower nor take 1.5x the
+   time), their plain versions, the torch-ops path, and one depthwise float32 ``F.conv2d`` rep (TF32 off) as the
    library yardstick, which the port never calls; and each kernel's
    bound.
 
@@ -61,6 +89,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -73,15 +102,9 @@ import torch
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
 
-# Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W): HBM
-# 3.35 TB/s; float32 67 TFLOP/s outside the tensor cores, i.e. 128 FP32
-# lanes per SM x 132 SMs x 1.98 GHz x 2 (an FMA counts two). Hopper has 64
-# INT32 lanes per SM, so one int32 op (add, multiply-add, shift, compare)
-# per lane per clock is 67e12 / 4; a float32 op that is not an FMA is
-# 67e12 / 2.
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12 / 4
-F32_OPS_PER_S = 67e12 / 2
+# The bounds (bytes over the card's memory rate, operations over its int32
+# and float32 rates) come from tpu_stencil_torch.runtime.roofline, which
+# the lab, the sweep and the autotuner's reports read as well.
 
 MAIN_W, MAIN_H, MAIN_C, MAIN_REPS = 1920, 2520, 3, 40
 BIG_W, BIG_H = 7680, 4320  # 2 x 99.5 MB: past the L2 budget
@@ -89,6 +112,8 @@ FRAMES_SHAPE = (3, 320, 256, 3)
 ODD_W, ODD_H = 1921, 2519  # indivisible by a 2x2 grid: the pad mask
 MESHES = ((1, 1), (2, 2), (1, 4), (4, 1))
 NO_LAUNCHES = {"stencil_fused": 0, "stencil_resident": 0, "stencil_valid": 0}
+PALLAS = ["--backend", "pallas"]  # pins K1/K2/K3 at the default geometry
+LAB_EXACT = ("current", "pair", "acc16", "swar")
 
 
 def emit(obj) -> None:
@@ -289,22 +314,26 @@ def run_cli(args) -> tuple:
     return lines, counts
 
 
-def run_cli_cold(args) -> tuple:
+def parse_launches(report: str) -> dict:
+    """The launch counts of a ``--time`` line's ``launches=`` field."""
+    field = report.rsplit("launches=", 1)[1].split()[0]
+    return {k: int(v) for k, v in (kv.split(":") for kv in field.split(","))}
+
+
+def run_cli_cold(args, env=None) -> tuple:
     """``python -m tpu_stencil_torch`` in a fresh process, as a user runs
     it: the compute window includes the first launch of each kernel
     (module load, shared-memory attribute). Returns (stdout lines, counts
     parsed from the ``--time`` line's ``launches=``)."""
     r = subprocess.run([sys.executable, "-m", "tpu_stencil_torch", *args],
-                       cwd=ROOT, capture_output=True, text=True, timeout=300)
+                       cwd=ROOT, capture_output=True, text=True, timeout=300,
+                       env=env)
     require(r.returncode == 0,
             f"python -m tpu_stencil_torch exited {r.returncode}: {r.stderr}")
     lines = r.stdout.strip().splitlines()
     for line in lines:
         print(line, flush=True)
-    field = lines[1].rsplit("launches=", 1)[1]
-    counts = {k: int(v) for k, v in
-              (kv.split(":") for kv in field.split(","))}
-    return lines, counts
+    return lines, parse_launches(lines[1])
 
 
 def main_raw() -> tuple:
@@ -331,7 +360,8 @@ def phase_main_path(dev) -> dict:
     want = lowering.iterate(torch.from_numpy(img).to(dev), MAIN_REPS,
                             g).cpu().numpy()
     fuse = cs.effective_geometry(g, MAIN_H, MAIN_C)[1]
-    base = [str(src), str(MAIN_W), str(MAIN_H), str(MAIN_REPS), "rgb", "--time"]
+    base = [str(src), str(MAIN_W), str(MAIN_H), str(MAIN_REPS), "rgb",
+            "--time", *PALLAS]
     out = {}
     for label, extra, expect in (
         ("default", [], launches(
@@ -410,8 +440,9 @@ def run_runner(img: np.ndarray, name: str, reps: int, mesh, dev) -> tuple:
     from tpu_stencil_torch.parallel.sharded import ShardedRunner
 
     c = img.shape[2] if img.ndim == 3 else 1
-    runner = ShardedRunner(IteratedConv2D(name, device=dev), img.shape[:2], c,
-                           mesh_shape=mesh, devices=[dev] * (mesh[0] * mesh[1]))
+    runner = ShardedRunner(IteratedConv2D(name, backend="pallas", device=dev),
+                           img.shape[:2], c, mesh_shape=mesh,
+                           devices=[dev] * (mesh[0] * mesh[1]))
     require(runner.backend == "pallas", f"sharded {name} ran {runner.backend}")
     tiles = runner.put(img)
     runner.prepare()
@@ -466,7 +497,7 @@ def phase_sharded_path(dev) -> dict:
         out[label] = {"mesh": [2, 2], "reps": reps, "fuse": fuse,
                       "launches": counts, "max_abs_err": err}
     base = [str(src), str(MAIN_W), str(MAIN_H), str(MAIN_REPS), "rgb",
-            "--time", "--mesh", "1x1"]
+            "--time", "--mesh", "1x1", *PALLAS]
     expect = launches(stencil_valid=MAIN_REPS // cs.DEFAULT_FUSE
                       + MAIN_REPS % cs.DEFAULT_FUSE)
     for temp, runner in (("cold", run_cli_cold), ("warm", run_cli)):
@@ -486,7 +517,7 @@ def phase_sharded_path(dev) -> dict:
     cfg = config.JobConfig(image=str(src), width=MAIN_W, height=MAIN_H,
                            repetitions=MAIN_REPS,
                            image_type=config.ImageType.RGB, mesh_shape=(2, 2),
-                           output=str(dst))
+                           backend="pallas", output=str(dst))
     res = driver.run_job(cfg, devices=[dev] * 4)
     expect = launches(stencil_valid=5 * 4)
     require(res.launches == expect and res.mesh_shape == (2, 2),
@@ -501,40 +532,10 @@ def phase_sharded_path(dev) -> dict:
             "reps": MAIN_REPS, "max_abs_err": worst, "runs": out}
 
 
-def plan_ops(plan) -> tuple:
-    """(int32 ops, float32 ops) per flat element per rep the plan needs at
-    the least: a sum of n nonzero taps is n - 1 adds, a tap multiply and
-    its add being one multiply-add (IMAD), plus one multiply where no tap
-    is 1 to start the sum from; then the finish (shift and any clip, or
-    convert/divide/clip/convert). Gaussian 3x3: 2 + 2 + 1 = 5."""
-    from tpu_stencil_torch.ops import cuda_stencil as cs
+def bound_ms_per_rep(plan, n_elems: int, reps: int, n_bytes: int = None):
+    from tpu_stencil_torch.runtime import roofline
 
-    def taps_ops(taps):
-        nz = [t for t in taps if t]
-        return max(0, len(nz) - 1) + (0 if not nz or 1 in nz else 1)
-
-    if plan.kind == "sep_int":
-        iops = taps_ops(plan.row_taps) + taps_ops(plan.col_taps)
-    else:
-        iops = taps_ops([int(t) for row in plan.taps for t in row])
-    if plan.shift is not None:
-        return iops + 1 + (2 if cs.clip_needed(plan) else 0), 0
-    return iops, 5
-
-
-def bound_ms_per_rep(plan, n_elems: int, reps: int,
-                     n_bytes: int = None) -> tuple:
-    """The least time per rep: the larger of the bytes the call must move
-    (input read once, output written once: ``n_bytes``, default 2 bytes
-    per element) over HBM's rate and the ops ``n_elems`` output elements
-    need over the int32/float32 rates. Returns (ms, 'bytes'|'operations')."""
-    n_bytes = 2 * n_elems if n_bytes is None else n_bytes
-    t_bytes = n_bytes / HBM_BYTES_PER_S / reps
-    iops, fops = plan_ops(plan)
-    t_ops = n_elems * (iops / INT32_OPS_PER_S + fops / F32_OPS_PER_S)
-    if t_bytes >= t_ops:
-        return t_bytes * 1e3, "bytes"
-    return t_ops * 1e3, "operations"
+    return roofline.bound_ms_per_rep(plan, n_elems, reps, n_bytes)
 
 
 def time_ms(fn, dev, runs: int = 7) -> float:
@@ -554,6 +555,247 @@ def time_ms(fn, dev, runs: int = 7) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def interleaved_ms(fns: dict, dev, runs: int = 7) -> dict:
+    """Median ms of every ``name -> fn`` over ``runs`` rounds, the
+    candidates taking turns within each round (CUDA events, L2 flushed
+    before each timed run), after one warm-up each."""
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    for _ in range(runs):
+        for name, fn in fns.items():
+            flush.zero_()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times[name].append(a.elapsed_time(b))
+    return {name: statistics.median(v) for name, v in times.items()}
+
+
+def phase_l2(dev) -> dict:
+    """L2 against its plain versions and K1, the lab tool, the timing
+    table."""
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+    from tpu_stencil_torch.ops import lab
+    from tpu_stencil_torch.tools import kernel_lab
+
+    rgb = seeded((MAIN_H, MAIN_W, 3), 21, dev)
+    grey = seeded((MAIN_H, MAIN_W), 22, dev)
+    worst, cases = 0, []
+    for img, fname, geos in ((rgb, "gaussian", ((32, 8), (64, 4), (32, 1))),
+                             (rgb, "gaussian5", ((32, 8),)),
+                             (grey, "gaussian", ((32, 8),))):
+        plan = plan_of(fname)
+        c = img.shape[2] if img.dim() == 3 else 1
+        x2 = img.reshape(img.shape[0], -1)
+        for bh, fz in geos:
+            bh, fz = cs.effective_geometry(plan, MAIN_H, c, bh, fz)
+            k1 = cs.stencil_fused(x2, plan, c, fz, block_h=bh)
+            for name in LAB_EXACT:
+                v = lab.parse_variant(name)
+                require(lab.variant_supported(v, plan),
+                        f"lab variant {name} must run {fname}")
+                got = lab.stencil_lab(x2, plan, c, fz, v, block_h=bh)
+                err = max(max_err(got, lab.stencil_lab_plain(x2, plan, c, fz,
+                                                             v)),
+                          max_err(got, k1))
+                model = lab.lab_smem_bytes(v, plan, bh, fz, c)
+                kern = lab.kernel_smem_bytes(v, plan, bh, fz, c)
+                require(model == kern, f"{name} {bh}x{fz}: the host's shared-"
+                        f"memory model says {model}, the library {kern}")
+                worst = max(worst, err)
+                cases.append({"case": f"{fname} C={c} {name} {bh}x{fz}",
+                              "err": err})
+        # the whole rep loop, fused launches and single-rep remainders
+        k1 = cs.iterate(img, 9, plan)
+        for name in LAB_EXACT:
+            err = max_err(lab.lab_iterate(img, 9, plan,
+                                          lab.parse_variant(name)), k1)
+            worst = max(worst, err)
+            cases.append({"case": f"{fname} C={c} {name} x9", "err": err})
+    torch.cuda.synchronize()
+    bad = [c for c in cases if c["err"]]
+    require(not bad, f"L2 disagrees with its plain version or K1: {bad}")
+    # The tool, as a user runs it (in this process: the counter is read).
+    buf = io.StringIO()
+    lab.reset_launch_counts()
+    tool = kernel_lab.run_lab([], dev, reps=400, rounds=1, out=buf)
+    tool_launches = lab.launch_counts()["stencil_lab"]
+    for line in buf.getvalue().strip().splitlines():
+        print(line, flush=True)
+    inexact = [n for n, r in tool.items() if r["exact"] is False]
+    require(not inexact, f"kernel_lab: not exact: {inexact}")
+    require(tool_launches > 0, "kernel_lab launched stencil_lab no time")
+    # The timing table: every variant of the tool's table, x40, within
+    # this one call, taking turns.
+    g = plan_of("gaussian")
+    fns = {n: (lambda f=kernel_lab.variant_fn(n, g, rgb)[0]: f(MAIN_REPS))
+           for n in kernel_lab.DEFAULT_VARIANTS}
+    table = {n: t / MAIN_REPS for n, t in interleaved_ms(fns, dev).items()}
+    return {"phase": "l2", "ok": True, "cases": len(cases),
+            "max_abs_err": worst, "tool_launches": tool_launches,
+            "tool_us_per_rep": {n: r["us_per_rep"] for n, r in tool.items()},
+            "ms_per_rep_x40": table,
+            "current_over_shipped": table["current"] / table["shipped"]}
+
+
+def phase_l1(dev) -> dict:
+    """L1 against its plain version at the check chain (3: no case's
+    output is constant there) and at both timed chains, then the op cost
+    tool's table."""
+    from tpu_stencil_torch.ops import lab
+    from tpu_stencil_torch.tools import op_cost
+
+    buf = io.StringIO()
+    lab.reset_launch_counts()
+    res = op_cost.run_cases([], dev, reps=100, rounds=3, out=buf)
+    tool_launches = lab.launch_counts()["op_chain"]
+    torch.cuda.synchronize()
+    for line in buf.getvalue().strip().splitlines():
+        print(line, flush=True)
+    bad = {n: r["max_abs_err"] for n, r in res.items() if not r["exact"]}
+    require(not bad, f"L1 disagrees with its plain version: {bad}")
+    require(len(res) == len(lab.CASES), "op_cost skipped a case")
+    flat = [n for n, r in res.items() if not r["check_varies"]]
+    require(not flat, f"L1: the check chain's output is constant for {flat}: "
+            "the comparison there could not tell a wrong kernel")
+    for case in lab.CASES:
+        ib, _, wc, _ = op_cost.tile_for(case)
+        model = lab.op_chain_smem_bytes(case, ib, wc)
+        kern = lab.op_chain_kernel_smem_bytes(case, ib, wc)
+        require(model == kern, f"{case}: the host's shared-memory model "
+                f"says {model}, the library {kern}")
+    require(tool_launches > 0, "op_cost launched op_chain no time")
+    return {"phase": "l1", "ok": True,
+            "cases": len(lab.BUILT_N_OPS) * len(res),
+            "chains": list(lab.BUILT_N_OPS),
+            "max_abs_err": max(r["max_abs_err"] for r in res.values()),
+            "tolerance": "0; 1 for mul_add_f32 and mxu_rows_bf16 (float32 "
+                         "products)",
+            "tool_launches": tool_launches,
+            "us_per_op_pass": {n: r["us_per_op_pass"] for n, r in res.items()},
+            "chain_us": {n: r["chain_us"] for n, r in res.items()}}
+
+
+def verdict_launches(report: str, rows: int, reps: int) -> dict:
+    """The launches a ``--time`` line's verdict implies for a single
+    device job (backend, schedule and any reported geometry)."""
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+
+    if "backend=pallas" not in report:
+        return launches()
+    fields = dict(kv.split("=", 1) for kv in report.split() if "=" in kv)
+    if fields.get("schedule") == "deep" and "block_h" not in fields:
+        return launches(stencil_resident=1)
+    fz = int(fields["fuse"]) if "fuse" in fields else cs.effective_geometry(
+        plan_of("gaussian"), rows, MAIN_C)[1]
+    return launches(stencil_fused=len(cs.launch_schedule(reps, fz)))
+
+
+def phase_autotune_path(dev) -> dict:
+    """``--backend autotune`` end to end: cold (measures, writes the
+    cache), warm (zero probes, launches the verdict), a 2x2 mesh, then the
+    geometry sweep and the quick benchmark sweep."""
+    from tpu_stencil_torch import config, driver
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+    from tpu_stencil_torch.ops import lowering
+    from tpu_stencil_torch.runtime import autotune, bench_sweep
+    from tpu_stencil_torch.tools import bh_fuse_ab
+
+    src, img = main_raw()
+    g = plan_of("gaussian")
+    want = lowering.iterate(torch.from_numpy(img).to(dev), MAIN_REPS,
+                            g).cpu().numpy()
+    cache = Path(os.environ[autotune.ENV_CACHE])
+    cache.unlink(missing_ok=True)
+    base = [str(src), str(MAIN_W), str(MAIN_H), str(MAIN_REPS), "rgb",
+            "--time", "--backend", "autotune"]
+    out = {}
+
+    def check_file(dst, label):
+        got = np.fromfile(dst, np.uint8).reshape(img.shape)
+        err = int(np.abs(got.astype(int) - want.astype(int)).max())
+        require(err == 0, f"{label} disagrees with torch ops ({err})")
+        return err
+
+    # Cold: a fresh process, an empty cache file.
+    dst = WORK / "blur_autotune_cold.raw"
+    lines, counts = run_cli_cold(base + ["--output", str(dst)],
+                                 env=dict(os.environ))
+    probes = int(lines[1].rsplit("tune_probes=", 1)[1].split()[0])
+    require(probes > 0, f"cold autotune made no probe: {lines[1]}")
+    require(cache.exists(), "cold autotune wrote no cache file")
+    entry = autotune.cached_entry(g, (MAIN_H, MAIN_W), MAIN_C, dev)
+    require(entry is not None, "the cache holds no entry for the job")
+    expect = verdict_launches(lines[1], MAIN_H, MAIN_REPS)
+    require(counts == expect, f"cold autotune: launches {counts}, the "
+            f"verdict implies {expect}")
+    out["cold"] = {"report": lines[1], "probes": probes, "launches": counts,
+                   "max_abs_err": check_file(dst, "cold autotune"),
+                   "execution_time_s": float(lines[0].split()[2]),
+                   "verdict": entry}
+    # Warm: zero probes by the autotuner's counter, the verdict launched.
+    dst = WORK / "blur_autotune_warm.raw"
+    before = autotune.probe_count
+    lines, counts = run_cli(base + ["--output", str(dst)])
+    require(autotune.probe_count == before and "tune_probes=0" in lines[1],
+            f"warm autotune probed: {lines[1]}")
+    require(counts == expect, f"warm autotune: launches {counts}, the "
+            f"verdict implies {expect}")
+    tuned = [v for v in (entry["backend"], entry["schedule"]) if v]
+    require(all(f"={v}" in lines[1] for v in tuned),
+            f"warm autotune reports {lines[1]}, the cache says {entry}")
+    out["warm"] = {"report": lines[1], "probes": 0, "launches": counts,
+                   "max_abs_err": check_file(dst, "warm autotune"),
+                   "execution_time_s": float(lines[0].split()[2])}
+    # A 2x2 mesh of four tiles on this card: tuned against the tile.
+    for label in ("mesh2x2_cold", "mesh2x2_warm"):
+        dst = WORK / f"blur_autotune_{label}.raw"
+        cfg = config.JobConfig(image=str(src), width=MAIN_W, height=MAIN_H,
+                               repetitions=MAIN_REPS,
+                               image_type=config.ImageType.RGB,
+                               mesh_shape=(2, 2), backend="autotune",
+                               output=str(dst))
+        cs.reset_launch_counts()
+        res = driver.run_job(cfg, devices=[dev] * 4)
+        require((res.tune_probes > 0) == (label == "mesh2x2_cold"),
+                f"{label}: {res.tune_probes} probes")
+        fz = res.fuse if res.fuse is not None else cs.DEFAULT_FUSE
+        expect4 = launches() if res.backend != "pallas" else launches(
+            stencil_valid=len(cs.launch_schedule(MAIN_REPS, fz)) * 4)
+        require(res.launches == expect4 and res.mesh_shape == (2, 2),
+                f"{label}: launches {res.launches}, the verdict implies "
+                f"{expect4}")
+        out[label] = {"backend": res.backend, "schedule": res.schedule,
+                      "block_h": res.block_h, "fuse": res.fuse,
+                      "probes": res.tune_probes, "launches": res.launches,
+                      "max_abs_err": check_file(dst, label),
+                      "compute_seconds": res.compute_seconds}
+    # The geometry sweep and the quick benchmark sweep, to the end.
+    buf = io.StringIO()
+    rows = bh_fuse_ab.run_sweep(
+        bh_fuse_ab.parse_candidates([], g, MAIN_C), dev, reps=400, rounds=3,
+        out=buf)
+    for line in buf.getvalue().strip().splitlines():
+        print(line, flush=True)
+    require(all(r["exact"] for r in rows), f"bh_fuse_ab not exact: {rows}")
+    out["bh_fuse_ab"] = [{k: r[k] for k in ("block_h", "fuse", "us_per_rep",
+                                            "forty_us_per_rep", "exact")}
+                         for r in rows]
+    sweep = bench_sweep.run_sweep(quick=True, device=dev,
+                                  backends=["xla", "pallas", "auto"])
+    print(bench_sweep.emit_markdown(sweep), flush=True)
+    require(all(r["exact"] for r in sweep),
+            f"bench_sweep rows not exact: {[r for r in sweep if not r['exact']]}")
+    out["bench_sweep_quick"] = sweep
+    return {"phase": "autotune_path", "ok": True, "runs": out}
 
 
 def phase_times(dev) -> dict:
@@ -588,11 +830,28 @@ def phase_times(dev) -> dict:
     from tpu_stencil_torch.models.blur import IteratedConv2D
     from tpu_stencil_torch.parallel.sharded import ShardedRunner
 
-    runner = ShardedRunner(IteratedConv2D("gaussian", device=dev),
-                           (MAIN_H, MAIN_W), MAIN_C, mesh_shape=(2, 2),
-                           devices=[dev] * 4)
+    runner = ShardedRunner(
+        IteratedConv2D("gaussian", backend="pallas", device=dev),
+        (MAIN_H, MAIN_W), MAIN_C, mesh_shape=(2, 2), devices=[dev] * 4)
     tiles = runner.put(img.cpu().numpy())
-    r["sharded_2x2_ms"] = time_ms(lambda: runner.run(tiles, n), dev) / n
+    # The same runner under `auto` (the default backend), whose verdict
+    # phase autotune_path left in the cache: it must not chunk shallower
+    # than `pallas` at its defaults, since every chunk costs an exchange,
+    # and the two windows are timed taking turns.
+    tuned = ShardedRunner(
+        IteratedConv2D("gaussian", backend="auto", device=dev),
+        (MAIN_H, MAIN_W), MAIN_C, mesh_shape=(2, 2), devices=[dev] * 4)
+    require(tuned.backend == "pallas" and tuned.fuse >= runner.fuse,
+            f"sharded auto runs {tuned.backend} at fuse {tuned.fuse}, pallas "
+            f"at its defaults fuse {runner.fuse}")
+    both = interleaved_ms({"pallas": lambda: runner.run(tiles, n),
+                           "auto": lambda: tuned.run(tiles, n)}, dev)
+    r["sharded_2x2_ms"] = both["pallas"] / n
+    r["sharded_2x2_auto_ms"] = both["auto"] / n
+    r["sharded_2x2_auto_fuse"] = tuned.fuse
+    require(both["auto"] <= 1.5 * both["pallas"],
+            f"sharded 2x2 under auto takes {both['auto']} ms, under pallas "
+            f"{both['pallas']} ms")
     # Library yardstick: one depthwise float32 convolution rep (planar
     # layout prepared outside the window). Timed only.
     torch.backends.cudnn.allow_tf32 = False
@@ -604,6 +863,34 @@ def phase_times(dev) -> dict:
         dev)
     bound, by = bound_ms_per_rep(g, MAIN_H * MAIN_W * MAIN_C, n)
     r["bound_ms"], r["bound_by"] = bound, by
+    # L2: the lab's `current` body through the same rep loop, and its
+    # plain version (K1's function).
+    from tpu_stencil_torch.ops import lab
+    from tpu_stencil_torch.runtime import roofline
+    from tpu_stencil_torch.tools import op_cost
+
+    cur = lab.parse_variant("current")
+    r["stencil_lab_ms"] = time_ms(
+        lambda: lab.lab_iterate(img, n, g, cur), dev) / n
+    r["stencil_lab_plain_ms"] = time_ms(
+        lambda: lab.stencil_lab_plain(x2, g, MAIN_C, n, cur), dev) / n
+    # L1: one launch of add_i32 with a chain of 8 on the tool's tiles. The
+    # case is elementwise, so the stored rows depend on as many input rows
+    # and no more. Its bound: those rows read once and written once,
+    # against one int32 add per stored element and operation.
+    ib, b, wc, grid = op_cost.tile_for("add_i32")
+    xt = seeded((grid * ib, wc), 9, dev)
+    ot = torch.empty((grid * b, wc), dtype=torch.uint8, device=dev)
+    r["op_chain_ms"] = time_ms(
+        lambda: lab.op_chain(xt, "add_i32", 8, ib, b, out=ot), dev)
+    r["op_chain_plain_ms"] = time_ms(
+        lambda: lab.op_chain_plain(xt, "add_i32", 8, ib, b), dev)
+    t_bytes = 2 * ot.numel() / roofline.H100_HBM_BYTES_PER_S
+    t_ops = 8 * ot.numel() / roofline.H100_INT32_OPS_PER_S
+    r["op_chain_bound_ms"] = max(t_bytes, t_ops) * 1e3
+    r["op_chain_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    r["op_chain_unit"] = (f"ms per launch, add_i32 chain of 8, {grid} tiles "
+                          f"of {ib}x{wc}, {b} rows of each stored")
     r["clocks_power"] = nvidia_smi(
         "clocks.sm,power.draw,power.limit,temperature.gpu")
     return {"phase": "times", "unit": "ms per rep",
@@ -626,13 +913,37 @@ def run(dev: torch.device) -> None:
           "cuda": torch.version.cuda, "sms": props.multi_processor_count,
           "l2_bytes": int(props.L2_cache_size)})
 
+    # The autotune cache of this run: a file of its own, empty at start.
+    from tpu_stencil_torch.ops import lab
+    from tpu_stencil_torch.runtime import autotune
+    from tpu_stencil_torch.tools import kernel_lab
+
+    WORK.mkdir(parents=True, exist_ok=True)
+    os.environ[autotune.ENV_CACHE] = str(WORK / "autotune.json")
+    (WORK / "autotune.json").unlink(missing_ok=True)
+
+    # Every library this script launches, one nvcc each, all together.
     t0 = time.perf_counter()
-    libs = cs.build_kernels()
-    ptxas = {n: [ln.strip() for ln in _build.build_log(n).splitlines()
-                 if "registers" in ln or "spill" in ln]
-             for n in libs}
+    variants = [lab.parse_variant(n) for n in kernel_lab.DEFAULT_VARIANTS
+                if n not in kernel_lab.SPECIAL]
+    targets = [*_build.JOB_KERNELS, "op_chain", *lab.lab_targets(variants)]
+    built = _build.build(targets)
+
+    def label(t):
+        return t if isinstance(t, str) else f"{t[0]}[{' '.join(t[1])}]"
+
+    def log_of(t):
+        return _build.build_log(t) if isinstance(t, str) else _build.build_log(*t)
+
+    libs = {label(t): str(p) for t, p in built.items()}
+    ptxas = {label(t): [ln.strip() for ln in log_of(t).splitlines()
+                        if "registers" in ln or "spill" in ln][:6]
+             for t in built if t != "op_chain"}
+    spills = [ln for t in built for ln in log_of(t).splitlines()
+              if "spill" in ln and " 0 bytes spill stores, 0 bytes spill "
+              "loads" not in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "libraries": libs, "ptxas": ptxas})
+          "libraries": libs, "ptxas": ptxas, "lines_with_spills": spills})
 
     emit(phase_divide(dev))
     k1 = phase_k1(dev)
@@ -645,6 +956,12 @@ def run(dev: torch.device) -> None:
     emit(k3)
     sharded_path = phase_sharded_path(dev)
     emit(sharded_path)
+    l2 = phase_l2(dev)
+    emit(l2)
+    l1 = phase_l1(dev)
+    emit(l1)
+    autotune_path = phase_autotune_path(dev)
+    emit(autotune_path)
     times = phase_times(dev)
     emit(times)
 
@@ -680,6 +997,26 @@ def run(dev: torch.device) -> None:
          **common, "plain_ms": times["stencil_valid_plain_ms"],
          "bound_ms": times["stencil_valid_bound_ms"],
          "bound_by": times["stencil_valid_bound_by"]},
+        # L2 and L1 run on the tools' path, not the job's: their launches
+        # are those of the tool runs in phases l2 and l1.
+        {"name": "stencil_lab",
+         "source": "tpu_stencil_torch/ops/csrc/stencil_lab.cu",
+         "replaces": "tools/kernel_lab.py:254",
+         "launches": l2["tool_launches"],
+         "max_abs_err": l2["max_abs_err"],
+         "ms": times["stencil_lab_ms"],
+         **common, "plain_ms": times["stencil_lab_plain_ms"],
+         "unit": "ms per rep, 1920x2520 RGB gaussian x40, body `current`"},
+        {"name": "op_chain",
+         "source": "tpu_stencil_torch/ops/csrc/op_chain.cu",
+         "replaces": "tools/op_cost.py:31",
+         "launches": l1["tool_launches"],
+         "max_abs_err": l1["max_abs_err"],
+         "ms": times["op_chain_ms"], "route": "cuda", "ok": True,
+         "plain_ms": times["op_chain_plain_ms"],
+         "bound_ms": times["op_chain_bound_ms"],
+         "bound_by": times["op_chain_bound_by"],
+         "library_ms": None, "unit": times["op_chain_unit"]},
     ]})
     print(nvidia_smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

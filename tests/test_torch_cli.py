@@ -23,6 +23,10 @@ from tpu_stencil_torch import cli as tcli
 from tpu_stencil_torch import config as tconfig
 from tpu_stencil_torch.models.blur import IteratedConv2D
 
+# The tensors here are tiny: one thread each, and the cores stay with the
+# other test workers (their wall-clock assertions starve otherwise).
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIME_LINE = re.compile(r"^Execution time: \d+\.\d{3} sec$", re.M)
 W, H = 23, 19
@@ -210,3 +214,92 @@ def test_model_matches_jax_model():
         got = IteratedConv2D("edge", backend=backend, device="cpu").batch(
             clip, 7)
         np.testing.assert_array_equal(got[0].numpy(), want)
+
+
+# -- the tuning path: --backend autotune / auto -----------------------------
+
+
+@pytest.mark.parametrize("backend", ["autotune", "auto"])
+@pytest.mark.parametrize("image_type", ["grey", "rgb"])
+def test_autotune_on_the_cpu_writes_jax_bytes_and_reports_xla(
+        tmp_path, capsys, monkeypatch, image_type, backend):
+    from tpu_stencil_torch.runtime import autotune
+
+    cache = tmp_path / "autotune.json"
+    monkeypatch.setenv(autotune.ENV_CACHE, str(cache))
+    src = _raw(tmp_path, 3 if image_type == "rgb" else 1)
+    argv = [src, str(W), str(H), "9", image_type, "--backend", backend]
+    want = _jax_bytes(argv, str(tmp_path / "jax.raw"))
+    out = str(tmp_path / "port.raw")
+    before = autotune.probe_count
+    assert tcli.main(argv + ["--platform", "cpu", "--time", "--output",
+                             out]) == 0
+    stdout = capsys.readouterr().out
+    assert open(out, "rb").read() == want
+    assert "backend=xla mesh=None" in stdout
+    assert stdout.rstrip().splitlines()[1].endswith("tune_probes=0")
+    # off a card nothing is measured and nothing is written
+    assert autotune.probe_count == before and not cache.exists()
+
+
+def _tuned_measure(win):
+    """A measure under which ``pallas`` wins at schedule/geometry ``win``
+    = (schedule, block_h, fuse)."""
+    def measure(plan, shape, channels, backend, reps=0, schedule=None,
+                block_h=None, fuse=None, device=None):
+        if backend == "xla":
+            return 9e-6
+        if schedule != win[0]:
+            return 5e-6
+        return 1e-6 if (block_h, fuse) == win[1:] else 3e-6
+    return measure
+
+
+@pytest.mark.parametrize("win,report,launches", [
+    (("fused", 16, 4), "schedule=fused block_h=16 fuse=4",
+     "stencil_fused:0"),
+    (("fused", None, None), "schedule=fused mesh=None", "stencil_fused:0"),
+    (("deep", None, None), "schedule=deep mesh=None", "stencil_resident:0"),
+])
+def test_time_line_names_the_tuned_verdict(tmp_path, capsys, monkeypatch,
+                                           win, report, launches):
+    """A verdict given through the injected measure (the port pretends to
+    be on a card) is what runs and what ``--time`` names; the bytes stay
+    the JAX package's. A second job finds it on disk: zero probes."""
+    from tpu_stencil_torch.runtime import autotune
+
+    monkeypatch.setenv(autotune.ENV_CACHE, str(tmp_path / "autotune.json"))
+    monkeypatch.setattr(autotune, "_on_card", lambda device: True)
+    monkeypatch.setattr(autotune, "measure_backend", _tuned_measure(win))
+    src = _raw(tmp_path, 3)
+    argv = [src, str(W), str(H), "9", "rgb"]
+    want = _jax_bytes(argv + ["--backend", "xla"], str(tmp_path / "jax.raw"))
+    for run, probes in (("cold", None), ("warm", 0)):
+        out = str(tmp_path / f"{run}.raw")
+        assert tcli.main(argv + ["--backend", "autotune", "--platform", "cpu",
+                                 "--time", "--output", out]) == 0
+        line = capsys.readouterr().out.rstrip().splitlines()[1]
+        assert f"backend=pallas {report}" in line, line
+        assert launches in line
+        n = int(line.rsplit("tune_probes=", 1)[1])
+        assert (n > 0) if probes is None else (n == probes), line
+        assert open(out, "rb").read() == want
+
+
+def test_forced_knobs_win_over_the_verdict(tmp_path, capsys, monkeypatch):
+    from tpu_stencil_torch.runtime import autotune
+
+    monkeypatch.setenv(autotune.ENV_CACHE, str(tmp_path / "autotune.json"))
+    monkeypatch.setattr(autotune, "_on_card", lambda device: True)
+    monkeypatch.setattr(autotune, "measure_backend",
+                        _tuned_measure(("deep", None, None)))
+    src = _raw(tmp_path, 3)
+    out = str(tmp_path / "o.raw")
+    assert tcli.main([src, str(W), str(H), "9", "rgb", "--platform", "cpu",
+                      "--schedule", "pack", "--block-h", "8", "--fuse", "3",
+                      "--time", "--output", out]) == 0
+    line = capsys.readouterr().out.rstrip().splitlines()[1]
+    assert "backend=pallas schedule=fused block_h=8 fuse=3 mesh=None" in line
+    raw = __import__("json").load(open(tmp_path / "autotune.json"))
+    (key,) = raw["entries"]
+    assert "|forced=fused|bh=8|fz=3" in key

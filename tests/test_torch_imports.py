@@ -44,7 +44,18 @@ def _modules():
 def test_every_module_is_found():
     mods = _modules()
     for m in ("tpu_stencil_torch.ops.cuda_stencil", "tpu_stencil_torch.cli",
-              "tpu_stencil_torch.io.native", "tpu_stencil_torch.driver"):
+              "tpu_stencil_torch.io.native", "tpu_stencil_torch.driver",
+              "tpu_stencil_torch.ops.lab",
+              "tpu_stencil_torch.integrity.checksum",
+              "tpu_stencil_torch.resilience.errors",
+              "tpu_stencil_torch.resilience.retry",
+              "tpu_stencil_torch.resilience.deadline",
+              "tpu_stencil_torch.runtime.roofline",
+              "tpu_stencil_torch.runtime.autotune",
+              "tpu_stencil_torch.runtime.bench_sweep",
+              "tpu_stencil_torch.tools.kernel_lab",
+              "tpu_stencil_torch.tools.op_cost",
+              "tpu_stencil_torch.tools.bh_fuse_ab"):
         assert m in mods
 
 

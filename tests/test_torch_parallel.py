@@ -40,6 +40,10 @@ from tpu_stencil_torch.parallel import distributed, halo, mesh, partition
 from tpu_stencil_torch.parallel.sharded import ShardedRunner
 from tpu_stencil_torch.utils.timing import Timer
 
+# The tensors here are tiny: one thread each, and the cores stay with the
+# other test workers (their wall-clock assertions starve otherwise).
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
 FIELDS = ("mesh_shape", "tile", "padded_shape", "needs_mask", "backend",
@@ -461,3 +465,58 @@ def test_mesh_shape_validation_matches_jax():
         with pytest.raises(ValueError, match="mesh_shape must be two positive"):
             pkg.JobConfig("i.raw", 8, 8, 1, pkg.ImageType.GREY,
                           mesh_shape=(0, 2))
+
+
+# -- the tuning path on a mesh ----------------------------------------------
+
+
+def test_autotune_on_a_mesh_runs_and_reports_the_tile_verdict(
+        tmp_path, monkeypatch, capsys):
+    """``--backend autotune --mesh 2x2``: the runner resolves against the
+    per-device tile through the injected measure (the port pretends to be
+    on a card), runs the verdict's geometry in K3, ``JobResult`` and the
+    ``--time`` line name it, the bytes are the JAX package's, and a second
+    job makes zero probes."""
+    from tpu_stencil_torch import cli as tcli
+    from tpu_stencil_torch.runtime import autotune
+
+    monkeypatch.setenv(autotune.ENV_CACHE, str(tmp_path / "autotune.json"))
+    monkeypatch.setattr(autotune, "_on_card", lambda device: True)
+    shapes = []
+
+    def measure(plan, shape, channels, backend, reps=0, schedule=None,
+                block_h=None, fuse=None, device=None):
+        shapes.append(shape)
+        if backend == "xla":
+            return 9e-6
+        if schedule != "fused":
+            return 5e-6
+        return 1e-6 if (block_h, fuse) == (32, 10) else 3e-6
+
+    monkeypatch.setattr(autotune, "measure_backend", measure)
+    src = _raw(tmp_path, 3, size=(40, 32))
+    jcfg, _ = jconfig.parse_args([src, "32", "40", "9", "rgb", "--mesh", "2x2",
+                                  "--backend", "xla",
+                                  "--output", str(tmp_path / "j.raw")])
+    jdriver.run_job(jcfg, devices=jax.devices()[:4])
+    want = (tmp_path / "j.raw").read_bytes()
+    for run in ("cold", "warm"):
+        cfg = tconfig.JobConfig(src, 32, 40, 9, tconfig.ImageType.RGB,
+                                backend="autotune", mesh_shape=(2, 2),
+                                output=str(tmp_path / f"{run}.raw"))
+        res = tdriver.run_job(cfg, devices=[CPU] * 4)
+        assert (res.backend, res.schedule, res.block_h, res.fuse) == (
+            "pallas", "fused", 24, 10)  # (32, 10) on a 20-row tile
+        assert res.mesh_shape == (2, 2)
+        assert (res.tune_probes > 0) == (run == "cold")
+        assert (tmp_path / f"{run}.raw").read_bytes() == want
+    assert set(shapes) == {(20, 16)}  # tuned against the tile, not the image
+    # the CLI names it too (one device here, so --mesh 1x1: the whole image)
+    assert tcli.main([src, "32", "40", "9", "rgb", "--mesh", "1x1",
+                      "--backend", "autotune", "--platform", "cpu", "--time",
+                      "--output", str(tmp_path / "c.raw")]) == 0
+    line = capsys.readouterr().out.rstrip().splitlines()[1]
+    assert ("backend=pallas schedule=fused block_h=32 fuse=10 mesh=(1, 1)"
+            in line), line
+    assert "stencil_valid:0" in line and "tune_probes=" in line
+    assert (tmp_path / "c.raw").read_bytes() == want

@@ -40,6 +40,10 @@ def main(argv=None) -> int:
             # Effective launched geometry (post align/clamp).
             sched += f" block_h={result.block_h} fuse={result.fuse}"
         launches = ",".join(f"{k}:{v}" for k, v in result.launches.items())
+        if cfg.backend in ("auto", "autotune"):
+            # Measurements the autotuner made before the compute window
+            # (0 on a warm cache and off a card).
+            launches += f" tune_probes={result.tune_probes}"
         print(
             f"total (incl. I/O): {result.total_seconds:.3f} sec; "
             f"backend={result.backend}{sched} mesh={result.mesh_shape} "

@@ -159,8 +159,10 @@ def build_parser() -> argparse.ArgumentParser:
         "--backend", default="auto", choices=list(BACKENDS),
         help="compute backend: pallas (alias cuda) runs the hand-written "
              "CUDA kernels, xla (alias torch) runs torch ops, reference "
-             "the float32 plan in torch ops; auto and autotune run the "
-             "kernels on the GPU and torch ops on the CPU",
+             "the float32 plan in torch ops; auto and autotune measure "
+             "backend, schedule and kernel geometry once per (card, filter, "
+             "shape) on the GPU, cache the verdict on disk and run it; on "
+             "the CPU they run torch ops",
     )
     p.add_argument(
         "--mesh", default=None,

@@ -23,6 +23,7 @@ from tpu_stencil_torch.io import images as images_io
 from tpu_stencil_torch.io import raw as raw_io
 from tpu_stencil_torch.models.blur import IteratedConv2D
 from tpu_stencil_torch.ops import cuda_stencil
+from tpu_stencil_torch.runtime import autotune
 from tpu_stencil_torch.utils.timing import Timer, max_across_processes
 
 
@@ -90,18 +91,24 @@ class JobResult:
     mesh_shape: Optional[tuple]  # (R, C) of a sharded run, else None
     schedule: Optional[str] = None  # kernel schedule that ran
     # Effective kernel geometry that launched (post align/clamp), reported
-    # when the user forced it, and for a deep run on K1; None otherwise.
+    # when a non-default geometry applied (forced by the user, or the
+    # autotuner's verdict for this shape) and for a deep run on K1; None
+    # otherwise (defaults, the resident kernel, or xla).
     block_h: Optional[int] = None
     fuse: Optional[int] = None
     # Kernel launches of this job's compute window, by kernel name.
     launches: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # Measurements the autotuner made for this job, all before the compute
+    # window (0: a warm cache, an explicit backend, or no card).
+    tune_probes: int = 0
 
 
 def _ran_geometry(model: IteratedConv2D, rows: int, w: int, channels: int,
                   schedule: Optional[str]):
     """The (block_h, fuse) to report for a ``rows``-tall kernel launch:
     a deep run reports what ran (None, None for the resident kernel);
-    otherwise the effective geometry only when the user forced it."""
+    otherwise the effective geometry when the user forced either knob or
+    the autotuner picked a non-default one for this shape."""
     bh, fz = model.resolved_geometry((rows, w), channels)
     if schedule == cuda_stencil.DEEP:
         return cuda_stencil.deep_geometry(model.plan, rows, w, channels,
@@ -124,6 +131,7 @@ def run_job(cfg: JobConfig, device: Optional[torch.device] = None,
     if devices is None:
         devices = resolve_devices() if device is None else [device]
     devices = [torch.device(d) for d in devices]
+    probes_before = autotune.probe_count
     with Timer() as total_t:
         model = IteratedConv2D(cfg.filter_name, backend=cfg.backend,
                                schedule=cfg.schedule, boundary=cfg.boundary,
@@ -158,7 +166,7 @@ def run_job(cfg: JobConfig, device: Optional[torch.device] = None,
                 devices = devices[:1]
             if cfg.mesh_shape is not None:
                 devices = devices[:cfg.mesh_shape[0] * cfg.mesh_shape[1]]
-            return _run_sharded(cfg, model, devices, total_t)
+            return _run_sharded(cfg, model, devices, total_t, probes_before)
         device = devices[0]
         img = _load_input(cfg)
         img_dev, step_fn, fetch = prepare_engine(
@@ -197,11 +205,13 @@ def run_job(cfg: JobConfig, device: Optional[torch.device] = None,
         block_h=bh,
         fuse=fz,
         launches={k: after[k] - before[k] for k in after},
+        tune_probes=autotune.probe_count - probes_before,
     )
 
 
 def _run_sharded(cfg: JobConfig, model: IteratedConv2D,
-                 devices: List[torch.device], total_t: Timer) -> JobResult:
+                 devices: List[torch.device], total_t: Timer,
+                 probes_before: int = 0) -> JobResult:
     """One image over a mesh of ``devices``: each mesh row's band read once
     from a raw input (else the decoded image cut into tiles), K3 built
     outside the window, the rep loop fenced on every mesh device, each
@@ -227,7 +237,8 @@ def _run_sharded(cfg: JobConfig, model: IteratedConv2D,
         distributed.write_sharded(cfg.output_path, out, h, w, ch)
     else:
         images_io.save_image(cfg.output_path, runner.fetch(out))
-    # Report forced geometry as what K3 launches at this tile.
+    # Report an applied (forced or tuned) geometry as what K3 launches at
+    # this tile.
     sh_bh = sh_fuse = None
     if runner.geo_applied:
         sh_bh = runner.block_h_eff
@@ -245,4 +256,5 @@ def _run_sharded(cfg: JobConfig, model: IteratedConv2D,
         block_h=sh_bh,
         fuse=sh_fuse,
         launches={k: after[k] - before[k] for k in after},
+        tune_probes=autotune.probe_count - probes_before,
     )

@@ -13,10 +13,14 @@ The model has no learned weights: its parameters are the filter and its
 Backends (the JAX package's names; ``cuda`` and ``torch`` are aliases):
 ``pallas`` runs the hand-written kernels (their plain versions for CPU
 tensors), ``xla`` the torch-ops lowering, ``reference`` the f32 plan in
-torch ops, ``auto``/``autotune`` the kernels on a GPU and torch ops on the
-CPU. As in the JAX package, periodic boundaries, ``direct_f32`` plans and
-plans the kernels do not take run the torch-ops lowering, and the model
-reports that (``xla``).
+torch ops. ``auto`` and ``autotune`` resolve through
+:func:`tpu_stencil_torch.runtime.autotune.best_full_config`: on a GPU the
+backend, schedule and kernel geometry are measured once per (card, filter,
+shape), cached on disk and memoized in the model, and the launch runs the
+verdict unless ``schedule``/``block_h``/``fuse`` force it; on the CPU the
+answer is torch ops, without a measurement. As in the JAX package,
+periodic boundaries, ``direct_f32`` plans and plans the kernels do not take
+run the torch-ops lowering, and the model reports that (``xla``).
 """
 
 from __future__ import annotations
@@ -76,21 +80,47 @@ class IteratedConv2D(torch.nn.Module):
         self.plan = _lowering.plan_filter(self.filter)
         if self.backend == "reference":
             self.plan = _lowering.force_f32_plan(self.plan)
+        # (shape, channels) -> the autotuner's (backend, schedule, block_h,
+        # fuse): a job never pays the measurement twice, even where the
+        # disk cache cannot be written.
+        self._resolved: dict = {}
+
+    def _tuned(self, shape: Tuple[int, int], channels: int):
+        key = (tuple(shape), channels)
+        if key not in self._resolved:
+            from tpu_stencil_torch.runtime import autotune
+
+            self._resolved[key] = autotune.best_full_config(
+                self.plan, tuple(shape), channels,
+                force_schedule=self.schedule,
+                block_h=self.block_h, fuse=self.fuse, device=self.device,
+            )
+        return self._resolved[key]
 
     def resolved_config(
         self, shape: Tuple[int, int], channels: int
     ) -> Tuple[str, Optional[str]]:
         """The (backend, schedule) that runs for this shape: 'auto' and
-        'autotune' resolve by device, and a kernel run the kernels cannot
-        take resolves (and reports) 'xla'. ``shape`` is (H, W)."""
-        backend = self.backend
-        if backend in ("auto", "autotune"):
-            backend = "pallas" if self.device.type == "cuda" else "xla"
+        'autotune' consult the autotuner (measuring once per shape on a
+        card, memoized here); a kernel run the kernels cannot take
+        resolves (and reports) 'xla'. A constructor-forced ``schedule``
+        overrides the tuned one whenever the kernels run. ``shape`` is
+        (H, W)."""
+        if self.boundary != "zero":
+            # The kernels are zero-boundary only: never measure or name a
+            # backend that cannot run these semantics.
+            return ("xla" if self.backend in ("auto", "autotune", "pallas")
+                    else self.backend), None
+        if self.backend in ("auto", "autotune"):
+            backend, schedule = self._tuned(shape, channels)[:2]
+            if backend == "pallas" and self.schedule is not None:
+                schedule = self.schedule
+        else:
+            backend, schedule = self.backend, self.schedule
         if backend == "pallas":
-            if (self.boundary != "zero"
-                    or not cuda_stencil.plan_supported(self.plan, channels)):
+            if not cuda_stencil.plan_supported(self.plan, channels):
                 return "xla", None
-            return "pallas", cuda_stencil.effective_schedule(self.schedule)
+            return "pallas", cuda_stencil.effective_schedule(schedule)
         return backend, None
 
     def resolved_backend(self, shape: Tuple[int, int], channels: int) -> str:
@@ -99,15 +129,28 @@ class IteratedConv2D(torch.nn.Module):
     def resolved_geometry(
         self, shape: Tuple[int, int], channels: int
     ) -> Tuple[Optional[int], Optional[int]]:
-        """The forced (block_h, fuse) the launch uses (None = defaults)."""
-        return self.block_h, self.fuse
+        """The (block_h, fuse) the launch uses: constructor-forced values
+        win; otherwise the autotuned verdict for this shape (None = the
+        kernels' defaults). Shares :meth:`resolved_config`'s memo and
+        never re-measures."""
+        if self.block_h is not None or self.fuse is not None:
+            return self.block_h, self.fuse
+        hit = self._resolved.get((tuple(shape), channels))
+        if hit is not None:
+            return hit[2], hit[3]
+        return None, None
 
     def prepare(self, shape: Tuple[int, int], channels: int) -> None:
-        """Build (or load) the kernels this shape will launch, so that no
-        build lands in a timed window. Launches nothing."""
-        if (self.device.type == "cuda"
-                and self.resolved_backend(shape, channels) == "pallas"):
+        """Resolve the configuration for this shape ('auto'/'autotune'
+        measure here, on a cold cache) and build (or load) the kernels it
+        will launch, so that neither a measurement nor a build lands in a
+        timed window. Launches nothing of the job."""
+        if (self.device.type == "cuda" and self.boundary == "zero"
+                and self.backend in ("auto", "autotune", "pallas")
+                and cuda_stencil.plan_supported(self.plan, channels)):
+            # Built before any measurement: a probe times launches, not nvcc.
             cuda_stencil.build_kernels()
+        self.resolved_config(shape, channels)
 
     def _place(self, img) -> torch.Tensor:
         if isinstance(img, torch.Tensor):
@@ -120,11 +163,13 @@ class IteratedConv2D(torch.nn.Module):
         is never written."""
         x = self._place(img_u8)
         ch = x.shape[2] if x.dim() == 3 else 1
-        backend, _ = self.resolved_config(tuple(x.shape[:2]), ch)
+        shape2 = tuple(x.shape[:2])
+        backend, schedule = self.resolved_config(shape2, ch)
         if backend == "pallas":
+            bh, fz = self.resolved_geometry(shape2, ch)
             return cuda_stencil.iterate(
-                x, int(repetitions), self.plan, block_h=self.block_h,
-                fuse=self.fuse, schedule=self.schedule,
+                x, int(repetitions), self.plan, block_h=bh, fuse=fz,
+                schedule=schedule,
             )
         return _lowering.iterate(x, int(repetitions), self.plan,
                                  self.boundary)
@@ -141,11 +186,13 @@ class IteratedConv2D(torch.nn.Module):
         """Batched video/burst mode: (N, H, W[, C]) frames, never mixed."""
         x = self._place(imgs_u8)
         ch = x.shape[3] if x.dim() == 4 else 1
-        backend, _ = self.batch_config(tuple(x.shape[1:3]), ch)
+        frame_shape = tuple(x.shape[1:3])
+        backend, schedule = self.batch_config(frame_shape, ch)
         if backend == "pallas":
+            bh, fz = self.resolved_geometry(frame_shape, ch)
             return cuda_stencil.iterate_frames(
-                x, int(repetitions), self.plan, block_h=self.block_h,
-                fuse=self.fuse, schedule=self.schedule,
+                x, int(repetitions), self.plan, block_h=bh, fuse=fz,
+                schedule=schedule,
             )
         return _lowering.iterate_frames(x, int(repetitions), self.plan,
                                         self.boundary)

@@ -6,6 +6,12 @@ seconds), in ``build/kernels/`` at the root of the checkout. A library's
 file name carries a hash of its sources and flags, so a changed source
 rebuilds and an unchanged one is loaded as it is. A missing ``nvcc`` or a
 failed build raises :class:`KernelBuildError`; nothing falls back.
+
+A library may be built as a *variant*: the same source compiled with a tuple
+of ``-D`` defines (``("LAB_BODY=3", "LAB_NO_MASK=1")``), hashed into the
+file name with the sources and flags. A target is a library name or a
+``(name, defines)`` pair; :func:`build` starts one ``nvcc`` per target, all
+together.
 """
 
 from __future__ import annotations
@@ -16,7 +22,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple, Union
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -32,9 +38,18 @@ SOURCES: Dict[str, tuple] = {
     "stencil_fused": ("stencil_fused.cu", "stencil_tile.cuh"),
     "stencil_resident": ("stencil_resident.cu", "stencil_tile.cuh"),
     "stencil_valid": ("stencil_valid.cu", "stencil_tile.cuh"),
+    "stencil_lab": ("stencil_lab.cu", "stencil_tile.cuh"),
+    "op_chain": ("op_chain.cu",),
 }
 
-_LOADED: Dict[str, ctypes.CDLL] = {}
+# The libraries the job's path launches (what :func:`build` builds when
+# given no targets, and what :func:`fingerprint` names).
+JOB_KERNELS = ("stencil_fused", "stencil_resident", "stencil_valid")
+
+# A build target: a library name, or (name, defines).
+Target = Union[str, Tuple[str, Tuple[str, ...]]]
+
+_LOADED: Dict[Target, ctypes.CDLL] = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -56,33 +71,53 @@ def nvcc_path() -> str:
     )
 
 
-def library_path(name: str) -> Path:
-    """Where the library for ``name`` lives once built (hash-named)."""
+def _split(target: Target) -> Tuple[str, Tuple[str, ...]]:
+    if isinstance(target, str):
+        return target, ()
+    name, defines = target
+    return name, tuple(defines)
+
+
+def library_path(name: str, defines: Iterable[str] = ()) -> Path:
+    """Where the library for ``name`` built with ``defines`` lives once
+    built: the file name carries a hash of the flags, the sources and the
+    defines."""
     if name not in SOURCES:
         raise KeyError(f"unknown kernel library {name!r}")
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in SOURCES[name]:
         h.update(src.encode())
         h.update((CSRC / src).read_bytes())
+    for d in defines:
+        h.update(f" -D{d}".encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
-    """Build every library of ``names`` not built yet, one ``nvcc`` per
-    source, all started together. Returns name -> library path. Each
+def fingerprint(names: Iterable[str] = JOB_KERNELS) -> str:
+    """A short hash naming the sources and flags of the libraries
+    ``names``: it changes whenever one of them would be rebuilt."""
+    joined = "".join(library_path(n).name for n in names)
+    return hashlib.sha256(joined.encode()).hexdigest()[:12]
+
+
+def build(targets: Iterable[Target] = JOB_KERNELS) -> Dict[Target, Path]:
+    """Build every library of ``targets`` not built yet, one ``nvcc`` per
+    target, all started together. Returns target -> library path. Each
     build's compiler output (``-Xptxas -v``: registers, shared memory,
     spills) is kept beside the library as ``<lib>.log``."""
-    names = list(names)
-    paths = {n: library_path(n) for n in names}
-    todo = {n: p for n, p in paths.items() if not p.exists()}
+    targets = list(targets)
+    paths = {t: library_path(*_split(t)) for t in targets}
+    todo = {t: p for t, p in paths.items() if not p.exists()}
     if not todo:
         return paths
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for n, p in todo.items():
+        name, defines = _split(n)
         tmp = p.with_name(f"{p.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n][0])]
+        cmd = [nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
+               str(tmp), str(CSRC / SOURCES[name][0])]
         procs[n] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
@@ -101,20 +136,23 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
     return paths
 
 
-def build_log(name: str) -> str:
+def build_log(name: str, defines: Iterable[str] = ()) -> str:
     """The compiler output of the last build of ``name`` ('' if none)."""
-    log = library_path(name).with_name(library_path(name).name + ".log")
+    path = library_path(name, defines)
+    log = path.with_name(path.name + ".log")
     return log.read_text() if log.exists() else ""
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``name``, building it first if needed."""
-    lib = _LOADED.get(name)
+def load(name: str, defines: Iterable[str] = ()) -> ctypes.CDLL:
+    """The loaded library for ``name`` (built with ``defines``), building
+    it first if needed."""
+    target = (name, tuple(defines)) if defines else name
+    lib = _LOADED.get(target)
     if lib is None:
-        path = build([name])[name]
+        path = build([target])[target]
         try:
             lib = ctypes.CDLL(str(path))
         except OSError as e:
             raise KernelBuildError(f"cannot load {path}: {e}") from e
-        _LOADED[name] = lib
+        _LOADED[target] = lib
     return lib

@@ -66,7 +66,6 @@ DEEP_FUSE_CANDIDATES = (64, 48, 40, 32, 24, 16, 12, 8)
 FUSED = "fused"   # the reported schedule of every K1 run
 DEEP = "deep"
 
-
 class KernelLaunchError(RuntimeError):
     """A kernel launch was refused (the C entry returned a cudaError_t)."""
 
@@ -77,7 +76,10 @@ class KernelLaunchError(RuntimeError):
 
 
 def check_schedule(schedule: Optional[str]) -> Optional[str]:
-    if schedule is not None and schedule not in PALLAS_SCHEDULES:
+    """``schedule`` if it is a name the kernels take: the JAX package's
+    schedule names, or 'fused', the name every K1 run reports (what the
+    autotuner's verdicts carry)."""
+    if schedule is not None and schedule not in PALLAS_SCHEDULES + (FUSED,):
         raise ValueError(
             f"schedule must be one of {'|'.join(PALLAS_SCHEDULES)}, "
             f"got {schedule!r}"

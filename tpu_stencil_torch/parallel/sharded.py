@@ -175,9 +175,14 @@ class ShardedRunner:
                 f"to divide the mesh grid {self.mesh_shape}; pick a mesh "
                 "that divides the image or run single-device"
             )
-        # auto/autotune: the kernels on a card, torch ops on the CPU; a
-        # plan K3 cannot take, or a periodic run, resolves to xla.
-        self.backend = model.resolved_config(tile, channels)[0]
+        # auto/autotune resolve against the per-device TILE, the unit the
+        # local kernel runs on (a proxy: the autotuner times K1's rep loop
+        # on a tile-sized image, not K3, but they share the tile code):
+        # the autotune cache is consulted, and on a card a cold cache
+        # measures once per tile shape. One process holds every tile, so
+        # the model's verdict needs no agreement step. A plan K3 cannot
+        # take, or a periodic run, resolves to xla.
+        self.backend, tuned_schedule = model.resolved_config(tile, channels)
         halo = model.plan.halo
         if min(tile) < halo:
             # One exchange hop supplies at most one neighbour tile of
@@ -190,13 +195,22 @@ class ShardedRunner:
         self.needs_mask = bool(ph or pw)
         self.fuse = 1
         self.schedule = None
-        # The kernel geometry K3 launches: user-forced --block-h/--fuse,
-        # else the defaults; block_h_eff is reported only when forced.
-        forced_bh, geo_fz = model.block_h, model.fuse
+        # The kernel geometry K3 launches: user-forced --block-h/--fuse
+        # wins, else the tuned verdict for this tile (resolved_geometry
+        # gives exactly that precedence), else the defaults; block_h_eff is
+        # the tile height at this tile, reported when either applied. A
+        # tuned geometry shallower than the default fuse is not taken: the
+        # probe times K1 alone, and here every chunk also costs a halo
+        # exchange the probe never saw, so fewer reps per chunk can only
+        # be judged by timing this runner.
+        geo_bh, geo_fz = model.resolved_geometry(tile, channels)
+        forced = model.block_h is not None or model.fuse is not None
+        if not forced and geo_fz is not None and geo_fz < cs.DEFAULT_FUSE:
+            geo_bh = geo_fz = None
         self.block_h_eff = None
         self.geo_applied = False
         if self.backend == "pallas":
-            if cs.effective_schedule(model.schedule) == cs.DEEP:
+            if tuned_schedule == cs.DEEP:
                 # 'deep' deepens the exchange chunk to the deep depth; K3
                 # has no resident form, so the schedule reported is the
                 # one that launches.
@@ -204,7 +218,7 @@ class ShardedRunner:
                     geo_fz = cs.deep_fuse_for(
                         model.plan,
                         cs.effective_block_h(model.plan, tile[0], channels,
-                                             forced_bh),
+                                             geo_bh),
                         channels,
                     )
             self.schedule = cs.FUSED
@@ -217,16 +231,16 @@ class ShardedRunner:
             elif not self.needs_mask:
                 self.fuse = want
             bh, self.fuse = cs.valid_geometry(model.plan, tile[0], channels,
-                                              self.fuse, forced_bh)
-            if forced_bh is not None:
+                                              self.fuse, geo_bh)
+            if geo_bh is not None:
                 self.block_h_eff = bh
-            self.geo_applied = forced_bh is not None or geo_fz is not None
+            self.geo_applied = geo_bh is not None or geo_fz is not None
         self._fn = build_sharded_iterate(
             model.plan, self.needs_mask, backend=self.backend,
             global_shape=(self.padded_shape[0],
                           self.padded_shape[1] * channels),
             fuse=self.fuse, boundary=self.boundary,
-            block_h=forced_bh if self.backend == "pallas" else None,
+            block_h=geo_bh if self.backend == "pallas" else None,
         )
         self._mask = None
         if self.needs_mask:
