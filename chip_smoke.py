@@ -18,10 +18,17 @@ one JSON line. The phases that pin launch counts name ``--backend pallas``
 2. ``divide`` — the torch-ops float32 divide on the card is correctly
    rounded over every accumulator of the box and edge plans.
 3. ``k1`` — K1 ``stencil_fused`` against its plain version, byte for byte,
-   at 1920x2520 RGB gaussian x{1,7,8,9,40}, grey gaussian x40, box and
-   edge RGB x9 (the float32 divide), gaussian5 RGB x9, and
-   ``iterate_frames`` on 3 frames of 256x320 RGB x9; plus small images
-   against the NumPy golden model.
+   in every tile body (``swar``: gaussian, gaussian5, identity; ``acc16``:
+   gaussian7, box; ``int32``: edge, direct16), each in grey and RGB at
+   the main path's width (1920) and at widths whose flat row is not a
+   multiple of 16 lanes (grey 1917, RGB 1921), 2520 rows (a ragged last
+   tile row and column), x9; gaussian RGB 1920x2520 also x{1,7,8,40};
+   ``iterate_frames`` on 3 frames of 256x320 RGB x9 per body (the gap
+   rows); after each launch the body the library ran must be the one
+   ``cuda_stencil.tile_body`` names. Plus small images against the NumPy
+   golden model, and the no-fallback check: with the K1 library's build
+   forced to fail, ``iterate`` raises ``KernelBuildError`` and launches
+   nothing, and the torch-ops path is not called.
 4. ``k2`` — K2 ``stencil_resident`` against its plain version at
    1920x2520 RGB x40 ``deep`` (one K2 launch, no K1 launch), the same
    for box, edge, gaussian5, grey and 3 frames, and a deep run past the
@@ -35,9 +42,10 @@ one JSON line. The phases that pin launch counts name ``--backend pallas``
    on the card.
 6. ``k3`` — K3 ``stencil_valid`` against its plain version, byte for
    byte, on the ghost-extended tiles of every shard position of a 2x2
-   grid over a seeded 1920x2520 RGB image (corner, edge and interior
-   global origins), at fuse 1 and 8 for gaussian, box, edge and
-   gaussian5, grey gaussian at fuse 8, and a direct-int plan that shifts.
+   grid (corner, edge and interior global origins) over seeded 1920x2520
+   and 1918x2520 images (the second gives shards of odd width), grey and
+   RGB, at fuse 1 and 8, in every tile body (the filters of ``k1``), the
+   body that ran checked against ``tile_body``.
 7. ``sharded_path`` — the sharded runner on ``devices=[cuda:0] * R*C`` at
    1920x2520 RGB gaussian x40 for meshes 1x1, 2x2, 1x4 and 4x1, each
    byte-equal to K1's ``iterate`` and to the torch-ops path, with
@@ -47,14 +55,15 @@ one JSON line. The phases that pin launch counts name ``--backend pallas``
    ``driver.run_job`` with mesh 2x2 over ``[cuda:0] * 4`` writing the
    file.
 8. ``l2`` — L2 ``stencil_lab``: every exact variant (``current``,
-   ``pair``, ``acc16``, ``swar``) against its plain version and against
+   ``pair``, ``acc16``, ``swar``, ``tile``) against its plain version and against
    K1's bytes at 1920x2520 RGB gaussian, fuse 8 at 32 rows and fuse 4 at
    64 rows, plus gaussian5 and grey; the host's shared-memory model
    against the library's own; then the kernel lab tool
    (``tpu_stencil_torch.tools.kernel_lab``) over its whole table with the
    launch counter set to 0 just before, and the timing table of all
    variants and ablations (ms per rep x40, interleaved, median of 7, L2
-   flushed) with ``current / shipped``.
+   flushed) with ``current / shipped``: ``current`` is K1 as it was before
+   its tile was redesigned (the baseline), ``shipped`` K1 as it is.
 9. ``l1`` — L1 ``op_chain``: every case at a chain of 3 (where no case's
    output is constant, which is checked) and at both timed chains, 8 and
    16, against its plain version (byte-equal; float cases within 1),
@@ -74,9 +83,14 @@ one JSON line. The phases that pin launch counts name ``--backend pallas``
    fuse 8), L2's ``current`` body, one L1 launch (``add_i32``, chain of
    8), the whole 2x2 sharded runner under ``pallas`` and under ``auto``
    taking turns (``auto`` must not chunk shallower nor take 1.5x the
-   time), their plain versions, the torch-ops path, and one depthwise float32 ``F.conv2d`` rep (TF32 off) as the
-   library yardstick, which the port never calls; and each kernel's
-   bound.
+   time), their plain versions, the torch-ops path, and one depthwise
+   float32 ``F.conv2d`` rep (TF32 off) as the library yardstick, which
+   the port never calls; and each kernel's bound. Then the tile
+   redesign's A/B, every set taking turns: K1 and K3's ext tile against
+   the lab's ``current`` (the baseline) and ``swar`` on gaussian; K1
+   against ``current`` on gaussian5, gaussian7 and box, K1 alone on edge;
+   4 frames as one tall launch against 1 frame; and each body's resident
+   blocks per SM at 32x8 (the library's occupancy query).
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -113,7 +127,13 @@ ODD_W, ODD_H = 1921, 2519  # indivisible by a 2x2 grid: the pad mask
 MESHES = ((1, 1), (2, 2), (1, 4), (4, 1))
 NO_LAUNCHES = {"stencil_fused": 0, "stencil_resident": 0, "stencil_valid": 0}
 PALLAS = ["--backend", "pallas"]  # pins K1/K2/K3 at the default geometry
-LAB_EXACT = ("current", "pair", "acc16", "swar")
+LAB_EXACT = ("current", "pair", "acc16", "swar", "tile")
+# The filters that hold each tile body of K1 and K3.
+BODY_FILTERS = {"swar": ("gaussian", "gaussian5", "identity"),
+                "acc16": ("gaussian7", "box"),
+                "int32": ("edge", "direct16")}
+# Widths whose flat row (W * C) is not a multiple of 16 lanes, per C.
+RAGGED_W = {1: 1917, 3: 1921}
 
 
 def emit(obj) -> None:
@@ -171,37 +191,59 @@ def flat_plain(img: torch.Tensor, plan, reps: int) -> torch.Tensor:
     return cuda_stencil.stencil_fused_plain(x2, plan, c, reps).reshape(img.shape)
 
 
+def check_body(kernel: str, plan, name: str) -> None:
+    """The body ``kernel``'s library ran last must be the plan's."""
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+
+    ran, want = cs.ran_body(kernel), cs.tile_body(plan)
+    require(ran == want, f"{kernel} {name}: ran body {ran}, tile_body "
+            f"names {want}")
+
+
 def phase_k1(dev) -> dict:
     from tpu_stencil_torch.ops import cuda_stencil as cs
     from tpu_stencil_torch.ops.stencil import reference_stencil_numpy
     from tpu_stencil_torch import filters
 
     worst, cases = 0, []
+
+    def case(label, got, want, plan, name):
+        nonlocal worst
+        check_body("stencil_fused", plan, name)
+        err = max_err(got, want)
+        worst = max(worst, err)
+        cases.append({"case": label, "body": cs.tile_body(plan), "err": err})
+
     rgb = seeded((MAIN_H, MAIN_W, 3), 1, dev)
-    grey = seeded((MAIN_H, MAIN_W), 2, dev)
     g = plan_of("gaussian")
     # One launch of the wrapper at the main path's shapes, fused and single.
     x2 = rgb.reshape(MAIN_H, -1)
     bh, fz = cs.effective_geometry(g, MAIN_H, 3)
     for depth in (fz, 1):
         out = cs.stencil_fused(x2, g, 3, depth, block_h=bh)
-        err = max_err(out, cs.stencil_fused_plain(x2, g, 3, depth))
-        worst = max(worst, err)
-        cases.append({"case": f"wrapper rgb gaussian fuse={depth}", "err": err})
-    runs = [(rgb, "gaussian", r) for r in (1, 7, 8, 9, 40)]
-    runs += [(grey, "gaussian", 40), (rgb, "box", 9), (rgb, "edge", 9),
-             (rgb, "gaussian5", 9)]
-    for img, name, reps in runs:
-        p = plan_of(name)
-        err = max_err(cs.iterate(img, reps, p), flat_plain(img, p, reps))
-        worst = max(worst, err)
-        cases.append({"case": f"{tuple(img.shape)} {name} x{reps}", "err": err})
-    frames = seeded(FRAMES_SHAPE, 3, dev)
-    out = cs.iterate_frames(frames, 9, g)
-    want = torch.stack([flat_plain(f, g, 9) for f in frames])
-    err = max_err(out, want)
-    worst = max(worst, err)
-    cases.append({"case": f"frames {FRAMES_SHAPE} gaussian x9", "err": err})
+        case(f"wrapper rgb gaussian fuse={depth}", out,
+             cs.stencil_fused_plain(x2, g, 3, depth), g, "gaussian")
+    for reps in (1, 7, 8, 40):
+        case(f"{tuple(rgb.shape)} gaussian x{reps}", cs.iterate(rgb, reps, g),
+             flat_plain(rgb, g, reps), g, "gaussian")
+    # Every body, grey and RGB, aligned and ragged widths, x9.
+    for body, names in BODY_FILTERS.items():
+        for c in (1, 3):
+            for w in (MAIN_W, RAGGED_W[c]):
+                shape = (MAIN_H, w, c) if c > 1 else (MAIN_H, w)
+                img = seeded(shape, 2 + w + c, dev)
+                for name in names:
+                    p = plan_of(name)
+                    require(cs.tile_body(p) == body,
+                            f"{name} runs {cs.tile_body(p)}, not {body}")
+                    case(f"{shape} {name} x9", cs.iterate(img, 9, p),
+                         flat_plain(img, p, 9), p, name)
+        # The frames layout (gap rows re-zeroed every rep).
+        frames = seeded(FRAMES_SHAPE, 3, dev)
+        p = plan_of(names[0])
+        case(f"frames {FRAMES_SHAPE} {names[0]} x9",
+             cs.iterate_frames(frames, 9, p),
+             torch.stack([flat_plain(f, p, 9) for f in frames]), p, names[0])
     # Small images against the pure-NumPy golden model (K1 and K2).
     small = np.random.default_rng(4).integers(0, 256, (21, 17, 3), np.uint8)
     for name in ("gaussian", "box", "edge", "gaussian5"):
@@ -217,7 +259,46 @@ def phase_k1(dev) -> dict:
     bad = [c for c in cases if c["err"]]
     require(not bad, f"K1 disagrees with its plain version: {bad}")
     return {"phase": "k1", "ok": True, "cases": len(cases),
-            "max_abs_err": worst}
+            "max_abs_err": worst, "no_fallback": check_no_fallback(dev)}
+
+
+def check_no_fallback(dev) -> dict:
+    """With K1's library failing to build (nvcc replaced by ``false``, an
+    empty build directory), ``iterate`` on a card tensor must raise
+    KernelBuildError, launch nothing and not call the torch-ops path."""
+    import tempfile
+
+    from tpu_stencil_torch.ops import _build
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+    from tpu_stencil_torch.ops import lowering
+
+    g = plan_of("gaussian")
+    img = seeded((64, 48, 3), 13, dev)
+    saved = (_build.nvcc_path, _build.BUILD_DIR, dict(_build._LOADED),
+             lowering.iterate)
+    called = []
+    raised = None
+    with tempfile.TemporaryDirectory(dir=WORK) as tmp:
+        _build.nvcc_path = lambda: "false"
+        _build.BUILD_DIR = Path(tmp)
+        _build._LOADED.clear()
+        lowering.iterate = lambda *a, **k: called.append(a)
+        cs.reset_launch_counts()
+        try:
+            cs.iterate(img, 9, g)
+        except _build.KernelBuildError as e:
+            raised = str(e).splitlines()[0]
+        finally:
+            (_build.nvcc_path, _build.BUILD_DIR, loaded,
+             lowering.iterate) = saved
+            _build._LOADED.clear()
+            _build._LOADED.update(loaded)
+    counts = cs.launch_counts()
+    require(raised is not None, "a failed K1 build did not raise")
+    require(counts == NO_LAUNCHES and not called,
+            f"a failed K1 build fell back: launches {counts}, torch ops "
+            f"called {len(called)} times")
+    return {"body": cs.tile_body(g), "raised": raised, "launches": counts}
 
 
 def phase_divide(dev) -> dict:
@@ -363,16 +444,21 @@ def phase_main_path(dev) -> dict:
     base = [str(src), str(MAIN_W), str(MAIN_H), str(MAIN_REPS), "rgb",
             "--time", *PALLAS]
     out = {}
-    for label, extra, expect in (
+    for label, extra, expect, body in (
         ("default", [], launches(
-            stencil_fused=MAIN_REPS // fuse + MAIN_REPS % fuse)),
-        ("deep", ["--schedule", "deep"], launches(stencil_resident=1)),
+            stencil_fused=MAIN_REPS // fuse + MAIN_REPS % fuse),
+         cs.tile_body(g)),
+        ("deep", ["--schedule", "deep"], launches(stencil_resident=1),
+         cs.RESIDENT_BODY),
     ):
         for temp, runner in (("cold", run_cli_cold), ("warm", run_cli)):
             dst = WORK / f"blur_{label}_{temp}.raw"
             lines, counts = runner(base + extra + ["--output", str(dst)])
             require(counts == expect, f"main path {label} {temp}: launches "
                     f"{counts}, expected {expect}")
+            require(f" body={body}" in lines[1],
+                    f"main path {label} {temp} must report body={body}: "
+                    f"{lines[1]}")
             got = np.fromfile(dst, np.uint8).reshape(img.shape)
             err = int(np.abs(got.astype(int) - want.astype(int)).max())
             require(err == 0,
@@ -400,31 +486,36 @@ def ext_tile(img: torch.Tensor, i: int, j: int, grid, g: int) -> torch.Tensor:
 def phase_k3(dev) -> dict:
     """K3 against its plain version at every shard position of a 2x2 grid
     (corner, edge and interior origins all occur: each tile has two image
-    edges and two neighbour edges), at the sharded path's shapes."""
+    edges and two neighbour edges), at the sharded path's shapes and at a
+    width whose shards are odd, in every tile body."""
     from tpu_stencil_torch.ops import cuda_stencil as cs
 
-    rgb = seeded((MAIN_H, MAIN_W, 3), 11, dev)
-    grey = seeded((MAIN_H, MAIN_W), 12, dev)
     grid = (2, 2)
-    runs = [(rgb, name, fuse) for name in ("gaussian", "box", "edge",
-                                           "gaussian5") for fuse in (1, 8)]
-    runs += [(grey, "gaussian", 8), (rgb, "direct16", 8)]
     worst, cases = 0, []
-    for img, name, fuse in runs:
-        p = plan_of(name)
-        c = img.shape[2] if img.dim() == 3 else 1
-        th, tw = MAIN_H // grid[0], MAIN_W // grid[1]
-        glob = (MAIN_H, MAIN_W * c)
-        for i in range(grid[0]):
-            for j in range(grid[1]):
-                ext = ext_tile(img, i, j, grid, fuse * p.halo)
-                got = cs.valid_fused(ext, p, fuse, c, i * th, j * tw * c, glob)
-                want = cs.stencil_valid_plain(ext, p, c, fuse, i * th,
-                                              j * tw * c, glob)
-                err = max_err(got, want)
-                worst = max(worst, err)
-                cases.append({"case": f"{name} C={c} fuse={fuse} tile=({i},{j})",
-                              "err": err})
+    for w in (MAIN_W, MAIN_W - 2):  # 1918: shards 959 pixels wide
+        for c in (1, 3):
+            shape = (MAIN_H, w, c) if c > 1 else (MAIN_H, w)
+            img = seeded(shape, 11 + w + c, dev)
+            th, tw = MAIN_H // grid[0], w // grid[1]
+            glob = (MAIN_H, w * c)
+            for body, names in BODY_FILTERS.items():
+                for name in names:
+                    p = plan_of(name)
+                    for fuse in (1, 8):
+                        for i in range(grid[0]):
+                            for j in range(grid[1]):
+                                ext = ext_tile(img, i, j, grid, fuse * p.halo)
+                                got = cs.valid_fused(ext, p, fuse, c, i * th,
+                                                     j * tw * c, glob)
+                                check_body("stencil_valid", p, name)
+                                want = cs.stencil_valid_plain(
+                                    ext, p, c, fuse, i * th, j * tw * c, glob)
+                                err = max_err(got, want)
+                                worst = max(worst, err)
+                                cases.append({
+                                    "case": f"{name} {shape} fuse={fuse} "
+                                            f"tile=({i},{j})",
+                                    "body": body, "err": err})
     torch.cuda.synchronize()
     bad = [c for c in cases if c["err"]]
     require(not bad, f"K3 disagrees with its plain version: {bad}")
@@ -505,7 +596,9 @@ def phase_sharded_path(dev) -> dict:
         lines, counts = runner(base + ["--output", str(dst)])
         require(counts == expect,
                 f"--mesh 1x1 {temp}: launches {counts}, expected {expect}")
-        require("mesh=(1, 1)" in lines[1], f"--mesh 1x1 {temp}: {lines[1]}")
+        require("mesh=(1, 1)" in lines[1]
+                and f" body={cs.tile_body(g)}" in lines[1],
+                f"--mesh 1x1 {temp}: {lines[1]}")
         got = np.fromfile(dst, np.uint8).reshape(img.shape)
         err = int(np.abs(got.astype(int) - want.astype(int)).max())
         require(err == 0, f"--mesh 1x1 {temp} disagrees with torch ops ({err})")
@@ -520,12 +613,15 @@ def phase_sharded_path(dev) -> dict:
                            backend="pallas", output=str(dst))
     res = driver.run_job(cfg, devices=[dev] * 4)
     expect = launches(stencil_valid=5 * 4)
-    require(res.launches == expect and res.mesh_shape == (2, 2),
-            f"run_job 2x2: launches {res.launches} mesh {res.mesh_shape}")
+    require(res.launches == expect and res.mesh_shape == (2, 2)
+            and res.body == cs.tile_body(g),
+            f"run_job 2x2: launches {res.launches} mesh {res.mesh_shape} "
+            f"body {res.body}")
     got = np.fromfile(dst, np.uint8).reshape(img.shape)
     err = int(np.abs(got.astype(int) - want.astype(int)).max())
     require(err == 0, f"run_job 2x2 disagrees with torch ops ({err})")
     out["run_job_mesh2x2"] = {"launches": res.launches, "max_abs_err": err,
+                              "body": res.body,
                               "compute_seconds": res.compute_seconds}
     worst = max(v["max_abs_err"] for v in out.values())
     return {"phase": "sharded_path", "ok": True, "shape": list(img.shape),
@@ -891,11 +987,97 @@ def phase_times(dev) -> dict:
     r["op_chain_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     r["op_chain_unit"] = (f"ms per launch, add_i32 chain of 8, {grid} tiles "
                           f"of {ib}x{wc}, {b} rows of each stored")
+    r["tile_ab"] = tile_ab(img, dev)
     r["clocks_power"] = nvidia_smi(
         "clocks.sm,power.draw,power.limit,temperature.gpu")
     return {"phase": "times", "unit": "ms per rep",
             "shape": [MAIN_H, MAIN_W, MAIN_C], "reps": n, "filter": "gaussian",
             **r}
+
+
+def tile_ab(img: torch.Tensor, dev) -> dict:
+    """The tile redesign's A/B in this call, every set taking turns (ms per
+    rep x40, median of 7, L2 flushed): K1 and K3's ext tile (fuse 8)
+    against the lab's ``current`` (K1 before the redesign) and ``swar``
+    on gaussian; K1 against ``current`` per body filter; 4 frames as one
+    tall launch against 1 frame (per frame and rep); and each body's
+    resident blocks per SM at 32x8."""
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+    from tpu_stencil_torch.ops import lab
+
+    n = MAIN_REPS
+    cur, swar = lab.parse_variant("current"), lab.parse_variant("swar")
+    out = {}
+    for name in ("gaussian", "gaussian5", "gaussian7", "box", "edge"):
+        p = plan_of(name)
+        fns = {"k1": lambda p=p: cs.iterate(img, n, p)}
+        if name == "gaussian":
+            fz = cs.DEFAULT_FUSE
+            ext = ext_tile(img, 0, 0, (1, 1), fz * p.halo)
+            glob = (MAIN_H, MAIN_W * MAIN_C)
+            # the ext tile's 8 reps, scaled to the 40 of the other rows
+            fns["k3_ext"] = lambda: [cs.valid_fused(ext, p, fz, MAIN_C, 0, 0,
+                                                    glob)
+                                     for _ in range(n // fz)]
+        if lab.variant_supported(cur, p):
+            fns["lab_current"] = lambda p=p: lab.lab_iterate(img, n, p, cur)
+        if lab.variant_supported(swar, p):
+            fns["lab_swar"] = lambda p=p: lab.lab_iterate(img, n, p, swar)
+        row = {k: v / n for k, v in interleaved_ms(fns, dev).items()}
+        if "lab_current" in row:
+            row["k1_over_current"] = row["k1"] / row["lab_current"]
+        if "k3_ext" in row:
+            row["k3_over_current"] = row["k3_ext"] / row["lab_current"]
+        out[name] = {"body": cs.tile_body(p), **row}
+    g = plan_of("gaussian")
+    frames = seeded((4, MAIN_H, MAIN_W, MAIN_C), 14, dev)
+    both = interleaved_ms({"one": lambda: cs.iterate(img, n, g),
+                           "four": lambda: cs.iterate_frames(frames, n, g)},
+                          dev)
+    out["frames"] = {"one_frame_ms": both["one"] / n,
+                     "four_frames_per_frame_ms": both["four"] / (4 * n),
+                     "ratio": both["four"] / (4 * both["one"])}
+    occ = {}
+    for body, name in (("swar", "gaussian"), ("acc16", "gaussian7"),
+                       ("int32", "edge")):
+        p = plan_of(name)
+        bh, fz = cs.effective_geometry(p, MAIN_H, MAIN_C)
+        occ[body] = {"filter": name, "block_h": bh, "fuse": fz,
+                     "smem_bytes": cs.kernel_smem_bytes("stencil_fused", p,
+                                                        bh, fz, MAIN_C),
+                     "k1_blocks_per_sm": cs.blocks_per_sm(
+                         "stencil_fused", p, bh, fz, MAIN_C),
+                     "k3_blocks_per_sm": cs.blocks_per_sm(
+                         "stencil_valid", p, bh, fz, MAIN_C)}
+        require(occ[body]["smem_bytes"] == cs.tile_smem_bytes(p, bh, fz,
+                                                              MAIN_C),
+                f"{body}: the host's shared-memory model disagrees with the "
+                "library's")
+    out["blocks_per_sm"] = occ
+    return out
+
+
+def tile_instances(log: str) -> dict:
+    """Registers and spills of every (filter size, body) instance of a tile
+    kernel, from its ``-Xptxas -v`` build log: ``"k3 swar" -> {...}``
+    (k0: the filter size read at run time)."""
+    import re
+
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+
+    out, key = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '_Z\d+\w+?_kernelILi(\d+)"
+                      r"ELi(\d+)E", ln)
+        if m:
+            key = f"k{m.group(1)} {cs.BODIES[int(m.group(2))]}"
+            out[key] = {}
+        elif key and "registers" in ln:
+            out[key]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                  ln).group(1))
+        elif key and "spill" in ln:
+            out[key]["spill"] = ln.strip()
+    return out
 
 
 def run(dev: torch.device) -> None:
@@ -938,7 +1120,10 @@ def run(dev: torch.device) -> None:
     libs = {label(t): str(p) for t, p in built.items()}
     ptxas = {label(t): [ln.strip() for ln in log_of(t).splitlines()
                         if "registers" in ln or "spill" in ln][:6]
-             for t in built if t != "op_chain"}
+             for t in built if t not in ("op_chain", "stencil_fused",
+                                         "stencil_valid")}
+    for t in ("stencil_fused", "stencil_valid"):
+        ptxas[t] = tile_instances(log_of(t))
     spills = [ln for t in built for ln in log_of(t).splitlines()
               if "spill" in ln and " 0 bytes spill stores, 0 bytes spill "
               "loads" not in ln]
@@ -979,7 +1164,8 @@ def run(dev: torch.device) -> None:
          "max_abs_err": max(k1["max_abs_err"],
                             runs["default_warm"]["max_abs_err"],
                             runs["default_cold"]["max_abs_err"]),
-         "ms": times["stencil_fused_ms"], **common},
+         "ms": times["stencil_fused_ms"], **common,
+         "body": times["tile_ab"]["gaussian"]["body"]},
         {"name": "stencil_resident",
          "source": "tpu_stencil_torch/ops/csrc/stencil_resident.cu",
          "replaces": "tpu_stencil/ops/pallas_stencil.py:1079",
@@ -996,7 +1182,8 @@ def run(dev: torch.device) -> None:
          "ms": times["stencil_valid_ms"],
          **common, "plain_ms": times["stencil_valid_plain_ms"],
          "bound_ms": times["stencil_valid_bound_ms"],
-         "bound_by": times["stencil_valid_bound_by"]},
+         "bound_by": times["stencil_valid_bound_by"],
+         "body": times["tile_ab"]["gaussian"]["body"]},
         # L2 and L1 run on the tools' path, not the job's: their launches
         # are those of the tool runs in phases l2 and l1.
         {"name": "stencil_lab",

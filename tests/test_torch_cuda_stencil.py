@@ -201,9 +201,12 @@ def test_deep_depth_and_feasibility_verdicts():
     _, g = _plans("gaussian")
     assert cs.deep_fuse_for(g, 32, 3) == 8       # 2*8*1 <= 32/2
     assert cs.deep_fuse_for(g, 64, 3) == 16
-    # at 128 rows the overhead cap allows 32, shared memory only 8
-    assert cs.deep_fuse_for(g, 128, 3) == 8
-    assert cs.tile_smem_bytes(g, 128, 12, 3) > cs.SMEM_LIMIT
+    # at 128 rows the overhead cap allows 32, shared memory only 16 in
+    # gaussian's swar body (4 bytes per element), 8 in the int32 body
+    assert cs.deep_fuse_for(g, 128, 3) == 16
+    assert cs.tile_smem_bytes(g, 128, 24, 3) > cs.SMEM_LIMIT
+    assert cs.deep_fuse_for(g, 128, 3, body="int32") == 8
+    assert cs.tile_smem_bytes(g, 128, 12, 3, body="int32") > cs.SMEM_LIMIT
     assert cs.effective_geometry(g, 2520, 3, schedule="deep") == (32, 8)
     # the reference job fits the resident kernel; 4K-by-8K RGB does not
     assert cs.resident_feasible(g, 2520, 1920 * 3, 3)

@@ -30,6 +30,7 @@ JAX_OPTS = {
     "pair": dict(shrink=True, pair_add=True),   # shrink_pair
     "acc16": dict(shrink=True),                 # shrink
     "swar": dict(swar=True),                    # swar
+    "tile": dict(swar=True),                    # the shipped tile's swar
 }
 
 
@@ -155,15 +156,16 @@ def test_gates():
 def test_shared_memory_model():
     g3 = _plans("gaussian")[1]
     cur, a16, sw = (lab.parse_variant(n) for n in ("current", "acc16", "swar"))
+    # K1 runs gaussian in the swar body: the lab's swar tile
     k1 = cs.tile_smem_bytes(g3, 32, 8, 3)
-    assert lab.lab_smem_bytes(cur, g3, 32, 8, 3) == k1 == 48 * 304 * 5
+    assert lab.lab_smem_bytes(sw, g3, 32, 8, 3) == k1 == (26 + 24) * 304 * 4
+    assert lab.lab_smem_bytes(cur, g3, 32, 8, 3) == 48 * 304 * 5
     assert lab.lab_smem_bytes(a16, g3, 32, 8, 3) == 48 * 304 * 3
-    assert lab.lab_smem_bytes(sw, g3, 32, 8, 3) == (26 + 24) * 304 * 4
-    # every body's tile fits wherever K1's does
+    # every body's tile fits wherever K1's int32 body does
     for bh, fz in ((8, 1), (32, 8), (64, 16), (128, 8)):
         for v in (cur, a16, sw):
             assert lab.lab_smem_bytes(v, g3, bh, fz, 3) <= cs.tile_smem_bytes(
-                g3, bh, fz, 3)
+                g3, bh, fz, 3, body="int32")
 
 
 def test_ablations_drop_what_they_say():

@@ -146,9 +146,9 @@ def test_cuda_call_without_a_library_raises(monkeypatch):
     ("gaussian", 1260, 8, None, (32, 8)),     # the 2x2 reference tile
     ("gaussian", 5, 8, None, (8, 8)),         # 8-row aligned
     ("gaussian", 1260, 8, 64, (64, 8)),       # forced tile height
-    ("gaussian", 1260, 40, None, (8, 40)),    # tile cut to shared memory
-    ("gaussian7", 1260, 8, 128, (64, 8)),     # tile cut to shared memory
-    ("gaussian7", 1260, 40, None, (8, 13)),   # then fuse cut as well
+    ("gaussian", 1260, 40, None, (32, 40)),   # fits swar's 4 bytes/element
+    ("gaussian7", 1260, 8, 128, (128, 8)),    # fits acc16's 3 bytes/element
+    ("gaussian7", 1260, 40, None, (8, 19)),   # tile, then fuse cut
 ])
 def test_valid_geometry_fits_shared_memory(name, th, fuse, block_h, want):
     _, tplan = _plans(name)

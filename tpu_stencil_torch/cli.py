@@ -40,6 +40,9 @@ def main(argv=None) -> int:
             # Effective launched geometry (post align/clamp).
             sched += f" block_h={result.block_h} fuse={result.fuse}"
         launches = ",".join(f"{k}:{v}" for k, v in result.launches.items())
+        if result.body:
+            # The tile body the kernels ran (cuda_stencil.tile_body).
+            launches += f" body={result.body}"
         if cfg.backend in ("auto", "autotune"):
             # Measurements the autotuner made before the compute window
             # (0 on a warm cache and off a card).

@@ -101,6 +101,9 @@ class JobResult:
     # Measurements the autotuner made for this job, all before the compute
     # window (0: a warm cache, an explicit backend, or no card).
     tune_probes: int = 0
+    # The tile body the kernels ran (cuda_stencil.tile_body for K1 and K3,
+    # cuda_stencil.RESIDENT_BODY for K2); None off the kernels.
+    body: Optional[str] = None
 
 
 def _ran_geometry(model: IteratedConv2D, rows: int, w: int, channels: int,
@@ -192,9 +195,14 @@ def run_job(cfg: JobConfig, device: Optional[torch.device] = None,
         )
         geo_rows = cfg.height
     bh, fz = (None, None)
+    body = None
     if backend == "pallas":
         bh, fz = _ran_geometry(model, geo_rows, cfg.width, cfg.channels,
                                schedule)
+        # (None, None) under 'deep' is the resident kernel (K2).
+        resident = schedule == cuda_stencil.DEEP and bh is None
+        body = (cuda_stencil.RESIDENT_BODY if resident
+                else cuda_stencil.tile_body(model.plan))
     return JobResult(
         output_path=cfg.output_path,
         compute_seconds=compute_seconds,
@@ -206,6 +214,7 @@ def run_job(cfg: JobConfig, device: Optional[torch.device] = None,
         fuse=fz,
         launches={k: after[k] - before[k] for k in after},
         tune_probes=autotune.probe_count - probes_before,
+        body=body,
     )
 
 
@@ -257,4 +266,5 @@ def _run_sharded(cfg: JobConfig, model: IteratedConv2D,
         fuse=sh_fuse,
         launches={k: after[k] - before[k] for k in after},
         tune_probes=autotune.probe_count - probes_before,
+        body=runner.body,
     )

@@ -9,69 +9,122 @@
 // blocks run in parallel with no order, so each loads its own ghost band
 // and nothing carries between blocks.
 //
-// What bounds it on an H100: the integer work. One gaussian rep is ~7 int32
-// ops per flat element against ~1 byte of device memory per element per
-// `fuse` reps, so at fuse 8 the card's int32 rate binds long before its
-// 3.35 TB/s does. The design keeps every rep's intermediate in shared memory
-// (device memory is touched once per `fuse` reps) and shrinks the computed
-// band each rep so ghost recompute stays bounded; it pays that recompute
-// (2*fuse*halo extra rows and lanes per tile) for the cut in traffic. What
-// the card then spends is instructions per element (shared-memory loads
-// and stores, the taps, the mask), so threads own whole lanes and keep the
-// rows-pass window in registers.
+// What bounds it on an H100: the work inside the block, not device memory
+// (~1 byte per element per `fuse` reps against ~5 int32 operations per
+// element per rep). The first port spent it on instructions per element
+// (shared-memory loads and stores, taps, mask), on a byte-wide tile load
+// and store (a third of a rep), and on occupancy (5 bytes of shared memory
+// per element: 3 blocks of 320 threads per SM at 32x8). So the tile's body
+// is chosen per plan (stencil_tile.cuh): two rows per 32-bit word (`swar`)
+// halves the per-element work of both passes where the plan allows it, an
+// int16 intermediate (`acc16`) cuts shared memory where it does not, the
+// int32 body takes the rest; and the tile moves 16 lanes per thread with
+// 16-byte global loads and stores.
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a -O3 into a shared
 // library with a plain C interface (loaded with ctypes); never with
-// --use_fast_math, and the divide is __fdiv_rn regardless.
+// --use_fast_math, and the divide is __fdiv_rn regardless. Every body and
+// every compile-time filter size is one instance; the launch picks it from
+// (body, k), so no branch on the body is left inside the kernel.
 
 #include "stencil_tile.cuh"
 
-template <int KT>
+template <int KT, int BODY>
 __global__ void __launch_bounds__(STENCIL_MAX_THREADS)
     stencil_fused_kernel(const uint8_t* __restrict__ src,
                          uint8_t* __restrict__ dst, StencilParams p,
-                         StencilGeometry g, int fuse) {
+                         StencilGeometry g, int fuse, int load_vec,
+                         int store_vec) {
   extern __shared__ __align__(16) unsigned char smem[];
-  uint8_t* cur;
-  int* tmp;
-  stencil_smem_split(smem, p, g, fuse, &cur, &tmp);
-  stencil_run_tile<KT, false>(src, dst, p, g, blockIdx.y * g.tile_h,
-                              blockIdx.x * g.tile_w, fuse, cur, tmp);
+  const StencilImageBounds b{src, dst, g, load_vec, store_vec};
+  stencil_run_bounded_tile<KT, BODY>(b, p, g, blockIdx.y * g.tile_h,
+                                     blockIdx.x * g.tile_w, fuse, smem);
 }
 
-template <int KT>
-static int launch(const uint8_t* src, uint8_t* dst, const StencilParams& p,
-                  const StencilGeometry& g, int fuse, cudaStream_t stream) {
-  const size_t smem = stencil_tile_smem(p, g, fuse);
-  cudaError_t err = cudaFuncSetAttribute(
-      (const void*)stencil_fused_kernel<KT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(stencil_ceil_div(g.wc, g.tile_w),
-                  stencil_ceil_div(g.rows, g.tile_h));
-  stencil_fused_kernel<KT><<<grid, stencil_block_threads(p, g, fuse), smem,
-                             stream>>>(src, dst, p, g, fuse);
-  return (int)cudaGetLastError();
+template <int BODY>
+static const void* kernel_for_k(int k) {
+  switch (k) {
+    case 3: return (const void*)stencil_fused_kernel<3, BODY>;
+    case 5: return (const void*)stencil_fused_kernel<5, BODY>;
+    case 7: return (const void*)stencil_fused_kernel<7, BODY>;
+    default: return (const void*)stencil_fused_kernel<0, BODY>;
+  }
 }
+
+static const void* kernel_for(int k, int body) {
+  switch (body) {
+    case STENCIL_BODY_INT32: return kernel_for_k<STENCIL_BODY_INT32>(k);
+    case STENCIL_BODY_ACC16: return kernel_for_k<STENCIL_BODY_ACC16>(k);
+    case STENCIL_BODY_SWAR: return kernel_for_k<STENCIL_BODY_SWAR>(k);
+    default: return nullptr;
+  }
+}
+
+// The instance for (p, g, body), with its shared memory set; nullptr when
+// the body does not run the plan or the arguments are out of range.
+static const void* prepare(const StencilParams* p, const StencilGeometry* g,
+                           int fuse, int body, size_t* smem, int* err) {
+  *err = (int)cudaErrorInvalidValue;
+  if (fuse < 1 || p->k < 1 || p->k > STENCIL_MAX_K || g->tile_h < 1 ||
+      g->tile_w < 1 || body < 0 || body >= STENCIL_N_BODIES ||
+      !stencil_body_runs(*p, *g, body))
+    return nullptr;
+  const void* fn = kernel_for(p->k, body);
+  *smem = stencil_tile_smem(*p, *g, fuse, body);
+  *err = (int)cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+  return *err == 0 ? fn : nullptr;
+}
+
+static int g_last_body = -1;
 
 extern "C" {
 
-// One launch: `fuse` reps from src to dst (distinct buffers). Returns the
-// cudaError_t of the launch (0 = launched).
+// One launch: `fuse` reps from src to dst (distinct buffers) with the tile
+// body `body` (STENCIL_BODY_*). Returns the cudaError_t of the launch (0 =
+// launched); a body that does not run the plan is cudaErrorInvalidValue.
 int stencil_fused_launch(const void* src, void* dst, const StencilParams* p,
-                         const StencilGeometry* g, int fuse, void* stream) {
-  if (fuse < 1 || p->k < 1 || p->k > STENCIL_MAX_K || g->tile_h < 1 ||
-      g->tile_w < 1)
-    return (int)cudaErrorInvalidValue;
-  const uint8_t* s = static_cast<const uint8_t*>(src);
-  uint8_t* d = static_cast<uint8_t*>(dst);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (p->k) {
-    case 3: return launch<3>(s, d, *p, *g, fuse, st);
-    case 5: return launch<5>(s, d, *p, *g, fuse, st);
-    case 7: return launch<7>(s, d, *p, *g, fuse, st);
-    default: return launch<0>(s, d, *p, *g, fuse, st);
-  }
+                         const StencilGeometry* g, int fuse, int body,
+                         void* stream) {
+  size_t smem = 0;
+  int err = 0;
+  const void* fn = prepare(p, g, fuse, body, &smem, &err);
+  if (!fn) return err;
+  StencilParams pv = *p;
+  StencilGeometry gv = *g;
+  int fz = fuse;
+  int load_vec = stencil_vec_width(src, g->wc);
+  int store_vec = stencil_vec_width(dst, g->wc);
+  void* args[] = {&src, &dst, &pv, &gv, &fz, &load_vec, &store_vec};
+  const dim3 grid(stencil_ceil_div(g->wc, g->tile_w),
+                  stencil_ceil_div(g->rows, g->tile_h));
+  cudaError_t e = cudaLaunchKernel(fn, grid,
+                                   dim3(stencil_block_threads(*p, *g, fuse)),
+                                   args, smem, (cudaStream_t)stream);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  if (e == cudaSuccess) g_last_body = body;
+  return (int)e;
+}
+
+// The body of the last launch this library made (-1: none yet).
+int stencil_fused_last_body(void) { return g_last_body; }
+
+// Shared-memory bytes a launch with `body` asks for.
+long long stencil_fused_smem(const StencilParams* p, const StencilGeometry* g,
+                             int fuse, int body) {
+  return (long long)stencil_tile_smem(*p, *g, fuse, body);
+}
+
+// Resident blocks per SM of the instance a launch would use, into *blocks.
+// Returns the cudaError_t of the query.
+int stencil_fused_occupancy(const StencilParams* p, const StencilGeometry* g,
+                            int fuse, int body, int* blocks) {
+  size_t smem = 0;
+  int err = 0;
+  const void* fn = prepare(p, g, fuse, body, &smem, &err);
+  if (!fn) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, fn, stencil_block_threads(*p, *g, fuse), smem);
 }
 
 const char* stencil_fused_error_string(int code) {

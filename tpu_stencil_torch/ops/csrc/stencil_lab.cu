@@ -8,10 +8,12 @@
 // each other, and with ablations (wrong output, timing only) that drop one
 // part of the rep to price it. What is carried over is the function and the
 // idea of the variants; Mosaic's DMA double buffer, lane padding and sublane
-// alignment are not. The tile is K1's (stencil_tile.cuh): load with ghosts,
-// `fuse` reps in shared memory on a contracting band, store the interior;
-// image bounds, geometry structs and the load/store policy are K1's own
-// code.
+// alignment are not. The tile is the first port's K1 tile: load with ghosts
+// byte by byte, `fuse` reps in shared memory on a contracting band, store
+// the interior byte by byte, with the byte-wise image bounds and the
+// geometry structs of stencil_tile.cuh. So `current` is K1 as it was before
+// its tile was redesigned (the baseline of that redesign) and `swar` is the
+// redesign's packed body without its 16-lane load and store.
 //
 // What bounds it on an H100: like K1, not the ~1 byte per element per
 // `fuse` reps of device memory but the work inside the block: per element
@@ -49,6 +51,10 @@
 //                          drags the high field's low bits into the low field
 //                          and the boundary mask (0x00FF per kept row) ANDs
 //                          them away.
+//   -DLAB_BODY=4  tile     the shipped K1 itself (stencil_run_bounded_tile in
+//                          its swar body, 16-lane load and store): exact, it
+//                          is `shipped` in this harness; its ablations split
+//                          the shipped tile's time.
 //   -DLAB_NO_ROWS / -DLAB_NO_COLS   skip that pass's taps (centre tap only)
 //   -DLAB_NO_MASK                   never re-zero outside the image
 //   -DLAB_LOAD_STORE_ONLY           no rep at all: load the tile, store it
@@ -57,12 +63,11 @@
 // -gencode arch=compute_90a,code=sm_90a -O3 into a shared library with a
 // plain C interface (loaded with ctypes).
 
-#include "stencil_tile.cuh"
-
 #define LAB_CURRENT 0
 #define LAB_PAIR 1
 #define LAB_ACC16 2
 #define LAB_SWAR 3
+#define LAB_TILE 4
 
 #ifndef LAB_BODY
 #define LAB_BODY LAB_CURRENT
@@ -80,6 +85,16 @@
 #define LAB_LOAD_STORE_ONLY 0
 #endif
 
+#if LAB_BODY == LAB_TILE
+// The shipped tile's own ablation hooks (stencil_tile.cuh).
+#define STENCIL_ABL_NO_ROWS LAB_NO_ROWS
+#define STENCIL_ABL_NO_COLS LAB_NO_COLS
+#define STENCIL_ABL_NO_MASK LAB_NO_MASK
+#define STENCIL_ABL_LOAD_STORE_ONLY LAB_LOAD_STORE_ONLY
+#endif
+
+#include "stencil_tile.cuh"
+
 #if LAB_BODY == LAB_ACC16
 typedef int16_t lab_acc_t;
 #else
@@ -93,7 +108,7 @@ __host__ __device__ inline size_t lab_tile_smem(const StencilParams& p,
   const int h = p.k / 2;
   const size_t rr = (size_t)g.tile_h + 2 * fuse * h;
   const size_t ll = (size_t)g.tile_w + 2 * fuse * h * g.channels;
-#if LAB_BODY == LAB_SWAR
+#if LAB_BODY == LAB_SWAR || LAB_BODY == LAB_TILE
   // Packed carry (row pairs plus one pad pair per end) and packed
   // intermediate, one 32-bit word per row pair and lane.
   return ((rr / 2 + 2) + rr / 2) * ll * sizeof(uint32_t);
@@ -102,7 +117,7 @@ __host__ __device__ inline size_t lab_tile_smem(const StencilParams& p,
 #endif
 }
 
-#if LAB_BODY != LAB_SWAR
+#if LAB_BODY != LAB_SWAR && LAB_BODY != LAB_TILE
 
 // Rows pass of one lane (see stencil_rows_pass): out[r] for r in [r0, r1).
 template <int KT>
@@ -178,7 +193,7 @@ __device__ __forceinline__ int lab_cols_acc(const lab_acc_t* row,
 }
 
 template <int KT>
-__device__ void lab_run_tile(const StencilImageBounds<false>& b,
+__device__ void lab_run_tile(const StencilByteBounds<false>& b,
                              const StencilParams& p, const StencilGeometry& g,
                              int row0, int col0, int fuse,
                              unsigned char* smem) {
@@ -230,7 +245,7 @@ __device__ void lab_run_tile(const StencilImageBounds<false>& b,
   });
 }
 
-#else  // LAB_BODY == LAB_SWAR
+#elif LAB_BODY == LAB_SWAR
 
 // The pair (row 2j+1, row 2j+2) from the words of pairs j and j+1: the high
 // field of `a` under the low field of `b`.
@@ -284,7 +299,7 @@ __device__ __forceinline__ void lab_swar_rows(const uint32_t* P, uint32_t* T,
 }
 
 template <int KT>
-__device__ void lab_run_tile(const StencilImageBounds<false>& b,
+__device__ void lab_run_tile(const StencilByteBounds<false>& b,
                              const StencilParams& p, const StencilGeometry& g,
                              int row0, int col0, int fuse,
                              unsigned char* smem) {
@@ -367,9 +382,16 @@ __global__ void __launch_bounds__(STENCIL_MAX_THREADS)
                        uint8_t* __restrict__ dst, StencilParams p,
                        StencilGeometry g, int fuse) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const StencilImageBounds<false> b{src, dst, g};
+#if LAB_BODY == LAB_TILE
+  const StencilImageBounds b{src, dst, g, stencil_vec_width(src, g.wc),
+                             stencil_vec_width(dst, g.wc)};
+  stencil_run_bounded_tile<KT, STENCIL_BODY_SWAR>(
+      b, p, g, blockIdx.y * g.tile_h, blockIdx.x * g.tile_w, fuse, smem);
+#else
+  const StencilByteBounds<false> b{src, dst, g};
   lab_run_tile<KT>(b, p, g, blockIdx.y * g.tile_h, blockIdx.x * g.tile_w,
                    fuse, smem);
+#endif
 }
 
 template <int KT>
@@ -398,6 +420,9 @@ int stencil_lab_launch(const void* src, void* dst, const StencilParams* p,
     return (int)cudaErrorInvalidValue;
 #if LAB_BODY == LAB_SWAR
   if (p->shift < 0 || p->shift > 8 || p->clip)
+    return (int)cudaErrorInvalidValue;
+#elif LAB_BODY == LAB_TILE
+  if (!stencil_body_runs(*p, *g, STENCIL_BODY_SWAR))
     return (int)cudaErrorInvalidValue;
 #endif
   const uint8_t* s = static_cast<const uint8_t*>(src);

@@ -25,23 +25,102 @@
 
 namespace cg = cooperative_groups;
 
+// K2 keeps the first port's tile at fuse 1: the uint8 carry `cur` and the
+// int32 rows-pass intermediate `tmp` (the int32 body), loaded and stored
+// byte by byte through StencilByteBounds<true>. K1 and K3's redesigned tile
+// (stencil_run_bounded_tile) is not used here.
+template <int KT>
+__device__ void resident_run_tile(const StencilByteBounds<true>& b,
+                                  const StencilParams& p,
+                                  const StencilGeometry& g, int row0,
+                                  int col0, uint8_t* cur, int* tmp) {
+  const int k = KT > 0 ? KT : p.k;
+  const int h = k / 2;
+  const int C = g.channels;
+  const int hc = h * C;
+  const int R = g.tile_h + 2 * h;   // tile rows in shared memory
+  const int L = g.tile_w + 2 * hc;  // tile lanes in shared memory
+  const int rbase = row0 - h;       // image row of tile row 0
+  const int cbase = col0 - hc;      // image lane of tile lane 0
+
+  stencil_for_region(0, R, 0, L, [&](int r, int c) {
+    cur[r * L + c] = b.load(rbase + r, cbase + c);
+  });
+  __syncthreads();
+
+  const int r0 = h, r1 = R - h;
+  const int c0 = hc, c1 = L - hc;
+  if (p.kind == 0) {
+    for (int c = c0 - hc + threadIdx.x; c < c1 + hc; c += blockDim.x)
+      stencil_rows_pass<KT>(cur + c, tmp + c, p, L, r0, r1, k);
+    __syncthreads();
+    for (int c = c0 + threadIdx.x; c < c1; c += blockDim.x) {
+      const bool lane_kept = b.lane_kept(cbase + c);
+      const int* row = tmp + r0 * L + c - hc;
+      uint8_t* out = cur + r0 * L + c;
+      for (int r = r0; r < r1; ++r, row += L, out += L) {
+        int acc = 0;
+#pragma unroll
+        for (int j = 0; j < (KT > 0 ? KT : STENCIL_MAX_K); ++j) {
+          if (KT == 0 && j >= k) break;
+          acc += p.col_taps[j] * row[j * C];
+        }
+        *out = lane_kept && b.row_kept(rbase + r)
+                   ? (uint8_t)stencil_finish(acc, p)
+                   : (uint8_t)0;
+      }
+    }
+    __syncthreads();
+  } else {
+    stencil_for_region(r0, r1, c0, c1, [&](int r, int c) {
+      const uint8_t* win = cur + (r - h) * L + c - hc;
+      int acc = 0;
+#pragma unroll
+      for (int i = 0; i < (KT > 0 ? KT : STENCIL_MAX_K); ++i) {
+        if (KT == 0 && i >= k) break;
+#pragma unroll
+        for (int j = 0; j < (KT > 0 ? KT : STENCIL_MAX_K); ++j) {
+          if (KT == 0 && j >= k) break;
+          acc += p.taps[i * k + j] * (int)win[i * L + j * C];
+        }
+      }
+      tmp[r * L + c] = b.lane_kept(cbase + c) && b.row_kept(rbase + r)
+                           ? stencil_finish(acc, p)
+                           : 0;
+    });
+    __syncthreads();
+    stencil_for_region(r0, r1, c0, c1, [&](int r, int c) {
+      cur[r * L + c] = (uint8_t)tmp[r * L + c];
+    });
+    __syncthreads();
+  }
+
+  stencil_for_region(h, h + g.tile_h, hc, hc + g.tile_w, [&](int r, int c) {
+    b.store(rbase + r, cbase + c, cur[r * L + c]);
+  });
+  __syncthreads();  // the next tile of this block reuses shared memory
+}
+
 template <int KT>
 __global__ void __launch_bounds__(STENCIL_MAX_THREADS)
     stencil_resident_kernel(const uint8_t* src, uint8_t* buf0, uint8_t* buf1,
                             StencilParams p, StencilGeometry g, int reps) {
   extern __shared__ __align__(16) unsigned char smem[];
-  uint8_t* cur;
-  int* tmp;
-  stencil_smem_split(smem, p, g, 1, &cur, &tmp);
+  // int32 `tmp` first (4-byte aligned), then the uint8 carry.
+  int* tmp = reinterpret_cast<int*>(smem);
+  uint8_t* cur = smem + (size_t)(g.tile_h + 2 * (p.k / 2)) *
+                            (g.tile_w + 2 * (p.k / 2) * g.channels) *
+                            sizeof(int);
   cg::grid_group grid = cg::this_grid();
   const int tiles_x = stencil_ceil_div(g.wc, g.tile_w);
   const int n_tiles = tiles_x * stencil_ceil_div(g.rows, g.tile_h);
   const uint8_t* in = src;
   for (int rep = 0; rep < reps; ++rep) {
     uint8_t* out = (rep & 1) ? buf1 : buf0;
+    const StencilByteBounds<true> b{in, out, g};
     for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-      stencil_run_tile<KT, true>(in, out, p, g, (t / tiles_x) * g.tile_h,
-                                 (t % tiles_x) * g.tile_w, 1, cur, tmp);
+      resident_run_tile<KT>(b, p, g, (t / tiles_x) * g.tile_h,
+                            (t % tiles_x) * g.tile_w, cur, tmp);
     }
     grid.sync();
     in = out;
@@ -51,7 +130,7 @@ __global__ void __launch_bounds__(STENCIL_MAX_THREADS)
 template <int KT>
 static int co_resident_blocks(const StencilParams& p, const StencilGeometry& g,
                               int* blocks) {
-  const size_t smem = stencil_tile_smem(p, g, 1);
+  const size_t smem = stencil_tile_smem(p, g, 1, STENCIL_BODY_INT32);
   cudaError_t err = cudaFuncSetAttribute(
       (const void*)stencil_resident_kernel<KT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -88,7 +167,7 @@ static int launch(const uint8_t* src, uint8_t* buf0, uint8_t* buf1,
                   (void*)&pv, (void*)&gv, (void*)&rv};
   cudaError_t err = cudaLaunchCooperativeKernel(
       (const void*)stencil_resident_kernel<KT>, dim3(grid),
-      dim3(stencil_block_threads(p, g, 1)), args, stencil_tile_smem(p, g, 1),
+      dim3(stencil_block_threads(p, g, 1)), args, stencil_tile_smem(p, g, 1, STENCIL_BODY_INT32),
       stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

@@ -33,9 +33,19 @@ flat range ``[0, W*C)``. Every rep re-zeroes pixels outside the image —
 rows outside ``[0, rows_real)`` and, in the frames layout, the gap rows
 ``row % stride >= frame_h`` — as the TPU kernels' ``_row_keep`` does.
 
+K1 and K3 share one tile (``csrc/stencil_tile.cuh``) whose rep body is
+chosen per plan by :func:`tile_body`, the only place the choice is made:
+``swar`` (rows 2q and 2q+1 as two 16-bit fields of one 32-bit word, 4 bytes
+of shared memory per element), ``acc16`` (an int16 rows-pass intermediate,
+3 bytes) or ``int32`` (5 bytes, every plan). Each body is its own kernel
+instance in the library; the wrapper passes the body's index and nothing
+substitutes another body. K2 keeps the ``int32`` body
+(:data:`RESIDENT_BODY`).
+
 Geometry is re-derived for Hopper: the TPU's 16 MiB VMEM budget becomes
 the 227 KB of shared memory a block may use (the ghost band must fit the
-tile's shared memory) and, for the resident kernel, a share of the L2.
+tile's shared memory, counted per body by :func:`tile_smem_bytes`) and,
+for the resident kernel, a share of the L2.
 """
 
 from __future__ import annotations
@@ -66,6 +76,11 @@ DEEP_FUSE_CANDIDATES = (64, 48, 40, 32, 24, 16, 12, 8)
 FUSED = "fused"   # the reported schedule of every K1 run
 DEEP = "deep"
 
+# The tile bodies of K1 and K3, by their index in csrc/stencil_tile.cuh
+# (STENCIL_BODY_*); K2 runs the first.
+BODIES = ("int32", "acc16", "swar")
+RESIDENT_BODY = "int32"
+
 class KernelLaunchError(RuntimeError):
     """A kernel launch was refused (the C entry returned a cudaError_t)."""
 
@@ -93,22 +108,62 @@ def effective_schedule(schedule: Optional[str]) -> str:
     return DEEP if check_schedule(schedule) == DEEP else FUSED
 
 
+def acc16_ok(plan: StencilPlan) -> bool:
+    """The rows-pass intermediate fits int16: a separable plan with
+    non-negative taps and ``255 * sum(row_taps) < 2^15``."""
+    if plan.kind != "sep_int":
+        return False
+    nonneg = all(t >= 0 for t in plan.row_taps + plan.col_taps)
+    return nonneg and 255 * sum(plan.row_taps) < 2 ** 15
+
+
+def swar_ok(plan: StencilPlan) -> bool:
+    """Two 16-bit fields per word never carry into each other: a separable
+    plan that shifts by at most 8 and needs no clip (non-negative taps of
+    total weight 2^shift, so every intermediate is < 2^16)."""
+    return (plan.kind == "sep_int" and plan.shift is not None
+            and plan.shift <= 8 and not clip_needed(plan))
+
+
+def tile_body(plan: StencilPlan) -> str:
+    """The rep body K1 and K3 run ``plan`` with, from the plan alone:
+    ``swar`` where :func:`swar_ok` holds, else ``acc16`` where
+    :func:`acc16_ok` holds, else ``int32``."""
+    if swar_ok(plan):
+        return "swar"
+    if acc16_ok(plan):
+        return "acc16"
+    return "int32"
+
+
 def tile_smem_bytes(plan: StencilPlan, block_h: int, fuse: int,
-                    channels: int, tile_w: int = TILE_W) -> int:
-    """Shared memory of one tile: the uint8 carry plus the int32 rows-pass
-    intermediate over the tile and its ghost bands (stencil_tile_smem)."""
+                    channels: int, tile_w: int = TILE_W,
+                    body: Optional[str] = None) -> int:
+    """Shared memory of one K1/K3 tile of ``body`` (default
+    :func:`tile_body`) over the tile and its ghost bands, R x L elements
+    (``stencil_tile_smem``): 5 bytes per element under ``int32`` (uint8
+    carry, int32 intermediate), 3 under ``acc16``, and under ``swar`` one
+    32-bit word per row pair for the carry (plus a zero pad pair at each
+    end) and one for the intermediate."""
+    body = tile_body(plan) if body is None else body
     g = fuse * plan.halo
-    return (block_h + 2 * g) * (tile_w + 2 * g * channels) * 5
+    rr = block_h + 2 * g
+    ll = tile_w + 2 * g * channels
+    if body == "swar":
+        return ((rr // 2 + 2) + rr // 2) * ll * 4
+    return rr * ll * (3 if body == "acc16" else 5)
 
 
 def plan_supported(plan: StencilPlan, channels: int) -> bool:
     """Whether the kernels run this plan: an integer plan of at most
     :data:`MAX_K` taps whose single-rep ghost band fits shared memory at
-    the smallest tile. Other plans run torch ops (reported as xla)."""
+    the smallest tile in the largest body (``int32``, K2's). Other plans
+    run torch ops (reported as xla)."""
     return (
         plan.kind in ("sep_int", "direct_int")
         and plan.k <= MAX_K
-        and tile_smem_bytes(plan, 8, 1, channels) <= SMEM_LIMIT
+        and tile_smem_bytes(plan, 8, 1, channels,
+                            body=RESIDENT_BODY) <= SMEM_LIMIT
     )
 
 
@@ -130,27 +185,32 @@ def clip_needed(plan: StencilPlan) -> bool:
 
 
 def effective_block_h(plan: StencilPlan, n_rows: int, channels: int,
-                      block_h: Optional[int] = None) -> int:
-    """The tile height a launch uses: 8-row aligned, clamped to the padded
-    image height and to what fits shared memory at fuse 1."""
+                      block_h: Optional[int] = None,
+                      body: Optional[str] = None) -> int:
+    """The tile height a launch uses: 8-row aligned (so even, as ``swar``
+    needs), clamped to the padded image height and to what fits shared
+    memory at fuse 1 in ``body`` (default :func:`tile_body`)."""
     bh = DEFAULT_BLOCK_H if block_h is None else block_h
     bh = min(-(-bh // 8) * 8, -(-n_rows // 8) * 8)
-    while bh > 8 and tile_smem_bytes(plan, bh, 1, channels) > SMEM_LIMIT:
+    while bh > 8 and tile_smem_bytes(plan, bh, 1, channels,
+                                     body=body) > SMEM_LIMIT:
         bh -= 8
+    assert bh % 2 == 0, bh
     return bh
 
 
-def deep_fuse_for(plan: StencilPlan, block_h: int, channels: int) -> int:
+def deep_fuse_for(plan: StencilPlan, block_h: int, channels: int,
+                  body: Optional[str] = None) -> int:
     """The depth 'deep' runs K1 at when the resident kernel does not run:
     the deepest :data:`DEEP_FUSE_CANDIDATES` entry whose ghost recompute
     stays <= 50% of the tile (``2*depth*halo <= block_h/2``) and whose tile
-    fits shared memory; shallower depths when none does."""
+    fits shared memory in ``body``; shallower depths when none does."""
     if not plan.halo:
         return DEEP_FUSE_CANDIDATES[0]
     cap = max(1, block_h // (4 * plan.halo))
     for cand in DEEP_FUSE_CANDIDATES + (min(DEFAULT_FUSE, cap), 4, 2, 1):
-        if cand <= cap and tile_smem_bytes(plan, block_h, cand,
-                                           channels) <= SMEM_LIMIT:
+        if cand <= cap and tile_smem_bytes(plan, block_h, cand, channels,
+                                           body=body) <= SMEM_LIMIT:
             return cand
     return 1
 
@@ -158,20 +218,23 @@ def deep_fuse_for(plan: StencilPlan, block_h: int, channels: int) -> int:
 def effective_geometry(plan: StencilPlan, n_rows: int, channels: int,
                        block_h: Optional[int] = None,
                        fuse: Optional[int] = None,
-                       schedule: Optional[str] = None) -> Tuple[int, int]:
+                       schedule: Optional[str] = None,
+                       body: Optional[str] = None) -> Tuple[int, int]:
     """The (block_h, fuse) K1 launches with for an ``n_rows``-tall image:
     the aligned/clamped tile height, and fuse clamped to
-    ``block_h / (2*halo)`` and to shared memory. ``None`` = defaults,
-    except that an unforced fuse under ``schedule='deep'`` is
-    :func:`deep_fuse_for`'s depth."""
-    bh = effective_block_h(plan, n_rows, channels, block_h)
+    ``block_h / (2*halo)`` and to shared memory in ``body`` (default
+    :func:`tile_body`, the body K1 runs). ``None`` = defaults, except that
+    an unforced fuse under ``schedule='deep'`` is :func:`deep_fuse_for`'s
+    depth."""
+    bh = effective_block_h(plan, n_rows, channels, block_h, body)
     if fuse is None and schedule == DEEP:
-        fz = deep_fuse_for(plan, bh, channels)
+        fz = deep_fuse_for(plan, bh, channels, body)
     else:
         fz = DEFAULT_FUSE if fuse is None else fuse
     if plan.halo:
         fz = max(1, min(fz, bh // (2 * plan.halo)))
-    while fz > 1 and tile_smem_bytes(plan, bh, fz, channels) > SMEM_LIMIT:
+    while fz > 1 and tile_smem_bytes(plan, bh, fz, channels,
+                                     body=body) > SMEM_LIMIT:
         fz -= 1
     return bh, fz
 
@@ -180,14 +243,16 @@ def valid_geometry(plan: StencilPlan, th: int, channels: int, fuse: int,
                    block_h: Optional[int] = None) -> Tuple[int, int]:
     """The (block_h, fuse) K3 launches with on a ``th``-row interior:
     K1's aligned and clamped tile height, cut until the tile and its
-    ``fuse * halo`` ghost band fit shared memory; then ``fuse`` cut where
-    even 8 rows do not fit. The sharded runner takes the fuse from here
-    (it sets the exchange width), :func:`valid_fused` the tile height."""
+    ``fuse * halo`` ghost band fit shared memory in the plan's body; then
+    ``fuse`` cut where even 8 rows do not fit. The sharded runner takes the
+    fuse from here (it sets the exchange width), :func:`valid_fused` the
+    tile height."""
     bh = effective_block_h(plan, th, channels, block_h)
     while bh > 8 and tile_smem_bytes(plan, bh, fuse, channels) > SMEM_LIMIT:
         bh -= 8
     while fuse > 1 and tile_smem_bytes(plan, bh, fuse, channels) > SMEM_LIMIT:
         fuse -= 1
+    assert bh % 2 == 0, bh
     return bh, fuse
 
 
@@ -394,13 +459,26 @@ def _geometry(x2: torch.Tensor, channels: int, rows_real: int, frame,
 _P = ctypes.c_void_p
 
 
-def _fused_lib() -> ctypes.CDLL:
-    lib = _build.load("stencil_fused")
-    lib.stencil_fused_launch.argtypes = [_P, _P, _P, _P, ctypes.c_int, _P]
-    lib.stencil_fused_launch.restype = ctypes.c_int
-    lib.stencil_fused_error_string.argtypes = [ctypes.c_int]
-    lib.stencil_fused_error_string.restype = ctypes.c_char_p
+def _bind_tile_lib(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    """Declare the C entries of a tile library (K1 ``stencil_fused`` or K3
+    ``stencil_valid``): launch with a body index, the body of the last
+    launch, shared memory and resident blocks per SM of a launch."""
+    i = ctypes.c_int
+    getattr(lib, f"{name}_launch").argtypes = [_P, _P, _P, _P, i, i, _P]
+    getattr(lib, f"{name}_launch").restype = i
+    getattr(lib, f"{name}_last_body").argtypes = []
+    getattr(lib, f"{name}_last_body").restype = i
+    getattr(lib, f"{name}_smem").argtypes = [_P, _P, i, i]
+    getattr(lib, f"{name}_smem").restype = ctypes.c_longlong
+    getattr(lib, f"{name}_occupancy").argtypes = [_P, _P, i, i, _P]
+    getattr(lib, f"{name}_occupancy").restype = i
+    getattr(lib, f"{name}_error_string").argtypes = [i]
+    getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
     return lib
+
+
+def _fused_lib() -> ctypes.CDLL:
+    return _bind_tile_lib(_build.load("stencil_fused"), "stencil_fused")
 
 
 def _resident_lib() -> ctypes.CDLL:
@@ -416,12 +494,59 @@ def _resident_lib() -> ctypes.CDLL:
 
 
 def _valid_lib() -> ctypes.CDLL:
-    lib = _build.load("stencil_valid")
-    lib.stencil_valid_launch.argtypes = [_P, _P, _P, _P, ctypes.c_int, _P]
-    lib.stencil_valid_launch.restype = ctypes.c_int
-    lib.stencil_valid_error_string.argtypes = [ctypes.c_int]
-    lib.stencil_valid_error_string.restype = ctypes.c_char_p
-    return lib
+    return _bind_tile_lib(_build.load("stencil_valid"), "stencil_valid")
+
+
+def _tile_lib(kernel: str) -> ctypes.CDLL:
+    return _fused_lib() if kernel == "stencil_fused" else _valid_lib()
+
+
+def _tile_query(kernel: str, fn: str, plan: StencilPlan, block_h: int,
+                fuse: int, channels: int, body: Optional[str], *extra):
+    """(library, result) of the C query ``{kernel}_{fn}`` (kernel:
+    stencil_fused or stencil_valid) for one tile of ``body`` (default
+    :func:`tile_body`) at (block_h, fuse)."""
+    body = tile_body(plan) if body is None else body
+    if kernel == "stencil_fused":
+        geom = _Geometry(block_h, TILE_W, block_h, channels, 0, 0, block_h,
+                         TILE_W)
+    else:
+        g = fuse * plan.halo
+        geom = _ValidGeometry(block_h + 2 * g, TILE_W + 2 * g * channels,
+                              block_h, TILE_W, channels, 0, 0, block_h,
+                              TILE_W, block_h, TILE_W)
+    lib = _tile_lib(kernel)
+    params = _params(plan)
+    return lib, getattr(lib, f"{kernel}_{fn}")(
+        ctypes.addressof(params), ctypes.addressof(geom), fuse,
+        BODIES.index(body), *extra)
+
+
+def kernel_smem_bytes(kernel: str, plan: StencilPlan, block_h: int,
+                      fuse: int, channels: int,
+                      body: Optional[str] = None) -> int:
+    """What the built library of ``kernel`` says a tile of ``body`` takes;
+    :func:`tile_smem_bytes` is the host model of it."""
+    return int(_tile_query(kernel, "smem", plan, block_h, fuse, channels,
+                           body)[1])
+
+
+def blocks_per_sm(kernel: str, plan: StencilPlan, block_h: int, fuse: int,
+                  channels: int, body: Optional[str] = None) -> int:
+    """Resident blocks per SM of ``kernel``'s instance for ``body``
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current card)."""
+    blocks = ctypes.c_int(0)
+    lib, rc = _tile_query(kernel, "occupancy", plan, block_h, fuse,
+                          channels, body, ctypes.addressof(blocks))
+    _raise_on(rc, lib, f"{kernel}_error_string", f"{kernel} occupancy")
+    return blocks.value
+
+
+def ran_body(kernel: str) -> Optional[str]:
+    """The body of the last launch of ``kernel`` (stencil_fused or
+    stencil_valid), as its library recorded it; None before any."""
+    idx = getattr(_tile_lib(kernel), f"{kernel}_last_body")()
+    return BODIES[idx] if idx >= 0 else None
 
 
 def build_kernels() -> Dict[str, str]:
@@ -458,9 +583,10 @@ def stencil_fused(x2: torch.Tensor, plan: StencilPlan, channels: int,
                   block_h: int = DEFAULT_BLOCK_H,
                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K1: ``fuse`` reps of the flat (rows, W*C) uint8 image ``x2`` into
-    ``out`` (allocated when None; must not alias ``x2``). ``rows_real``:
-    rows past it lie outside the image; ``frame`` = (stride, frame_h)
-    marks the frames layout. CPU tensors run :func:`stencil_fused_plain`."""
+    ``out`` (allocated when None; must not alias ``x2``), in the tile body
+    :func:`tile_body` names for ``plan``. ``rows_real``: rows past it lie
+    outside the image; ``frame`` = (stride, frame_h) marks the frames
+    layout. CPU tensors run :func:`stencil_fused_plain`."""
     _check_input(x2)
     rows_real = x2.shape[0] if rows_real is None else rows_real
     if x2.device.type == "cpu":
@@ -477,7 +603,7 @@ def stencil_fused(x2: torch.Tensor, plan: StencilPlan, channels: int,
     with torch.cuda.device(x2.device):
         rc = lib.stencil_fused_launch(
             x2.data_ptr(), out.data_ptr(), ctypes.addressof(params),
-            ctypes.addressof(geom), fuse,
+            ctypes.addressof(geom), fuse, BODIES.index(tile_body(plan)),
             torch.cuda.current_stream(x2.device).cuda_stream,
         )
     _raise_on(rc, lib, "stencil_fused_error_string", "stencil_fused")
@@ -527,7 +653,8 @@ def stencil_valid(ext2: torch.Tensor, plan: StencilPlan, channels: int,
                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K3: ``fuse`` reps of the flat ghost-extended shard tile ``ext2``
     ((th + 2g, (tw + 2g) * C) uint8, g = fuse * halo) into the (th, tw * C)
-    interior ``out`` (allocated when None). ``row0``/``col0``: the global
+    interior ``out`` (allocated when None), in the tile body
+    :func:`tile_body` names for ``plan``. ``row0``/``col0``: the global
     row and flat lane of the interior's origin; ``global_shape``: the
     padded global (rows, cols * C). CPU tensors run
     :func:`stencil_valid_plain`."""
@@ -558,7 +685,7 @@ def stencil_valid(ext2: torch.Tensor, plan: StencilPlan, channels: int,
     with torch.cuda.device(ext2.device):
         rc = lib.stencil_valid_launch(
             ext2.data_ptr(), out.data_ptr(), ctypes.addressof(params),
-            ctypes.addressof(geom), fuse,
+            ctypes.addressof(geom), fuse, BODIES.index(tile_body(plan)),
             torch.cuda.current_stream(ext2.device).cuda_stream,
         )
     _raise_on(rc, lib, "stencil_valid_error_string", "stencil_valid")

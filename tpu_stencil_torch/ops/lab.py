@@ -7,7 +7,9 @@ kernel of the JAX package's ``tools/``:
 * **L2** :func:`stencil_lab` (``csrc/stencil_lab.cu``, replaces
   ``tools/kernel_lab.py``'s ``_lab_kernel``): K1's job with the body of one
   rep chosen when the library is built. A :class:`LabVariant` names a body
-  (``current``, ``pair``, ``acc16``, ``swar``), ablation flags (wrong
+  (``current``: K1 before its tile was redesigned, the baseline; ``pair``,
+  ``acc16``, ``swar`` on that tile; ``tile``: the shipped K1 tile in its
+  ``swar`` body), ablation flags (wrong
   output, timing only) and a requested geometry; each (body, ablation) is
   one library, built with its ``-D`` defines through
   :mod:`tpu_stencil_torch.ops._build`.
@@ -36,13 +38,16 @@ import torch
 from tpu_stencil_torch.ops import _build
 from tpu_stencil_torch.ops import cuda_stencil as cs
 from tpu_stencil_torch.ops import lowering as _lowering
+from tpu_stencil_torch.ops.cuda_stencil import acc16_ok, swar_ok
 from tpu_stencil_torch.ops.lowering import StencilPlan
 
 # ---------------------------------------------------------------------------
 # L2: variants
 # ---------------------------------------------------------------------------
 
-BODIES = ("current", "pair", "acc16", "swar")  # LAB_BODY = index
+# LAB_BODY = index. `tile` is the shipped K1 tile (its swar body), there
+# to split the shipped kernel's time by ablation.
+BODIES = ("current", "pair", "acc16", "swar", "tile")
 ABLATIONS = ("no_rows", "no_cols", "no_mask", "load_store_only")
 LAB_FILTER_SIZES = (3, 5, 7)
 
@@ -119,23 +124,6 @@ def binomial_chain(taps) -> Optional[int]:
     return None
 
 
-def acc16_ok(plan: StencilPlan) -> bool:
-    """The rows-pass intermediate fits int16: non-negative taps and
-    ``255 * sum(row_taps) < 2^15``."""
-    if plan.kind != "sep_int":
-        return False
-    nonneg = all(t >= 0 for t in plan.row_taps + plan.col_taps)
-    return nonneg and 255 * sum(plan.row_taps) < 2 ** 15
-
-
-def swar_ok(plan: StencilPlan) -> bool:
-    """Two 16-bit fields per word never carry into each other: a separable
-    plan that shifts by at most 8 and needs no clip (non-negative taps of
-    total weight 2^shift, so every intermediate is < 2^16)."""
-    return (plan.kind == "sep_int" and plan.shift is not None
-            and plan.shift <= 8 and not cs.clip_needed(plan))
-
-
 def variant_supported(variant: LabVariant, plan: StencilPlan) -> bool:
     """Whether ``variant``'s body runs ``plan``."""
     if plan.kind != "sep_int" or plan.k not in LAB_FILTER_SIZES:
@@ -146,7 +134,7 @@ def variant_supported(variant: LabVariant, plan: StencilPlan) -> bool:
                 and binomial_chain(plan.col_taps) is not None)
     if variant.body == "acc16":
         return acc16_ok(plan)
-    if variant.body == "swar":
+    if variant.body in ("swar", "tile"):
         return swar_ok(plan)
     return True
 
@@ -164,12 +152,12 @@ def lab_smem_bytes(variant: LabVariant, plan: StencilPlan, block_h: int,
                    fuse: int, channels: int, tile_w: int = cs.TILE_W) -> int:
     """Shared memory of one tile of ``variant`` (``lab_tile_smem`` in
     csrc/stencil_lab.cu): 5 bytes per element for ``current`` and
-    ``pair``, 3 for ``acc16``, and for ``swar`` two 32-bit words per row
-    pair plus one pad pair at each end of the carry."""
+    ``pair``, 3 for ``acc16``, and for ``swar`` and ``tile`` two 32-bit
+    words per row pair plus one pad pair at each end of the carry."""
     g = fuse * plan.halo
     rr = block_h + 2 * g
     ll = tile_w + 2 * g * channels
-    if variant.body == "swar":
+    if variant.body in ("swar", "tile"):
         return ((rr // 2 + 2) + rr // 2) * ll * 4
     return rr * ll * (3 if variant.body == "acc16" else 5)
 
@@ -177,10 +165,11 @@ def lab_smem_bytes(variant: LabVariant, plan: StencilPlan, block_h: int,
 def lab_geometry(variant: LabVariant, plan: StencilPlan, n_rows: int,
                  channels: int) -> Tuple[int, int]:
     """The (block_h, fuse) ``variant`` launches with: K1's effective
-    geometry at the variant's requested one, so that variants at one
-    request run the same tiles (every body's tile is at most K1's)."""
+    geometry at the variant's requested one, clamped as the ``int32`` body
+    (the largest tile), so that variants at one request run the same tiles
+    and every body's tile fits."""
     return cs.effective_geometry(plan, n_rows, channels, variant.block_h,
-                                 variant.fuse)
+                                 variant.fuse, body="int32")
 
 
 # ---------------------------------------------------------------------------
@@ -222,13 +211,15 @@ def _scalar_rep(cur: torch.Tensor, plan: StencilPlan, channels: int,
 
 
 def _swar_rep(p64: torch.Tensor, plan: StencilPlan, channels: int,
-              variant: LabVariant, mask: Optional[torch.Tensor]
-              ) -> torch.Tensor:
-    """One rep on packed words: ``p64`` (Q, wc) int64 holding 32-bit words
-    of two 16-bit fields, rows 2q (low) and 2q+1 (high). Zero pairs stand
-    above and below, zero lanes left and right. ``mask`` (Q, wc) holds
-    0x00FF per kept field."""
-    h, k = plan.halo, plan.k
+              mask, no_rows: bool = False,
+              no_cols: bool = False) -> torch.Tensor:
+    """One rep of the ``swar`` body on packed words: ``p64`` (Q, wc) int64
+    holding 32-bit words of two 16-bit fields, rows 2q (low) and 2q+1
+    (high). Zero pairs stand above and below, zero lanes left and right.
+    ``mask`` ((Q, wc) or a scalar) holds 0x00FF per kept field: K1's rows
+    of the image and of its frames, K3's rows and lanes inside the global
+    extent (:func:`swar_mask`)."""
+    h = plan.halo
     hc = h * channels
     q, wc = p64.shape
     hp = (h + 1) // 2
@@ -238,7 +229,7 @@ def _swar_rep(p64: torch.Tensor, plan: StencilPlan, channels: int,
     # Straddle j: (row 2j+1, row 2j+2) = high field of pair j under the low
     # field of pair j+1.
     ss = (pp[:-1] >> 16) | ((pp[1:] & 0xFFFF) << 16)
-    if variant.no_rows:
+    if no_rows:
         t = p64
     else:
         t = torch.zeros_like(p64)
@@ -247,7 +238,7 @@ def _swar_rep(p64: torch.Tensor, plan: StencilPlan, channels: int,
             j = hp + (r // 2)
             src = pp if r % 2 == 0 else ss
             t = (t + tap * src[j:j + q]) & word
-    if variant.no_cols:
+    if no_cols:
         acc = t
     else:
         zl = torch.zeros((q, hc), dtype=torch.int64, device=p64.device)
@@ -255,8 +246,80 @@ def _swar_rep(p64: torch.Tensor, plan: StencilPlan, channels: int,
         acc = torch.zeros_like(t)
         for j, tap in enumerate(plan.col_taps):
             acc = (acc + tap * tt[:, j * channels:j * channels + wc]) & word
-    m = 0x00FF00FF if mask is None else mask
-    return (acc >> plan.shift) & m
+    return (acc >> plan.shift) & mask
+
+
+def pack_pairs(x2: torch.Tensor) -> torch.Tensor:
+    """(rows, wc) bytes -> (ceil(rows / 2), wc) int64 words of the row
+    pairs (2q low, 2q+1 high); an odd row count gains one zero row."""
+    x = x2.to(torch.int64)
+    if x.shape[0] % 2:
+        x = torch.cat([x, torch.zeros_like(x[:1])], 0)
+    return x[0::2] | (x[1::2] << 16)
+
+
+def unpack_pairs(p64: torch.Tensor, rows: int) -> torch.Tensor:
+    """The first ``rows`` byte rows of packed words (the low byte of each
+    field)."""
+    out = torch.stack([p64 & 0xFF, (p64 >> 16) & 0xFF], 1)
+    return out.reshape(-1, p64.shape[1])[:rows].to(torch.uint8)
+
+
+def swar_mask(row_keep: torch.Tensor, lane_keep: torch.Tensor
+              ) -> torch.Tensor:
+    """The (ceil(rows / 2), wc) re-zero mask of the packed words: 0x00FF
+    in each field whose row and lane are kept."""
+    kk = row_keep.to(torch.int64) * 0xFF
+    if kk.shape[0] % 2:
+        kk = torch.cat([kk, torch.zeros_like(kk[:1])], 0)
+    rows = kk[0::2] | (kk[1::2] << 16)
+    return rows.reshape(-1, 1) * lane_keep.to(torch.int64).reshape(1, -1)
+
+
+def swar_fused_plain(x2: torch.Tensor, plan: StencilPlan, channels: int,
+                     reps: int, rows_real: Optional[int] = None,
+                     frame=None) -> torch.Tensor:
+    """K1's function computed as the ``swar`` body computes it: rows packed
+    in pairs, ``reps`` reps of :func:`_swar_rep` with the re-zero of rows
+    outside the image and of the frames layout's gap rows, unpacked. Equals
+    :func:`cuda_stencil.stencil_fused_plain` wherever
+    :func:`cuda_stencil.swar_ok` holds."""
+    if not swar_ok(plan):
+        raise ValueError("the swar body does not run this plan")
+    rows, wc = x2.shape
+    rows_real = rows if rows_real is None else rows_real
+    keep = cs._row_keep(rows, rows_real, frame, x2.device)
+    mask = swar_mask(keep, torch.ones(wc, dtype=torch.bool, device=x2.device))
+    p64 = pack_pairs(torch.where(keep.reshape(-1, 1), x2, 0))
+    for _ in range(reps):
+        p64 = _swar_rep(p64, plan, channels, mask)
+    return unpack_pairs(p64, rows)
+
+
+def swar_valid_plain(ext2: torch.Tensor, plan: StencilPlan, channels: int,
+                     fuse: int, row0: int, col0: int,
+                     global_shape: Tuple[int, int]) -> torch.Tensor:
+    """K3's function computed as the ``swar`` body computes it: the
+    ghost-extended tile packed in row pairs, ``fuse`` reps of
+    :func:`_swar_rep` re-zeroing the rows and lanes outside the global
+    padded extent, the interior unpacked. Equals
+    :func:`cuda_stencil.stencil_valid_plain` wherever
+    :func:`cuda_stencil.swar_ok` holds."""
+    if not swar_ok(plan):
+        raise ValueError("the swar body does not run this plan")
+    g = fuse * plan.halo
+    gc = g * channels
+    rows_ext, wc_ext = ext2.shape
+    rows_glob, cols_glob_c = global_shape
+    rid = torch.arange(rows_ext, device=ext2.device) + (row0 - g)
+    cid = torch.arange(wc_ext, device=ext2.device) + (col0 - gc)
+    mask = swar_mask((rid >= 0) & (rid < rows_glob),
+                     (cid >= 0) & (cid < cols_glob_c))
+    p64 = pack_pairs(ext2)
+    for _ in range(fuse):
+        p64 = _swar_rep(p64, plan, channels, mask)
+    out = unpack_pairs(p64, rows_ext)
+    return out[g:rows_ext - g, gc:wc_ext - gc].contiguous()
 
 
 def stencil_lab_plain(x2: torch.Tensor, plan: StencilPlan, channels: int,
@@ -277,6 +340,8 @@ def stencil_lab_plain(x2: torch.Tensor, plan: StencilPlan, channels: int,
     if variant.body == "current" and variant.exact:
         return cs.stencil_fused_plain(x2, plan, channels, reps, rows_real,
                                       frame)
+    if variant.body in ("swar", "tile") and variant.exact:
+        return swar_fused_plain(x2, plan, channels, reps, rows_real, frame)
     h = plan.halo
     hc = h * channels
     dev = x2.device
@@ -289,7 +354,7 @@ def stencil_lab_plain(x2: torch.Tensor, plan: StencilPlan, channels: int,
         t = _lowering.pad_dim(t, 0, nr, "zero")
         return _lowering.pad_dim(t, 1, nl, "zero")
 
-    if variant.body != "swar":
+    if variant.body not in ("swar", "tile"):
         cur = extend(torch.where(keep, x2, 0) if not variant.no_mask else x2,
                      g, gc)
         for _ in range(reps):
@@ -300,24 +365,16 @@ def stencil_lab_plain(x2: torch.Tensor, plan: StencilPlan, channels: int,
                 cur = torch.where(keep, val, 0).to(torch.uint8)
         return cur[g:g + rows, gc:gc + wc].contiguous()
 
-    # swar: pack row pairs (an odd row count gains one zero row).
-    x = x2 if variant.no_mask else torch.where(keep, x2, 0)
-    x = extend(x, g, gc).to(torch.int64)
+    # swar ablations: pack row pairs (an odd row count gains one zero row).
+    x = extend(x2 if variant.no_mask else torch.where(keep, x2, 0), g, gc)
     total = x.shape[0]
-    if total % 2:
-        x = torch.cat([x, torch.zeros_like(x[:1])], 0)
-    p64 = x[0::2] | (x[1::2] << 16)
-    mask = None
-    if not variant.no_mask:
-        kk = keep.to(torch.int64) * 0xFF
-        if rows % 2:
-            kk = torch.cat([kk, torch.zeros_like(kk[:1])], 0)
-        mask = (kk[0::2] | (kk[1::2] << 16)).expand(-1, wc)
+    p64 = pack_pairs(x)
+    mask = 0x00FF00FF if variant.no_mask else swar_mask(
+        keep.reshape(-1), torch.ones(wc, dtype=torch.bool, device=dev))
     for _ in range(reps):
-        p64 = _swar_rep(p64, plan, channels, variant, mask)
-    out = torch.stack([p64 & 0xFF, (p64 >> 16) & 0xFF], 1)
-    out = out.reshape(-1, p64.shape[1])[:total].to(torch.uint8)
-    return out[g:g + rows, gc:gc + wc].contiguous()
+        p64 = _swar_rep(p64, plan, channels, mask, variant.no_rows,
+                        variant.no_cols)
+    return unpack_pairs(p64, total)[g:g + rows, gc:gc + wc].contiguous()
 
 
 # ---------------------------------------------------------------------------

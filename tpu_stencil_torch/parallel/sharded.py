@@ -209,6 +209,9 @@ class ShardedRunner:
             geo_bh = geo_fz = None
         self.block_h_eff = None
         self.geo_applied = False
+        # The tile body K3 runs (None off the kernels).
+        self.body = (cs.tile_body(model.plan) if self.backend == "pallas"
+                     else None)
         if self.backend == "pallas":
             if tuned_schedule == cs.DEEP:
                 # 'deep' deepens the exchange chunk to the deep depth; K3

@@ -248,11 +248,13 @@ def _steady_state_per_rep(run, reps: int) -> float:
 
 # Geometry candidates the unforced tune tries on top of the module default
 # (32 x 8), at the winning schedule only. Chosen for this card: a block may
-# use 227 KB of shared memory and a tile takes 5 bytes per element of
+# use 227 KB of shared memory and a tile takes 3 to 5 bytes per element
+# (by the plan's tile body: swar 4, acc16 3, int32 5) of
 # (block_h + 2*fuse*halo) x (256 + 2*fuse*halo*C), so tiles are tens of
-# rows, not hundreds; candidates past the limit are pruned before any
-# measurement (cuda_stencil.tile_smem_bytes) and candidates that launch as
-# an earlier one does are skipped (effective_geometry). fuse 4/5/10/20/40:
+# rows, not hundreds; candidates past the limit in the plan's body are
+# pruned before any measurement (cuda_stencil.tile_smem_bytes) and
+# candidates that launch as an earlier one does are skipped
+# (effective_geometry). fuse 4/5/10/20/40:
 # `reps % fuse` runs as single-rep launches, which taxes fuses that do not
 # divide the reference's 40-rep jobs, so every divisor of 40 that a tile
 # can hold is in the grid; 16 and 32 are there for rep counts that are

@@ -14,8 +14,9 @@ Usage:  python -m tpu_stencil_torch.tools.bh_fuse_ab [BHxFUSE ...]
             [--platform cpu] [--shape HxW] [--reps N] [--rounds R]
 Output: ``bh= fuse=  us/rep  forty= us/rep  exact=`` per candidate (the
 effective geometry after align and clamp). A candidate whose tile does not
-fit shared memory is a usage error, named before anything runs. Exit code
-1 when a candidate is not exact.
+fit shared memory in the plan's tile body (``cuda_stencil.tile_body``:
+gaussian runs ``swar``, 4 bytes per element) is a usage error, named
+before anything runs. Exit code 1 when a candidate is not exact.
 """
 
 from __future__ import annotations
@@ -66,6 +67,7 @@ def run_sweep(cands: List[tuple], device: torch.device, shape=(H, W),
     full = tuple(shape) + ((channels,) if channels > 1 else ())
     img = _harness.seeded_image(full, device)
     print(f"platform={_harness.describe(device)} schedule={cs.FUSED} "
+          f"body={cs.tile_body(plan)} "
           f"shipped=({cs.DEFAULT_BLOCK_H},{cs.DEFAULT_FUSE}) shape={full}",
           file=out, flush=True)
     want_by_fz, runs, rows = {}, {}, []

@@ -10,19 +10,27 @@ of each exact variant held byte for byte against the torch-ops lowering.
 
 Variants (exact unless marked ablation; geometry suffixes ``_bN`` = tile
 height N, ``_fN`` = fuse N, in either order, on any of them):
-  shipped   ``cuda_stencil.iterate`` as shipped (K1)
+  shipped   ``cuda_stencil.iterate`` as shipped (K1: its tile body per
+            plan, ``swar`` for gaussian, with 16-lane loads and stores)
   xla       the torch-ops lowering
-  current   the lab's own copy of K1's body; the ratio current/shipped is
-            printed and reconciles the lab's harness with the shipped
-            kernel
+  current   the lab's copy of K1 as it was before its tile was redesigned
+            (int32 body, byte-wide load and store): the baseline. The
+            ratio current/shipped is printed: what the redesign gained in
+            the lab's own harness
   pair      binomial taps as chains of pair adds, no multiplies
   acc16     the rows-pass intermediate as int16 in shared memory
-  swar      two pixels (rows 2q, 2q+1 of a lane) per 32-bit word
+  swar      two pixels (rows 2q, 2q+1 of a lane) per 32-bit word, on the
+            baseline's byte-wide load and store
   abl_no_rows, abl_no_cols, abl_no_mask, abl_load_store_only
             ablations of ``current``: WRONG OUTPUT, timing only
   abl_swar_no_rows, abl_swar_no_cols, abl_swar_no_mask,
   abl_swar_load_store_only
             the same ablations of ``swar``
+  tile      the shipped K1 tile in its swar body (16-lane load and store)
+            built as a lab variant: ``shipped`` in this harness
+  abl_tile_no_rows, abl_tile_no_cols, abl_tile_no_mask,
+  abl_tile_load_store_only
+            the same ablations of the shipped tile: where its time goes
 
 The JAX tool's variants, and what answers each here:
   current              -> current
@@ -62,7 +70,8 @@ Usage:  python -m tpu_stencil_torch.tools.kernel_lab [variant ...]
             [--platform cpu] [--shape HxW] [--grey] [--filter NAME]
             [--reps N] [--rounds R]
 Output: one line per variant, ``name  us/rep  exact=True|False|-``, then
-the current/shipped ratio. Exit code 1 when any exact variant is not exact.
+the current/shipped ratio (baseline over shipped K1: above 1 is the
+redesign's gain). Exit code 1 when any exact variant is not exact.
 """
 
 from __future__ import annotations
@@ -91,6 +100,8 @@ DEFAULT_VARIANTS = (
     "abl_no_rows", "abl_no_cols", "abl_no_mask", "abl_load_store_only",
     "abl_swar_no_rows", "abl_swar_no_cols", "abl_swar_no_mask",
     "abl_swar_load_store_only",
+    "tile", "abl_tile_no_rows", "abl_tile_no_cols", "abl_tile_no_mask",
+    "abl_tile_load_store_only",
 )
 SPECIAL = ("shipped", "xla")
 
@@ -107,7 +118,7 @@ def resolve_names(names: List[str]) -> List[str]:
         except ValueError:
             raise ValueError(
                 f"unknown variant {n!r}; the variants are: "
-                f"{', '.join(SPECIAL + lab.BODIES)}, abl_[swar_]"
+                f"{', '.join(SPECIAL + lab.BODIES)}, abl_[swar_|tile_]"
                 f"{{{','.join(lab.ABLATIONS)}}}, each with optional "
                 "_b<rows> and _f<fuse> suffixes"
             ) from None
@@ -169,7 +180,9 @@ def run_lab(names: List[str], device: torch.device, shape=(H, W),
     if "current" in result and "shipped" in result:
         ratio = result["current"]["us_per_rep"] / result["shipped"][
             "us_per_rep"]
-        print(f"current / shipped = {ratio:.3f}", file=out, flush=True)
+        print(f"current / shipped = {ratio:.3f}  (baseline: K1 before "
+              f"its tile redesign / K1 as shipped, body "
+              f"{cs.tile_body(plan)})", file=out, flush=True)
     return result
 
 
