@@ -26,13 +26,19 @@ one JSON line. The phases that pin launch counts name ``--backend pallas``
    ``iterate_frames`` on 3 frames of 256x320 RGB x9 per body (the gap
    rows); after each launch the body the library ran must be the one
    ``cuda_stencil.tile_body`` names. Plus small images against the NumPy
-   golden model, and the no-fallback check: with the K1 library's build
+   golden model, and the no-fallback check: with the libraries' builds
    forced to fail, ``iterate`` raises ``KernelBuildError`` and launches
-   nothing, and the torch-ops path is not called.
-4. ``k2`` — K2 ``stencil_resident`` against its plain version at
-   1920x2520 RGB x40 ``deep`` (one K2 launch, no K1 launch), the same
-   for box, edge, gaussian5, grey and 3 frames, and a deep run past the
-   L2 budget (7680x4320 RGB x8) that must run K1.
+   nothing under the default schedule and under ``deep``, and the
+   torch-ops path is not called.
+4. ``k2`` — K2 ``stencil_resident`` through ``iterate``/``iterate_frames``
+   with ``schedule='deep'`` against its plain version, byte for byte, each
+   case run three times in a row with every run compared (one K2 launch
+   and no other each, the body it ran ``tile_body``'s): every body, grey
+   and RGB at widths 1920, 1917 and 1921, 2520 rows, x9; gaussian RGB
+   1920x2520 at the rep counts around K2's reps per sync F (1, F-1, F,
+   F+1, 7, 40); 3 frames of 256x320 RGB x9 per body; and one shape each
+   side of the feasibility line (1920 wide RGB, the tallest K2 takes and
+   one just past it), the far side running K1 at the deep depth.
 5. ``main_path`` — the CLI on a seeded 1920x2520 RGB raw file, x40,
    default schedule and ``--schedule deep``: cold, as
    ``python -m tpu_stencil_torch`` in a fresh process (its ``--time``
@@ -63,7 +69,9 @@ one JSON line. The phases that pin launch counts name ``--backend pallas``
    launch counter set to 0 just before, and the timing table of all
    variants and ablations (ms per rep x40, interleaved, median of 7, L2
    flushed) with ``current / shipped``: ``current`` is K1 as it was before
-   its tile was redesigned (the baseline), ``shipped`` K1 as it is.
+   its tile was redesigned (the baseline), ``shipped`` K1 as it is; the
+   table also holds ``deep`` (K2 as shipped) and ``band`` (the lab's form
+   of K2 with the image held in shared memory).
 9. ``l1`` — L1 ``op_chain``: every case at a chain of 3 (where no case's
    output is constant, which is checked) and at both timed chains, 8 and
    16, against its plain version (byte-equal; float cases within 1),
@@ -85,12 +93,17 @@ one JSON line. The phases that pin launch counts name ``--backend pallas``
    taking turns (``auto`` must not chunk shallower nor take 1.5x the
    time), their plain versions, the torch-ops path, and one depthwise
    float32 ``F.conv2d`` rep (TF32 off) as the library yardstick, which
-   the port never calls; and each kernel's bound. Then the tile
+   the port never calls; and each kernel's bound. Then K2's A/B, taking
+   turns: K2 as shipped against K1 and against the lab's ``band`` form,
+   with each form's launch (tile, reps per sync, threads, blocks per SM,
+   grid) and its shared memory held against the host model. Then the tile
    redesign's A/B, every set taking turns: K1 and K3's ext tile against
-   the lab's ``current`` (the baseline) and ``swar`` on gaussian; K1
-   against ``current`` on gaussian5, gaussian7 and box, K1 alone on edge;
-   4 frames as one tall launch against 1 frame; and each body's resident
-   blocks per SM at 32x8 (the library's occupancy query).
+   the lab's ``current`` (the baseline) and ``swar`` on gaussian; K1 and K2
+   against ``current`` on gaussian5, gaussian7 and box, K1 and K2 on
+   edge; each with the plain version, and beside each filter its library
+   call (depthwise ``F.conv2d``, ``padding=k//2``) and its bound; 4 frames
+   as one tall launch against 1 frame; and each body's resident blocks per
+   SM at 32x8 (the library's occupancy query).
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -121,7 +134,6 @@ WORK = ROOT / "build" / "chip_smoke"
 # the lab, the sweep and the autotuner's reports read as well.
 
 MAIN_W, MAIN_H, MAIN_C, MAIN_REPS = 1920, 2520, 3, 40
-BIG_W, BIG_H = 7680, 4320  # 2 x 99.5 MB: past the L2 budget
 FRAMES_SHAPE = (3, 320, 256, 3)
 ODD_W, ODD_H = 1921, 2519  # indivisible by a 2x2 grid: the pad mask
 MESHES = ((1, 1), (2, 2), (1, 4), (4, 1))
@@ -134,6 +146,9 @@ BODY_FILTERS = {"swar": ("gaussian", "gaussian5", "identity"),
                 "int32": ("edge", "direct16")}
 # Widths whose flat row (W * C) is not a multiple of 16 lanes, per C.
 RAGGED_W = {1: 1917, 3: 1921}
+# Runs of each K2 case in a row, every one compared: a stale read of
+# another block's bytes shows as a rare difference between runs.
+K2_REPEATS = 3
 
 
 def emit(obj) -> None:
@@ -263,9 +278,10 @@ def phase_k1(dev) -> dict:
 
 
 def check_no_fallback(dev) -> dict:
-    """With K1's library failing to build (nvcc replaced by ``false``, an
-    empty build directory), ``iterate`` on a card tensor must raise
-    KernelBuildError, launch nothing and not call the torch-ops path."""
+    """With the kernel libraries failing to build (nvcc replaced by
+    ``false``, an empty build directory), ``iterate`` on a card tensor
+    must raise KernelBuildError, launch nothing and not call the torch-ops
+    path, under the default schedule (K1) and under 'deep' (K2)."""
     import tempfile
 
     from tpu_stencil_torch.ops import _build
@@ -277,7 +293,7 @@ def check_no_fallback(dev) -> dict:
     saved = (_build.nvcc_path, _build.BUILD_DIR, dict(_build._LOADED),
              lowering.iterate)
     called = []
-    raised = None
+    raised = {}
     with tempfile.TemporaryDirectory(dir=WORK) as tmp:
         _build.nvcc_path = lambda: "false"
         _build.BUILD_DIR = Path(tmp)
@@ -285,18 +301,20 @@ def check_no_fallback(dev) -> dict:
         lowering.iterate = lambda *a, **k: called.append(a)
         cs.reset_launch_counts()
         try:
-            cs.iterate(img, 9, g)
-        except _build.KernelBuildError as e:
-            raised = str(e).splitlines()[0]
+            for sched in (None, "deep"):
+                try:
+                    cs.iterate(img, 9, g, schedule=sched)
+                except _build.KernelBuildError as e:
+                    raised[str(sched)] = str(e).splitlines()[0]
         finally:
             (_build.nvcc_path, _build.BUILD_DIR, loaded,
              lowering.iterate) = saved
             _build._LOADED.clear()
             _build._LOADED.update(loaded)
     counts = cs.launch_counts()
-    require(raised is not None, "a failed K1 build did not raise")
+    require(len(raised) == 2, f"a failed build did not raise: {raised}")
     require(counts == NO_LAUNCHES and not called,
-            f"a failed K1 build fell back: launches {counts}, torch ops "
+            f"a failed build fell back: launches {counts}, torch ops "
             f"called {len(called)} times")
     return {"body": cs.tile_body(g), "raised": raised, "launches": counts}
 
@@ -323,8 +341,61 @@ def phase_divide(dev) -> dict:
     return {"phase": "divide", "ok": True, "divisors": out}
 
 
-def phase_k2(dev) -> dict:
+def k2_fuse(dev) -> int:
+    """K2's reps per grid sync at the main path's shape on this card."""
     from tpu_stencil_torch.ops import cuda_stencil as cs
+
+    return cs.resident_launch_shape(plan_of("gaussian"), MAIN_H,
+                                    MAIN_W * MAIN_C, MAIN_C, dev)["fuse"]
+
+
+def feasibility_line(plan, w: int, c: int, dev) -> tuple:
+    """(rows, rows + 2): the tallest even row count of a w-wide image that
+    K2 takes on this card, and one just past it."""
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+
+    lo, hi = MAIN_H // 2, 10 * MAIN_H  # lo rows fit, hi rows do not
+    require(cs.resident_feasible(plan, 2 * lo, w * c, c, dev)
+            and not cs.resident_feasible(plan, 2 * hi, w * c, c, dev),
+            "the feasibility line is not between the search bounds")
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if cs.resident_feasible(plan, 2 * mid, w * c, c, dev):
+            lo = mid
+        else:
+            hi = mid
+    return 2 * lo, 2 * hi
+
+
+def phase_k2(dev) -> dict:
+    """K2 through ``iterate``/``iterate_frames`` with ``schedule='deep'``
+    against its plain version, byte for byte, each case run K2_REPEATS
+    times in a row and every repeat compared (a stale read of another
+    block's bytes would show as a rare difference): one K2 launch and no
+    other per run, and the body it ran is ``tile_body``'s. Every body,
+    grey and RGB at widths 1920, 1917 and 1921 x9; gaussian RGB at the
+    rep counts around K2's reps per sync; 3 frames per body; and one shape
+    each side of the feasibility line, the far side running K1 at the deep
+    depth."""
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+
+    fuse = k2_fuse(dev)
+    worst, cases = 0, []
+
+    def case(label, run, want, plan, name):
+        nonlocal worst
+        errs = []
+        for _ in range(K2_REPEATS):
+            cs.reset_launch_counts()
+            got = run()
+            counts = cs.launch_counts()
+            require(counts == launches(stencil_resident=1),
+                    f"deep {label}: launches {counts}")
+            check_body("stencil_resident", plan, name)
+            errs.append(max_err(got, want))
+        worst = max(worst, *errs)
+        cases.append({"case": label, "body": cs.tile_body(plan),
+                      "errs": errs})
 
     g = plan_of("gaussian")
     rgb = seeded((MAIN_H, MAIN_W, 3), 1, dev)
@@ -332,49 +403,57 @@ def phase_k2(dev) -> dict:
     require(cs.resident_feasible(g, MAIN_H, MAIN_W * 3, 3, dev),
             "K2 must be feasible at 1920x2520 RGB")
     out = cs.stencil_resident(x2, g, 3, MAIN_REPS)
-    err = max_err(out, cs.stencil_resident_plain(x2, g, 3, MAIN_REPS))
-    cs.reset_launch_counts()
-    deep = cs.iterate(rgb, MAIN_REPS, g, schedule="deep")
-    counts = cs.launch_counts()
-    require(counts == launches(stencil_resident=1),
-            f"deep at 1920x2520 must be one K2 launch, got {counts}")
-    err = max(err, max_err(deep, flat_plain(rgb, g, MAIN_REPS)))
-    # The other plans (divide, direct, wide halo), grey, and frames.
-    grey = seeded((MAIN_H, MAIN_W), 2, dev)
-    frames = seeded(FRAMES_SHAPE, 3, dev)
-    for img, name, reps in ((rgb, "box", 9), (rgb, "edge", 9),
-                            (rgb, "gaussian5", 9), (grey, "gaussian", 40),
-                            (frames, "gaussian", 9)):
-        p = plan_of(name)
+    wrapper_err = max_err(out, cs.stencil_resident_plain(x2, g, 3, MAIN_REPS))
+    for reps in sorted({1, max(1, fuse - 1), fuse, fuse + 1, 7, MAIN_REPS}):
+        case(f"{tuple(rgb.shape)} gaussian x{reps}",
+             lambda reps=reps: cs.iterate(rgb, reps, g, schedule="deep"),
+             flat_plain(rgb, g, reps), g, "gaussian")
+    for body, names in BODY_FILTERS.items():
+        for c in (1, 3):
+            for w in (MAIN_W, RAGGED_W[1], RAGGED_W[3]):
+                shape = (MAIN_H, w, c) if c > 1 else (MAIN_H, w)
+                img = seeded(shape, 2 + w + c, dev)
+                for name in names:
+                    p = plan_of(name)
+                    case(f"{shape} {name} x9",
+                         lambda img=img, p=p: cs.iterate(img, 9, p,
+                                                         schedule="deep"),
+                         flat_plain(img, p, 9), p, name)
+        frames = seeded(FRAMES_SHAPE, 3, dev)
+        p = plan_of(names[0])
+        case(f"frames {FRAMES_SHAPE} {names[0]} x9",
+             lambda p=p: cs.iterate_frames(frames, 9, p, schedule="deep"),
+             torch.stack([flat_plain(f, p, 9) for f in frames]), p, names[0])
+    torch.cuda.synchronize()
+    bad = [c for c in cases if any(c["errs"])]
+    require(not bad and wrapper_err == 0,
+            f"K2 disagrees with its plain version: {bad} (wrapper "
+            f"{wrapper_err})")
+    # The feasibility line: just inside runs K2, just past runs K1 at the
+    # deep depth.
+    near, far = feasibility_line(g, MAIN_W, 3, dev)
+    line = {}
+    for rows in (near, far):
+        img = seeded((rows, MAIN_W, 3), 5, dev)
+        fits = cs.resident_feasible(g, rows, MAIN_W * 3, 3, dev)
+        geo = cs.deep_geometry(g, rows, MAIN_W, 3, device=dev)
         cs.reset_launch_counts()
-        if img is frames:
-            got = cs.iterate_frames(img, reps, p, schedule="deep")
-            want = torch.stack([flat_plain(f, p, reps) for f in img])
-        else:
-            got = cs.iterate(img, reps, p, schedule="deep")
-            want = flat_plain(img, p, reps)
+        got = cs.iterate(img, 8, g, schedule="deep")
         counts = cs.launch_counts()
-        require(counts == launches(stencil_resident=1),
-                f"deep {name} {tuple(img.shape)}: launches {counts}")
-        err = max(err, max_err(got, want))
-    require(err == 0, f"K2 disagrees with its plain version (max {err})")
-    # Past the L2 budget 'deep' runs K1 at the deep depth.
-    big = seeded((BIG_H, BIG_W, 3), 5, dev)
-    require(not cs.resident_feasible(g, BIG_H, BIG_W * 3, 3, dev),
-            f"{BIG_W}x{BIG_H} RGB must not fit the L2 budget")
-    geo = cs.deep_geometry(g, BIG_H, BIG_W, 3, device=dev)
-    cs.reset_launch_counts()
-    out = cs.iterate(big, 8, g, schedule="deep")
-    counts = cs.launch_counts()
-    want_k1 = len(cs.launch_schedule(8, geo[1]))
-    require(counts == launches(stencil_fused=want_k1),
-            f"deep past L2 must run K1 x{want_k1}, got {counts}")
-    big_err = max_err(out, flat_plain(big, g, 8))
-    require(big_err == 0, f"deep K1 path disagrees (max {big_err})")
-    return {"phase": "k2", "ok": True, "max_abs_err": err,
-            "past_l2": {"shape": [BIG_H, BIG_W, 3], "reps": 8,
-                        "geometry": list(geo), "launches": counts,
-                        "max_abs_err": big_err}}
+        expect = (launches(stencil_resident=1) if fits else
+                  launches(stencil_fused=len(cs.launch_schedule(8, geo[1]))))
+        require(fits == (rows == near) and counts == expect,
+                f"deep at {rows}x{MAIN_W} RGB (feasible {fits}): launches "
+                f"{counts}, expected {expect}")
+        err = max_err(got, flat_plain(img, g, 8))
+        require(err == 0, f"deep at {rows}x{MAIN_W} RGB disagrees ({err})")
+        line["inside" if fits else "past"] = {
+            "shape": [rows, MAIN_W, 3], "reps": 8, "geometry": list(geo),
+            "launches": counts, "max_abs_err": err}
+    return {"phase": "k2", "ok": True, "cases": len(cases),
+            "repeats": K2_REPEATS, "max_abs_err": max(worst, wrapper_err),
+            "fuse": fuse, "bodies": sorted({c["body"] for c in cases}),
+            "feasibility_line": line}
 
 
 def run_cli(args) -> tuple:
@@ -449,7 +528,7 @@ def phase_main_path(dev) -> dict:
             stencil_fused=MAIN_REPS // fuse + MAIN_REPS % fuse),
          cs.tile_body(g)),
         ("deep", ["--schedule", "deep"], launches(stencil_resident=1),
-         cs.RESIDENT_BODY),
+         cs.tile_body(g)),
     ):
         for temp, runner in (("cold", run_cli_cold), ("warm", run_cli)):
             dst = WORK / f"blur_{label}_{temp}.raw"
@@ -673,6 +752,68 @@ def interleaved_ms(fns: dict, dev, runs: int = 7) -> dict:
             b.synchronize()
             times[name].append(a.elapsed_time(b))
     return {name: statistics.median(v) for name, v in times.items()}
+
+
+def library_conv2d_ms(img: torch.Tensor, plan, dev) -> float:
+    """The library yardstick of one rep of ``plan``: one depthwise float32
+    ``F.conv2d`` (TF32 off, ``padding=k//2``) with the plan's taps over its
+    divisor, planar layout prepared outside the window. Timed only; the
+    port never calls it."""
+    torch.backends.cudnn.allow_tf32 = False
+    c = img.shape[2]
+    xf = img.permute(2, 0, 1)[None].to(torch.float32).contiguous()
+    w = (torch.tensor(plan.taps, dtype=torch.float32, device=dev)
+         / plan.divisor).expand(c, 1, plan.k, plan.k).contiguous()
+    return time_ms(lambda: torch.nn.functional.conv2d(
+        xf, w, padding=plan.k // 2, groups=c), dev)
+
+
+# K2's design choices timed beside it: its tile (rows x reps per sync) and
+# the band form's reps per sync.
+K2_ALTERNATIVES = ("deep_b32_f8", "deep_b40_f8", "deep_b48_f8",
+                   "deep_b56_f8", "deep_b64_f8", "deep_b48_f12",
+                   "deep_b64_f16", "band_f1", "band_f2", "band_f4")
+
+
+def resident_ab(img: torch.Tensor, dev) -> dict:
+    """K2 as shipped against K1 (the default schedule), the kernel lab's
+    ``band`` form of K2, and the alternatives K2's design chose between
+    (:data:`K2_ALTERNATIVES`, through the kernel lab's variants, each
+    checked exact), all on gaussian and taking turns (ms per rep x40,
+    median of 7, L2 flushed); each K2 form's launch (tile, reps per sync,
+    threads, blocks per SM, grid) and its shared memory, the library's own
+    against the host model."""
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+    from tpu_stencil_torch.ops import lab
+    from tpu_stencil_torch.tools import kernel_lab
+
+    g = plan_of("gaussian")
+    n, wc = MAIN_REPS, MAIN_W * MAIN_C
+    fns = {"k1": lambda: cs.iterate(img, n, g),
+           "k2": lambda: cs.iterate(img, n, g, schedule="deep"),
+           "band": lambda: lab.band_iterate(img, n, g)}
+    want = flat_plain(img, g, n)
+    for name in K2_ALTERNATIVES:
+        fn = kernel_lab.variant_fn(name, g, img)[0]
+        err = max_err(fn(n), want)
+        require(err == 0, f"{name} disagrees with its plain version ({err})")
+        fns[name] = lambda fn=fn: fn(n)
+    row = {k: v / n for k, v in interleaved_ms(fns, dev).items()}
+    row["k2_over_k1"] = row["k2"] / row["k1"]
+    row["band_over_k2"] = row["band"] / row["k2"]
+    row["k2_launch"] = cs.resident_launch_shape(g, MAIN_H, wc, MAIN_C, dev)
+    row["band_launch"] = lab.band_launch_shape(g, MAIN_H, wc, MAIN_C, dev)
+    bh, fz = cs.resident_geometry(g, MAIN_H, wc, MAIN_C,
+                                  cs.device_caps(dev)[1])
+    require(cs.resident_kernel_smem_bytes(g, MAIN_H, wc, MAIN_C, dev)
+            == cs.tile_smem_bytes(g, bh, fz, MAIN_C)
+            == row["k2_launch"]["smem_bytes"],
+            "K2: the host's shared-memory model disagrees with the library's")
+    require(lab.band_kernel_smem_bytes(g, MAIN_H, wc, MAIN_C)
+            == row["band_launch"]["smem_bytes"],
+            "band: the host's shared-memory model disagrees with the "
+            "library's")
+    return row
 
 
 def phase_l2(dev) -> dict:
@@ -948,15 +1089,7 @@ def phase_times(dev) -> dict:
     require(both["auto"] <= 1.5 * both["pallas"],
             f"sharded 2x2 under auto takes {both['auto']} ms, under pallas "
             f"{both['pallas']} ms")
-    # Library yardstick: one depthwise float32 convolution rep (planar
-    # layout prepared outside the window). Timed only.
-    torch.backends.cudnn.allow_tf32 = False
-    xf = img.permute(2, 0, 1)[None].to(torch.float32).contiguous()
-    w = torch.tensor([[1., 2., 1.], [2., 4., 2.], [1., 2., 1.]],
-                     device=dev).div(16.0).expand(MAIN_C, 1, 3, 3).contiguous()
-    r["library_conv2d_ms"] = time_ms(
-        lambda: torch.nn.functional.conv2d(xf, w, padding=1, groups=MAIN_C),
-        dev)
+    r["library_conv2d_ms"] = library_conv2d_ms(img, g, dev)
     bound, by = bound_ms_per_rep(g, MAIN_H * MAIN_W * MAIN_C, n)
     r["bound_ms"], r["bound_by"] = bound, by
     # L2: the lab's `current` body through the same rep loop, and its
@@ -987,6 +1120,7 @@ def phase_times(dev) -> dict:
     r["op_chain_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     r["op_chain_unit"] = (f"ms per launch, add_i32 chain of 8, {grid} tiles "
                           f"of {ib}x{wc}, {b} rows of each stored")
+    r["resident_ab"] = resident_ab(img, dev)
     r["tile_ab"] = tile_ab(img, dev)
     r["clocks_power"] = nvidia_smi(
         "clocks.sm,power.draw,power.limit,temperature.gpu")
@@ -1006,11 +1140,14 @@ def tile_ab(img: torch.Tensor, dev) -> dict:
     from tpu_stencil_torch.ops import lab
 
     n = MAIN_REPS
+    x2 = img.reshape(MAIN_H, -1)
     cur, swar = lab.parse_variant("current"), lab.parse_variant("swar")
     out = {}
     for name in ("gaussian", "gaussian5", "gaussian7", "box", "edge"):
         p = plan_of(name)
-        fns = {"k1": lambda p=p: cs.iterate(img, n, p)}
+        fns = {"k1": lambda p=p: cs.iterate(img, n, p),
+               "k2": lambda p=p: cs.iterate(img, n, p, schedule="deep"),
+               "plain": lambda p=p: cs.stencil_fused_plain(x2, p, MAIN_C, n)}
         if name == "gaussian":
             fz = cs.DEFAULT_FUSE
             ext = ext_tile(img, 0, 0, (1, 1), fz * p.halo)
@@ -1024,10 +1161,14 @@ def tile_ab(img: torch.Tensor, dev) -> dict:
         if lab.variant_supported(swar, p):
             fns["lab_swar"] = lambda p=p: lab.lab_iterate(img, n, p, swar)
         row = {k: v / n for k, v in interleaved_ms(fns, dev).items()}
+        row["k2_over_k1"] = row["k2"] / row["k1"]
         if "lab_current" in row:
             row["k1_over_current"] = row["k1"] / row["lab_current"]
         if "k3_ext" in row:
             row["k3_over_current"] = row["k3_ext"] / row["lab_current"]
+        row["library_conv2d"] = library_conv2d_ms(img, p, dev)
+        row["bound"], row["bound_by"] = bound_ms_per_rep(
+            p, MAIN_H * MAIN_W * MAIN_C, n)
         out[name] = {"body": cs.tile_body(p), **row}
     g = plan_of("gaussian")
     frames = seeded((4, MAIN_H, MAIN_W, MAIN_C), 14, dev)
@@ -1107,8 +1248,9 @@ def run(dev: torch.device) -> None:
     # Every library this script launches, one nvcc each, all together.
     t0 = time.perf_counter()
     variants = [lab.parse_variant(n) for n in kernel_lab.DEFAULT_VARIANTS
-                if n not in kernel_lab.SPECIAL]
-    targets = [*_build.JOB_KERNELS, "op_chain", *lab.lab_targets(variants)]
+                if n not in kernel_lab.SPECIAL + tuple(kernel_lab.K2_FORMS)]
+    targets = [*_build.JOB_KERNELS, "op_chain", *lab.lab_targets(variants),
+               lab.BAND_TARGET]
     built = _build.build(targets)
 
     def label(t):
@@ -1118,12 +1260,13 @@ def run(dev: torch.device) -> None:
         return _build.build_log(t) if isinstance(t, str) else _build.build_log(*t)
 
     libs = {label(t): str(p) for t, p in built.items()}
+    tiles = ("stencil_fused", "stencil_resident", "stencil_valid",
+             lab.BAND_TARGET)
     ptxas = {label(t): [ln.strip() for ln in log_of(t).splitlines()
                         if "registers" in ln or "spill" in ln][:6]
-             for t in built if t not in ("op_chain", "stencil_fused",
-                                         "stencil_valid")}
-    for t in ("stencil_fused", "stencil_valid"):
-        ptxas[t] = tile_instances(log_of(t))
+             for t in built if t != "op_chain" and t not in tiles}
+    for t in tiles:
+        ptxas[label(t)] = tile_instances(log_of(t))
     spills = [ln for t in built for ln in log_of(t).splitlines()
               if "spill" in ln and " 0 bytes spill stores, 0 bytes spill "
               "loads" not in ln]
@@ -1172,7 +1315,9 @@ def run(dev: torch.device) -> None:
          "launches": runs["deep_warm"]["launches"]["stencil_resident"],
          "max_abs_err": max(k2["max_abs_err"], runs["deep_warm"]["max_abs_err"],
                             runs["deep_cold"]["max_abs_err"]),
-         "ms": times["stencil_resident_ms"], **common},
+         "ms": times["stencil_resident_ms"], **common,
+         "body": times["tile_ab"]["gaussian"]["body"],
+         "k2_over_k1_same_call": times["resident_ab"]["k2_over_k1"]},
         {"name": "stencil_valid",
          "source": "tpu_stencil_torch/ops/csrc/stencil_valid.cu",
          "replaces": "tpu_stencil/ops/pallas_stencil.py:909",

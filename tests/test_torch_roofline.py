@@ -42,13 +42,13 @@ def test_pallas_traffic_follows_the_launched_depth():
     assert roofline.effective_fuse("gaussian", 2520, block_h=16, fuse=40,
                                    channels=3) == cs.effective_geometry(
         g, 2520, 3, 16, 40)[1] == 8
-    # deep, resident: the whole rep loop is one trip through device memory
+    # deep, resident: one trip through device memory per grid sync of K2
     assert cs.resident_feasible(g, 2520, 1920 * 3, 3)
     assert roofline.effective_fuse("gaussian", 2520, schedule="deep",
-                                   w_img=1920, channels=3, reps=40) == 40
+                                   w_img=1920, channels=3, reps=40) == 8
     assert roofline.analytic_bytes_per_rep(
         FRAME, "pallas", "gaussian", 2520, schedule="deep", w_img=1920,
-        channels=3, reps=40) == 2.0 * FRAME / 40
+        channels=3, reps=40) == 2.0 * FRAME / 8
     # deep past the L2 budget: K1 at the deep trapezoid depth
     deep = cs.deep_geometry(g, 4320, 7680, 3)
     assert deep[1] is not None

@@ -67,7 +67,12 @@ def test_body_is_a_function_of_the_plan_alone():
             {f: getattr(a, f) for f in a.__dataclass_fields__})
         assert cs.tile_body(a) == cs.tile_body(b) == BODY_OF[name]
     assert cs.BODIES == ("int32", "acc16", "swar")
-    assert cs.RESIDENT_BODY == "int32"
+    # K2 sizes its tile in the plan's body too: at fuse 8, 56 rows leave
+    # two blocks per SM in swar for gaussian but not for gaussian5
+    g, g5 = _plan("gaussian"), _plan("gaussian5")
+    assert cs.resident_geometry(g, 2520, 5760, 3) == (56, 8)
+    assert cs.resident_geometry(g5, 2520, 5760, 3) == (48, 8)
+    assert 2 * cs.tile_smem_bytes(g5, 56, 8, 3) > cs.SM_SMEM
 
 
 def _worst_fields(plan):

@@ -101,8 +101,8 @@ class JobResult:
     # Measurements the autotuner made for this job, all before the compute
     # window (0: a warm cache, an explicit backend, or no card).
     tune_probes: int = 0
-    # The tile body the kernels ran (cuda_stencil.tile_body for K1 and K3,
-    # cuda_stencil.RESIDENT_BODY for K2); None off the kernels.
+    # The tile body the kernels ran (cuda_stencil.tile_body, for K1, K2 and
+    # K3 alike); None off the kernels.
     body: Optional[str] = None
 
 
@@ -199,10 +199,7 @@ def run_job(cfg: JobConfig, device: Optional[torch.device] = None,
     if backend == "pallas":
         bh, fz = _ran_geometry(model, geo_rows, cfg.width, cfg.channels,
                                schedule)
-        # (None, None) under 'deep' is the resident kernel (K2).
-        resident = schedule == cuda_stencil.DEEP and bh is None
-        body = (cuda_stencil.RESIDENT_BODY if resident
-                else cuda_stencil.tile_body(model.plan))
+        body = cuda_stencil.tile_body(model.plan)
     return JobResult(
         output_path=cfg.output_path,
         compute_seconds=compute_seconds,

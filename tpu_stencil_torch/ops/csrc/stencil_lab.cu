@@ -55,19 +55,47 @@
 //                          its swar body, 16-lane load and store): exact, it
 //                          is `shipped` in this harness; its ablations split
 //                          the shipped tile's time.
+//   -DLAB_BODY=5  band     not K1's harness: K2's job (the whole rep loop in
+//                          one cooperative launch) with the image held in
+//                          the blocks' shared memory across the rep loop,
+//                          the counterpart of the TPU kernel's VMEM-resident
+//                          image. One block per SM owns a band of whole rows
+//                          (an even count, for swar's row pairs) that stays
+//                          in its shared memory as uint8 from the first load
+//                          to the last store, so the job reads the image once
+//                          and writes it once. Each step the block walks its
+//                          band in tiles of tile_w lanes (K1's tile in the
+//                          plan's body, `fuse` reps as a trapezoid), each
+//                          tile's result written back into the band; then it
+//                          publishes its first and last fuse*halo rows to an
+//                          edge buffer in device memory (double-buffered by
+//                          sync parity) and, after the grid sync, reads its
+//                          neighbours' edges as its ghost rows; bands are
+//                          full width, so no ghost lanes cross blocks.
+//                          Writing a tile back in place would overwrite the
+//                          G = fuse*halo*C lanes the next tile to its right
+//                          still reads as its left ghost lanes: those output
+//                          lanes are held back in shared memory and written
+//                          into the band once the next tile has loaded. It
+//                          measured slower than K2 as shipped (the tile's
+//                          load, packing and store recur every step from the
+//                          band as from device memory, and one block per SM
+//                          hides none of its barriers); it stays here to be
+//                          timed against it. Every plan K2 takes, exact.
 //   -DLAB_NO_ROWS / -DLAB_NO_COLS   skip that pass's taps (centre tap only)
 //   -DLAB_NO_MASK                   never re-zero outside the image
 //   -DLAB_LOAD_STORE_ONLY           no rep at all: load the tile, store it
 //
-// Separable integer plans only, filter sizes 3, 5 and 7. Built with nvcc
-// -gencode arch=compute_90a,code=sm_90a -O3 into a shared library with a
-// plain C interface (loaded with ctypes).
+// Bodies 0-4: separable integer plans only, filter sizes 3, 5 and 7.
+// Built with nvcc -gencode arch=compute_90a,code=sm_90a -O3 into a shared
+// library with a plain C interface (loaded with ctypes).
 
 #define LAB_CURRENT 0
 #define LAB_PAIR 1
 #define LAB_ACC16 2
 #define LAB_SWAR 3
 #define LAB_TILE 4
+#define LAB_BAND 5
 
 #ifndef LAB_BODY
 #define LAB_BODY LAB_CURRENT
@@ -94,6 +122,283 @@
 #endif
 
 #include "stencil_tile.cuh"
+
+#if LAB_BODY == LAB_BAND
+
+#include <cooperative_groups.h>
+
+namespace cg = cooperative_groups;
+
+// Threads per block at most (one block per SM).
+#define LAB_BAND_THREADS 1024
+
+__host__ __device__ inline size_t lab_round16(size_t n) {
+  return (n + 15) / 16 * 16;
+}
+
+// Shared memory of the band form: the working tile (g.tile_h = band rows,
+// g.tile_w = tile lanes), the band (band rows x wc rounded up to 16), the
+// held-back lanes (band rows x fuse*halo*C). Mirrored by
+// lab.band_smem_bytes.
+__host__ __device__ inline size_t lab_band_tile_bytes(
+    const StencilParams& p, const StencilGeometry& g, int fuse, int body) {
+  return lab_round16(stencil_tile_smem(p, g, fuse, body));
+}
+
+__host__ __device__ inline size_t lab_band_smem(const StencilParams& p,
+                                                const StencilGeometry& g,
+                                                int fuse, int body) {
+  const size_t br = g.tile_h;
+  return lab_band_tile_bytes(p, g, fuse, body) + br * lab_round16(g.wc) +
+         lab_round16(br * fuse * (p.k / 2) * g.channels);
+}
+
+// Rows of a band's tile: its own rows from the band in shared memory, the
+// rows above and below from `up` and `down` (the source image on the first
+// step, the neighbours' published edges after), zero outside the image;
+// stores go to the rows at `st` (the band, or the held-back lanes).
+struct LabBandBounds : StencilImageBounds {
+  const uint8_t* band;  // shared: rows [r_lo, r_hi), stride bs
+  const uint8_t* up;    // global: rows [r_lo - e, r_lo), stride wc
+  const uint8_t* down;  // global: rows [r_hi, r_hi + e), stride wc
+  uint8_t* st;          // store rows [r_lo, r_hi), stride st_stride
+  int bs, r_lo, r_hi, e;
+  int st_stride, st_off, st_wc;
+  static constexpr bool coherent = true;
+
+  __device__ __forceinline__ const uint8_t* load_row(int row) const {
+    if (!stencil_row_kept(g, row)) return nullptr;
+    if (row < r_lo) return up + (size_t)(row - (r_lo - e)) * g.wc;
+    if (row >= r_hi) return down + (size_t)(row - r_hi) * g.wc;
+    return band + (size_t)(row - r_lo) * bs;
+  }
+  __device__ __forceinline__ uint8_t* store_row(int row) const {
+    return row >= r_lo && row < r_hi && row < g.rows
+               ? st + (size_t)(row - r_lo) * st_stride
+               : nullptr;
+  }
+  __device__ __forceinline__ int store_off() const { return st_off; }
+  __device__ __forceinline__ int store_wc() const { return st_wc; }
+};
+
+// Rows [0, nrows) x lanes [0, wc) from a device buffer of stride wc into the
+// band (shared, stride bs).
+__device__ __forceinline__ void lab_rows_in(uint8_t* band, int bs,
+                                            const uint8_t* src, int nrows,
+                                            int wc, int vec) {
+  stencil_for_chunks(nrows, stencil_ceil_div(wc, 16), [&](int r, int j) {
+    const uint4 v = stencil_ld16<false>(src + (size_t)r * wc, 16 * j, wc, vec);
+    stencil_sts16(band + (size_t)r * bs, 16 * j, wc, v);
+  });
+}
+
+// ... and from the band out to a device buffer.
+__device__ __forceinline__ void lab_rows_out(uint8_t* dst,
+                                             const uint8_t* band, int bs,
+                                             int nrows, int wc, int vec) {
+  stencil_for_chunks(nrows, stencil_ceil_div(wc, 16), [&](int r, int j) {
+    const uint4 v = stencil_lds16(band + (size_t)r * bs, 16 * j, wc);
+    stencil_st16(dst + (size_t)r * wc, 16 * j, 0, wc, vec, v);
+  });
+}
+
+template <int KT, int BODY>
+__global__ void __launch_bounds__(LAB_BAND_THREADS, 1)
+    lab_band_kernel(const uint8_t* src, uint8_t* out, uint8_t* edges,
+                    StencilParams p, StencilGeometry g, int reps, int fuse,
+                    int src_vec, int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::grid_group grid = cg::this_grid();
+  const int h = p.k / 2, wc = g.wc;
+  const int br = g.tile_h;                   // rows per band
+  const int e = fuse * h;                    // edge rows per side
+  const int n_bands = stencil_ceil_div(g.rows, br);
+  const int band = blockIdx.x;               // the grid is one block per band
+  const int r_lo = band * br, r_hi = r_lo + br;
+  const int n_own = min(br, g.rows - r_lo);  // band rows inside the image
+  const int bs = (int)lab_round16(wc);
+  uint8_t* bandm = smem + lab_band_tile_bytes(p, g, fuse, BODY);
+  uint8_t* held = bandm + (size_t)br * bs;
+  const size_t edge_band = 2 * (size_t)e * wc;  // first e rows, last e rows
+  const size_t edge_parity = n_bands * edge_band;
+  const int tiles_x = stencil_ceil_div(wc, g.tile_w);
+  const int steps = reps / fuse + reps % fuse;
+
+  lab_rows_in(bandm, bs, src + (size_t)r_lo * wc, n_own, wc, src_vec);
+  __syncthreads();
+  for (int s = 0; s < steps; ++s) {
+    const int depth = s < reps / fuse ? fuse : 1;
+    const int G = depth * h * g.channels;  // lanes held back per tile
+    const uint8_t* up = nullptr;
+    const uint8_t* down = nullptr;
+    if (s == 0) {
+      if (band > 0) up = src + (size_t)(r_lo - e) * wc;
+      if (band + 1 < n_bands) down = src + (size_t)r_hi * wc;
+    } else {
+      const uint8_t* ed = edges + (s & 1) * edge_parity;
+      if (band > 0) up = ed + (band - 1) * edge_band + (size_t)e * wc;
+      if (band + 1 < n_bands) down = ed + (band + 1) * edge_band;
+    }
+    for (int j = 0; j < tiles_x; ++j) {
+      const int col0 = j * g.tile_w;
+      const bool last = j + 1 == tiles_x;
+      const LabBandBounds b{{nullptr, nullptr, g, s ? vec : src_vec, 16},
+                            bandm, up, down, bandm, bs, r_lo, r_hi, e,
+                            bs, 0, last ? wc : col0 + g.tile_w - G};
+      // Once this tile has loaded, the lanes the last tile held back go
+      // into the band.
+      auto flush = [&] {
+        if (j == 0) return;
+        const int n = br * G;
+        for (int i = threadIdx.x; i < n; i += blockDim.x) {
+          const int r = i / G, c = i - r * G;
+          bandm[(size_t)r * bs + col0 - G + c] = held[i];
+        }
+      };
+      stencil_tile_compute<KT, BODY>(b, p, g, r_lo, col0, depth, smem, flush);
+      stencil_tile_store<BODY>(b, p, g, r_lo, col0, depth, smem, 0,
+                               g.tile_w);
+      if (!last && G > 0) {
+        LabBandBounds hb = b;
+        hb.st = held;
+        hb.st_stride = G;
+        hb.st_off = col0 + g.tile_w - G;
+        hb.st_wc = G;
+        hb.store_vec = 1;
+        stencil_tile_store<BODY>(hb, p, g, r_lo, col0, depth, smem,
+                                 g.tile_w - G, G);
+      }
+      __syncthreads();
+    }
+    if (s + 1 < steps) {
+      if (e > 0) {
+        uint8_t* ed = edges + ((s + 1) & 1) * edge_parity + band * edge_band;
+        lab_rows_out(ed, bandm, bs, e, wc, vec);
+        lab_rows_out(ed + (size_t)e * wc, bandm + (size_t)(br - e) * bs, bs,
+                     e, wc, vec);
+      }
+      grid.sync();
+    }
+  }
+  lab_rows_out(out + (size_t)r_lo * wc, bandm, bs, n_own, wc, vec);
+}
+
+template <int BODY>
+static const void* kernel_for_k(int k) {
+  switch (k) {
+    case 3: return (const void*)lab_band_kernel<3, BODY>;
+    case 5: return (const void*)lab_band_kernel<5, BODY>;
+    case 7: return (const void*)lab_band_kernel<7, BODY>;
+    default: return (const void*)lab_band_kernel<0, BODY>;
+  }
+}
+
+static const void* kernel_for(int k, int body) {
+  switch (body) {
+    case STENCIL_BODY_INT32: return kernel_for_k<STENCIL_BODY_INT32>(k);
+    case STENCIL_BODY_ACC16: return kernel_for_k<STENCIL_BODY_ACC16>(k);
+    case STENCIL_BODY_SWAR: return kernel_for_k<STENCIL_BODY_SWAR>(k);
+    default: return nullptr;
+  }
+}
+
+static int band_threads(const StencilParams& p, const StencilGeometry& g,
+                        int fuse) {
+  const int lanes = g.tile_w + 2 * fuse * (p.k / 2) * g.channels;
+  const int t = (lanes + 31) / 32 * 32;
+  return t < LAB_BAND_THREADS ? t : LAB_BAND_THREADS;
+}
+
+// The instance for (p, g, fuse, body) with its shared memory set, and the
+// grid (one block per band), which must fit co-resident; nullptr (and
+// *err) otherwise or when the arguments are out of range.
+static const void* prepare(const StencilParams* p, const StencilGeometry* g,
+                           int fuse, int body, size_t* smem, int* per_sm,
+                           int* grid, int* err) {
+  *err = (int)cudaErrorInvalidValue;
+  if (fuse < 1 || p->k < 1 || p->k > STENCIL_MAX_K || g->tile_h < 1 ||
+      g->tile_w < 1 || body < 0 || body >= STENCIL_N_BODIES ||
+      !stencil_body_runs(*p, *g, body))
+    return nullptr;
+  // a neighbour's edge rows lie in one band; a held-back strip in one tile
+  if (fuse * (p->k / 2) > g->tile_h ||
+      (g->tile_w < g->wc && fuse * (p->k / 2) * g->channels > g->tile_w))
+    return nullptr;
+  const void* fn = kernel_for(p->k, body);
+  *smem = lab_band_smem(*p, *g, fuse, body);
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+  int dev = 0, sms = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, fn, band_threads(*p, *g, fuse), *smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *err = (int)e;
+  if (e != cudaSuccess) return nullptr;
+  *grid = stencil_ceil_div(g->rows, g->tile_h);
+  if (*grid > *per_sm * sms) {
+    *err = (int)cudaErrorCooperativeLaunchTooLarge;
+    return nullptr;
+  }
+  return fn;
+}
+
+extern "C" {
+
+// One cooperative launch runs all `reps` (>= 1) from src into `out`
+// (distinct), `fuse` reps per grid sync, in the tile body `body`; `edges`
+// holds 4 * fuse * halo * wc bytes per band. Returns the cudaError_t of
+// the launch (0 = launched).
+int stencil_lab_band_launch(const void* src, void* out, void* edges,
+                            const StencilParams* p, const StencilGeometry* g,
+                            int reps, int fuse, int body, void* stream) {
+  if (reps < 1) return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  int per_sm = 0, grid = 0, err = 0;
+  const void* fn = prepare(p, g, fuse, body, &smem, &per_sm, &grid, &err);
+  if (!fn) return err;
+  StencilParams pv = *p;
+  StencilGeometry gv = *g;
+  int rv = reps, fz = fuse;
+  int src_vec = stencil_vec_width(src, g->wc);
+  int vec = stencil_vec_width(out, g->wc);
+  const int ev = stencil_vec_width(edges, g->wc);
+  if (ev < vec) vec = ev;
+  void* args[] = {&src, &out, &edges, &pv, &gv, &rv, &fz, &src_vec, &vec};
+  cudaError_t e = cudaLaunchCooperativeKernel(
+      fn, dim3(grid), dim3(band_threads(*p, *g, fuse)), args, smem,
+      (cudaStream_t)stream);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  return (int)e;
+}
+
+// Shared-memory bytes a launch asks for.
+long long stencil_lab_band_smem(const StencilParams* p,
+                                const StencilGeometry* g, int fuse,
+                                int body) {
+  return (long long)lab_band_smem(*p, *g, fuse, body);
+}
+
+// Resident blocks per SM, the grid and the threads per block of the launch
+// (p, g, fuse, body) would make, into out[0..2]. Returns its cudaError_t.
+int stencil_lab_band_shape(const StencilParams* p, const StencilGeometry* g,
+                           int fuse, int body, int* out) {
+  size_t smem = 0;
+  int err = 0;
+  if (!prepare(p, g, fuse, body, &smem, &out[0], &out[1], &err)) return err;
+  out[2] = band_threads(*p, *g, fuse);
+  return 0;
+}
+
+const char* stencil_lab_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"
+
+#else  // the K1-harness variants
 
 #if LAB_BODY == LAB_ACC16
 typedef int16_t lab_acc_t;
@@ -193,7 +498,7 @@ __device__ __forceinline__ int lab_cols_acc(const lab_acc_t* row,
 }
 
 template <int KT>
-__device__ void lab_run_tile(const StencilByteBounds<false>& b,
+__device__ void lab_run_tile(const StencilByteBounds& b,
                              const StencilParams& p, const StencilGeometry& g,
                              int row0, int col0, int fuse,
                              unsigned char* smem) {
@@ -299,7 +604,7 @@ __device__ __forceinline__ void lab_swar_rows(const uint32_t* P, uint32_t* T,
 }
 
 template <int KT>
-__device__ void lab_run_tile(const StencilByteBounds<false>& b,
+__device__ void lab_run_tile(const StencilByteBounds& b,
                              const StencilParams& p, const StencilGeometry& g,
                              int row0, int col0, int fuse,
                              unsigned char* smem) {
@@ -388,7 +693,7 @@ __global__ void __launch_bounds__(STENCIL_MAX_THREADS)
   stencil_run_bounded_tile<KT, STENCIL_BODY_SWAR>(
       b, p, g, blockIdx.y * g.tile_h, blockIdx.x * g.tile_w, fuse, smem);
 #else
-  const StencilByteBounds<false> b{src, dst, g};
+  const StencilByteBounds b{src, dst, g};
   lab_run_tile<KT>(b, p, g, blockIdx.y * g.tile_h, blockIdx.x * g.tile_w,
                    fuse, smem);
 #endif
@@ -448,3 +753,5 @@ const char* stencil_lab_error_string(int code) {
 }
 
 }  // extern "C"
+
+#endif  // LAB_BODY == LAB_BAND

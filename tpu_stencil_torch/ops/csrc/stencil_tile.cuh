@@ -1,8 +1,8 @@
 // One tile of the iterated zero-boundary stencil, shared by the fused
-// kernel K1 (stencil_fused.cu) and the valid-ghost kernel K3
-// (stencil_valid.cu); the resident kernel K2 (stencil_resident.cu) and the
-// kernel lab (stencil_lab.cu) keep the byte-wise tile of the first port and
-// take only the common parts from here.
+// kernel K1 (stencil_fused.cu), the resident kernel K2
+// (stencil_resident.cu) and the valid-ghost kernel K3 (stencil_valid.cu);
+// the kernel lab (stencil_lab.cu) keeps the byte-wise tile of the first
+// port beside it and takes the common parts from here.
 //
 // The image is viewed flat as (rows, wc) uint8 with wc = W * C: a
 // column-pass tap moves by C flat lanes, so channels never mix, and the
@@ -21,8 +21,11 @@
 // stores, is the kernel's bounds policy, in the tile's own row/lane
 // coordinates: StencilImageBounds below for K1 (rows outside
 // [0, rows_real), lanes outside [0, wc), and under frames the gap rows
-// where row % frame_stride >= frame_h) and StencilValidBounds in
-// stencil_valid.cu for K3 (the global padded extent).
+// where row % frame_stride >= frame_h; K2 reads it through L2) and
+// StencilValidBounds in stencil_valid.cu for K3 (the global padded extent).
+// The kernel lab's band variant (stencil_lab.cu) keeps the same test and
+// takes its rows from a band in shared memory or from edge rows in device
+// memory.
 //
 // The rep body is a compile-time parameter, picked per plan by the host
 // (cuda_stencil.tile_body); no branch on it is left in the inner loops:
@@ -216,14 +219,6 @@ __device__ __forceinline__ void stencil_for_chunks(int nr, int nc, F f) {
   }
 }
 
-// COHERENT loads bypass L1 (ld.global.cg): the resident kernel reads, in
-// one launch, buffers that other blocks wrote before the last grid sync.
-template <bool COHERENT>
-__device__ __forceinline__ uint8_t stencil_load(const uint8_t* p) {
-  if (COHERENT) return __ldcg(p);
-  return *p;
-}
-
 // Rows pass of one lane: out[r] = sum_i row_taps[i] * in[r - h + i] for r in
 // [r0, r1), with `cur`/`tmp` pointing at the lane and rows L apart. With the
 // filter size fixed at compile time the window lives in registers, so each
@@ -259,10 +254,9 @@ __device__ __forceinline__ void stencil_rows_pass(const uint8_t* cur,
   }
 }
 
-// Byte-wise bounds of the resident kernel and the kernel lab: tile
-// coordinates are image coordinates; ghosts outside the image load as zero
-// (one byte and one keep test each) and every rep re-zeroes them.
-template <bool COHERENT>
+// Byte-wise bounds of the kernel lab: tile coordinates are image
+// coordinates; ghosts outside the image load as zero (one byte and one keep
+// test each) and every rep re-zeroes them.
 struct StencilByteBounds {
   const uint8_t* src;
   uint8_t* dst;
@@ -270,7 +264,7 @@ struct StencilByteBounds {
 
   __device__ __forceinline__ uint8_t load(int row, int lane) const {
     return (unsigned)lane < (unsigned)g.wc && stencil_row_kept(g, row)
-               ? stencil_load<COHERENT>(src + (size_t)row * g.wc + lane)
+               ? src[(size_t)row * g.wc + lane]
                : (uint8_t)0;
   }
   __device__ __forceinline__ bool row_kept(int row) const {
@@ -302,6 +296,11 @@ struct StencilByteBounds {
 //   store_off()      destination lane = lane - store_off()
 //   store_wc()       destination lanes [0, store_wc) exist
 //   store_vec        the widest aligned destination access
+//   coherent         (static) loads must see what other blocks stored
+//                    earlier in this launch (K2, the lab's band): global
+//                    rows load through L2 (ld.global.cg), never through the
+//                    non-coherent path, and rows in shared memory load as
+//                    they are
 
 // K1's bounds: tile coordinates are image coordinates.
 struct StencilImageBounds {
@@ -309,6 +308,7 @@ struct StencilImageBounds {
   uint8_t* dst;
   StencilGeometry g;
   int load_vec, store_vec;
+  static constexpr bool coherent = false;
 
   __device__ __forceinline__ const uint8_t* load_row(int row) const {
     return stencil_row_kept(g, row) ? src + (size_t)row * g.wc : nullptr;
@@ -344,27 +344,45 @@ struct StencilImageBounds {
   __device__ __forceinline__ int store_wc() const { return g.wc; }
 };
 
-// Lanes [g0, g0 + 16) of a global row whose lanes [0, n) hold data (zero
+// One load of a source row: read-only data through the non-coherent path
+// (__ldg); under COHERENT global data through L2 (__ldcg), and a row that
+// lies in shared memory (`shared`: the lab's band) as it is.
+template <bool COHERENT, typename T>
+__device__ __forceinline__ T stencil_ldv(const T* p, bool shared) {
+  if (!COHERENT) return __ldg(p);
+  return shared ? *p : __ldcg(p);
+}
+
+// Lanes [g0, g0 + 16) of a source row whose lanes [0, n) hold data (zero
 // elsewhere), as four little-endian words: 16/vec aligned loads where all
 // 16 lie inside, bytes at a ragged edge or where rows are byte-aligned.
+template <bool COHERENT>
 __device__ __forceinline__ uint4 stencil_ld16(const uint8_t* row, int g0,
                                               int n, int vec) {
+  const bool shared = COHERENT && __isShared(row);
   if (g0 >= 0 && g0 + 16 <= n && vec > 1) {
     const uint8_t* p = row + g0;
-    if (vec == 16) return __ldg(reinterpret_cast<const uint4*>(p));
+    if (vec == 16)
+      return stencil_ldv<COHERENT>(reinterpret_cast<const uint4*>(p), shared);
     if (vec == 8) {
-      const uint2 a = __ldg(reinterpret_cast<const uint2*>(p));
-      const uint2 b = __ldg(reinterpret_cast<const uint2*>(p) + 1);
+      const uint2* q = reinterpret_cast<const uint2*>(p);
+      const uint2 a = stencil_ldv<COHERENT>(q, shared);
+      const uint2 b = stencil_ldv<COHERENT>(q + 1, shared);
       return make_uint4(a.x, a.y, b.x, b.y);
     }
     const unsigned int* q = reinterpret_cast<const unsigned int*>(p);
-    return make_uint4(__ldg(q), __ldg(q + 1), __ldg(q + 2), __ldg(q + 3));
+    return make_uint4(stencil_ldv<COHERENT>(q, shared),
+                      stencil_ldv<COHERENT>(q + 1, shared),
+                      stencil_ldv<COHERENT>(q + 2, shared),
+                      stencil_ldv<COHERENT>(q + 3, shared));
   }
   uint32_t w[4] = {0, 0, 0, 0};
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
     const int l = g0 + i;
-    const uint32_t b = (unsigned)l < (unsigned)n ? (uint32_t)row[l] : 0u;
+    uint32_t b = 0;
+    if ((unsigned)l < (unsigned)n)
+      b = COHERENT ? stencil_ldv<true>(row + l, shared) : row[l];
     w[i >> 2] |= b << (8 * (i & 3));
   }
   return make_uint4(w[0], w[1], w[2], w[3]);
@@ -539,7 +557,8 @@ __device__ __forceinline__ void stencil_load_rows(const Bounds& b,
   stencil_for_chunks(R, nc, [&](int r, int j) {
     const uint8_t* src = b.load_row(rbase + r);
     const int g0 = (j0 + j) * 16;
-    const uint4 v = src ? stencil_ld16(src, g0, n, b.load_vec)
+    const uint4 v = src ? stencil_ld16<Bounds::coherent>(src, g0, n,
+                                                         b.load_vec)
                         : make_uint4(0, 0, 0, 0);
     stencil_sts16(cur + r * L, g0 - cbase, L, v);
   });
@@ -582,8 +601,10 @@ __device__ __forceinline__ void stencil_load_pairs(const Bounds& b,
     const uint8_t* rb = b.load_row(rbase + 2 * q + 1);
     const int g0 = (j0 + j) * 16;
     const uint4 zero = make_uint4(0, 0, 0, 0);
-    const uint4 lo = ra ? stencil_ld16(ra, g0, n, b.load_vec) : zero;
-    const uint4 hi = rb ? stencil_ld16(rb, g0, n, b.load_vec) : zero;
+    const uint4 lo =
+        ra ? stencil_ld16<Bounds::coherent>(ra, g0, n, b.load_vec) : zero;
+    const uint4 hi =
+        rb ? stencil_ld16<Bounds::coherent>(rb, g0, n, b.load_vec) : zero;
     uint32_t w[16];
     stencil_pack4(lo.x, hi.x, w);
     stencil_pack4(lo.y, hi.y, w + 4);
@@ -700,35 +721,70 @@ __device__ __forceinline__ void stencil_swar_rows(const uint32_t* P,
 #define STENCIL_ABL_LOAD_STORE_ONLY 0
 #endif
 
-// One tile whose output origin is (row0, col0) in the bounds' coordinates;
-// g supplies tile_h, tile_w and channels. KT > 0 fixes the filter size at
-// compile time (taps loops unroll); KT == 0 reads it from p.k. BODY is one
-// of STENCIL_BODY_*, and the plan must pass stencil_body_runs for it.
-template <int KT, int BODY, class Bounds>
-__device__ void stencil_run_bounded_tile(const Bounds& b,
-                                         const StencilParams& p,
-                                         const StencilGeometry& g, int row0,
-                                         int col0, int fuse,
-                                         unsigned char* smem) {
+// Where a tile lies: its shared-memory extent and the bounds coordinates
+// of its row 0 and lane 0, for output origin (row0, col0) at `fuse` reps.
+struct StencilTileFrame {
+  int gr, gl;        // ghost rows and lanes per side
+  int R, L;          // tile rows and lanes in shared memory
+  int rbase, cbase;  // bounds row of tile row 0, bounds lane of tile lane 0
+};
+
+__device__ __forceinline__ StencilTileFrame stencil_tile_frame(
+    const StencilGeometry& g, int h, int row0, int col0, int fuse) {
+  const int gr = fuse * h, gl = gr * g.channels;
+  return {gr, gl, g.tile_h + 2 * gr, g.tile_w + 2 * gl, row0 - gr,
+          col0 - gl};
+}
+
+// The tile's carry in shared memory: under swar the packed pairs P (P[-1]
+// and P[Q] are zero pad pairs), else the uint8 rows after the intermediate.
+template <int BODY>
+__device__ __forceinline__ unsigned char* stencil_tile_carry(
+    unsigned char* smem, const StencilTileFrame& f) {
+  if constexpr (BODY == STENCIL_BODY_SWAR) {
+    return smem + (size_t)f.L * sizeof(uint32_t);
+  } else {
+    using acc_t = typename std::conditional<BODY == STENCIL_BODY_ACC16,
+                                            int16_t, int>::type;
+    return smem + (size_t)f.R * f.L * sizeof(acc_t);
+  }
+}
+
+struct StencilNoHook {
+  __device__ __forceinline__ void operator()() const {}
+};
+
+// Load one tile whose output origin is (row0, col0) in the bounds'
+// coordinates and run `fuse` reps on it in shared memory; g supplies
+// tile_h, tile_w and channels. KT > 0 fixes the filter size at compile time
+// (taps loops unroll); KT == 0 reads it from p.k. BODY is one of
+// STENCIL_BODY_*, and the plan must pass stencil_body_runs for it. Every
+// thread calls after_load() once the tile is loaded and before the first
+// rep (the lab's band flushes the lanes it held back there); every rep
+// ends in a barrier. The result stays in shared memory for
+// stencil_tile_store.
+template <int KT, int BODY, class Bounds, class Hook>
+__device__ void stencil_tile_compute(const Bounds& b, const StencilParams& p,
+                                     const StencilGeometry& g, int row0,
+                                     int col0, int fuse, unsigned char* smem,
+                                     Hook after_load) {
   const int k = KT > 0 ? KT : p.k;
   const int h = k / 2;
   const int C = g.channels;
   const int hc = h * C;
-  const int gr = fuse * h;           // ghost rows per side
-  const int gl = gr * C;             // ghost lanes per side
-  const int R = g.tile_h + 2 * gr;   // tile rows in shared memory
-  const int L = g.tile_w + 2 * gl;   // tile lanes in shared memory
-  const int rbase = row0 - gr;       // bounds row of tile row 0
-  const int cbase = col0 - gl;       // bounds lane of tile lane 0
+  const StencilTileFrame f = stencil_tile_frame(g, h, row0, col0, fuse);
+  const int R = f.R, L = f.L, rbase = f.rbase, cbase = f.cbase;
 
   if constexpr (BODY == STENCIL_BODY_SWAR) {
     const int Q = R / 2;  // R is even: tile_h is (stencil_body_runs)
     // P[-1] and P[Q] are zero pad pairs: a pass over whole pairs reads one
     // pair past the band, into rows whose results nothing trusted reads.
-    uint32_t* P = reinterpret_cast<uint32_t*>(smem) + L;
+    uint32_t* P =
+        reinterpret_cast<uint32_t*>(stencil_tile_carry<BODY>(smem, f));
     uint32_t* T = P + (size_t)(Q + 1) * L;
     stencil_load_pairs(b, P, Q, L, rbase, cbase);
     __syncthreads();
+    after_load();
     for (int t = 1; t <= fuse && !STENCIL_ABL_LOAD_STORE_ONLY; ++t) {
       const int r0 = t * h, r1 = R - t * h;
       const int q0 = r0 / 2, q1 = (r1 + 1) / 2;  // the pairs over the band
@@ -778,14 +834,14 @@ __device__ void stencil_run_bounded_tile(const Bounds& b,
       }
       __syncthreads();
     }
-    stencil_store_pairs(b, P, L, rbase, cbase, gr, g.tile_h, gl, g.tile_w);
   } else {
     using acc_t = typename std::conditional<BODY == STENCIL_BODY_ACC16,
                                             int16_t, int>::type;
     acc_t* tmp = reinterpret_cast<acc_t*>(smem);
-    uint8_t* cur = smem + (size_t)R * L * sizeof(acc_t);
+    uint8_t* cur = stencil_tile_carry<BODY>(smem, f);
     stencil_load_rows(b, cur, R, L, rbase, cbase);
     __syncthreads();
+    after_load();
     for (int t = 1; t <= fuse; ++t) {
       const int r0 = t * h, r1 = R - t * h;
       const int c0 = t * hc, c1 = L - t * hc;
@@ -850,7 +906,36 @@ __device__ void stencil_run_bounded_tile(const Bounds& b,
         __syncthreads();
       }
     }
-    stencil_store_rows(b, cur, L, rbase, cbase, gr, g.tile_h, gl, g.tile_w);
   }
+}
+
+// Store output lanes [first, first + count) of every output row of the
+// tile stencil_tile_compute left in shared memory (same origin and fuse).
+template <int BODY, class Bounds>
+__device__ __forceinline__ void stencil_tile_store(
+    const Bounds& b, const StencilParams& p, const StencilGeometry& g,
+    int row0, int col0, int fuse, unsigned char* smem, int first,
+    int count) {
+  const StencilTileFrame f = stencil_tile_frame(g, p.k / 2, row0, col0, fuse);
+  unsigned char* carry = stencil_tile_carry<BODY>(smem, f);
+  if constexpr (BODY == STENCIL_BODY_SWAR)
+    stencil_store_pairs(b, reinterpret_cast<const uint32_t*>(carry), f.L,
+                        f.rbase, f.cbase, f.gr, g.tile_h, f.gl + first,
+                        count);
+  else
+    stencil_store_rows(b, carry, f.L, f.rbase, f.cbase, f.gr, g.tile_h,
+                       f.gl + first, count);
+}
+
+// One whole tile: load, `fuse` reps, store the tile_h x tile_w interior.
+template <int KT, int BODY, class Bounds>
+__device__ void stencil_run_bounded_tile(const Bounds& b,
+                                         const StencilParams& p,
+                                         const StencilGeometry& g, int row0,
+                                         int col0, int fuse,
+                                         unsigned char* smem) {
+  stencil_tile_compute<KT, BODY>(b, p, g, row0, col0, fuse, smem,
+                                 StencilNoHook{});
+  stencil_tile_store<BODY>(b, p, g, row0, col0, fuse, smem, 0, g.tile_w);
   __syncthreads();  // the next tile of this block reuses shared memory
 }

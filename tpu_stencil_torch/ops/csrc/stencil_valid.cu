@@ -61,6 +61,7 @@ struct StencilValidBounds {
   int row_off, col_off;
   int rows_glob, cols_glob_c;
   int load_vec, store_vec;
+  static constexpr bool coherent = false;
 
   __device__ __forceinline__ const uint8_t* load_row(int row) const {
     return (unsigned)row < (unsigned)rows_ext ? src + (size_t)row * wc_ext

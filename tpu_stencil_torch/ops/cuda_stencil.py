@@ -9,9 +9,11 @@ kernel of the JAX package's ``ops/pallas_stencil.py``:
   shared memory. :func:`iterate` runs ``reps // fuse`` fused launches, then
   ``reps % fuse`` single-rep launches, ping-ponging two uint8 buffers.
 * **K2** :func:`stencil_resident` (``csrc/stencil_resident.cu``, replaces
-  ``_resident_kernel``): the whole rep loop in one cooperative launch with
-  a grid-wide sync per rep, for ``schedule='deep'`` when both buffers fit
-  the L2 budget (:func:`resident_feasible`).
+  ``_resident_kernel``): the whole rep loop in one cooperative launch, a
+  persistent grid striding over K1's tiles and running ``fuse`` reps of
+  each per grid-wide sync (:func:`resident_geometry`) over two ping-pong
+  buffers, for ``schedule='deep'`` when both buffers fit the L2 budget
+  (:func:`resident_feasible`).
 
 One kernel carries the sharded path (:mod:`tpu_stencil_torch.parallel.
 sharded`):
@@ -39,8 +41,7 @@ chosen per plan by :func:`tile_body`, the only place the choice is made:
 of shared memory per element), ``acc16`` (an int16 rows-pass intermediate,
 3 bytes) or ``int32`` (5 bytes, every plan). Each body is its own kernel
 instance in the library; the wrapper passes the body's index and nothing
-substitutes another body. K2 keeps the ``int32`` body
-(:data:`RESIDENT_BODY`).
+substitutes another body. K2 runs the same tile in the same body.
 
 Geometry is re-derived for Hopper: the TPU's 16 MiB VMEM budget becomes
 the 227 KB of shared memory a block may use (the ghost band must fit the
@@ -51,6 +52,7 @@ for the resident kernel, a share of the L2.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -66,20 +68,29 @@ TILE_W = 256              # output flat lanes per tile
 MAX_K = 15                # filter sizes the kernels take (STENCIL_MAX_K)
 # Shared memory one block may use on an H100 (227 KB, opt-in above 48 KB).
 SMEM_LIMIT = 232448
-# L2 of an H100 (50 MB), used where no card is queried (the CPU path).
+# L2 of an H100 (50 MB) and its SM count, used where no card is queried
+# (the CPU path).
 H100_L2_BYTES = 50 * 2 ** 20
+H100_SMS = 132
 # Share of the L2 the resident kernel's two buffers may take.
 RESIDENT_L2_SHARE = 0.75
+# The tile heights K2 chooses from (resident_geometry): multiples of 8
+# from K1's default to twice it.
+RESIDENT_BLOCK_HS = (32, 40, 48, 56, 64)
+# Shared memory and threads one SM holds, and the shared memory the card
+# reserves per block.
+SM_SMEM = 233472
+SM_THREADS = 2048
+SMEM_PER_BLOCK_RESERVED = 1024
 # Deep trapezoid depths, deepest first (as the JAX package's).
 DEEP_FUSE_CANDIDATES = (64, 48, 40, 32, 24, 16, 12, 8)
 
 FUSED = "fused"   # the reported schedule of every K1 run
 DEEP = "deep"
 
-# The tile bodies of K1 and K3, by their index in csrc/stencil_tile.cuh
-# (STENCIL_BODY_*); K2 runs the first.
+# The tile bodies of K1, K2 and K3, by their index in
+# csrc/stencil_tile.cuh (STENCIL_BODY_*).
 BODIES = ("int32", "acc16", "swar")
-RESIDENT_BODY = "int32"
 
 class KernelLaunchError(RuntimeError):
     """A kernel launch was refused (the C entry returned a cudaError_t)."""
@@ -157,13 +168,12 @@ def tile_smem_bytes(plan: StencilPlan, block_h: int, fuse: int,
 def plan_supported(plan: StencilPlan, channels: int) -> bool:
     """Whether the kernels run this plan: an integer plan of at most
     :data:`MAX_K` taps whose single-rep ghost band fits shared memory at
-    the smallest tile in the largest body (``int32``, K2's). Other plans
-    run torch ops (reported as xla)."""
+    the smallest tile in the largest body (``int32``). Other plans run
+    torch ops (reported as xla)."""
     return (
         plan.kind in ("sep_int", "direct_int")
         and plan.k <= MAX_K
-        and tile_smem_bytes(plan, 8, 1, channels,
-                            body=RESIDENT_BODY) <= SMEM_LIMIT
+        and tile_smem_bytes(plan, 8, 1, channels, body="int32") <= SMEM_LIMIT
     )
 
 
@@ -264,11 +274,18 @@ def launch_schedule(repetitions: int, fuse: int) -> List[int]:
     return [fuse] * (repetitions // fuse) + [1] * (repetitions % fuse)
 
 
-def device_caps(device: Optional[torch.device]) -> Tuple[int, bool]:
-    """(L2 bytes, cooperative launch supported) of ``device``; an H100's
-    L2 where the device is not a CUDA card (the CPU path)."""
+def device_caps(device: Optional[torch.device]) -> Tuple[int, int, bool]:
+    """(L2 bytes, SM count, cooperative launch supported) of ``device``;
+    an H100's where the device is not a CUDA card (the CPU path)."""
     if device is None or torch.device(device).type != "cuda":
-        return H100_L2_BYTES, True
+        return H100_L2_BYTES, H100_SMS, True
+    return _card_caps(torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _card_caps(device: torch.device) -> Tuple[int, int, bool]:
+    """:func:`device_caps` of a card, queried once per device (K2's path
+    asks before every launch, and the answer does not change)."""
     props = torch.cuda.get_device_properties(device)
     with torch.cuda.device(device):
         coop = _resident_lib().stencil_resident_cooperative()
@@ -276,7 +293,47 @@ def device_caps(device: Optional[torch.device]) -> Tuple[int, bool]:
         raise KernelLaunchError(
             f"cooperative-launch query failed: cudaError_t {-coop}"
         )
-    return int(props.L2_cache_size), bool(coop)
+    return (int(props.L2_cache_size), int(props.multi_processor_count),
+            bool(coop))
+
+
+@functools.lru_cache(maxsize=256)
+def resident_geometry(plan: StencilPlan, n_rows: int, wc: int,
+                      channels: int, sms: int = H100_SMS) -> Tuple[int, int]:
+    """The (block_h, fuse) K2 launches with on an n_rows x wc image over
+    ``sms`` SMs: K1's tile at :data:`DEFAULT_FUSE` reps per grid sync,
+    clamped as K1 clamps (:func:`effective_geometry`), at the height of
+    :data:`RESIDENT_BLOCK_HS` whose grid sync the model makes shortest,
+    among those whose tile leaves two blocks per SM (K1's default height
+    when none does). The model: a sync takes as many rounds as the grid
+    (blocks per SM times ``sms``) needs to cover the tiles, each round as
+    long as one SM takes to run one tile in each of its blocks, a tile's
+    work being its reps on the contracting trapezoid. It counts the last,
+    partly filled round that the grid sync waits for, which a tile height
+    that divides the image into whole rounds saves. Cached: K2's launch
+    asks for it every job, and the model takes as long as a short job."""
+    best = None
+    for bh in RESIDENT_BLOCK_HS:
+        geo = effective_geometry(plan, n_rows, channels, bh, DEFAULT_FUSE)
+        g = geo[1] * plan.halo
+        rr, ll = geo[0] + 2 * g, TILE_W + 2 * g * channels
+        threads = min(-(-ll // 32) * 32, 512)
+        per_sm = min(SM_SMEM // (tile_smem_bytes(plan, *geo, channels)
+                                 + SMEM_PER_BLOCK_RESERVED),
+                     SM_THREADS // threads)
+        if per_sm < 2:
+            continue
+        tiles = -(-n_rows // geo[0]) * -(-wc // TILE_W)
+        work = sum((rr - 2 * t * plan.halo) * (ll - 2 * t * plan.halo
+                                               * channels)
+                   for t in range(1, geo[1] + 1))
+        cost = -(-tiles // (per_sm * sms)) * per_sm * work
+        if best is None or cost < best[0]:
+            best = (cost, geo)
+    if best is None:
+        return effective_geometry(plan, n_rows, channels, DEFAULT_BLOCK_H,
+                                  DEFAULT_FUSE)
+    return best[1]
 
 
 def resident_feasible(plan: StencilPlan, n_rows: int, wc: int,
@@ -288,7 +345,7 @@ def resident_feasible(plan: StencilPlan, n_rows: int, wc: int,
     device's)."""
     if not plan_supported(plan, channels):
         return False
-    l2, coop = device_caps(device)
+    l2, _, coop = device_caps(device)
     if l2_bytes is not None:
         l2 = l2_bytes
     return coop and 2 * n_rows * wc <= RESIDENT_L2_SHARE * l2
@@ -483,12 +540,18 @@ def _fused_lib() -> ctypes.CDLL:
 
 def _resident_lib() -> ctypes.CDLL:
     lib = _build.load("stencil_resident")
-    lib.stencil_resident_launch.argtypes = [_P, _P, _P, _P, _P, ctypes.c_int,
-                                            _P]
-    lib.stencil_resident_launch.restype = ctypes.c_int
+    i = ctypes.c_int
+    lib.stencil_resident_launch.argtypes = [_P, _P, _P, _P, _P, i, i, i, _P]
+    lib.stencil_resident_launch.restype = i
+    lib.stencil_resident_last_body.argtypes = []
+    lib.stencil_resident_last_body.restype = i
+    lib.stencil_resident_smem.argtypes = [_P, _P, i, i]
+    lib.stencil_resident_smem.restype = ctypes.c_longlong
+    lib.stencil_resident_shape.argtypes = [_P, _P, i, i, _P]
+    lib.stencil_resident_shape.restype = i
     lib.stencil_resident_cooperative.argtypes = []
-    lib.stencil_resident_cooperative.restype = ctypes.c_int
-    lib.stencil_resident_error_string.argtypes = [ctypes.c_int]
+    lib.stencil_resident_cooperative.restype = i
+    lib.stencil_resident_error_string.argtypes = [i]
     lib.stencil_resident_error_string.restype = ctypes.c_char_p
     return lib
 
@@ -543,10 +606,54 @@ def blocks_per_sm(kernel: str, plan: StencilPlan, block_h: int, fuse: int,
 
 
 def ran_body(kernel: str) -> Optional[str]:
-    """The body of the last launch of ``kernel`` (stencil_fused or
-    stencil_valid), as its library recorded it; None before any."""
-    idx = getattr(_tile_lib(kernel), f"{kernel}_last_body")()
+    """The body of the last launch of ``kernel`` (stencil_fused,
+    stencil_resident or stencil_valid), as its library recorded it; None
+    before any."""
+    lib = _resident_lib() if kernel == "stencil_resident" else _tile_lib(
+        kernel)
+    idx = getattr(lib, f"{kernel}_last_body")()
     return BODIES[idx] if idx >= 0 else None
+
+
+def _resident_query(fn: str, plan: StencilPlan, n_rows: int, wc: int,
+                    channels: int, device: torch.device, *extra):
+    """(library, (block_h, fuse), result) of the C query
+    ``stencil_resident_{fn}`` at K2's geometry for an n_rows x wc image on
+    ``device``."""
+    bh, fz = resident_geometry(plan, n_rows, wc, channels,
+                               device_caps(device)[1])
+    geom = _Geometry(n_rows, wc, n_rows, channels, 0, 0, bh, TILE_W)
+    params = _params(plan)
+    lib = _resident_lib()
+    return lib, (bh, fz), getattr(lib, f"stencil_resident_{fn}")(
+        ctypes.addressof(params), ctypes.addressof(geom), fz,
+        BODIES.index(tile_body(plan)), *extra)
+
+
+def resident_kernel_smem_bytes(plan: StencilPlan, n_rows: int, wc: int,
+                               channels: int, device: torch.device) -> int:
+    """What the built K2 library says its launch on ``device`` asks for; at
+    K2's geometry the host model is :func:`tile_smem_bytes`."""
+    return int(_resident_query("smem", plan, n_rows, wc, channels,
+                               device)[2])
+
+
+def resident_launch_shape(plan: StencilPlan, n_rows: int, wc: int,
+                          channels: int, device: torch.device
+                          ) -> Dict[str, int]:
+    """K2's launch on ``device``: its tile, reps per sync, threads per
+    block, resident blocks per SM and grid, as the library computes
+    them."""
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        lib, (bh, fz), rc = _resident_query("shape", plan, n_rows, wc,
+                                            channels, device,
+                                            ctypes.addressof(out))
+    _raise_on(rc, lib, "stencil_resident_error_string",
+              "stencil_resident shape")
+    return {"block_h": bh, "tile_w": TILE_W, "fuse": fz,
+            "smem_bytes": tile_smem_bytes(plan, bh, fz, channels),
+            "blocks_per_sm": out[0], "grid": out[1], "threads": out[2]}
 
 
 def build_kernels() -> Dict[str, str]:
@@ -616,10 +723,14 @@ stencil_fused.launches = 0
 
 def stencil_resident(x2: torch.Tensor, plan: StencilPlan, channels: int,
                      reps: int, rows_real: Optional[int] = None,
-                     frame=None) -> torch.Tensor:
+                     frame=None, block_h: Optional[int] = None,
+                     fuse: Optional[int] = None) -> torch.Tensor:
     """K2: all ``reps`` (>= 1) of the flat (rows, W*C) uint8 image in one
-    cooperative launch over two ping-pong buffers. CPU tensors run
-    :func:`stencil_resident_plain`."""
+    cooperative launch, in the tile body :func:`tile_body` names for
+    ``plan``, over two buffers; returns the one the last step wrote. Tiles
+    of ``block_h`` rows, ``fuse`` reps per grid sync (None:
+    :func:`resident_geometry`'s; the kernel lab times others). CPU tensors
+    run :func:`stencil_resident_plain`."""
     _check_input(x2)
     if reps < 1:
         raise ValueError(f"the resident kernel runs >= 1 rep, got {reps}")
@@ -629,18 +740,22 @@ def stencil_resident(x2: torch.Tensor, plan: StencilPlan, channels: int,
                                       frame)
     lib = _resident_lib()
     _check_cuda(x2)
-    bufs = (torch.empty_like(x2), torch.empty_like(x2))
+    out, work = torch.empty_like(x2), torch.empty_like(x2)
+    bh, fz = resident_geometry(plan, *x2.shape, channels,
+                               device_caps(x2.device)[1])
+    bh, fz = bh if block_h is None else block_h, fz if fuse is None else fuse
     params = _params(plan)
-    geom = _geometry(x2, channels, rows_real, frame, DEFAULT_BLOCK_H)
+    geom = _geometry(x2, channels, rows_real, frame, bh)
     with torch.cuda.device(x2.device):
         rc = lib.stencil_resident_launch(
-            x2.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(),
-            ctypes.addressof(params), ctypes.addressof(geom), reps,
+            x2.data_ptr(), out.data_ptr(), work.data_ptr(),
+            ctypes.addressof(params), ctypes.addressof(geom), reps, fz,
+            BODIES.index(tile_body(plan)),
             torch.cuda.current_stream(x2.device).cuda_stream,
         )
     _raise_on(rc, lib, "stencil_resident_error_string", "stencil_resident")
     stencil_resident.launches += 1
-    return bufs[(reps - 1) % 2]
+    return out
 
 
 stencil_resident.launches = 0

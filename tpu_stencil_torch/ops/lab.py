@@ -12,7 +12,10 @@ kernel of the JAX package's ``tools/``:
   ``swar`` body), ablation flags (wrong
   output, timing only) and a requested geometry; each (body, ablation) is
   one library, built with its ``-D`` defines through
-  :mod:`tpu_stencil_torch.ops._build`.
+  :mod:`tpu_stencil_torch.ops._build`. :func:`stencil_lab_band` is L2's
+  ``band`` build (``LAB_BODY=5``): K2's job with the image held in the
+  blocks' shared memory across the rep loop, the form of K2 that measured
+  slower than the one that ships, kept to be timed against it.
 * **L1** :func:`op_chain` (``csrc/op_chain.cu``, replaces
   ``tools/op_cost.py``'s ``make_case`` kernel): per tile, a chain of
   ``n_ops`` identical operations (:data:`CASES`) on an ``(in_block, wc)``
@@ -86,20 +89,26 @@ class LabVariant:
 _GEOMETRY_SUFFIX = re.compile(r"_(b|f)(\d+)$")
 
 
+def split_geometry(name: str) -> Tuple[str, Dict[str, int]]:
+    """``name`` without its ``_bN``/``_fN`` suffixes (either order), and
+    {'b': N, 'f': N} of those given. Raises ValueError on a repeat."""
+    rest, geo = name, {}
+    while True:
+        m = _GEOMETRY_SUFFIX.search(rest)
+        if not m:
+            return rest, geo
+        if m.group(1) in geo:
+            raise ValueError(f"unknown lab variant {name!r}")
+        geo[m.group(1)] = int(m.group(2))
+        rest = rest[:m.start()]
+
+
 def parse_variant(name: str) -> LabVariant:
     """The variant a lab name means: ``[abl_]BODY[_ABLATION][_bN][_fN]``,
     e.g. ``swar``, ``pair_b64``, ``current_f16_b64``, ``abl_no_rows``
     (on ``current``), ``abl_swar_no_mask``. Raises ValueError for any
     other name."""
-    rest, geo = name, {}
-    while True:
-        m = _GEOMETRY_SUFFIX.search(rest)
-        if not m:
-            break
-        if m.group(1) in geo:
-            raise ValueError(f"unknown lab variant {name!r}")
-        geo[m.group(1)] = int(m.group(2))
-        rest = rest[:m.start()]
+    rest, geo = split_geometry(name)
     flags = {}
     body = rest
     if rest.startswith("abl_"):
@@ -479,6 +488,176 @@ def lab_iterate(img_u8: torch.Tensor, repetitions: int, plan: StencilPlan,
         cur = stencil_lab(cur, plan, channels, depth, variant, hh,
                           block_h=bh, out=bufs[i % 2])
     return cur.reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# L2: the band variant (K2 with the image in shared memory)
+# ---------------------------------------------------------------------------
+
+LAB_BAND = 5  # its LAB_BODY in csrc/stencil_lab.cu
+BAND_TARGET = ("stencil_lab", (f"LAB_BODY={LAB_BAND}",))
+# Reps per grid sync: the fastest of 1, 2, 4 and 8 on the card at
+# 1920x2520 RGB gaussian x40 (PERF.md; `band_fN` in the kernel lab).
+BAND_FUSE = 8
+# The narrowest working tile a band is split into (lanes).
+BAND_MIN_TILE_W = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class BandGeometry:
+    """One band launch: ``band_h`` rows per band (one band per block, one
+    block per SM), working tiles of ``tile_w`` lanes, ``fuse`` reps per
+    grid sync, shared memory per block, and the bytes of the edge buffer
+    (every band's first and last ``fuse*halo`` rows at both sync
+    parities)."""
+
+    band_h: int
+    tile_w: int
+    fuse: int
+    smem: int
+    edge_bytes: int
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def band_smem_bytes(plan: StencilPlan, band_h: int, tile_w: int, fuse: int,
+                    channels: int, wc: int) -> int:
+    """Shared memory of one band block (``lab_band_smem``): the working
+    tile in the plan's body (:func:`cuda_stencil.tile_smem_bytes`,
+    rounded to 16 bytes), the band (``band_h`` rows of ``wc`` lanes
+    rounded to 16) and the held-back lanes (``band_h`` x
+    ``fuse*halo*C``, rounded to 16)."""
+    tile = cs.tile_smem_bytes(plan, band_h, fuse, channels, tile_w)
+    held = band_h * fuse * plan.halo * channels
+    return _round16(tile) + band_h * _round16(wc) + _round16(held)
+
+
+def band_geometry(plan: StencilPlan, n_rows: int, wc: int, channels: int,
+                  sms: int = cs.H100_SMS,
+                  fuse: int = BAND_FUSE) -> Optional[BandGeometry]:
+    """The band launch for an n_rows x wc image over at most ``sms``
+    blocks: bands of an even number of rows, at least the ``fuse*halo``
+    edge rows a neighbour reads; the widest working tile (lanes split
+    evenly, 16-lane aligned) whose block fits :data:`cuda_stencil.
+    SMEM_LIMIT`. None where a split tile would be narrower than
+    :data:`BAND_MIN_TILE_W` or than the ``fuse*halo*C`` lanes it holds
+    back."""
+    e = fuse * plan.halo
+    bh = max(2, 2 * -(-n_rows // (2 * sms)), e + e % 2)
+    n = 1
+    while True:
+        tw = _round16(-(-wc // n))
+        if n > 1 and tw < max(BAND_MIN_TILE_W, e * channels):
+            return None
+        smem = band_smem_bytes(plan, bh, tw, fuse, channels, wc)
+        if smem <= cs.SMEM_LIMIT:
+            return BandGeometry(bh, tw, fuse, smem,
+                                4 * e * wc * -(-n_rows // bh))
+        n += 1
+
+
+def _band_lib() -> ctypes.CDLL:
+    lib = _build.load(*BAND_TARGET)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.stencil_lab_band_launch.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.stencil_lab_band_launch.restype = i
+    lib.stencil_lab_band_smem.argtypes = [p, p, i, i]
+    lib.stencil_lab_band_smem.restype = ctypes.c_longlong
+    lib.stencil_lab_band_shape.argtypes = [p, p, i, i, p]
+    lib.stencil_lab_band_shape.restype = i
+    lib.stencil_lab_error_string.argtypes = [i]
+    lib.stencil_lab_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _band_args(plan: StencilPlan, rows: int, wc: int, channels: int,
+               rows_real: int, frame, sms: int, fuse: int = BAND_FUSE):
+    geo = band_geometry(plan, rows, wc, channels, sms, fuse)
+    if geo is None:
+        raise ValueError(f"the band variant does not fit a {rows}x{wc} "
+                         "image")
+    stride, frame_h = frame if frame is not None else (0, 0)
+    return geo, cs._params(plan), cs._Geometry(
+        rows, wc, rows_real, channels, stride, frame_h, geo.band_h,
+        geo.tile_w)
+
+
+def band_kernel_smem_bytes(plan: StencilPlan, rows: int, wc: int,
+                           channels: int) -> int:
+    """What the built band library says its launch asks for
+    (:func:`band_smem_bytes` is the host model of it)."""
+    geo, params, geom = _band_args(plan, rows, wc, channels, rows, None,
+                                   cs.H100_SMS)
+    return int(_band_lib().stencil_lab_band_smem(
+        ctypes.addressof(params), ctypes.addressof(geom), geo.fuse,
+        cs.BODIES.index(cs.tile_body(plan))))
+
+
+def band_launch_shape(plan: StencilPlan, rows: int, wc: int, channels: int,
+                      device: torch.device) -> Dict[str, int]:
+    """The band launch on ``device``: band rows, tile lanes, reps per sync,
+    resident blocks per SM, grid and threads per block (the library's)."""
+    geo, params, geom = _band_args(plan, rows, wc, channels, rows, None,
+                                   cs.device_caps(device)[1])
+    out = (ctypes.c_int * 3)()
+    lib = _band_lib()
+    with torch.cuda.device(device):
+        rc = lib.stencil_lab_band_shape(
+            ctypes.addressof(params), ctypes.addressof(geom), geo.fuse,
+            cs.BODIES.index(cs.tile_body(plan)), ctypes.addressof(out))
+    cs._raise_on(rc, lib, "stencil_lab_error_string", "stencil_lab[band]")
+    return {"band_h": geo.band_h, "tile_w": geo.tile_w, "fuse": geo.fuse,
+            "smem_bytes": geo.smem, "blocks_per_sm": out[0],
+            "grid": out[1], "threads": out[2]}
+
+
+def stencil_lab_band(x2: torch.Tensor, plan: StencilPlan, channels: int,
+                     reps: int, rows_real: Optional[int] = None,
+                     frame=None, fuse: int = BAND_FUSE) -> torch.Tensor:
+    """L2's ``band`` variant: all ``reps`` (>= 1) of the flat (rows, W*C)
+    uint8 image in one cooperative launch with the image held in shared
+    memory, ``fuse`` reps per grid sync (:func:`band_geometry`), K2's
+    arguments otherwise. CPU tensors run
+    :func:`cuda_stencil.stencil_fused_plain` (K2's function)."""
+    cs._check_input(x2)
+    if reps < 1:
+        raise ValueError(f"the band variant runs >= 1 rep, got {reps}")
+    rows, wc = x2.shape
+    rows_real = rows if rows_real is None else rows_real
+    if x2.device.type == "cpu":
+        return cs.stencil_fused_plain(x2, plan, channels, reps, rows_real,
+                                      frame)
+    lib = _band_lib()
+    cs._check_cuda(x2)
+    geo, params, geom = _band_args(plan, rows, wc, channels, rows_real, frame,
+                                   cs.device_caps(x2.device)[1], fuse)
+    out = torch.empty_like(x2)
+    edges = torch.empty(max(1, geo.edge_bytes), dtype=torch.uint8,
+                        device=x2.device)
+    with torch.cuda.device(x2.device):
+        rc = lib.stencil_lab_band_launch(
+            x2.data_ptr(), out.data_ptr(), edges.data_ptr(),
+            ctypes.addressof(params), ctypes.addressof(geom), reps, geo.fuse,
+            cs.BODIES.index(cs.tile_body(plan)),
+            torch.cuda.current_stream(x2.device).cuda_stream,
+        )
+    cs._raise_on(rc, lib, "stencil_lab_error_string", "stencil_lab[band]")
+    stencil_lab.launches += 1
+    return out
+
+
+def band_iterate(img_u8: torch.Tensor, repetitions: int, plan: StencilPlan,
+                 fuse: int = BAND_FUSE) -> torch.Tensor:
+    """``repetitions`` reps of an (H, W[, C]) uint8 image through the band
+    variant, ``fuse`` reps per grid sync (one launch; none for 0 reps)."""
+    if repetitions == 0:
+        return img_u8.clone()
+    channels = img_u8.shape[2] if img_u8.dim() == 3 else 1
+    x2 = img_u8.contiguous().reshape(img_u8.shape[0], -1)
+    return stencil_lab_band(x2, plan, channels, repetitions,
+                            fuse=fuse).reshape(img_u8.shape)
 
 
 # ---------------------------------------------------------------------------

@@ -48,16 +48,18 @@ def _plan(filter_name: str):
 def effective_fuse(filter_name: str, h_img: int,
                    block_h=None, fuse=None, schedule=None,
                    w_img=None, channels: int = 1, reps=None,
-                   n_frames: int = 1, device=None) -> int:
+                   n_frames: int = 1, device=None) -> float:
     """Reps per trip through device memory that
     :func:`tpu_stencil_torch.ops.cuda_stencil.iterate` achieves for this
     (filter, image height): device-memory traffic per rep is divided by
     it. Mirrors the launch: K1's clamped fuse (``block_h``/``fuse``: a
     forced or tuned geometry; None = module defaults); under
-    ``schedule='deep'`` the full ``reps`` count when the resident kernel
-    runs (``w_img``/``channels`` feed its L2 feasibility check; without a
-    width it is taken as infeasible), else K1's deep depth. ``n_frames``
-    > 1 models the tall-image batch launch."""
+    ``schedule='deep'``, when the resident kernel runs, ``reps`` over K2's
+    grid syncs (one round trip of the image through its two buffers per
+    sync; K2's reps per sync without ``reps``; ``w_img``/``channels`` feed
+    its L2 feasibility check; without a width it is taken as infeasible),
+    else K1's deep depth. ``n_frames`` > 1 models the tall-image batch
+    launch."""
     from tpu_stencil_torch.ops import cuda_stencil as cs
 
     plan = _plan(filter_name)
@@ -68,7 +70,9 @@ def effective_fuse(filter_name: str, h_img: int,
     if (sched == cs.DEEP and w_img and block_h is None and fuse is None
             and cs.resident_feasible(plan, rows, w_img * channels, channels,
                                      device)):
-        return max(1, int(reps)) if reps else 1
+        fz = cs.resident_geometry(plan, rows, w_img * channels, channels,
+                                  cs.device_caps(device)[1])[1]
+        return reps / len(cs.launch_schedule(reps, fz)) if reps else fz
     return cs.effective_geometry(plan, rows, channels, block_h, fuse,
                                  schedule=sched)[1]
 

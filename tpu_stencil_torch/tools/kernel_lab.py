@@ -31,6 +31,14 @@ height N, ``_fN`` = fuse N, in either order, on any of them):
   abl_tile_no_rows, abl_tile_no_cols, abl_tile_no_mask,
   abl_tile_load_store_only
             the same ablations of the shipped tile: where its time goes
+  deep      K2 as shipped (``cuda_stencil.stencil_resident``: the whole
+            rep loop in one cooperative launch over two device buffers,
+            K1's tile ``fuse`` reps per grid sync); ``_bN``/``_fN`` set its
+            tile height and reps per sync
+  band      K2's job with the image held in the blocks' shared memory
+            across the rep loop (``lab.stencil_lab_band``): the form of K2
+            that measured slower than ``deep``; ``_fN`` sets its reps per
+            sync
 
 The JAX tool's variants, and what answers each here:
   current              -> current
@@ -101,9 +109,24 @@ DEFAULT_VARIANTS = (
     "abl_swar_no_rows", "abl_swar_no_cols", "abl_swar_no_mask",
     "abl_swar_load_store_only",
     "tile", "abl_tile_no_rows", "abl_tile_no_cols", "abl_tile_no_mask",
-    "abl_tile_load_store_only",
+    "abl_tile_load_store_only", "deep", "band",
 )
 SPECIAL = ("shipped", "xla")
+# Names that take geometry suffixes outside lab.parse_variant's bodies, and
+# the suffixes each takes.
+K2_FORMS = {"deep": "bf", "band": "f"}
+
+
+def _k2_form(name: str):
+    """(form, geometry) when ``name`` is a K2 form with its suffixes,
+    else None."""
+    try:
+        rest, geo = lab.split_geometry(name)
+    except ValueError:
+        return None
+    if rest in K2_FORMS and set(geo) <= set(K2_FORMS[rest]):
+        return rest, geo
+    return None
 
 
 def resolve_names(names: List[str]) -> List[str]:
@@ -111,7 +134,7 @@ def resolve_names(names: List[str]) -> List[str]:
     ValueError listing the names there are."""
     names = list(names) or list(DEFAULT_VARIANTS)
     for n in names:
-        if n in SPECIAL:
+        if n in SPECIAL or _k2_form(n):
             continue
         try:
             lab.parse_variant(n)
@@ -120,7 +143,8 @@ def resolve_names(names: List[str]) -> List[str]:
                 f"unknown variant {n!r}; the variants are: "
                 f"{', '.join(SPECIAL + lab.BODIES)}, abl_[swar_|tile_]"
                 f"{{{','.join(lab.ABLATIONS)}}}, each with optional "
-                "_b<rows> and _f<fuse> suffixes"
+                "_b<rows> and _f<fuse> suffixes; deep[_b<rows>][_f<fuse>]; "
+                "band[_f<fuse>]"
             ) from None
     return names
 
@@ -134,6 +158,18 @@ def variant_fn(name: str, plan, img: torch.Tensor):
         return (lambda n: cs.iterate(img, n, plan)), fuse
     if name == "xla":
         return (lambda n: lowering.iterate(img, n, plan)), 1
+    form = _k2_form(name)
+    if form and form[0] == "deep":
+        x2 = img.reshape(rows, -1)
+        bh, fz = cs.resident_geometry(plan, *x2.shape, channels,
+                                      cs.device_caps(img.device)[1])
+        bh, fz = form[1].get("b", bh), form[1].get("f", fz)
+        return (lambda n: cs.stencil_resident(
+            x2, plan, channels, n, block_h=bh, fuse=fz).reshape(
+                img.shape)), fz
+    if form:
+        fz = form[1].get("f", lab.BAND_FUSE)
+        return (lambda n: lab.band_iterate(img, n, plan, fz)), fz
     variant = lab.parse_variant(name)
     fuse = lab.lab_geometry(variant, plan, rows, channels)[1]
     return (lambda n: lab.lab_iterate(img, n, plan, variant)), fuse
@@ -152,10 +188,14 @@ def run_lab(names: List[str], device: torch.device, shape=(H, W),
     print(f"platform={_harness.describe(device)} plan={plan.kind} "
           f"row_taps={plan.row_taps} col_taps={plan.col_taps} "
           f"shape={full}", file=out, flush=True)
-    variants = [lab.parse_variant(n) for n in names if n not in SPECIAL]
+    variants = [lab.parse_variant(n) for n in names
+                if n not in SPECIAL and not _k2_form(n)]
     if device.type == "cuda":
         # Every library of this run, one nvcc each, all started together.
-        _build.build(list(lab.lab_targets(variants)) + ["stencil_fused"])
+        bands = [lab.BAND_TARGET] if any(
+            (_k2_form(n) or ("",))[0] == "band" for n in names) else []
+        _build.build(list(lab.lab_targets(variants))
+                     + list(_build.JOB_KERNELS) + bands)
     fns, exact = {}, {}
     for name in names:
         fn, fuse = variant_fn(name, plan, img)
