@@ -40,12 +40,16 @@ one JSON line. The phases that pin launch counts name ``--backend pallas``
    side of the feasibility line (1920 wide RGB, the tallest K2 takes and
    one just past it), the far side running K1 at the deep depth.
 5. ``main_path`` — the CLI on a seeded 1920x2520 RGB raw file, x40,
-   default schedule and ``--schedule deep``: cold, as
-   ``python -m tpu_stencil_torch`` in a fresh process (its ``--time``
-   line gives the launches), and warm, as ``tpu_stencil_torch.cli.main``
+   default schedule and ``--schedule deep``: cold, as the CLI's entry
+   point in a fresh process, and warm, as ``tpu_stencil_torch.cli.main``
    in this process with the launch counters set to 0 just before each run
-   and read just after; the bytes written must equal the torch-ops path
-   on the card.
+   and read just after. Each run's window launches (its ``--time`` line
+   and JobResult) must be those of the rep schedule (K1: 5; K2: 1), its
+   warm-up must have launched each
+   kernel instance once before the window, and the counters must read the
+   two together; each cold window (the JobResult's, at full precision)
+   must be at most twice the warm one or within 1 ms of it; the bytes
+   written must equal the torch-ops path on the card.
 6. ``k3`` — K3 ``stencil_valid`` against its plain version, byte for
    byte, on the ghost-extended tiles of every shard position of a 2x2
    grid (corner, edge and interior global origins) over seeded 1920x2520
@@ -57,7 +61,8 @@ one JSON line. The phases that pin launch counts name ``--backend pallas``
    byte-equal to K1's ``iterate`` and to the torch-ops path, with
    ``(reps // fuse + reps % fuse) * R*C`` K3 launches; the indivisible
    1921x2519 RGB image at 2x2 x9 (the pad mask, fuse 1) and gaussian5 at
-   2x2 x9; the CLI with ``--mesh 1x1``, cold and warm; and
+   2x2 x9; the CLI with ``--mesh 1x1``, cold and warm (the cold window
+   held to the warm one as in ``main_path``); and
    ``driver.run_job`` with mesh 2x2 over ``[cuda:0] * 4`` writing the
    file.
 8. ``l2`` — L2 ``stencil_lab``: every exact variant (``current``,
@@ -85,7 +90,30 @@ one JSON line. The phases that pin launch counts name ``--backend pallas``
    verdict says; the same through ``run_job`` on a 2x2 mesh over
    ``[cuda:0] * 4``; then ``bh_fuse_ab`` and a ``--quick`` benchmark
    sweep run to the end with every row exact.
-11. ``times`` — ms per rep at 1920x2520 RGB gaussian x40, each the median
+11. ``job_hardened`` — the hardened, observable job at 1920x2520 RGB
+   gaussian x40, every run byte-equal to the torch-ops path and holding
+   its launches and ``resilience_fallbacks_total`` (0 wherever nothing
+   was injected): ``--faults compile:raise=oom --schedule deep`` demoting
+   ``pallas[deep]`` to ``pallas`` (K1's launches only, the counter at 1);
+   ``--checkpoint-every 10`` killed by ``compute:rep=25`` and resumed
+   (the window launches only the 20 remaining reps), through the CLI and
+   through ``run_job`` on a 2x2 mesh of this card (K3); ``--fallback-backend
+   cpu`` refused on a card job; K1 and K2 launches refused by the card
+   (cudaError_t 701, injected in the wrappers) failing the job typed, K2
+   demoted to K1 and never to the torch ops; a forced build
+   failure through ``run_job`` (``KernelBuildError``, nothing launched, no
+   demotion); ``--trace`` (40
+   ``iterate.rep`` spans) and a traced 2x2 ``run_job`` with the runner's
+   ``sharded.halo_exchange`` and ``sharded.interior_compute`` probes,
+   then the split they give (median of 7) beside the untraced runner's
+   ms per chunk; ``--breakdown --schedule deep`` (K2, the kernel
+   instance with the card's registers and blocks per SM, the memory line
+   from ``torch.cuda.memory_stats``); ``--metrics-text`` under
+   ``--dispatch-timeout 60`` (an exact round-trip with the device-memory
+   gauges, and its window held to the same job's without the watchdog as
+   ``main_path`` holds cold to warm); ``--profile`` (the ``torch.profiler`` trace names
+   ``stencil_fused_kernel``).
+12. ``times`` — ms per rep at 1920x2520 RGB gaussian x40, each the median
    of 7 runs after a warm-up (CUDA events, L2 flushed before each run):
    the three job kernels (K3 alone on the one ext tile of a 1x1 mesh at
    fuse 8), L2's ``current`` body, one L1 launch (``add_i32``, chain of
@@ -105,8 +133,9 @@ one JSON line. The phases that pin launch counts name ``--backend pallas``
    as one tall launch against 1 frame; and each body's resident blocks per
    SM at 32x8 (the library's occupancy query).
 
-Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
-line, and last ``{"ok": true, "device": {...}}``. Any failure raises and
+Then the ``{"kernels": [...]}`` line (for K1, K2 and K3 ``launches`` are
+the main path's timed window's and ``warmup_launches`` its warm-up's),
+the ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero before that line; without a CUDA device the script exits
 non-zero at once.
 """
@@ -277,40 +306,80 @@ def phase_k1(dev) -> dict:
             "max_abs_err": worst, "no_fallback": check_no_fallback(dev)}
 
 
-def check_no_fallback(dev) -> dict:
-    """With the kernel libraries failing to build (nvcc replaced by
-    ``false``, an empty build directory), ``iterate`` on a card tensor
-    must raise KernelBuildError, launch nothing and not call the torch-ops
-    path, under the default schedule (K1) and under 'deep' (K2)."""
+@contextlib.contextmanager
+def failing_builds():
+    """The kernel libraries fail to build inside the block (nvcc replaced
+    by ``false``, an empty build directory), and the torch-ops path
+    records its calls instead of running; yields that list of calls."""
     import tempfile
 
     from tpu_stencil_torch.ops import _build
-    from tpu_stencil_torch.ops import cuda_stencil as cs
     from tpu_stencil_torch.ops import lowering
 
-    g = plan_of("gaussian")
-    img = seeded((64, 48, 3), 13, dev)
     saved = (_build.nvcc_path, _build.BUILD_DIR, dict(_build._LOADED),
              lowering.iterate)
     called = []
-    raised = {}
     with tempfile.TemporaryDirectory(dir=WORK) as tmp:
         _build.nvcc_path = lambda: "false"
         _build.BUILD_DIR = Path(tmp)
         _build._LOADED.clear()
         lowering.iterate = lambda *a, **k: called.append(a)
-        cs.reset_launch_counts()
         try:
-            for sched in (None, "deep"):
-                try:
-                    cs.iterate(img, 9, g, schedule=sched)
-                except _build.KernelBuildError as e:
-                    raised[str(sched)] = str(e).splitlines()[0]
+            yield called
         finally:
             (_build.nvcc_path, _build.BUILD_DIR, loaded,
              lowering.iterate) = saved
             _build._LOADED.clear()
             _build._LOADED.update(loaded)
+
+
+@contextlib.contextmanager
+def refused_launches(code: int):
+    """Every K1 and K2 launch inside the block is refused by the card with
+    cudaError_t ``code`` (raised as the wrappers raise a failed launch,
+    before anything runs), and the torch-ops path records its calls
+    instead of running; yields (torch-ops calls, kernels asked for)."""
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+    from tpu_stencil_torch.ops import lowering
+
+    saved = (cs.stencil_fused, cs.stencil_resident, lowering.iterate)
+    called, tried = [], []
+
+    def refuse(name):
+        def launch(*a, **k):
+            tried.append(name)
+            raise cs.KernelLaunchError(
+                f"{name} launch failed: cudaError_t {code} (refused)", code)
+        launch.launches = 0  # the counter launch_counts() reads
+        return launch
+
+    cs.stencil_fused = refuse("stencil_fused")
+    cs.stencil_resident = refuse("stencil_resident")
+    lowering.iterate = lambda *a, **k: called.append(a)
+    try:
+        yield called, tried
+    finally:
+        cs.stencil_fused, cs.stencil_resident, lowering.iterate = saved
+
+
+def check_no_fallback(dev) -> dict:
+    """With the kernel libraries failing to build, ``iterate`` on a card
+    tensor must raise KernelBuildError, launch nothing and not call the
+    torch-ops path, under the default schedule (K1) and under 'deep'
+    (K2)."""
+    from tpu_stencil_torch.ops import _build
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+
+    g = plan_of("gaussian")
+    img = seeded((64, 48, 3), 13, dev)
+    raised = {}
+    with failing_builds() as called:
+        cs.reset_launch_counts()
+        for sched in (None, "deep"):
+            try:
+                cs.iterate(img, 9, g, schedule=sched)
+            except _build.KernelBuildError as e:
+                raised[str(sched)] = str(e).splitlines()[0]
     counts = cs.launch_counts()
     require(len(raised) == 2, f"a failed build did not raise: {raised}")
     require(counts == NO_LAUNCHES and not called,
@@ -456,44 +525,122 @@ def phase_k2(dev) -> dict:
             "feasibility_line": line}
 
 
-def run_cli(args) -> tuple:
-    """cli.main with the launch counters set to 0 just before it and read
-    just after; returns (stdout lines, counts)."""
-    from tpu_stencil_torch import cli
-    from tpu_stencil_torch.ops import cuda_stencil as cs
-
-    buf = io.StringIO()
-    cs.reset_launch_counts()
-    with contextlib.redirect_stdout(buf):
-        rc = cli.main(args)
-    counts = cs.launch_counts()
-    require(rc == 0, f"cli.main{tuple(args)} returned {rc}")
-    lines = buf.getvalue().strip().splitlines()
-    for line in lines:
-        print(line, flush=True)
-    return lines, counts
-
-
 def parse_launches(report: str) -> dict:
     """The launch counts of a ``--time`` line's ``launches=`` field."""
     field = report.rsplit("launches=", 1)[1].split()[0]
     return {k: int(v) for k, v in (kv.split(":") for kv in field.split(","))}
 
 
-def run_cli_cold(args, env=None) -> tuple:
-    """``python -m tpu_stencil_torch`` in a fresh process, as a user runs
-    it: the compute window includes the first launch of each kernel
-    (module load, shared-memory attribute). Returns (stdout lines, counts
-    parsed from the ``--time`` line's ``launches=``)."""
-    r = subprocess.run([sys.executable, "-m", "tpu_stencil_torch", *args],
+def add_counts(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b.get(k, 0) for k in NO_LAUNCHES}
+
+
+def cli_record(lines, res: dict, counts: dict, probed: bool = False) -> dict:
+    """One CLI run: its ``Execution time`` and ``--time`` lines, the
+    JobResult's windows and launches (``window``: the timed window's, as
+    the ``--time`` line reports them; ``warmup``: the warm-up's before
+    it), and ``counts``, every launch the wrappers counted in the run,
+    which must be the two together (and, ``probed``, the autotuner's
+    probes besides)."""
+    for line in lines:
+        print(line, flush=True)
+    report = next((ln for ln in lines if ln.startswith("total (incl.")), "")
+    rec = {"time_line": next(ln for ln in lines
+                             if ln.startswith("Execution time:")),
+           "report": report, "lines": lines,
+           "window": res["launches"], "warmup": res["warmup_launches"],
+           "counts": counts, "compute_seconds": res["compute_seconds"],
+           "total_seconds": res["total_seconds"]}
+    require(not report or parse_launches(report) == rec["window"],
+            f"--time line {report} != the window's launches {rec['window']}")
+    both = add_counts(rec["window"], rec["warmup"])
+    require(all(counts[k] >= both[k] for k in both) if probed
+            else counts == both,
+            f"launches counted {counts} != window {rec['window']} + "
+            f"warm-up {rec['warmup']}{' + probes' if probed else ''}")
+    secs = rec["compute_seconds"]
+    require(np.isfinite(secs) and secs > 0, f"bad compute window {secs}")
+    return rec
+
+
+def result_fields(res) -> dict:
+    return {"compute_seconds": res.compute_seconds,
+            "total_seconds": res.total_seconds, "launches": res.launches,
+            "warmup_launches": res.warmup_launches}
+
+
+def run_cli(args, expect_rc: int = 0) -> dict:
+    """cli.main in this process, with the launch counters set to 0 just
+    before it and read just after, and its JobResult kept
+    (:func:`cli_record`)."""
+    from tpu_stencil_torch import cli, driver
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+
+    buf = io.StringIO()
+    real = driver.run_job
+    box = {}
+
+    def keep(*a, **k):
+        box["res"] = real(*a, **k)
+        return box["res"]
+
+    driver.run_job = keep
+    cs.reset_launch_counts()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(args)
+    finally:
+        driver.run_job = real
+    counts = cs.launch_counts()
+    require(rc == expect_rc, f"cli.main{tuple(args)} returned {rc}")
+    lines = buf.getvalue().strip().splitlines()
+    return cli_record(lines, result_fields(box["res"]), counts)
+
+
+# ``python -m tpu_stencil_torch`` as a user runs it, plus one last line:
+# the JobResult's windows and launches at full precision, and the
+# process's launch counters.
+COLD = """import json, sys
+from tpu_stencil_torch import cli, driver
+from tpu_stencil_torch.ops import cuda_stencil as cs
+real, box = driver.run_job, {}
+def keep(*a, **k):
+    box["res"] = real(*a, **k)
+    return box["res"]
+driver.run_job = keep
+rc = cli.main(sys.argv[1:])
+r = box["res"]
+print(json.dumps({"compute_seconds": r.compute_seconds,
+                  "total_seconds": r.total_seconds, "launches": r.launches,
+                  "warmup_launches": r.warmup_launches,
+                  "counts": cs.launch_counts()}))
+sys.exit(rc)
+"""
+
+
+def run_cli_cold(args, env=None, probed: bool = False) -> dict:
+    """``python -m tpu_stencil_torch``'s entry point in a fresh process:
+    a job in a process that has launched nothing yet (module load,
+    shared-memory attributes, the allocator's first blocks), whose
+    warm-up must keep that out of its window (:func:`cli_record`)."""
+    r = subprocess.run([sys.executable, "-c", COLD, *args],
                        cwd=ROOT, capture_output=True, text=True, timeout=300,
                        env=env)
     require(r.returncode == 0,
             f"python -m tpu_stencil_torch exited {r.returncode}: {r.stderr}")
     lines = r.stdout.strip().splitlines()
-    for line in lines:
-        print(line, flush=True)
-    return lines, parse_launches(lines[1])
+    res = json.loads(lines[-1])
+    return cli_record(lines[:-1], res, res["counts"], probed)
+
+
+def require_cold_near_warm(label: str, cold: float, warm: float) -> float:
+    """The warm-up keeps first use out of the window: a cold window is at
+    most twice the warm one, or within 1 ms of it, whichever allows more.
+    Returns the bound."""
+    bound = max(2.0 * warm, warm + 1e-3)
+    require(cold <= bound, f"{label}: cold window {cold!r} s > {bound!r} s "
+            f"(warm {warm!r} s): first use inside the window")
+    return bound
 
 
 def main_raw() -> tuple:
@@ -523,30 +670,37 @@ def phase_main_path(dev) -> dict:
     base = [str(src), str(MAIN_W), str(MAIN_H), str(MAIN_REPS), "rgb",
             "--time", *PALLAS]
     out = {}
-    for label, extra, expect, body in (
+    for label, extra, expect, warm, body in (
         ("default", [], launches(
             stencil_fused=MAIN_REPS // fuse + MAIN_REPS % fuse),
+         launches(stencil_fused=len(set(cs.launch_schedule(MAIN_REPS,
+                                                           fuse)))),
          cs.tile_body(g)),
         ("deep", ["--schedule", "deep"], launches(stencil_resident=1),
-         cs.tile_body(g)),
+         launches(stencil_resident=1), cs.tile_body(g)),
     ):
         for temp, runner in (("cold", run_cli_cold), ("warm", run_cli)):
             dst = WORK / f"blur_{label}_{temp}.raw"
-            lines, counts = runner(base + extra + ["--output", str(dst)])
-            require(counts == expect, f"main path {label} {temp}: launches "
-                    f"{counts}, expected {expect}")
-            require(f" body={body}" in lines[1],
+            r = runner(base + extra + ["--output", str(dst)])
+            require(r["window"] == expect and r["warmup"] == warm,
+                    f"main path {label} {temp}: launches {r['window']} + "
+                    f"warm-up {r['warmup']}, expected {expect} + {warm}")
+            require(f" body={body}" in r["report"],
                     f"main path {label} {temp} must report body={body}: "
-                    f"{lines[1]}")
+                    f"{r['report']}")
             got = np.fromfile(dst, np.uint8).reshape(img.shape)
             err = int(np.abs(got.astype(int) - want.astype(int)).max())
             require(err == 0,
                     f"main path {label} {temp} disagrees with torch ops ({err})")
-            secs = float(lines[0].split()[2])
-            require(np.isfinite(secs) and secs > 0, f"bad time line {lines[0]}")
-            out[f"{label}_{temp}"] = {"launches": counts, "max_abs_err": err,
-                                      "execution_time_s": secs,
-                                      "report": lines[1]}
+            out[f"{label}_{temp}"] = {
+                "launches": r["counts"], "window_launches": r["window"],
+                "warmup_launches": r["warmup"], "max_abs_err": err,
+                "compute_seconds": r["compute_seconds"],
+                "total_seconds": r["total_seconds"],
+                "time_line": r["time_line"], "report": r["report"]}
+        out[f"{label}_cold_bound_s"] = require_cold_near_warm(
+            f"main path {label}", out[f"{label}_cold"]["compute_seconds"],
+            out[f"{label}_warm"]["compute_seconds"])
     return {"phase": "main_path", "ok": True, "shape": list(img.shape),
             "reps": MAIN_REPS, "runs": out}
 
@@ -672,19 +826,25 @@ def phase_sharded_path(dev) -> dict:
                       + MAIN_REPS % cs.DEFAULT_FUSE)
     for temp, runner in (("cold", run_cli_cold), ("warm", run_cli)):
         dst = WORK / f"blur_mesh1x1_{temp}.raw"
-        lines, counts = runner(base + ["--output", str(dst)])
-        require(counts == expect,
-                f"--mesh 1x1 {temp}: launches {counts}, expected {expect}")
-        require("mesh=(1, 1)" in lines[1]
-                and f" body={cs.tile_body(g)}" in lines[1],
-                f"--mesh 1x1 {temp}: {lines[1]}")
+        r = runner(base + ["--output", str(dst)])
+        require(r["window"] == expect
+                and r["warmup"] == launches(stencil_valid=1),
+                f"--mesh 1x1 {temp}: launches {r['window']} + warm-up "
+                f"{r['warmup']}, expected {expect} + one K3 chunk")
+        require("mesh=(1, 1)" in r["report"]
+                and f" body={cs.tile_body(g)}" in r["report"],
+                f"--mesh 1x1 {temp}: {r['report']}")
         got = np.fromfile(dst, np.uint8).reshape(img.shape)
         err = int(np.abs(got.astype(int) - want.astype(int)).max())
         require(err == 0, f"--mesh 1x1 {temp} disagrees with torch ops ({err})")
         out[f"cli_mesh1x1_{temp}"] = {
-            "launches": counts, "max_abs_err": err,
-            "execution_time_s": float(lines[0].split()[2]),
-            "report": lines[1]}
+            "launches": r["counts"], "window_launches": r["window"],
+            "warmup_launches": r["warmup"], "max_abs_err": err,
+            "compute_seconds": r["compute_seconds"],
+            "total_seconds": r["total_seconds"], "report": r["report"]}
+    out["cli_mesh1x1_cold_bound_s"] = require_cold_near_warm(
+        "--mesh 1x1", out["cli_mesh1x1_cold"]["compute_seconds"],
+        out["cli_mesh1x1_warm"]["compute_seconds"])
     dst = WORK / "blur_mesh2x2_run_job.raw"
     cfg = config.JobConfig(image=str(src), width=MAIN_W, height=MAIN_H,
                            repetitions=MAIN_REPS,
@@ -702,7 +862,8 @@ def phase_sharded_path(dev) -> dict:
     out["run_job_mesh2x2"] = {"launches": res.launches, "max_abs_err": err,
                               "body": res.body,
                               "compute_seconds": res.compute_seconds}
-    worst = max(v["max_abs_err"] for v in out.values())
+    worst = max(v["max_abs_err"] for v in out.values()
+                if isinstance(v, dict))
     return {"phase": "sharded_path", "ok": True, "shape": list(img.shape),
             "reps": MAIN_REPS, "max_abs_err": worst, "runs": out}
 
@@ -921,6 +1082,362 @@ def phase_l1(dev) -> dict:
             "chain_us": {n: r["chain_us"] for n, r in res.items()}}
 
 
+def probe_split(img: np.ndarray, dev, repeats: int = 7) -> dict:
+    """The 2x2 runner's time split by its trace probes: ``repeats`` runs of
+    ``ShardedRunner.trace_phase_probes`` (one chunk's exchange alone, one
+    chunk's K3 on the four tiles alone), median ms of each, beside the
+    untraced runner's ms per chunk (the median of ``repeats`` runs of the
+    whole rep loop over its chunk count)."""
+    from tpu_stencil_torch import obs
+    from tpu_stencil_torch.models.blur import IteratedConv2D
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+    from tpu_stencil_torch.parallel.sharded import ShardedRunner
+
+    runner = ShardedRunner(IteratedConv2D("gaussian", backend="pallas",
+                                          device=dev), img.shape[:2],
+                           img.shape[2], mesh_shape=(2, 2),
+                           devices=[dev] * 4)
+    tiles = runner.put(img)
+    runner.prepare()
+    torch.cuda.synchronize()
+    runner.warmup(tiles, runner.warm_reps([MAIN_REPS]))
+    torch.cuda.synchronize()
+    obs.reset()
+    obs.enable()
+    try:
+        for _ in range(repeats):
+            runner.trace_phase_probes(tiles)
+        spans = obs.get_tracer().spans()
+    finally:
+        obs.reset()
+    per = {}
+    for name in ("sharded.halo_exchange", "sharded.interior_compute"):
+        per[name] = statistics.median(
+            1e3 * r.seconds for r in spans if r.name == name)
+    chunks = len(cs.launch_schedule(MAIN_REPS, runner.fuse))
+    whole = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.run(tiles, MAIN_REPS)
+        torch.cuda.synchronize()
+        whole.append(1e3 * (time.perf_counter() - t0) / chunks)
+    return {"fuse": runner.fuse, "chunks": chunks,
+            "exchange_ms_per_chunk": per["sharded.halo_exchange"],
+            "k3_ms_per_chunk": per["sharded.interior_compute"],
+            "runner_ms_per_chunk": statistics.median(whole),
+            "repeats": repeats}
+
+
+def phase_job_hardened(dev) -> dict:
+    """The hardened, observable job at 1920x2520 RGB gaussian x40 on the
+    card, every run byte-equal to the torch-ops path, the launch counters
+    set to 0 just before each and read just after: the fallback ladder
+    under an injected ``compile`` OOM; a checkpointed run killed at rep 25
+    and resumed, through the CLI and through ``run_job`` on a 2x2 mesh of
+    this card; a forced build failure; ``--trace`` (and the 2x2 runner's
+    exchange/compute probes); ``--breakdown`` under ``deep``;
+    ``--metrics-text`` under the dispatch watchdog; ``--profile``."""
+    from tpu_stencil_torch import config, driver, obs
+    from tpu_stencil_torch.ops import _build
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+    from tpu_stencil_torch.ops import lowering
+    from tpu_stencil_torch.resilience import errors, faults
+
+    src, img = main_raw()
+    g = plan_of("gaussian")
+    want = lowering.iterate(torch.from_numpy(img).to(dev), MAIN_REPS,
+                            g).cpu().numpy()
+    fuse = cs.effective_geometry(g, MAIN_H, MAIN_C)[1]
+    k1_window = launches(stencil_fused=len(cs.launch_schedule(MAIN_REPS,
+                                                              fuse)))
+    base = [str(src), str(MAIN_W), str(MAIN_H), str(MAIN_REPS), "rgb",
+            "--time", *PALLAS]
+    out = {}
+
+    def check_file(dst, label) -> int:
+        got = np.fromfile(dst, np.uint8).reshape(img.shape)
+        err = int(np.abs(got.astype(int) - want.astype(int)).max())
+        require(err == 0, f"{label} disagrees with torch ops ({err})")
+        return err
+
+    def fallbacks() -> int:
+        return obs.snapshot()["counters"].get("resilience_fallbacks_total", 0)
+
+    def keep(label, r, err, **extra):
+        out[label] = {"window_launches": r["window"],
+                      "warmup_launches": r["warmup"],
+                      "launches": r["counts"], "max_abs_err": err,
+                      "compute_seconds": r["compute_seconds"],
+                      "total_seconds": r["total_seconds"],
+                      "report": r["report"], **extra}
+        return out[label]
+
+    def cli(label, extra, window, warm, injected=0):
+        obs.reset()
+        faults.reset()
+        dst = WORK / f"blur_hard_{label}.raw"
+        r = run_cli(base + extra + ["--output", str(dst)])
+        require(r["window"] == window and r["warmup"] == warm,
+                f"{label}: launches {r['window']} + warm-up {r['warmup']}, "
+                f"expected {window} + {warm}")
+        require(fallbacks() == injected,
+                f"{label}: resilience_fallbacks_total {fallbacks()}, "
+                f"expected {injected}")
+        return r, check_file(dst, label)
+
+    # The ladder: an injected OOM at the warm-up of pallas[deep] demotes
+    # to pallas (K1 at its default geometry), once, loudly.
+    r, err = cli("ladder", ["--schedule", "deep", "--faults",
+                            "compile:raise=oom"], k1_window,
+                 launches(stencil_fused=1), injected=1)
+    require("schedule=fused" in r["report"], f"ladder: {r['report']}")
+    keep("ladder_deep_to_pallas", r, err, fallbacks=1)
+
+    # Checkpoint every 10, killed at rep 25, resumed from rep 20: the
+    # window launches cover only the 20 remaining reps.
+    obs.reset()
+    dst = WORK / "blur_hard_ckpt.raw"
+    argv = base + ["--checkpoint-every", "10", "--output", str(dst)]
+    try:
+        run_cli(argv + ["--faults", "compute:rep=25"])
+        killed = None
+    except errors.InjectedFault as e:
+        killed = (e.point, e.index)
+    faults.reset()
+    require(killed == ("compute", 25), f"checkpoint run not killed: {killed}")
+    meta = json.loads(Path(str(dst) + ".ckpt.json").read_text())
+    require(meta["rep"] == 20, f"checkpoint at rep {meta['rep']}, not 20")
+    obs.reset()
+    r = run_cli(argv + ["--resume"])
+    chunk = cs.launch_schedule(10, fuse)
+    require(r["window"] == launches(stencil_fused=2 * len(chunk))
+            and 2 * sum(chunk) == MAIN_REPS - 20,
+            f"resume: launches {r['window']} for 20 remaining reps")
+    require(fallbacks() == 0, "resume demoted")
+    require(not Path(str(dst) + ".ckpt.json").exists(),
+            "the checkpoint outlived the finished job")
+    keep("checkpoint_resume", r, check_file(dst, "checkpoint resume"),
+         resumed_from=meta["rep"])
+
+    # The same on a 2x2 mesh of this card, through run_job.
+    dst = WORK / "blur_hard_ckpt_mesh.raw"
+    cfg = config.JobConfig(image=str(src), width=MAIN_W, height=MAIN_H,
+                           repetitions=MAIN_REPS,
+                           image_type=config.ImageType.RGB,
+                           mesh_shape=(2, 2), backend="pallas",
+                           output=str(dst))
+    obs.reset()
+    faults.configure("compute:rep=25")
+    try:
+        driver.run_job(cfg, devices=[dev] * 4, checkpoint_every=10)
+        killed = None
+    except errors.InjectedFault as e:
+        killed = (e.point, e.index)
+    faults.reset()
+    require(killed == ("compute", 25), f"mesh run not killed: {killed}")
+    meta = json.loads(Path(str(dst) + ".ckpt.json").read_text())
+    require(meta["rep"] == 20 and meta["data"].endswith(".r20"),
+            f"mesh checkpoint {meta}")
+    cs.reset_launch_counts()
+    res = driver.run_job(cfg, devices=[dev] * 4, checkpoint_every=10,
+                         resume=True)
+    counts = cs.launch_counts()
+    chunk = cs.launch_schedule(10, res.fuse or cs.DEFAULT_FUSE)
+    want_window = launches(stencil_valid=2 * len(chunk) * 4)
+    require(res.launches == want_window
+            and counts == add_counts(res.launches, res.warmup_launches),
+            f"mesh resume: launches {res.launches} + warm-up "
+            f"{res.warmup_launches}, counted {counts}, expected window "
+            f"{want_window}")
+    require(fallbacks() == 0, "mesh resume demoted")
+    out["checkpoint_resume_mesh2x2"] = {
+        "window_launches": res.launches,
+        "warmup_launches": res.warmup_launches, "launches": counts,
+        "max_abs_err": check_file(dst, "mesh checkpoint resume"),
+        "compute_seconds": res.compute_seconds,
+        "total_seconds": res.total_seconds, "resumed_from": 20}
+
+    # A card job never leaves the card: the CPU rung is refused outright.
+    cs.reset_launch_counts()
+    refused = None
+    try:
+        driver.run_job(config.JobConfig(
+            image=str(src), width=MAIN_W, height=MAIN_H,
+            repetitions=MAIN_REPS, image_type=config.ImageType.RGB,
+            backend="pallas", fallback_backend="cpu",
+            output=str(WORK / "blur_hard_cpu_rung.raw")), devices=[dev])
+    except ValueError as e:
+        refused = str(e)
+    require(refused is not None and cs.launch_counts() == NO_LAUNCHES,
+            f"--fallback-backend cpu on the card: {refused}, launches "
+            f"{cs.launch_counts()}")
+    out["cpu_rung_refused"] = {"raised": refused}
+
+    # A launch the card refuses for lack of resources (cudaError_t 701)
+    # fails the job typed: K2's is demoted to K1 (counted), K1's raises;
+    # the torch ops are never called.
+    for sched, demoted, asked in (
+            (None, 0, ["stencil_fused"]),
+            ("deep", 1, ["stencil_resident", "stencil_fused"])):
+        obs.reset()
+        lcfg = config.JobConfig(image=str(src), width=MAIN_W, height=MAIN_H,
+                                repetitions=MAIN_REPS,
+                                image_type=config.ImageType.RGB,
+                                backend="pallas", schedule=sched,
+                                output=str(WORK / "blur_hard_refused.raw"))
+        code = None
+        with refused_launches(701) as (called, tried):
+            try:
+                driver.run_job(lcfg, devices=[dev])
+            except cs.KernelLaunchError as e:
+                code = e.code
+        require(code == 701 and not called and tried == asked
+                and fallbacks() == demoted,
+                f"refused launch ({sched}): raised {code}, torch ops "
+                f"{len(called)}, kernels asked {tried}, fallbacks "
+                f"{fallbacks()}")
+        out[f"launch_refused_{sched or 'fused'}"] = {
+            "raised_code": code, "kernels_asked": tried,
+            "fallbacks": demoted, "torch_ops_calls": 0}
+
+    # A kernel that does not build fails the job: no launch, no demotion,
+    # no torch ops.
+    obs.reset()
+    bcfg = config.JobConfig(image=str(src), width=MAIN_W, height=MAIN_H,
+                            repetitions=MAIN_REPS,
+                            image_type=config.ImageType.RGB,
+                            backend="pallas", schedule="deep",
+                            output=str(WORK / "blur_hard_nobuild.raw"))
+    raised = None
+    with failing_builds() as called:
+        cs.reset_launch_counts()
+        try:
+            driver.run_job(bcfg, devices=[dev])
+        except _build.KernelBuildError as e:
+            raised = str(e).splitlines()[0]
+    counts = cs.launch_counts()
+    require(raised is not None, "a failed build did not fail the job")
+    require(counts == NO_LAUNCHES and not called and fallbacks() == 0,
+            f"a failed build was demoted: launches {counts}, torch ops "
+            f"{len(called)}, fallbacks {fallbacks()}")
+    out["build_failure"] = {"raised": raised, "launches": counts,
+                            "fallbacks": 0}
+
+    # --trace: one fenced launch per rep, 40 iterate.rep spans.
+    trace = WORK / "hard_trace.json"
+    r, err = cli("trace", ["--trace", str(trace)],
+                 launches(stencil_fused=MAIN_REPS),
+                 launches(stencil_fused=1))
+    evs = [e for e in json.loads(trace.read_text())["traceEvents"]
+           if e.get("ph") == "X"]
+    rep_us = [e["dur"] for e in evs if e["name"] == "iterate.rep"]
+    require(len(rep_us) == MAIN_REPS, f"trace has {len(rep_us)} iterate.rep")
+    keep("trace", r, err, iterate_rep_us_median=statistics.median(rep_us),
+         iterate_rep_us_sum=sum(rep_us))
+    # The sharded probes in a traced run_job on the 2x2 mesh, then the
+    # split they give, taken several times.
+    obs.reset()
+    obs.enable()
+    try:
+        cs.reset_launch_counts()
+        res = driver.run_job(config.JobConfig(
+            image=str(src), width=MAIN_W, height=MAIN_H,
+            repetitions=MAIN_REPS, image_type=config.ImageType.RGB,
+            mesh_shape=(2, 2), backend="pallas",
+            output=str(WORK / "blur_hard_trace_mesh.raw")),
+            devices=[dev] * 4)
+        spans = obs.get_tracer().spans()
+    finally:
+        obs.reset()
+    probes = {n: [1e3 * sp.seconds for sp in spans if sp.name == n]
+              for n in ("sharded.halo_exchange", "sharded.interior_compute",
+                        "iterate.rep")}
+    require(len(probes["sharded.halo_exchange"]) == 1
+            and len(probes["sharded.interior_compute"]) == 1
+            and len(probes["iterate.rep"]) == MAIN_REPS,
+            f"traced 2x2 run spans: { {k: len(v) for k, v in probes.items()} }")
+    require(res.launches == launches(stencil_valid=MAIN_REPS * 4),
+            f"traced 2x2 window launches {res.launches}")
+    check_file(WORK / "blur_hard_trace_mesh.raw", "traced 2x2")
+    split = probe_split(img, dev)
+    print(f"2x2 runner on one card: exchange "
+          f"{probes['sharded.halo_exchange'][0]:.4f} ms, K3 "
+          f"{probes['sharded.interior_compute'][0]:.4f} ms per chunk of "
+          f"{split['fuse']} reps (traced run_job); medians of "
+          f"{split['repeats']}: exchange {split['exchange_ms_per_chunk']:.4f}"
+          f" ms, K3 {split['k3_ms_per_chunk']:.4f} ms, whole runner "
+          f"{split['runner_ms_per_chunk']:.4f} ms per chunk", flush=True)
+    out["trace_mesh2x2"] = {
+        "exchange_ms": probes["sharded.halo_exchange"][0],
+        "k3_ms": probes["sharded.interior_compute"][0],
+        "compute_seconds": res.compute_seconds,
+        "total_seconds": res.total_seconds, "window_launches": res.launches,
+        "warmup_launches": res.warmup_launches, "probe_split": split}
+
+    # --breakdown under deep: K2 launched one rep at a time, the kernel
+    # instance with the card's registers and occupancy, the memory line.
+    r, err = cli("breakdown", ["--schedule", "deep", "--breakdown"],
+                 launches(stencil_resident=MAIN_REPS),
+                 launches(stencil_resident=1))
+    text = "\n".join(r["lines"])
+    mem = next((ln for ln in r["lines"]
+                if ln.startswith("device memory: bytes_in_use=")), None)
+    inst = next((ln for ln in r["lines"]
+                 if ln.strip().startswith("stencil_resident body=")), "")
+    require(mem is not None, f"--breakdown printed no memory line:\n{text}")
+    require("regs=-" not in inst and "blocks/SM=-" not in inst and inst,
+            f"--breakdown instance without the card's numbers: {inst!r}")
+    keep("breakdown_deep", r, err, memory_line=mem, instance=inst.strip())
+
+    # --metrics-text under the dispatch watchdog (its first use in this
+    # process): an exact round-trip with the device-memory gauges, and a
+    # window held to the same job's without the watchdog, as main_path
+    # holds a cold window to a warm one.
+    plain, _ = cli("no_watchdog", [], k1_window, launches(stencil_fused=1))
+    mpath = WORK / "hard_metrics.txt"
+    r, err = cli("metrics", ["--metrics-text", str(mpath),
+                             "--dispatch-timeout", "60"], k1_window,
+                 launches(stencil_fused=1))
+    watchdog_bound = require_cold_near_warm(
+        "--dispatch-timeout 60", r["compute_seconds"],
+        plain["compute_seconds"])
+    text = mpath.read_text()
+    snap = obs.exposition.parse_text(text, prefix="tpu_stencil_driver")
+    require(snap == obs.snapshot(), "--metrics-text does not round-trip")
+    require(text.endswith(obs.exposition.render_text(
+        snap, prefix="tpu_stencil_driver")),
+            "--metrics-text is not the snapshot's exact text")
+    require("device_bytes_in_use" in snap["gauges"],
+            f"no device-memory gauges: {sorted(snap['gauges'])}")
+    keep("metrics_text", r, err, metrics=len(text.splitlines()),
+         device_peak_bytes_in_use=snap["gauges"][
+             "device_peak_bytes_in_use"]["value"],
+         no_watchdog_compute_seconds=plain["compute_seconds"],
+         watchdog_bound_s=watchdog_bound)
+
+    # --profile: the torch.profiler trace of the window names the kernel.
+    pdir = WORK / "hard_profile"
+    if pdir.exists():
+        for f in pdir.iterdir():
+            f.unlink()
+    r, err = cli("profile", ["--profile", str(pdir)], k1_window,
+                 launches(stencil_fused=1))
+    (ptrace,) = list(pdir.glob("trace_*.json"))
+    pevs = json.loads(ptrace.read_text())["traceEvents"]
+    kern = [e for e in pevs if "stencil_fused_kernel" in str(e.get("name"))
+            and e.get("ph") == "X"]
+    require(len(kern) >= 1, f"--profile trace {ptrace} names no "
+            "stencil_fused_kernel")
+    keep("profile", r, err, kernel_events=len(kern),
+         kernel_us=sum(e.get("dur", 0) for e in kern),
+         kernel_name=kern[0]["name"])
+    obs.reset()
+    faults.reset()
+    return {"phase": "job_hardened", "ok": True, "shape": list(img.shape),
+            "reps": MAIN_REPS, "runs": out}
+
+
 def verdict_launches(report: str, rows: int, reps: int) -> dict:
     """The launches a ``--time`` line's verdict implies for a single
     device job (backend, schedule and any reported geometry)."""
@@ -964,34 +1481,39 @@ def phase_autotune_path(dev) -> dict:
 
     # Cold: a fresh process, an empty cache file.
     dst = WORK / "blur_autotune_cold.raw"
-    lines, counts = run_cli_cold(base + ["--output", str(dst)],
-                                 env=dict(os.environ))
-    probes = int(lines[1].rsplit("tune_probes=", 1)[1].split()[0])
-    require(probes > 0, f"cold autotune made no probe: {lines[1]}")
+    r = run_cli_cold(base + ["--output", str(dst)], env=dict(os.environ),
+                     probed=True)
+    report = r["report"]
+    probes = int(report.rsplit("tune_probes=", 1)[1].split()[0])
+    require(probes > 0, f"cold autotune made no probe: {report}")
     require(cache.exists(), "cold autotune wrote no cache file")
     entry = autotune.cached_entry(g, (MAIN_H, MAIN_W), MAIN_C, dev)
     require(entry is not None, "the cache holds no entry for the job")
-    expect = verdict_launches(lines[1], MAIN_H, MAIN_REPS)
-    require(counts == expect, f"cold autotune: launches {counts}, the "
-            f"verdict implies {expect}")
-    out["cold"] = {"report": lines[1], "probes": probes, "launches": counts,
+    expect = verdict_launches(report, MAIN_H, MAIN_REPS)
+    require(r["window"] == expect, f"cold autotune: launches {r['window']}, "
+            f"the verdict implies {expect}")
+    out["cold"] = {"report": report, "probes": probes,
+                   "launches": r["window"], "warmup_launches": r["warmup"],
                    "max_abs_err": check_file(dst, "cold autotune"),
-                   "execution_time_s": float(lines[0].split()[2]),
-                   "verdict": entry}
+                   "compute_seconds": r["compute_seconds"],
+                   "total_seconds": r["total_seconds"], "verdict": entry}
     # Warm: zero probes by the autotuner's counter, the verdict launched.
     dst = WORK / "blur_autotune_warm.raw"
     before = autotune.probe_count
-    lines, counts = run_cli(base + ["--output", str(dst)])
-    require(autotune.probe_count == before and "tune_probes=0" in lines[1],
-            f"warm autotune probed: {lines[1]}")
-    require(counts == expect, f"warm autotune: launches {counts}, the "
-            f"verdict implies {expect}")
+    r = run_cli(base + ["--output", str(dst)])
+    report = r["report"]
+    require(autotune.probe_count == before and "tune_probes=0" in report,
+            f"warm autotune probed: {report}")
+    require(r["window"] == expect, f"warm autotune: launches {r['window']}, "
+            f"the verdict implies {expect}")
     tuned = [v for v in (entry["backend"], entry["schedule"]) if v]
-    require(all(f"={v}" in lines[1] for v in tuned),
-            f"warm autotune reports {lines[1]}, the cache says {entry}")
-    out["warm"] = {"report": lines[1], "probes": 0, "launches": counts,
+    require(all(f"={v}" in report for v in tuned),
+            f"warm autotune reports {report}, the cache says {entry}")
+    out["warm"] = {"report": report, "probes": 0, "launches": r["window"],
+                   "warmup_launches": r["warmup"],
                    "max_abs_err": check_file(dst, "warm autotune"),
-                   "execution_time_s": float(lines[0].split()[2])}
+                   "compute_seconds": r["compute_seconds"],
+                   "total_seconds": r["total_seconds"]}
     # A 2x2 mesh of four tiles on this card: tuned against the tile.
     for label in ("mesh2x2_cold", "mesh2x2_warm"):
         dst = WORK / f"blur_autotune_{label}.raw"
@@ -1202,23 +1724,11 @@ def tile_instances(log: str) -> dict:
     """Registers and spills of every (filter size, body) instance of a tile
     kernel, from its ``-Xptxas -v`` build log: ``"k3 swar" -> {...}``
     (k0: the filter size read at run time)."""
-    import re
-
+    from tpu_stencil_torch.ops import _build
     from tpu_stencil_torch.ops import cuda_stencil as cs
 
-    out, key = {}, None
-    for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '_Z\d+\w+?_kernelILi(\d+)"
-                      r"ELi(\d+)E", ln)
-        if m:
-            key = f"k{m.group(1)} {cs.BODIES[int(m.group(2))]}"
-            out[key] = {}
-        elif key and "registers" in ln:
-            out[key]["registers"] = int(re.search(r"Used (\d+) registers",
-                                                  ln).group(1))
-        elif key and "spill" in ln:
-            out[key]["spill"] = ln.strip()
-    return out
+    return {f"k{k} {cs.BODIES[body]}": v
+            for (k, body), v in _build.ptxas_instances(log).items()}
 
 
 def run(dev: torch.device) -> None:
@@ -1290,6 +1800,7 @@ def run(dev: torch.device) -> None:
     emit(l1)
     autotune_path = phase_autotune_path(dev)
     emit(autotune_path)
+    emit(phase_job_hardened(dev))
     times = phase_times(dev)
     emit(times)
 
@@ -1303,7 +1814,8 @@ def run(dev: torch.device) -> None:
         {"name": "stencil_fused",
          "source": "tpu_stencil_torch/ops/csrc/stencil_fused.cu",
          "replaces": "tpu_stencil/ops/pallas_stencil.py:757",
-         "launches": runs["default_warm"]["launches"]["stencil_fused"],
+         "launches": runs["default_warm"]["window_launches"]["stencil_fused"],
+         "warmup_launches": runs["default_warm"]["warmup_launches"]["stencil_fused"],
          "max_abs_err": max(k1["max_abs_err"],
                             runs["default_warm"]["max_abs_err"],
                             runs["default_cold"]["max_abs_err"]),
@@ -1312,7 +1824,8 @@ def run(dev: torch.device) -> None:
         {"name": "stencil_resident",
          "source": "tpu_stencil_torch/ops/csrc/stencil_resident.cu",
          "replaces": "tpu_stencil/ops/pallas_stencil.py:1079",
-         "launches": runs["deep_warm"]["launches"]["stencil_resident"],
+         "launches": runs["deep_warm"]["window_launches"]["stencil_resident"],
+         "warmup_launches": runs["deep_warm"]["warmup_launches"]["stencil_resident"],
          "max_abs_err": max(k2["max_abs_err"], runs["deep_warm"]["max_abs_err"],
                             runs["deep_cold"]["max_abs_err"]),
          "ms": times["stencil_resident_ms"], **common,
@@ -1321,8 +1834,10 @@ def run(dev: torch.device) -> None:
         {"name": "stencil_valid",
          "source": "tpu_stencil_torch/ops/csrc/stencil_valid.cu",
          "replaces": "tpu_stencil/ops/pallas_stencil.py:909",
-         "launches": sharded_path["runs"]["cli_mesh1x1_warm"]["launches"][
-             "stencil_valid"],
+         "launches": sharded_path["runs"]["cli_mesh1x1_warm"][
+             "window_launches"]["stencil_valid"],
+         "warmup_launches": sharded_path["runs"]["cli_mesh1x1_warm"][
+             "warmup_launches"]["stencil_valid"],
          "max_abs_err": max(k3["max_abs_err"], sharded_path["max_abs_err"]),
          "ms": times["stencil_valid_ms"],
          **common, "plain_ms": times["stencil_valid_plain_ms"],
@@ -1330,11 +1845,11 @@ def run(dev: torch.device) -> None:
          "bound_by": times["stencil_valid_bound_by"],
          "body": times["tile_ab"]["gaussian"]["body"]},
         # L2 and L1 run on the tools' path, not the job's: their launches
-        # are those of the tool runs in phases l2 and l1.
+        # are those of the tool runs in phases l2 and l1, with no warm-up.
         {"name": "stencil_lab",
          "source": "tpu_stencil_torch/ops/csrc/stencil_lab.cu",
          "replaces": "tools/kernel_lab.py:254",
-         "launches": l2["tool_launches"],
+         "launches": l2["tool_launches"], "warmup_launches": 0,
          "max_abs_err": l2["max_abs_err"],
          "ms": times["stencil_lab_ms"],
          **common, "plain_ms": times["stencil_lab_plain_ms"],
@@ -1342,7 +1857,7 @@ def run(dev: torch.device) -> None:
         {"name": "op_chain",
          "source": "tpu_stencil_torch/ops/csrc/op_chain.cu",
          "replaces": "tools/op_cost.py:31",
-         "launches": l1["tool_launches"],
+         "launches": l1["tool_launches"], "warmup_launches": 0,
          "max_abs_err": l1["max_abs_err"],
          "ms": times["op_chain_ms"], "route": "cuda", "ok": True,
          "plain_ms": times["op_chain_plain_ms"],

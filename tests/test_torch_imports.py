@@ -55,7 +55,21 @@ def test_every_module_is_found():
               "tpu_stencil_torch.runtime.bench_sweep",
               "tpu_stencil_torch.tools.kernel_lab",
               "tpu_stencil_torch.tools.op_cost",
-              "tpu_stencil_torch.tools.bh_fuse_ab"):
+              "tpu_stencil_torch.tools.bh_fuse_ab",
+              "tpu_stencil_torch.obs",
+              "tpu_stencil_torch.obs.context",
+              "tpu_stencil_torch.obs.tracing",
+              "tpu_stencil_torch.obs.events",
+              "tpu_stencil_torch.obs.flight",
+              "tpu_stencil_torch.obs.export",
+              "tpu_stencil_torch.obs.exposition",
+              "tpu_stencil_torch.obs.breakdown",
+              "tpu_stencil_torch.obs.introspect",
+              "tpu_stencil_torch.serve",
+              "tpu_stencil_torch.serve.metrics",
+              "tpu_stencil_torch.resilience.faults",
+              "tpu_stencil_torch.resilience.fallback",
+              "tpu_stencil_torch.runtime.checkpoint"):
         assert m in mods
 
 

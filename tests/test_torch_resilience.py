@@ -143,3 +143,153 @@ def test_deadline():
         assert not d.expired() and 29.0 < d.remaining() <= 30.0
         gone = mod.Deadline.after(-1.0)
         assert gone.expired() and gone.remaining() < 0
+
+
+# -- the dispatch watchdog ------------------------------------------------
+
+
+class _Hang:
+    """A stub whose drain hangs until released (a wedged device)."""
+
+    def __init__(self):
+        import threading
+
+        self.release = threading.Event()
+
+    def synchronize(self):
+        self.release.wait(30)
+
+
+def test_fence_passthrough_without_timeout():
+    import torch
+
+    t = torch.zeros(3)
+    assert deadline.fence(t, 0) is t
+    grid = [[t, t], [t, t]]
+    assert deadline.fence(grid, 5.0, "grid") is grid
+
+
+def test_fence_converts_hang_to_typed_timeout():
+    from tpu_stencil_torch import obs
+
+    obs.reset()
+    stub = _Hang()
+    t0 = time.perf_counter()
+    with pytest.raises(errors.DispatchTimeout) as e:
+        deadline.fence(stub, 0.2, "driver.iterate[rep=0]")
+    assert time.perf_counter() - t0 < 5.0
+    assert (e.value.label, e.value.seconds) == ("driver.iterate[rep=0]", 0.2)
+    jax_msg = str(jax_errors.DispatchTimeout("driver.iterate[rep=0]", 0.2))
+    assert str(e.value).split(" watchdog")[0] == jax_msg.split(" watchdog")[0]
+    assert obs.snapshot()["counters"][
+        "resilience_dispatch_timeouts_total"] == 1
+    stub.release.set()
+    obs.reset()
+
+
+def test_fence_surfaces_drain_error():
+    class Broken:
+        def synchronize(self):
+            raise RuntimeError("device lost")
+
+    with pytest.raises(RuntimeError, match="device lost"):
+        deadline.fence(Broken(), 1.0)
+
+
+def test_env_default_timeout_and_resolve(monkeypatch):
+    monkeypatch.setenv(deadline.ENV_VAR, "2.5")
+    assert deadline.ENV_VAR == "TPU_STENCIL_TORCH_DISPATCH_TIMEOUT"
+    assert deadline.default_timeout() == 2.5
+    assert deadline.resolve(0.0) == 2.5 and deadline.resolve(7.0) == 7.0
+    monkeypatch.setenv(deadline.ENV_VAR, "junk")
+    assert deadline.default_timeout() == 0.0
+    for mod in (deadline, jax_deadline):
+        monkeypatch.delenv(mod.ENV_VAR, raising=False)
+        assert mod.resolve(None) == 0.0 and mod.resolve(3.0) == 3.0
+
+
+def test_run_job_passes_the_dispatch_timeout(tmp_path, monkeypatch):
+    import numpy as np
+    import torch
+
+    from tpu_stencil_torch import config as tconfig
+    from tpu_stencil_torch import driver as tdriver
+
+    seen = []
+    real = deadline.fence
+
+    def spy(x, timeout_s=None, label="dispatch"):
+        seen.append((timeout_s, label))
+        return real(x, timeout_s, label)
+
+    monkeypatch.setattr(deadline, "fence", spy)
+    src = tmp_path / "in.raw"
+    np.zeros((8, 6), np.uint8).tofile(src)
+    cfg, _ = tconfig.parse_args([str(src), "6", "8", "4", "grey",
+                                 "--dispatch-timeout", "9.5",
+                                 "--output", str(tmp_path / "o.raw")])
+    assert cfg.dispatch_timeout_s == 9.5
+    tdriver.run_job(cfg, devices=[torch.device("cpu")], checkpoint_every=2)
+    # The warm-up drains under the watchdog too, so the drain thread has
+    # started (and made its first CUDA call) before the window opens.
+    assert seen == [(9.5, "driver.warmup"),
+                    (9.5, "driver.iterate[rep=0]"),
+                    (9.5, "driver.iterate[rep=2]")]
+    with pytest.raises(SystemExit):
+        tconfig.parse_args([str(src), "6", "8", "4", "grey",
+                            "--dispatch-timeout", "-1"])
+
+
+def test_sharded_run_job_passes_the_dispatch_timeout(tmp_path, monkeypatch):
+    import numpy as np
+    import torch
+
+    from tpu_stencil_torch import config as tconfig
+    from tpu_stencil_torch import driver as tdriver
+
+    seen = []
+    real = deadline.fence
+
+    def spy(x, timeout_s=None, label="dispatch"):
+        seen.append((timeout_s, label))
+        return real(x, timeout_s, label)
+
+    monkeypatch.setattr(deadline, "fence", spy)
+    src = tmp_path / "in.raw"
+    np.arange(16 * 12, dtype=np.uint8).reshape(16, 12).tofile(src)
+    cfg, _ = tconfig.parse_args([str(src), "12", "16", "3", "grey",
+                                 "--mesh", "2x2", "--dispatch-timeout", "4",
+                                 "--output", str(tmp_path / "o.raw")])
+    tdriver.run_job(cfg, devices=[torch.device("cpu")] * 4)
+    assert seen == [(4.0, "sharded.warmup"), (4.0, "driver.iterate[rep=0]")]
+
+
+def test_fence_reuses_one_drain_thread_until_a_drain_hangs(monkeypatch):
+    import threading
+
+    import torch
+
+    from tpu_stencil_torch import obs
+
+    threads = []
+    real = deadline._drain
+
+    def spy(x):
+        threads.append(threading.get_ident())
+        return real(x)
+
+    monkeypatch.setattr(deadline, "_drain", spy)
+    t = torch.zeros(3)
+    for _ in range(3):
+        assert deadline.fence(t, 5.0, "reuse") is t
+    assert len(set(threads)) == 1
+    assert threads[0] != threading.get_ident()
+    obs.reset()
+    stub = _Hang()
+    with pytest.raises(errors.DispatchTimeout):
+        deadline.fence(stub, 0.2, "hang")
+    # The hung thread is abandoned; the next fence drains on a new one.
+    assert deadline.fence(t, 5.0, "after") is t
+    assert threads[-1] not in threads[:3]
+    stub.release.set()
+    obs.reset()

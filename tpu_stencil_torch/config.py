@@ -6,7 +6,10 @@ the user because ``.raw`` is headerless. On top of that the job subset of
 the JAX package's flags is accepted with the same names and the same
 validation messages, so one command line runs on both packages:
 ``--filter --backend --mesh --boundary --schedule --block-h --fuse
---frames --output --time --platform``.
+--frames --output --time --platform``, the hardening flags ``--faults
+--fallback-backend --dispatch-timeout --checkpoint-every --resume`` and
+the observability flags ``--trace --breakdown --hlo-dump --metrics-text
+--profile``.
 """
 
 from __future__ import annotations
@@ -66,6 +69,11 @@ def _validate_common(cfg) -> None:
             f"fuse must be a positive rep count (reps per HBM "
             f"round-trip), got {cfg.fuse}"
         )
+    if cfg.dispatch_timeout_s < 0:
+        raise ValueError(
+            f"dispatch_timeout_s must be >= 0 (0 = off / env default), "
+            f"got {cfg.dispatch_timeout_s}"
+        )
 
 
 class ImageType(enum.Enum):
@@ -99,6 +107,15 @@ class JobConfig:
     # device-memory round trip.
     block_h: Optional[int] = None
     fuse: Optional[int] = None
+    # Dispatch watchdog window in seconds around every fence of the timed
+    # window (resilience.deadline): past it, work still queued on the card
+    # raises a typed DispatchTimeout instead of hanging. 0 = off, unless
+    # TPU_STENCIL_TORCH_DISPATCH_TIMEOUT arms an env default.
+    dispatch_timeout_s: float = 0.0
+    # "cpu": the fallback ladder's last rung is the CPU's torch ops. Only
+    # a job on the CPU walks past the kernel rungs; a card job refuses it
+    # (resilience.fallback.job_ladder).
+    fallback_backend: Optional[str] = None
 
     def __post_init__(self) -> None:
         _validate_common(self)
@@ -108,6 +125,11 @@ class JobConfig:
             raise ValueError(f"mesh_shape must be two positive ints, got {self.mesh_shape}")
         if self.frames < 1:
             raise ValueError(f"frames must be >= 1, got {self.frames}")
+        if self.fallback_backend not in (None, "cpu"):
+            raise ValueError(
+                f"unknown fallback backend {self.fallback_backend!r}; "
+                f"expected cpu (or omit)"
+            )
 
     @property
     def channels(self) -> int:
@@ -121,6 +143,10 @@ class JobConfig:
             return self.output
         d, base = os.path.split(self.image)
         return os.path.join(d, f"blur_{base}")
+
+    @property
+    def nbytes(self) -> int:
+        return self.width * self.height * self.channels * self.frames
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -206,6 +232,68 @@ def build_parser() -> argparse.ArgumentParser:
              "fails when there is none",
     )
     p.add_argument(
+        "--profile", default=None, metavar="DIR",
+        help="write a torch.profiler trace (CPU and CUDA activity) of the "
+             "compute window to DIR as Chrome trace JSON",
+    )
+    p.add_argument(
+        "--trace", default=None, metavar="PATH",
+        help="phase-level span tracing: write a Chrome trace-event JSON to "
+             "PATH (load in Perfetto / chrome://tracing). The rep loop "
+             "runs one fenced launch per rep so per-rep time is "
+             "attributed; the sharded runner adds one exchange-only and "
+             "one K3-only probe outside the window",
+    )
+    p.add_argument(
+        "--breakdown", action="store_true",
+        help="print a per-phase time table (load/place/compile/iterate/"
+             "fetch/store) with roofline-achieved GB/s for the iterate "
+             "phase, the kernel instances the warm-up launched, the "
+             "resilience counters and the device memory; implies span "
+             "tracing for this run",
+    )
+    p.add_argument(
+        "--metrics-text", default=None, metavar="PATH",
+        help="write the driver-side metrics registry as Prometheus-style "
+             "text exposition to PATH ('-' = stdout)",
+    )
+    p.add_argument(
+        "--hlo-dump", default=None, metavar="DIR",
+        help="accepted for the JAX package's command lines: arms kernel "
+             "introspection and writes nothing (hand-written CUDA kernels "
+             "have no HLO)",
+    )
+    p.add_argument(
+        "--dispatch-timeout", dest="dispatch_timeout_s", type=float,
+        default=0.0, metavar="SECONDS",
+        help="watchdog window around every fence of the compute window: "
+             "work still pending past it raises a typed DispatchTimeout "
+             "instead of hanging. 0 = off, unless "
+             "TPU_STENCIL_TORCH_DISPATCH_TIMEOUT sets an env default",
+    )
+    p.add_argument(
+        "--fallback-backend", default=None, choices=["cpu"],
+        help="opt-in last rung of the fallback ladder (deep -> default "
+             "kernel schedule -> torch ops) of a job on the CPU: finish on "
+             "the CPU's torch ops, same bytes, counted in "
+             "resilience_fallbacks_total. A job on the card refuses it: "
+             "there the ladder steps from K2 to K1 only",
+    )
+    p.add_argument(
+        "--faults", default=None, metavar="SPEC",
+        help="arm the fault-injection harness, e.g. "
+             "'compute:rep=3:raise=RuntimeError,h2d:p=0.1'; same grammar as "
+             "TPU_STENCIL_TORCH_FAULTS, which this flag overrides",
+    )
+    p.add_argument(
+        "--checkpoint-every", type=int, default=0, metavar="N",
+        help="checkpoint the frame every N repetitions (0 = off)",
+    )
+    p.add_argument(
+        "--resume", action="store_true",
+        help="resume from a matching checkpoint if present",
+    )
+    p.add_argument(
         "--time", action="store_true",
         help="additionally print whole-job time incl. I/O, the backend, "
              "schedule and kernel launch counts; the compute-window line "
@@ -227,6 +315,8 @@ def parse_args(argv=None) -> Tuple[JobConfig, argparse.Namespace]:
     mesh_shape = None
     if ns.mesh is not None:
         mesh_shape = _parse_mesh(parser, ns.mesh)
+    if ns.checkpoint_every < 0:
+        parser.error(f"--checkpoint-every must be >= 0, got {ns.checkpoint_every}")
     from tpu_stencil_torch.io import images as _images
 
     try:
@@ -249,7 +339,18 @@ def parse_args(argv=None) -> Tuple[JobConfig, argparse.Namespace]:
             boundary=ns.boundary,
             block_h=ns.block_h,
             fuse=ns.fuse,
+            dispatch_timeout_s=ns.dispatch_timeout_s,
+            fallback_backend=ns.fallback_backend,
         )
     except ValueError as e:
         parser.error(str(e))
+    if ns.faults is not None:
+        # Validate the spec at parse time, so a mistyped chaos spec dies as
+        # a usage error, not mid-job; cli.main arms it.
+        from tpu_stencil_torch.resilience import faults as _faults
+
+        try:
+            _faults.parse_spec(ns.faults)
+        except ValueError as e:
+            parser.error(str(e))
     return cfg, ns

@@ -1,28 +1,45 @@
 """End-to-end job driver: load -> iterate on the device -> store -> report.
 
 The port's counterpart of the JAX package's driver (and of each reference
-variant's ``main``): CLI -> load -> [compute loop] -> store -> metrics.
-One image on one device, or spatially sharded over a mesh of devices
-(``--mesh RxC``, or more than one device); ``--frames`` clips run as one
-batch on one device. The compute window is fenced on every device of the
-job at both ends, and excludes file I/O and the kernel build (the
-reference's headline metric).
+variant's ``main``): CLI -> load -> place -> warm-up -> [compute loop] ->
+fetch -> store -> metrics, each step an ``obs.phase``. One image on one
+device, or spatially sharded over a mesh of devices (``--mesh RxC``, or
+more than one device); ``--frames`` clips run as one batch on one device.
+The compute window is fenced on every device of the job at both ends, and
+excludes file I/O, the kernel build and the warm-up that launches each
+kernel instance once before it (the reference's timer opens after
+``MPI_Barrier``).
+
+The job is hardened as the JAX package's is: named fault points
+(``resilience.faults``), the fallback ladder around the warm-up
+(``resilience.fallback``), the dispatch watchdog on every fence of the
+window (``resilience.deadline``) and checkpoint/resume between chunks of
+the window (``runtime.checkpoint``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, List, Optional
+import os
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 
+from tpu_stencil_torch import filters as _filters
+from tpu_stencil_torch import obs
 from tpu_stencil_torch.config import JobConfig
 from tpu_stencil_torch.devices import resolve_devices
 from tpu_stencil_torch.io import images as images_io
 from tpu_stencil_torch.io import raw as raw_io
 from tpu_stencil_torch.models.blur import IteratedConv2D
 from tpu_stencil_torch.ops import cuda_stencil
+from tpu_stencil_torch.ops import lowering as _lowering
+from tpu_stencil_torch.resilience import deadline as _deadline
+from tpu_stencil_torch.resilience import fallback as _fallback
+from tpu_stencil_torch.resilience import faults as _faults
 from tpu_stencil_torch.runtime import autotune
 from tpu_stencil_torch.utils.timing import Timer, max_across_processes
 
@@ -58,28 +75,224 @@ def _store_output(cfg: JobConfig, out: np.ndarray) -> None:
         images_io.save_image(cfg.output_path, out)
 
 
-def prepare_engine(model: IteratedConv2D, imgs: np.ndarray,
-                   frames: Optional[int] = None):
-    """Place ``imgs`` on the model's device and build the kernels it will
-    launch (no launch, so the build stays out of the timed window).
+def _window_calls(reps: int, checkpoint_every: int,
+                  traced: bool) -> List[int]:
+    """The rep counts of the step-function calls the timed window makes
+    for ``reps`` reps: one call of all of them; chunks of
+    ``checkpoint_every``; one rep per call under tracing."""
+    if reps <= 0:
+        return []
+    if traced:
+        return [1]
+    if checkpoint_every:
+        calls = {min(checkpoint_every, reps)}
+        if reps % checkpoint_every:
+            calls.add(reps % checkpoint_every)
+        return sorted(calls)
+    return [reps]
 
-    ``frames=None``: one (H, W[, C]) image; an int: an (N, H, W[, C]) clip.
-    Returns ``(img_dev, step_fn, fetch)``: ``step_fn(x, n)`` runs n reps on
-    the device, ``fetch`` brings the result to the host."""
-    img_dev = torch.from_numpy(np.array(imgs, np.uint8)).to(model.device)
+
+class Engine(NamedTuple):
+    """What :func:`prepare_engine` hands the timed window."""
+
+    img_dev: torch.Tensor  # the placed input (the warm-up never wrote it)
+    step_fn: Callable      # step_fn(x, n): n reps on the device
+    fetch: Callable        # a result to the host
+    warm_reps: List[int]   # the rep counts the warm-up ran
+    warm_launches: Dict[str, int]  # the kernel launches it made
+
+
+def prepare_engine(model: IteratedConv2D, imgs: np.ndarray,
+                   frames: Optional[int] = None,
+                   calls: Sequence[int] = (),
+                   timeout_s: float = 0.0) -> Engine:
+    """Place ``imgs`` on the model's device, build the kernels it will
+    launch, and warm them up, all before the timed window (the JAX
+    package's ``prepare_engine``; the reference's timer opens after
+    ``MPI_Barrier``).
+
+    The warm-up runs, on a scratch copy of the placed input (never the
+    input itself), one call of the step function for each rep count of
+    :meth:`IteratedConv2D.warm_reps` over ``calls`` (the rep count of each
+    call the window will make): each kernel instance the window launches
+    is launched once (K1's fused depth and its single-rep remainder, or
+    K2's one launch, which also resolves ``resident_geometry``; one rep of
+    the torch ops off the kernels), then fenced, under the dispatch
+    watchdog when ``timeout_s`` arms it (so the watchdog's drain thread
+    has started before the window, which fences with it). It is the
+    ``compile``
+    phase and the ``compile`` fault point; what it raises is what the
+    fallback ladder sees. Its launches are counted by the kernels'
+    counters, before the window's.
+
+    ``frames=None``: one (H, W[, C]) image; an int: an (N, H, W[, C])
+    clip. Returns an :class:`Engine`."""
+    fault_h2d = _faults.site("h2d")
+    fault_compile = _faults.site("compile")
+    with obs.phase("place"):
+        if fault_h2d is not None:
+            fault_h2d()
+        img_dev = torch.from_numpy(np.array(imgs, np.uint8)).to(model.device)
     if frames is not None:
-        model.prepare(tuple(imgs.shape[1:3]),
-                      imgs.shape[3] if imgs.ndim == 4 else 1)
+        shape = tuple(imgs.shape[1:3])
+        channels = imgs.shape[3] if imgs.ndim == 4 else 1
         step_fn = model.batch
     else:
-        model.prepare(tuple(imgs.shape[:2]),
-                      imgs.shape[2] if imgs.ndim == 3 else 1)
+        shape = tuple(imgs.shape[:2])
+        channels = imgs.shape[2] if imgs.ndim == 3 else 1
         step_fn = model
+    with obs.phase("compile") as s:
+        if fault_compile is not None:
+            fault_compile()
+        model.prepare(shape, channels)
+        warm = model.warm_reps(shape, channels, calls, n_frames=frames)
+        before = cuda_stencil.launch_counts()
+        scratch = img_dev.clone()
+        for n in warm:
+            scratch = step_fn(scratch, n)
+        s.fence(_deadline.fence(scratch, timeout_s, "driver.warmup"))
+        warm_launches = _delta(cuda_stencil.launch_counts(), before)
 
     def fetch(x: torch.Tensor) -> np.ndarray:
         return x.cpu().numpy()
 
-    return img_dev, step_fn, fetch
+    return Engine(img_dev, step_fn, fetch, warm, warm_launches)
+
+
+def _describe_site(cfg: JobConfig, kernels: List[dict], backend: str,
+                   schedule: Optional[str], block_h: Optional[int],
+                   fuse: Optional[int], device) -> dict:
+    """What :func:`obs.introspect.capture` records for one site: the
+    kernel instances, their libraries' build seconds, and the modelled
+    bytes (:func:`roofline.analytic_bytes_per_rep`) and operations
+    (:func:`roofline.plan_ops`) per rep of the job."""
+    from tpu_stencil_torch.ops import _build
+    from tpu_stencil_torch.runtime import roofline
+
+    n_elems = cfg.nbytes
+    iops, fops = roofline.plan_ops(_lowering.plan_filter(
+        _filters.get_filter(cfg.filter_name)))
+    builds = [_build.build_seconds(k) for k in
+              dict.fromkeys(r["kernel"] for r in kernels)]
+    return {
+        "kernels": kernels,
+        "build_seconds": (sum(builds) if builds and None not in builds
+                          else None),
+        "model_bytes_per_rep": roofline.analytic_bytes_per_rep(
+            n_elems, backend, cfg.filter_name, cfg.height, block_h, fuse,
+            schedule=schedule, w_img=cfg.width, channels=cfg.channels,
+            reps=cfg.repetitions, n_frames=cfg.frames, device=device),
+        "model_ops_per_rep": n_elems * (iops + fops),
+    }
+
+
+def _record_device_memory(device) -> None:
+    """Point-in-time device-memory gauges into the driver registry, taken
+    right after the compute window while the working set is resident;
+    nothing without a CUDA device."""
+    obs.introspect.record_memory_gauges(obs.registry(), device=device)
+
+
+def _maybe_profile(profile_dir: Optional[str], devices):
+    """A ``torch.profiler`` trace of the compute window (``--profile``),
+    with CUDA activity when the job runs on a card, written into
+    ``profile_dir`` as Chrome trace JSON."""
+    if profile_dir is None:
+        return contextlib.nullcontext()
+    return _profile_window(profile_dir, devices)
+
+
+@contextlib.contextmanager
+def _profile_window(profile_dir: str, devices):
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if any(torch.device(d).type == "cuda" for d in devices):
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(profile_dir,
+                                          f"trace_{os.getpid()}.json"))
+
+
+def _maybe_restore(cfg: JobConfig,
+                   resume: bool) -> Tuple[int, Optional[np.ndarray]]:
+    """(completed reps, frame) from a matching checkpoint, else (0, None);
+    checked before the input is read, so a resume never pays the load."""
+    if not resume:
+        return 0, None
+    from tpu_stencil_torch.runtime import checkpoint as ckpt
+
+    return ckpt.restore(cfg) or (0, None)
+
+
+def _reps_spanned(run_fn: Callable, img_dev, n_reps: int, rep0: int = 0):
+    """One call of ``n_reps`` normally; under tracing, ``n_reps`` one-rep
+    calls, each fenced and recorded as its own ``iterate.rep`` span
+    (``rep`` = its absolute rep number ``rep0 + i``), so per-rep time is
+    attributed to the rep that spent it. The cost is one launch and one
+    synchronize per rep (K1's fused reps run one at a time): the JAX
+    package's documented cost of span-level attribution."""
+    if n_reps <= 0 or not obs.enabled():
+        return run_fn(img_dev, n_reps)
+    for i in range(n_reps):
+        with obs.span("iterate.rep", "driver", rep=rep0 + i) as s:
+            img_dev = s.fence(run_fn(img_dev, 1))
+    return img_dev
+
+
+def _checkpointed_iterate(cfg: JobConfig, run_fn: Callable,
+                          save_fn: Callable, img_dev, checkpoint_every: int,
+                          start_rep: int, devices,
+                          fault: Optional[Callable] = None,
+                          timeout_s: float = 0.0):
+    """Run the remaining reps, checkpointing every ``checkpoint_every``.
+    Returns (out, compute_seconds): each chunk is fenced on every device
+    of ``devices`` at both ends (its end under the dispatch watchdog,
+    :func:`deadline.fence`), the window is the sum of the chunks, and the
+    checkpoint I/O between chunks stays outside it. The final state is the
+    job's output, not a checkpoint.
+
+    ``fault`` is the ``compute`` injection site, resolved once by the
+    caller (None when unarmed): a call covering reps [r, r+n) checks it
+    at every rep index it spans, so ``compute:rep=N`` fires whatever the
+    chunking."""
+    if fault is not None:
+        inner_run = run_fn
+
+        def run_fn(x, n, _rep=[start_rep]):
+            for r in range(_rep[0], _rep[0] + n):
+                fault(r)
+            _rep[0] += n
+            return inner_run(x, n)
+
+    total = 0.0
+    rep = start_rep
+    while True:
+        n = cfg.repetitions - rep
+        if checkpoint_every:
+            n = min(checkpoint_every, n)
+        with Timer("iterate", device=devices) as t:
+            img_dev = _reps_spanned(run_fn, img_dev, n, rep)
+            _deadline.fence(img_dev, timeout_s, f"driver.iterate[rep={rep}]")
+        total += t.elapsed
+        rep += n
+        if rep >= cfg.repetitions:
+            return img_dev, total
+        save_fn(rep, img_dev)
+
+
+def _clear_checkpoint(cfg: JobConfig, checkpoint_every: int,
+                      resume: bool) -> None:
+    if checkpoint_every or resume:
+        from tpu_stencil_torch.runtime import checkpoint as ckpt
+
+        ckpt.clear(cfg)
+
+
+def _delta(after: Dict[str, int], before: Dict[str, int]) -> Dict[str, int]:
+    return {k: after[k] - before[k] for k in after}
 
 
 @dataclasses.dataclass
@@ -104,6 +317,9 @@ class JobResult:
     # The tile body the kernels ran (cuda_stencil.tile_body, for K1, K2 and
     # K3 alike); None off the kernels.
     body: Optional[str] = None
+    # Kernel launches of the warm-up before the window, by kernel name
+    # (not the autotuner's probes nor a sharded run's tracing probes).
+    warmup_launches: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 def _ran_geometry(model: IteratedConv2D, rows: int, w: int, channels: int,
@@ -122,7 +338,9 @@ def _ran_geometry(model: IteratedConv2D, rows: int, w: int, channels: int,
 
 
 def run_job(cfg: JobConfig, device: Optional[torch.device] = None,
-            devices: Optional[List[torch.device]] = None) -> JobResult:
+            devices: Optional[List[torch.device]] = None,
+            profile_dir: Optional[str] = None, checkpoint_every: int = 0,
+            resume: bool = False) -> JobResult:
     """Run one iterated-convolution job end to end.
 
     ``devices``: the devices the job may use, as ``jax.devices()`` gives
@@ -130,11 +348,24 @@ def run_job(cfg: JobConfig, device: Optional[torch.device] = None,
     several tiles on one card); None means ``[device]`` when ``device`` is
     given, else every visible CUDA device (raising when there is none). A
     single image with more than one device, or with any ``--mesh``, runs
-    sharded; ``--mesh RxC`` takes the first R*C devices."""
+    sharded; ``--mesh RxC`` takes the first R*C devices.
+
+    ``profile_dir``: a ``torch.profiler`` trace of the window there.
+    ``checkpoint_every``/``resume``: checkpoint every N reps, and resume
+    from a matching checkpoint (:mod:`tpu_stencil_torch.runtime.
+    checkpoint`). On one device a resource failure of the warm-up walks
+    the fallback ladder (:func:`tpu_stencil_torch.resilience.fallback.
+    job_ladder`: on a card from K2 to K1 only)."""
+    if checkpoint_every < 0:
+        raise ValueError(
+            f"checkpoint_every must be >= 0, got {checkpoint_every}")
     if devices is None:
         devices = resolve_devices() if device is None else [device]
     devices = [torch.device(d) for d in devices]
+    rungs = _fallback.job_ladder(cfg.backend, cfg.schedule,
+                                 cfg.fallback_backend, devices[0])
     probes_before = autotune.probe_count
+    obs.registry().counter("jobs_total").inc()
     with Timer() as total_t:
         model = IteratedConv2D(cfg.filter_name, backend=cfg.backend,
                                schedule=cfg.schedule, boundary=cfg.boundary,
@@ -169,37 +400,94 @@ def run_job(cfg: JobConfig, device: Optional[torch.device] = None,
                 devices = devices[:1]
             if cfg.mesh_shape is not None:
                 devices = devices[:cfg.mesh_shape[0] * cfg.mesh_shape[1]]
-            return _run_sharded(cfg, model, devices, total_t, probes_before)
-        device = devices[0]
-        img = _load_input(cfg)
-        img_dev, step_fn, fetch = prepare_engine(
-            model, img, frames=cfg.frames if cfg.frames > 1 else None,
-        )
-        before = cuda_stencil.launch_counts()
-        with Timer("iterate", device=device) as t:
-            out_dev = step_fn(img_dev, cfg.repetitions)
-        after = cuda_stencil.launch_counts()
-        out = fetch(out_dev)
-        compute_seconds = max_across_processes(t.elapsed)
-        _store_output(cfg, out)
+            return _run_sharded(cfg, model, devices, total_t, probes_before,
+                                profile_dir, checkpoint_every, resume)
+        start_rep, frame = _maybe_restore(cfg, resume)
+        fault_read = _faults.site("read")
+        with obs.phase("load"):
+            if fault_read is not None:
+                fault_read()
+            img = _load_input(cfg) if frame is None else frame
+        frames = cfg.frames if cfg.frames > 1 else None
+        calls = _window_calls(cfg.repetitions - start_rep, checkpoint_every,
+                              obs.enabled())
+        timeout_s = _deadline.resolve(cfg.dispatch_timeout_s)
+        # The fallback ladder: a resource failure of the warm-up (the card
+        # out of memory, a launch asking for more than the card has, an
+        # injected OOM) steps deep -> default schedule; on the CPU on to
+        # torch ops (-> opt-in CPU rung). Every rung writes the same
+        # bytes; each step is counted, traced and printed.
+        for i, rung in enumerate(rungs):
+            if i:
+                # Demoted rung: default geometry too, the failed warm-up
+                # may have been the geometry's.
+                model = IteratedConv2D(
+                    cfg.filter_name, backend=rung.backend,
+                    schedule=rung.schedule, boundary=cfg.boundary,
+                    device=(torch.device(rung.platform) if rung.platform
+                            else devices[0]))
+            try:
+                engine = prepare_engine(model, img, frames=frames,
+                                        calls=calls, timeout_s=timeout_s)
+                break
+            except Exception as e:
+                if i + 1 >= len(rungs) or not _fallback.demotable(e):
+                    raise
+                _fallback.record_demotion(rung, rungs[i + 1], e)
+        shape2 = (cfg.height, cfg.width)
+        if cfg.frames > 1:
+            backend, schedule = model.batch_config(shape2, cfg.channels)
+            geo_rows = cuda_stencil.frames_rows(model.plan, cfg.height,
+                                                cfg.frames)
+        else:
+            backend, schedule = model.resolved_config(shape2, cfg.channels)
+            geo_rows = cfg.height
+        bh, fz = (None, None)
+        body = None
+        if backend == "pallas":
+            bh, fz = _ran_geometry(model, geo_rows, cfg.width, cfg.channels,
+                                   schedule)
+            body = cuda_stencil.tile_body(model.plan)
+        if obs.introspect.enabled():
+            obs.introspect.capture(
+                "driver.warmup",
+                lambda: _describe_site(
+                    cfg, model.describe_launches(shape2, cfg.channels,
+                                                 engine.warm_reps,
+                                                 n_frames=frames),
+                    backend, schedule, bh, fz, model.device),
+                meta={"shape": tuple(np.asarray(img).shape),
+                      "frames": frames, "devices": 1,
+                      "warm_reps": engine.warm_reps})
 
-    if cfg.frames > 1:
-        backend, schedule = model.batch_config(
-            (cfg.height, cfg.width), cfg.channels
-        )
-        geo_rows = cuda_stencil.frames_rows(model.plan, cfg.height,
-                                            cfg.frames)
-    else:
-        backend, schedule = model.resolved_config(
-            (cfg.height, cfg.width), cfg.channels
-        )
-        geo_rows = cfg.height
-    bh, fz = (None, None)
-    body = None
-    if backend == "pallas":
-        bh, fz = _ran_geometry(model, geo_rows, cfg.width, cfg.channels,
-                               schedule)
-        body = cuda_stencil.tile_body(model.plan)
+        def save_fn(rep, x):
+            from tpu_stencil_torch.runtime import checkpoint as ckpt
+
+            ckpt.save(cfg, rep, engine.fetch(x))
+
+        before = cuda_stencil.launch_counts()
+        with _maybe_profile(profile_dir, [model.device]):
+            with obs.phase("iterate", reps=cfg.repetitions):
+                out_dev, compute = _checkpointed_iterate(
+                    cfg, engine.step_fn, save_fn, engine.img_dev,
+                    checkpoint_every, start_rep, [model.device],
+                    fault=_faults.site("compute"), timeout_s=timeout_s,
+                )
+        after = cuda_stencil.launch_counts()
+        fault_d2h = _faults.site("d2h")
+        with obs.phase("fetch"):
+            if fault_d2h is not None:
+                fault_d2h()
+            out = engine.fetch(out_dev)
+        _record_device_memory(model.device)
+        compute_seconds = max_across_processes(compute)
+        fault_write = _faults.site("write")
+        with obs.phase("store"):
+            if fault_write is not None:
+                fault_write()
+            _store_output(cfg, out)
+        _clear_checkpoint(cfg, checkpoint_every, resume)
+
     return JobResult(
         output_path=cfg.output_path,
         compute_seconds=compute_seconds,
@@ -209,40 +497,64 @@ def run_job(cfg: JobConfig, device: Optional[torch.device] = None,
         schedule=schedule,
         block_h=bh,
         fuse=fz,
-        launches={k: after[k] - before[k] for k in after},
+        launches=_delta(after, before),
         tune_probes=autotune.probe_count - probes_before,
         body=body,
+        warmup_launches=engine.warm_launches,
     )
 
 
 def _run_sharded(cfg: JobConfig, model: IteratedConv2D,
                  devices: List[torch.device], total_t: Timer,
-                 probes_before: int = 0) -> JobResult:
+                 probes_before: int = 0, profile_dir: Optional[str] = None,
+                 checkpoint_every: int = 0,
+                 resume: bool = False) -> JobResult:
     """One image over a mesh of ``devices``: each mesh row's band read once
-    from a raw input (else the decoded image cut into tiles), K3 built
-    outside the window, the rep loop fenced on every mesh device, each
-    tile's rectangle written at its offsets into a raw output (else the
-    stitched image saved)."""
+    from a raw input (else the decoded image cut into tiles), or the tiles
+    of a matching checkpoint; K3 built and warmed up (one chunk at the
+    runner's depth, one exchange and K3 on every tile, plus a one-rep
+    chunk when the window has a remainder, on a scratch copy) and fenced
+    on every mesh device outside the window; under tracing, the
+    exchange/compute probes; the rep loop fenced on every mesh device,
+    chunked by ``checkpoint_every``; each tile's rectangle written at its
+    offsets into a raw output (else the stitched image saved)."""
     from tpu_stencil_torch.parallel import distributed, sharded
+    from tpu_stencil_torch.runtime import checkpoint as ckpt
 
     h, w, ch = cfg.height, cfg.width, cfg.channels
     runner = sharded.ShardedRunner(model, (h, w), ch,
                                    mesh_shape=cfg.mesh_shape,
                                    devices=devices)
-    if images_io.is_raw(cfg.image, sniff=True):
-        tiles = distributed.read_sharded(cfg.image, h, w, ch, runner.mesh)
-    else:
-        tiles = runner.put(_load_input(cfg))
-    runner.prepare()
-    before = cuda_stencil.launch_counts()
-    with Timer("iterate", device=runner.devices) as t:
-        out = runner.run(tiles, cfg.repetitions)
-    after = cuda_stencil.launch_counts()
-    compute_seconds = max_across_processes(t.elapsed)
-    if images_io.is_raw(cfg.output_path):
-        distributed.write_sharded(cfg.output_path, out, h, w, ch)
-    else:
-        images_io.save_image(cfg.output_path, runner.fetch(out))
+    start_rep, tiles = 0, None
+    if resume:
+        restored = ckpt.restore_sharded(cfg, runner)
+        if restored is not None:
+            start_rep, tiles = restored
+    fault_read = _faults.site("read")
+    if tiles is None:
+        with obs.phase("load"):
+            if fault_read is not None:
+                fault_read()
+            if images_io.is_raw(cfg.image, sniff=True):
+                tiles = distributed.read_sharded(cfg.image, h, w, ch,
+                                                 runner.mesh)
+            else:
+                tiles = runner.put(_load_input(cfg))
+    calls = _window_calls(cfg.repetitions - start_rep, checkpoint_every,
+                          obs.enabled())
+    timeout_s = _deadline.resolve(cfg.dispatch_timeout_s)
+    fault_compile = _faults.site("compile")
+    with obs.phase("compile") as s:
+        if fault_compile is not None:
+            fault_compile()
+        runner.prepare()
+        warm = runner.warm_reps(calls)
+        warm_before = cuda_stencil.launch_counts()
+        s.fence(_deadline.fence(runner.warmup(tiles, warm), timeout_s,
+                                "sharded.warmup"))
+        warm_launches = _delta(cuda_stencil.launch_counts(), warm_before)
+    if obs.enabled():
+        runner.trace_phase_probes(tiles)
     # Report an applied (forced or tuned) geometry as what K3 launches at
     # this tile.
     sh_bh = sh_fuse = None
@@ -252,6 +564,41 @@ def _run_sharded(cfg: JobConfig, model: IteratedConv2D,
             sh_bh = cuda_stencil.valid_geometry(model.plan, runner.tile[0],
                                                 ch, runner.fuse)[0]
         sh_fuse = runner.fuse
+    runner.introspect_warmup(warm, lambda kernels: _describe_site(
+        cfg, kernels, runner.backend, runner.schedule, sh_bh, sh_fuse,
+        runner.devices[0]))
+
+    def save_fn(rep, grid):
+        ckpt.save_sharded(cfg, rep, grid)
+
+    # The "collective" fault point fires at launch granularity: the host
+    # side of each call, which runs its halo exchanges.
+    fault_coll = _faults.site("collective")
+    run_fn = runner.run
+    if fault_coll is not None:
+        def run_fn(x, n, _inner=runner.run):
+            fault_coll()
+            return _inner(x, n)
+    before = cuda_stencil.launch_counts()
+    with _maybe_profile(profile_dir, runner.devices):
+        with obs.phase("iterate", reps=cfg.repetitions):
+            out, compute = _checkpointed_iterate(
+                cfg, run_fn, save_fn, tiles, checkpoint_every, start_rep,
+                runner.devices, fault=_faults.site("compute"),
+                timeout_s=timeout_s,
+            )
+    after = cuda_stencil.launch_counts()
+    _record_device_memory(runner.devices[0])
+    compute_seconds = max_across_processes(compute)
+    fault_write = _faults.site("write")
+    with obs.phase("store"):
+        if fault_write is not None:
+            fault_write()
+        if images_io.is_raw(cfg.output_path):
+            distributed.write_sharded(cfg.output_path, out, h, w, ch)
+        else:
+            images_io.save_image(cfg.output_path, runner.fetch(out))
+    _clear_checkpoint(cfg, checkpoint_every, resume)
     return JobResult(
         output_path=cfg.output_path,
         compute_seconds=compute_seconds,
@@ -261,7 +608,8 @@ def _run_sharded(cfg: JobConfig, model: IteratedConv2D,
         schedule=runner.schedule,
         block_h=sh_bh,
         fuse=sh_fuse,
-        launches={k: after[k] - before[k] for k in after},
+        launches=_delta(after, before),
         tune_probes=autotune.probe_count - probes_before,
         body=runner.body,
+        warmup_launches=warm_launches,
     )

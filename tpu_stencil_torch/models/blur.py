@@ -25,7 +25,7 @@ run the torch-ops lowering, and the model reports that (``xla``).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -151,6 +151,49 @@ class IteratedConv2D(torch.nn.Module):
             # Built before any measurement: a probe times launches, not nvcc.
             cuda_stencil.build_kernels()
         self.resolved_config(shape, channels)
+
+    def _loop_kernel(self, shape: Tuple[int, int], channels: int,
+                     n_frames: Optional[int]):
+        """(kernel, rows, wc, block_h, fuse) of the rep loop's flat launch
+        for ``shape`` (``n_frames``: the frames' tall layout), as
+        :func:`cuda_stencil.rep_loop_kernel` chooses it; None off the
+        kernels."""
+        backend, schedule = self.resolved_config(shape, channels)
+        if backend != "pallas":
+            return None
+        rows = (shape[0] if n_frames is None
+                else cuda_stencil.frames_rows(self.plan, shape[0], n_frames))
+        wc = shape[1] * channels
+        bh, fz = self.resolved_geometry(shape, channels)
+        kernel, bh, fz = cuda_stencil.rep_loop_kernel(
+            self.plan, rows, wc, channels, bh, fz, schedule, self.device)
+        return kernel, rows, wc, bh, fz
+
+    def warm_reps(self, shape: Tuple[int, int], channels: int,
+                  calls: Iterable[int],
+                  n_frames: Optional[int] = None) -> List[int]:
+        """Rep counts, one call of the model each, that between them
+        launch every kernel instance the calls ``calls`` (the rep count of
+        each call a timed window makes) launch on ``shape``
+        (:func:`cuda_stencil.warm_depths`). The driver's warm-up runs
+        them on a scratch copy before the window."""
+        loop = self._loop_kernel(shape, channels, n_frames)
+        return cuda_stencil.warm_depths(
+            calls, None if loop is None else loop[4])
+
+    def describe_launches(self, shape: Tuple[int, int], channels: int,
+                          depths: Iterable[int],
+                          n_frames: Optional[int] = None) -> List[dict]:
+        """The kernel instances calls of ``depths`` reps launch on
+        ``shape`` (:func:`cuda_stencil.describe_launch`); empty off the
+        kernels."""
+        loop = self._loop_kernel(shape, channels, n_frames)
+        if loop is None:
+            return []
+        kernel, rows, wc, bh, _ = loop
+        return [cuda_stencil.describe_launch(
+            kernel, self.plan, rows, wc, channels, bh, d, self.device)
+            for d in depths]
 
     def _place(self, img) -> torch.Tensor:
         if isinstance(img, torch.Tensor):

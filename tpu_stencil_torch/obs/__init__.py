@@ -1,0 +1,86 @@
+"""Observability of the port: span tracing, trace export, metrics text.
+
+The port's counterpart of the JAX package's ``obs`` facade, with the same
+metric and span names, so one dashboard reads both packages:
+
+* :mod:`~tpu_stencil_torch.obs.tracing`: the ``span``/``phase`` API,
+  perf_counter spans with device fence points (``Span.fence``
+  synchronizes the CUDA devices of a tensor or tile grid); a no-op unless
+  :func:`enable` has run. ``phase`` always feeds the driver registry's
+  ``phase_*_seconds`` histograms.
+* :mod:`~tpu_stencil_torch.obs.context`, :mod:`~.events`,
+  :mod:`~.flight`: request correlation ids, the structured event log and
+  the flight recorder (ring, spool, dump triggers).
+* :mod:`~tpu_stencil_torch.obs.export`: Chrome trace-event JSON of one
+  process (``--trace out.json``, loadable in Perfetto).
+* :mod:`~tpu_stencil_torch.obs.exposition`: Prometheus-style text of a
+  registry snapshot (``--metrics-text``), with its exact parser.
+* :mod:`~tpu_stencil_torch.obs.breakdown`: the ``--breakdown`` tables.
+* :mod:`~tpu_stencil_torch.obs.introspect`: the kernel instances the
+  warm-up launched, and the device-memory gauges.
+
+The perf sentry, the time-series ring, SLOs, the on-demand profiler and
+the resource ledger come with later slices.
+"""
+
+from tpu_stencil_torch.obs.tracing import (
+    Span,
+    SpanRecord,
+    Tracer,
+    disable,
+    emit_span,
+    enable,
+    enabled,
+    get_tracer,
+    phase,
+    registry,
+    scratch_registry,
+    snapshot,
+    span,
+)
+from tpu_stencil_torch.obs import (
+    breakdown,
+    context,
+    events,
+    export,
+    exposition,
+    flight,
+    introspect,
+    tracing,
+)
+
+
+def reset() -> None:
+    """Drop the tracer, the accumulated metrics, the flight recorder, the
+    event-stream override and the introspection records (tests): one
+    teardown for the whole obs subsystem."""
+    tracing.reset()
+    flight.reset()
+    events.reset()
+    introspect.reset()
+
+
+__all__ = [
+    "Span",
+    "SpanRecord",
+    "Tracer",
+    "breakdown",
+    "context",
+    "disable",
+    "emit_span",
+    "enable",
+    "enabled",
+    "events",
+    "export",
+    "exposition",
+    "flight",
+    "get_tracer",
+    "introspect",
+    "phase",
+    "registry",
+    "reset",
+    "scratch_registry",
+    "snapshot",
+    "span",
+    "tracing",
+]

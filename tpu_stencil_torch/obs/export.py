@@ -1,0 +1,70 @@
+"""Chrome trace-event JSON export (Perfetto/chrome://tracing loadable).
+
+The port's counterpart of the JAX package's ``obs/export.py`` for one
+process: span records become complete ("X") events, ``ts``/``dur`` in
+microseconds relative to the tracer's origin, one ``tid`` track per
+recording thread (metadata events name the process and each thread). The
+merge of several processes' events comes with the port's several-process
+slice.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import List, Optional
+
+from tpu_stencil_torch.obs.tracing import Tracer
+
+
+def chrome_events(tracer: Tracer, pid: int = 0,
+                  trace_id: Optional[str] = None) -> List[dict]:
+    """This process's spans as Chrome trace events (metadata included).
+    ``trace_id`` filters to one request's spans (the
+    :mod:`~tpu_stencil_torch.obs.context` correlation id; batch-scope
+    spans carrying the id in their ``trace_ids`` arg match too)."""
+    from tpu_stencil_torch.obs import flight as _flight
+
+    events: List[dict] = [{
+        "ph": "M", "name": "process_name", "pid": pid, "tid": 0,
+        "args": {"name": f"tpu_stencil_torch p{pid}"},
+    }]
+    # Stable small tids in first-seen order: Perfetto sorts tracks by tid,
+    # so the main thread (first recorder) stays on top.
+    tids: dict = {}
+    for rec in tracer.spans():
+        if trace_id is not None and not _flight.matches(rec, trace_id):
+            continue
+        tid = tids.get(rec.tid)
+        if tid is None:
+            tid = tids[rec.tid] = len(tids)
+            events.append({
+                "ph": "M", "name": "thread_name", "pid": pid, "tid": tid,
+                "args": {"name": rec.tname},
+            })
+        args = dict(rec.args, depth=rec.depth)
+        if rec.trace_id:
+            args["trace_id"] = rec.trace_id
+            args["span_id"] = rec.span_id
+        events.append({
+            "name": rec.name,
+            "cat": rec.cat or "tpu_stencil_torch",
+            "ph": "X",
+            "ts": round((rec.t0 - tracer.t_origin) * 1e6, 3),
+            "dur": round(rec.seconds * 1e6, 3),
+            "pid": pid,
+            "tid": tid,
+            "args": args,
+        })
+    return events
+
+
+def write_chrome_trace(path: str, tracer: Tracer,
+                       trace_id: Optional[str] = None) -> str:
+    """Write this process's trace to ``path`` (``trace_id``: one
+    request's cross-thread view instead of the whole run). Returns
+    ``path``."""
+    events = chrome_events(tracer, trace_id=trace_id)
+    with open(path, "w") as fh:
+        json.dump({"traceEvents": events, "displayTimeUnit": "ms"}, fh)
+        fh.write("\n")
+    return path

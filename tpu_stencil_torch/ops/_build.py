@@ -19,10 +19,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import time
 from pathlib import Path
-from typing import Dict, Iterable, Tuple, Union
+from typing import Dict, Iterable, Optional, Tuple, Union
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -104,7 +106,8 @@ def build(targets: Iterable[Target] = JOB_KERNELS) -> Dict[Target, Path]:
     """Build every library of ``targets`` not built yet, one ``nvcc`` per
     target, all started together. Returns target -> library path. Each
     build's compiler output (``-Xptxas -v``: registers, shared memory,
-    spills) is kept beside the library as ``<lib>.log``."""
+    spills) is kept beside the library as ``<lib>.log``, ending with the
+    line ``# build_seconds S`` (the ``nvcc`` wall time)."""
     targets = list(targets)
     paths = {t: library_path(*_split(t)) for t in targets}
     todo = {t: p for t, p in paths.items() if not p.exists()}
@@ -113,6 +116,7 @@ def build(targets: Iterable[Target] = JOB_KERNELS) -> Dict[Target, Path]:
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
+    t0 = time.perf_counter()
     for n, p in todo.items():
         name, defines = _split(n)
         tmp = p.with_name(f"{p.name}.{os.getpid()}.tmp")
@@ -125,7 +129,8 @@ def build(targets: Iterable[Target] = JOB_KERNELS) -> Dict[Target, Path]:
     for n, (tmp, proc) in procs.items():
         out, _ = proc.communicate()
         p = todo[n]
-        p.with_name(p.name + ".log").write_text(out)
+        p.with_name(p.name + ".log").write_text(
+            f"{out}# build_seconds {time.perf_counter() - t0:.3f}\n")
         if proc.returncode != 0:
             failed.append(f"{n}: nvcc exited {proc.returncode}:\n{out[-4000:]}")
             tmp.unlink(missing_ok=True)
@@ -141,6 +146,36 @@ def build_log(name: str, defines: Iterable[str] = ()) -> str:
     path = library_path(name, defines)
     log = path.with_name(path.name + ".log")
     return log.read_text() if log.exists() else ""
+
+
+def build_seconds(name: str, defines: Iterable[str] = ()) -> Optional[float]:
+    """The ``nvcc`` wall time of the last build of ``name``, from its log
+    (None when it was not built here)."""
+    m = re.search(r"^# build_seconds ([0-9.]+)$", build_log(name, defines),
+                  re.M)
+    return float(m.group(1)) if m else None
+
+
+def ptxas_instances(log: str) -> Dict[Tuple[int, int], dict]:
+    """Registers and spills of every template instance of a tile kernel
+    (``stencil_fused``, ``stencil_resident``, ``stencil_valid``), from its
+    ``-Xptxas -v`` build log: ``(filter size, body index) -> {"registers":
+    N, "spill": "..."}``; filter size 0 is the instance that reads it at
+    run time."""
+    out: Dict[Tuple[int, int], dict] = {}
+    key = None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '_Z\d+\w+?_kernelILi(\d+)"
+                      r"ELi(\d+)E", ln)
+        if m:
+            key = (int(m.group(1)), int(m.group(2)))
+            out[key] = {}
+        elif key and "registers" in ln:
+            out[key]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                  ln).group(1))
+        elif key and "spill" in ln:
+            out[key]["spill"] = ln.strip()
+    return out
 
 
 def load(name: str, defines: Iterable[str] = ()) -> ctypes.CDLL:

@@ -53,7 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -65,6 +65,7 @@ from tpu_stencil_torch.ops.lowering import StencilPlan
 DEFAULT_BLOCK_H = 32      # output rows per tile (8-row aligned)
 DEFAULT_FUSE = 8          # reps per trip through device memory
 TILE_W = 256              # output flat lanes per tile
+MAX_THREADS = 512         # threads per block at most (STENCIL_MAX_THREADS)
 MAX_K = 15                # filter sizes the kernels take (STENCIL_MAX_K)
 # Shared memory one block may use on an H100 (227 KB, opt-in above 48 KB).
 SMEM_LIMIT = 232448
@@ -93,7 +94,13 @@ DEEP = "deep"
 BODIES = ("int32", "acc16", "swar")
 
 class KernelLaunchError(RuntimeError):
-    """A kernel launch was refused (the C entry returned a cudaError_t)."""
+    """A kernel launch was refused (the C entry returned a cudaError_t).
+    ``code`` is that cudaError_t (None when there was none), so a caller
+    matches on the code and not on the message."""
+
+    def __init__(self, msg: str, code: Optional[int] = None) -> None:
+        super().__init__(msg)
+        self.code = code
 
 
 # ---------------------------------------------------------------------------
@@ -163,6 +170,15 @@ def tile_smem_bytes(plan: StencilPlan, block_h: int, fuse: int,
     if body == "swar":
         return ((rr // 2 + 2) + rr // 2) * ll * 4
     return rr * ll * (3 if body == "acc16" else 5)
+
+
+def block_threads(plan: StencilPlan, fuse: int, channels: int,
+                  tile_w: int = TILE_W) -> int:
+    """Threads per block of a K1/K2/K3 launch (``stencil_block_threads``):
+    one per flat lane of the tile and its ghost bands, in whole warps, at
+    most :data:`MAX_THREADS`."""
+    lanes = tile_w + 2 * fuse * plan.halo * channels
+    return min(-(-lanes // 32) * 32, MAX_THREADS)
 
 
 def plan_supported(plan: StencilPlan, channels: int) -> bool:
@@ -291,7 +307,7 @@ def _card_caps(device: torch.device) -> Tuple[int, int, bool]:
         coop = _resident_lib().stencil_resident_cooperative()
     if coop < 0:
         raise KernelLaunchError(
-            f"cooperative-launch query failed: cudaError_t {-coop}"
+            f"cooperative-launch query failed: cudaError_t {-coop}", -coop
         )
     return (int(props.L2_cache_size), int(props.multi_processor_count),
             bool(coop))
@@ -317,7 +333,7 @@ def resident_geometry(plan: StencilPlan, n_rows: int, wc: int,
         geo = effective_geometry(plan, n_rows, channels, bh, DEFAULT_FUSE)
         g = geo[1] * plan.halo
         rr, ll = geo[0] + 2 * g, TILE_W + 2 * g * channels
-        threads = min(-(-ll // 32) * 32, 512)
+        threads = block_threads(plan, geo[1], channels)
         per_sm = min(SM_SMEM // (tile_smem_bytes(plan, *geo, channels)
                                  + SMEM_PER_BLOCK_RESERVED),
                      SM_THREADS // threads)
@@ -656,6 +672,59 @@ def resident_launch_shape(plan: StencilPlan, n_rows: int, wc: int,
             "blocks_per_sm": out[0], "grid": out[1], "threads": out[2]}
 
 
+def _instance_registers(kernel: str, plan: StencilPlan) -> Optional[dict]:
+    """Registers (and spills) of the template instance ``kernel`` runs
+    ``plan`` with, from its build's ``-Xptxas -v`` lines; None when the
+    library was not built here."""
+    inst = _build.ptxas_instances(_build.build_log(kernel))
+    body = BODIES.index(tile_body(plan))
+    return inst.get((plan.k, body)) or inst.get((0, body))
+
+
+def describe_launch(kernel: str, plan: StencilPlan, rows: int, wc: int,
+                    channels: int, block_h: Optional[int] = None,
+                    fuse: Optional[int] = None,
+                    device: Optional[torch.device] = None) -> dict:
+    """The instance one launch of ``kernel`` runs: K1 ``stencil_fused`` at
+    ``fuse`` reps and K2 ``stencil_resident`` on a flat (rows, wc) image,
+    K3 ``stencil_valid`` on one tile's (rows, wc) interior at ``fuse``
+    reps. Its tile body, tile, grid, threads per block and dynamic shared
+    memory (the host model's), and on a card its resident blocks per SM
+    (the library's occupancy query; K2's grid too) and registers (the
+    build's ``-Xptxas -v`` lines); None for those on the CPU."""
+    on_card = device is not None and torch.device(device).type == "cuda"
+    if kernel == "stencil_resident":
+        bh, fz = resident_geometry(plan, rows, wc, channels,
+                                   device_caps(device)[1])
+    elif kernel == "stencil_valid":
+        bh, fz = valid_geometry(plan, rows, channels, fuse, block_h)
+    else:
+        bh, fz = effective_geometry(plan, rows, channels, block_h, fuse)
+    # K2's grid is the co-resident blocks, which only the card knows.
+    grid = (None if kernel == "stencil_resident"
+            else [-(-wc // TILE_W), -(-rows // bh)])
+    rec = {"kernel": kernel, "body": tile_body(plan), "block_h": bh,
+           "tile_w": TILE_W, "fuse": fz, "grid": grid,
+           "threads": block_threads(plan, fz, channels),
+           "smem_bytes": tile_smem_bytes(plan, bh, fz, channels),
+           "blocks_per_sm": None, "registers": None}
+    if on_card:
+        if kernel == "stencil_resident":
+            shape = resident_launch_shape(plan, rows, wc, channels, device)
+            rec["grid"] = [shape["grid"]]
+            rec["blocks_per_sm"] = shape["blocks_per_sm"]
+        else:
+            with torch.cuda.device(device):
+                rec["blocks_per_sm"] = blocks_per_sm(kernel, plan, bh, fz,
+                                                     channels)
+        regs = _instance_registers(kernel, plan)
+        if regs:
+            rec["registers"] = regs.get("registers")
+            if regs.get("spill"):
+                rec["spill"] = regs["spill"]
+    return rec
+
+
 def build_kernels() -> Dict[str, str]:
     """Build every kernel library (in parallel) and return name -> path."""
     return {n: str(p) for n, p in _build.build().items()}
@@ -682,7 +751,8 @@ def _check_cuda(*ts: torch.Tensor) -> None:
 def _raise_on(rc: int, lib, fn_name: str, what: str) -> None:
     if rc != 0:
         msg = getattr(lib, fn_name)(rc).decode(errors="replace")
-        raise KernelLaunchError(f"{what} launch failed: cudaError_t {rc} ({msg})")
+        raise KernelLaunchError(
+            f"{what} launch failed: cudaError_t {rc} ({msg})", rc)
 
 
 def stencil_fused(x2: torch.Tensor, plan: StencilPlan, channels: int,
@@ -829,6 +899,40 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 
 
+def rep_loop_kernel(plan: StencilPlan, rows: int, wc: int, channels: int,
+                    block_h: Optional[int], fuse: Optional[int],
+                    schedule: Optional[str],
+                    device: Optional[torch.device]
+                    ) -> Tuple[str, Optional[int], Optional[int]]:
+    """The kernel a rep loop on a flat (rows, wc) image launches, with the
+    (block_h, fuse) it launches at: ``("stencil_resident", None, None)``
+    (K2, its geometry its own) for an unforced 'deep' run that
+    :func:`resident_feasible` admits, else ``"stencil_fused"`` (K1) at
+    :func:`effective_geometry`."""
+    sched = check_schedule(schedule)
+    if (sched == DEEP and block_h is None and fuse is None
+            and resident_feasible(plan, rows, wc, channels, device)):
+        return "stencil_resident", None, None
+    bh, fz = effective_geometry(plan, rows, channels, block_h, fuse,
+                                schedule=sched)
+    return "stencil_fused", bh, fz
+
+
+def warm_depths(calls: Iterable[int], fuse: Optional[int]) -> List[int]:
+    """Rep counts, one call of a rep loop each, that between them launch
+    every kernel instance that calls of ``calls`` reps launch: for a loop
+    of ``fuse`` reps per launch (K1, K3) the fused depth and, where a
+    call has a remainder, one rep (:func:`launch_schedule`); for
+    ``fuse=None`` (K2's one launch, the torch ops) one rep. Empty when no
+    call has a rep. The warm-up before a timed window runs these on a
+    scratch copy, on one device and on a mesh alike."""
+    depths = set()
+    for n in calls:
+        if n > 0:
+            depths.update(launch_schedule(n, fuse) if fuse else [1])
+    return sorted(depths, reverse=True)
+
+
 def _run_rep_loop(x2: torch.Tensor, repetitions: int, plan: StencilPlan,
                   rows_real: int, channels: int, block_h: Optional[int],
                   fuse: Optional[int], schedule: Optional[str],
@@ -838,15 +942,14 @@ def _run_rep_loop(x2: torch.Tensor, repetitions: int, plan: StencilPlan,
     fused launches plus single-rep remainders over two ping-pong
     buffers."""
     rows, wc = x2.shape
-    sched = check_schedule(schedule)
+    check_schedule(schedule)
     if repetitions == 0:
         return x2.clone()
-    if (sched == DEEP and block_h is None and fuse is None
-            and resident_feasible(plan, rows, wc, channels, x2.device)):
+    kernel, bh, fz = rep_loop_kernel(plan, rows, wc, channels, block_h,
+                                     fuse, schedule, x2.device)
+    if kernel == "stencil_resident":
         return stencil_resident(x2, plan, channels, repetitions, rows_real,
                                 frame)
-    bh, fz = effective_geometry(plan, rows, channels, block_h, fuse,
-                                schedule=sched)
     depths = launch_schedule(repetitions, fz)
     bufs = [torch.empty_like(x2) for _ in range(min(2, len(depths)))]
     cur = x2

@@ -21,7 +21,10 @@ Indivisible image shapes are padded up to the tile grid and the pad
 re-zeroed after every rep by a mask multiply; the runner then forces
 ``fuse = 1``, because K3 re-zeroes only outside the padded global extent.
 
-The interior/border overlap schedules (``--overlap``), several processes
+Under tracing the runner splits its time into exchange and compute by
+two probes outside the timed window (:meth:`ShardedRunner.
+trace_phase_probes`). The interior/border overlap schedules
+(``--overlap``) with their per-edge probes, several processes
 (``torch.distributed``) and the shared runner cache are not ported yet.
 """
 
@@ -76,10 +79,19 @@ def _pallas_local_chunk(tiles: Grid, plan: _lowering.StencilPlan, fuse: int,
     halo`` uint8 ghosts and run K3 on every tile, whose trusted band
     contracts by ``halo`` per rep — the ghosts recompute the neighbours'
     values exactly, so no further exchange is needed until the next
-    chunk. Tile (i, j)'s interior starts at global row ``i * th`` and
-    flat lane ``j * tw * C``."""
+    chunk."""
+    ext = halo_exchange(tiles, fuse * plan.halo, (0, 1))
+    return _apply_mask(_valid_chunk(tiles, ext, plan, fuse, global_shape,
+                                    block_h), mask)
+
+
+def _valid_chunk(tiles: Grid, ext: Grid, plan: _lowering.StencilPlan,
+                 fuse: int, global_shape: Tuple[int, int],
+                 block_h: Optional[int] = None) -> Grid:
+    """K3 at ``fuse`` reps on every ghost-extended tile of ``ext`` (the
+    exchange of ``tiles``). Tile (i, j)'s interior starts at global row
+    ``i * th`` and flat lane ``j * tw * C``."""
     g = fuse * plan.halo
-    ext = halo_exchange(tiles, g, (0, 1))
     out = []
     for i, (row, erow) in enumerate(zip(tiles, ext)):
         orow = []
@@ -93,7 +105,7 @@ def _pallas_local_chunk(tiles: Grid, plan: _lowering.StencilPlan, fuse: int,
             )
             orow.append(out2.reshape(t.shape))
         out.append(orow)
-    return _apply_mask(out, mask)
+    return out
 
 
 def build_sharded_iterate(plan: _lowering.StencilPlan, needs_mask: bool,
@@ -238,12 +250,14 @@ class ShardedRunner:
             if geo_bh is not None:
                 self.block_h_eff = bh
             self.geo_applied = geo_bh is not None or geo_fz is not None
+        self._block_h = geo_bh if self.backend == "pallas" else None
+        self._global_shape = (self.padded_shape[0],
+                              self.padded_shape[1] * channels)
         self._fn = build_sharded_iterate(
             model.plan, self.needs_mask, backend=self.backend,
-            global_shape=(self.padded_shape[0],
-                          self.padded_shape[1] * channels),
+            global_shape=self._global_shape,
             fuse=self.fuse, boundary=self.boundary,
-            block_h=geo_bh if self.backend == "pallas" else None,
+            block_h=self._block_h,
         )
         self._mask = None
         if self.needs_mask:
@@ -264,6 +278,99 @@ class ShardedRunner:
         if self.backend == "pallas" and any(
                 d.type == "cuda" for d in self.devices):
             cs.build_kernels()
+
+    def warm_reps(self, calls) -> List[int]:
+        """Rep counts, one :meth:`run` each, that between them launch every
+        instance the calls ``calls`` (the rep count of each call a timed
+        window makes) launch (:func:`cuda_stencil.warm_depths` at the
+        runner's fuse); each is one exchange and K3 on every tile."""
+        return cs.warm_depths(
+            calls, self.fuse if self.backend == "pallas" else None)
+
+    def warmup(self, tiles: Grid, depths) -> Grid:
+        """Run ``depths`` (:meth:`warm_reps`) on a scratch copy of the
+        tiles, never on the tiles themselves; returns the scratch grid
+        for the caller to fence."""
+        scratch = [[t.clone() for t in row] for row in tiles]
+        for n in depths:
+            scratch = self.run(scratch, n)
+        return scratch
+
+    def describe_launches(self, depths) -> List[dict]:
+        """The K3 instance each chunk of ``depths`` reps launches on every
+        tile (:func:`cuda_stencil.describe_launch`, with ``launches`` the
+        tiles per chunk); empty off the kernels."""
+        if self.backend != "pallas":
+            return []
+        th, tw = self.tile
+        return [dict(cs.describe_launch(
+            "stencil_valid", self.model.plan, th, tw * self.channels,
+            self.channels, self._block_h, d, self.devices[0]),
+            launches=len(self.devices)) for d in depths]
+
+    def introspect_warmup(self, depths, site_info) -> Optional[dict]:
+        """Record the K3 instances the warm-up launched for ``depths`` at
+        the ``sharded.iterate`` site (:func:`tpu_stencil_torch.obs.
+        introspect.capture`); ``site_info(kernels)`` completes the record
+        with the job's build seconds and modelled bytes and operations.
+        No-op unless introspection is armed."""
+        from tpu_stencil_torch import obs
+
+        if not obs.introspect.enabled():
+            return None
+        return obs.introspect.capture(
+            "sharded.iterate",
+            lambda: site_info(self.describe_launches(depths)),
+            meta={"mesh": self.mesh_shape, "tile": self.tile,
+                  "backend": self.backend, "fuse": self.fuse,
+                  "warm_reps": list(depths)},
+        )
+
+    def _phase_probes(self):
+        """(exchange-only, compute-only) step functions of one chunk: the
+        chunk's halo exchange (``fuse * halo`` ghosts for K3, ``halo`` for
+        the torch-ops step), and the local compute on the exchanged tiles
+        (K3 at ``fuse`` reps on every tile, or one torch-ops rep)."""
+        plan = self.model.plan
+        if self.backend == "pallas":
+            g = self.fuse * plan.halo
+
+            def exchange(tiles):
+                return tiles, halo_exchange(tiles, g, (0, 1))
+
+            def compute(pair):
+                return _valid_chunk(pair[0], pair[1], plan, self.fuse,
+                                    self._global_shape, self._block_h)
+        else:
+            def exchange(tiles):
+                return tiles, halo_exchange(tiles, plan.halo, (0, 1),
+                                            self.boundary)
+
+            def compute(pair):
+                return [[_lowering.valid_step(t, plan) for t in row]
+                        for row in pair[1]]
+        return exchange, compute
+
+    def trace_phase_probes(self, tiles: Grid) -> None:
+        """Emit ``sharded.halo_exchange`` and ``sharded.interior_compute``
+        spans: one measured run each of an exchange-only and a
+        compute-only step of one chunk (``reps`` = its depth), after one
+        untimed run of both (``sharded.probe_compile``), so the trace
+        splits the runner's time into exchange and compute. Tracing only;
+        the timed window never runs them."""
+        from tpu_stencil_torch import obs
+
+        if not obs.enabled() or self.model.plan.halo < 1:
+            return
+        exchange, compute = self._phase_probes()
+        reps = self.fuse if self.backend == "pallas" else 1
+        with obs.span("sharded.probe_compile", "sharded") as s:
+            s.fence(compute(s.fence(exchange(tiles))))
+        with obs.span("sharded.halo_exchange", "sharded", reps=reps) as s:
+            pair = s.fence(exchange(tiles))
+        with obs.span("sharded.interior_compute", "sharded",
+                      reps=reps) as s:
+            s.fence(compute(pair))
 
     def split(self, padded: np.ndarray) -> Grid:
         """Cut a padded global (H, W[, C]) array into the tile grid, each

@@ -1,5 +1,11 @@
-"""Typed failures, the retry policy and deadlines of the port.
+"""Typed failures, fault injection, retry, deadlines and degradation.
 
-Ported so far: :mod:`errors`, :mod:`retry` and ``deadline.Deadline``. The
-dispatch watchdog, fault injection and the fallback ladder are not ported.
+The port's counterpart of the JAX package's ``resilience`` package:
+:mod:`errors` (the typed vocabulary), :mod:`faults` (named injection
+points armed by ``TPU_STENCIL_TORCH_FAULTS`` / ``--faults``), :mod:`retry`
+(backoff and the transient/permanent classifier), :mod:`deadline`
+(``Deadline`` and the dispatch watchdog ``fence``) and :mod:`fallback`
+(the ladder ``pallas[deep] -> pallas -> xla (-> xla@cpu)``). Every
+firing, demotion and timeout is counted in the driver registry under the
+JAX package's ``resilience_*`` names.
 """

@@ -3,11 +3,13 @@
 The port's counterpart of the JAX package's ``resilience/errors.py``:
 every error a layer raises on purpose is a class here, so callers can
 assert "failed typed" instead of matching messages. The classes of parts
-not ported yet (fault injection, the dispatch watchdog, remote hosts) come
-with those parts.
+not ported yet (the sharded collective timeout, the serve worker, remote
+hosts) come with those parts.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 
 class ResilienceError(RuntimeError):
@@ -19,3 +21,52 @@ class DeadlineExceeded(ResilienceError):
     classification: retrying the same expired request can only expire
     again."""
 
+
+
+class InjectedFault(ResilienceError):
+    """A fault fired by the injection harness (:mod:`.faults`).
+
+    ``point``/``index`` name the injection site and the call index that
+    fired."""
+
+    point: Optional[str] = None
+    index: Optional[int] = None
+
+
+class InjectedOOM(InjectedFault):
+    """An injected resource-exhaustion failure. The message carries the
+    ``RESOURCE_EXHAUSTED`` token of the JAX package's, so an injection
+    spec reads the same in both packages; the fallback ladder demotes on
+    it (:func:`tpu_stencil_torch.resilience.fallback.demotable`)."""
+
+    def __init__(self, msg: str = "") -> None:
+        super().__init__(
+            f"RESOURCE_EXHAUSTED: injected VMEM/HBM OOM{': ' if msg else ''}"
+            f"{msg}"
+        )
+
+
+class FatalInjectedFault(BaseException):
+    """An injected failure that deliberately escapes ``except Exception``
+    handlers: the stand-in for a worker thread dying outright. A
+    ``BaseException`` on purpose, so per-batch catch-alls cannot absorb
+    it."""
+
+    point: Optional[str] = None
+    index: Optional[int] = None
+
+
+class DispatchTimeout(ResilienceError):
+    """Device work did not finish within the watchdog window
+    (:func:`tpu_stencil_torch.resilience.deadline.fence`): a hang turned
+    into a typed error. The queued work itself cannot be cancelled (the
+    watchdog abandons a daemon thread parked in the synchronize); what
+    the timeout buys is that the caller gets control back, typed."""
+
+    def __init__(self, label: str, seconds: float) -> None:
+        super().__init__(
+            f"device dispatch {label!r} still pending after {seconds:g}s "
+            "watchdog window (hung device?)"
+        )
+        self.label = label
+        self.seconds = seconds

@@ -1,0 +1,250 @@
+"""Checkpoint / resume for long iterated-stencil runs: the job half.
+
+The port's counterpart of the JAX package's ``runtime/checkpoint.py``
+(``save``, ``restore``, ``save_sharded``, ``restore_sharded``, ``clear``,
+``CorruptCheckpoint``), in the same on-disk format: the iteration state
+is the current uint8 frame, so a checkpoint is the frame's raw bytes plus
+a JSON sidecar recording the reps it already contains and the job's
+fingerprint, stamped with a crc32c of its canonical JSON. Data and sidecar
+are committed by tmp-then-rename (fsynced first), and a restore refuses a
+corrupt sidecar (:class:`CorruptCheckpoint`, naming the file) or one
+written for another job. A checkpoint written by either package resumes
+in the other.
+
+The sharded format writes every tile's rectangle into one versioned data
+file ``<base>.ckpt.r<rep>`` (:func:`tpu_stencil_torch.parallel.
+distributed.write_sharded`), then commits a sidecar naming it and sweeps
+older versions. One process writes it here; the commit barrier of
+several processes, and the frames and stream halves, come with their
+slices.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Optional, Tuple
+
+import numpy as np
+
+from tpu_stencil_torch.config import JobConfig
+from tpu_stencil_torch.integrity import checksum as _checksum
+from tpu_stencil_torch.io import native
+from tpu_stencil_torch.io.raw import fsync_path
+
+
+class CorruptCheckpoint(ValueError):
+    """A checkpoint sidecar failed its embedded CRC (or no longer
+    parses): refuse to resume, naming the file. A ``ValueError`` so every
+    resume path classifies it permanent."""
+
+    def __init__(self, path: str, why: str) -> None:
+        super().__init__(
+            f"checkpoint sidecar {path} is corrupt ({why}); refusing "
+            f"to resume from it — delete the file to start over, or "
+            f"restore it from a good copy"
+        )
+        self.path = path
+
+
+def _canonical_body(meta: dict) -> bytes:
+    """The bytes the sidecar CRC covers: canonical JSON of every field
+    except the stamp itself (one serialization for writer and
+    verifier)."""
+    return json.dumps(
+        {k: meta[k] for k in sorted(meta) if k != "crc32c"},
+        sort_keys=True,
+    ).encode()
+
+
+def _stamp_crc(meta: dict) -> dict:
+    return dict(meta, crc32c=_checksum.crc32c(_canonical_body(meta)))
+
+
+def _load_meta(path: str) -> dict:
+    """Parse and integrity-check a sidecar. Unparseable JSON or a CRC
+    mismatch raises :class:`CorruptCheckpoint`; a sidecar without a
+    ``crc32c`` key (written before the stamp existed) loads unchecked."""
+    with open(path) as f:
+        raw = f.read()
+    try:
+        meta = json.loads(raw)
+    except ValueError as e:
+        raise CorruptCheckpoint(path, f"unparseable JSON: {e}") from None
+    if not isinstance(meta, dict):
+        raise CorruptCheckpoint(
+            path, f"top-level {type(meta).__name__}, expected object"
+        )
+    if "crc32c" in meta:
+        got = _checksum.crc32c(_canonical_body(meta))
+        if got != meta["crc32c"]:
+            raise CorruptCheckpoint(
+                path, f"embedded crc32c {meta['crc32c']} != computed {got}"
+            )
+    return meta
+
+
+def _write_meta(path: str, meta: dict) -> None:
+    """The one sidecar commit path: CRC-stamped, fsynced, atomically
+    renamed."""
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(_stamp_crc(meta), f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def _paths(cfg: JobConfig) -> Tuple[str, str]:
+    base = cfg.output_path + ".ckpt"
+    return base, base + ".json"
+
+
+def _fingerprint(cfg: JobConfig) -> dict:
+    return {
+        "image": os.path.abspath(cfg.image),
+        "width": cfg.width,
+        "height": cfg.height,
+        "channels": cfg.channels,
+        "filter": cfg.filter_name,
+        "repetitions": cfg.repetitions,
+        "frames": cfg.frames,
+        "boundary": cfg.boundary,
+    }
+
+
+def _check_meta(meta: dict, cfg: JobConfig, where: str) -> None:
+    """Refuse a checkpoint written for a different job. Sidecars without
+    a boundary key were all written under zero-boundary semantics."""
+    want = _fingerprint(cfg)
+    if {k: meta.get(k, "zero" if k == "boundary" else None)
+            for k in want} != want:
+        raise ValueError(
+            f"checkpoint at {where} was written for a different job "
+            f"({meta} != {want}); delete it or change --output"
+        )
+
+
+def _checkpoint_fault(index: int) -> None:
+    """The ``checkpoint`` injection point, checked at every commit."""
+    from tpu_stencil_torch.resilience import faults as _faults
+
+    site = _faults.site("checkpoint")
+    if site is not None:
+        site(index)
+
+
+def _frame_shape(cfg: JobConfig) -> tuple:
+    shape = (cfg.height, cfg.width)
+    if cfg.channels != 1:
+        shape += (cfg.channels,)
+    return ((cfg.frames,) + shape) if cfg.frames > 1 else shape
+
+
+def save(cfg: JobConfig, rep: int, frame: np.ndarray) -> None:
+    """Atomically persist the frame as the state after ``rep``
+    repetitions."""
+    _checkpoint_fault(rep)
+    data_path, meta_path = _paths(cfg)
+    tmp = data_path + ".tmp"
+    arr = np.ascontiguousarray(np.asarray(frame, np.uint8))
+    native.pwrite_full(tmp, 0, arr.tobytes(), truncate=True)
+    fsync_path(tmp)  # the data must be stable before its name is
+    os.replace(tmp, data_path)
+    _write_meta(meta_path, dict(_fingerprint(cfg), rep=rep))
+
+
+def _data_file(data_path: str, meta: dict) -> str:
+    """The data file a sidecar names: its versioned file (sharded
+    format), else the single-file checkpoint."""
+    if meta.get("data"):
+        return os.path.join(os.path.dirname(data_path) or ".", meta["data"])
+    return data_path
+
+
+def restore(cfg: JobConfig) -> Optional[Tuple[int, np.ndarray]]:
+    """Return (completed reps, frame) from a matching checkpoint, or
+    None."""
+    data_path, meta_path = _paths(cfg)
+    if not os.path.exists(meta_path):
+        return None
+    meta = _load_meta(meta_path)
+    _check_meta(meta, cfg, data_path)
+    path = _data_file(data_path, meta)
+    if not os.path.exists(path):
+        return None
+    buf = native.pread_full(path, 0, cfg.nbytes)
+    return int(meta["rep"]), np.frombuffer(buf, np.uint8).reshape(
+        _frame_shape(cfg))
+
+
+def _stale_versions(data_path: str, before_rep: Optional[int] = None):
+    """Versioned data files older than ``before_rep`` (all of them when
+    None), selected by their parsed rep number."""
+    d = os.path.dirname(data_path) or "."
+    prefix = os.path.basename(data_path) + ".r"
+    for name in os.listdir(d):
+        if not name.startswith(prefix):
+            continue
+        try:
+            r = int(name[len(prefix):])
+        except ValueError:
+            continue
+        if before_rep is None or r < before_rep:
+            yield os.path.join(d, name)
+
+
+def save_sharded(cfg: JobConfig, rep: int, tiles) -> None:
+    """Sharded checkpoint of a tile grid: every tile's in-bounds rectangle
+    into the versioned data file ``<base>.ckpt.r<rep>``, fsynced, then the
+    sidecar naming it, then a sweep of older versions. An in-flight write
+    never touches the last committed checkpoint."""
+    from tpu_stencil_torch.parallel import distributed
+
+    _checkpoint_fault(rep)
+    data_path, meta_path = _paths(cfg)
+    versioned = f"{data_path}.r{rep}"
+    distributed.write_sharded(versioned, tiles, cfg.height, cfg.width,
+                              cfg.channels)
+    fsync_path(versioned)
+    _write_meta(meta_path, dict(_fingerprint(cfg), rep=rep,
+                                data=os.path.basename(versioned)))
+    for name in _stale_versions(data_path, before_rep=rep):
+        os.remove(name)
+
+
+def restore_sharded(cfg: JobConfig, runner) -> Optional[Tuple[int, list]]:
+    """Return (completed reps, tile grid on ``runner``'s mesh) from a
+    matching checkpoint, or None. A sharded-format checkpoint is read per
+    mesh row band (:func:`distributed.read_sharded`); a single-file one
+    (written by a run on one device, in either package) is read whole and
+    cut into the runner's tiles, so progress survives a change of
+    layout."""
+    from tpu_stencil_torch.parallel import distributed
+
+    data_path, meta_path = _paths(cfg)
+    if not os.path.exists(meta_path):
+        return None
+    meta = _load_meta(meta_path)
+    _check_meta(meta, cfg, meta_path)
+    if meta.get("data"):
+        versioned = _data_file(data_path, meta)
+        if not os.path.exists(versioned):
+            return None
+        return int(meta["rep"]), distributed.read_sharded(
+            versioned, cfg.height, cfg.width, cfg.channels, runner.mesh)
+    legacy = restore(cfg)
+    if legacy is None:
+        return None
+    rep, frame = legacy
+    return rep, runner.put(frame)
+
+
+def clear(cfg: JobConfig) -> None:
+    """Remove the checkpoint artifacts (after a successful finish)."""
+    data_path, meta_path = _paths(cfg)
+    for p in (data_path, meta_path):
+        if os.path.exists(p):
+            os.remove(p)
+    for p in _stale_versions(data_path):
+        os.remove(p)

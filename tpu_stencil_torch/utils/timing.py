@@ -39,7 +39,9 @@ class Timer:
 
     ``device``: a device, or a sequence of them (a mesh), fenced on
     entry and on exit, so the window covers exactly the device work
-    queued inside it.
+    queued inside it. A block that raises is not fenced on exit: the
+    device may be the reason it raised (a watchdog timeout), and a
+    synchronize would hang on it.
 
     ``elapsed`` is live: read inside the ``with`` block it returns the time
     accumulated so far; after exit it is frozen at the block's duration.
@@ -61,8 +63,9 @@ class Timer:
         self._frozen = -1.0  # re-entry restarts the stopwatch
         return self
 
-    def __exit__(self, *exc) -> None:
-        fence(self.device)
+    def __exit__(self, exc_type, *exc) -> None:
+        if exc_type is None:
+            fence(self.device)
         self._frozen = time.perf_counter() - self._start
 
     @property
