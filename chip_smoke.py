@@ -113,7 +113,32 @@ one JSON line. The phases that pin launch counts name ``--backend pallas``
    gauges, and its window held to the same job's without the watchdog as
    ``main_path`` holds cold to warm); ``--profile`` (the ``torch.profiler`` trace names
    ``stencil_fused_kernel``).
-12. ``times`` — ms per rep at 1920x2520 RGB gaussian x40, each the median
+12. ``overlap_path`` — the overlap schedules (``--overlap``) on 2x2 over
+   ``[cuda:0] * 4`` at 1920x2520 RGB gaussian x40 (tile 1260x960, g = 8
+   at fuse 8): ``auto`` on an empty cache file measures one probe bundle
+   and a second runner none, with the same verdict; ``driver.run_job``
+   under ``off``, ``fused-split``, ``edge`` and ``auto``, each byte-equal
+   to torch ops and K1 (so to ``off``), its window launching K3 1, 5 or 9
+   times per tile per chunk (20 / 100 / 180) and its warm-up one chunk of
+   each; the two split modes cold, in a fresh process, held to the warm
+   window as ``main_path`` holds them; grey (8-lane border pieces); the
+   runner under each split mode making no ``torch.cat``, no
+   ``.contiguous()`` and no torch-ops call around K3; each mode's ms per
+   rep and ``auto``'s, taking turns (``auto`` at most 1.5x ``off``); each
+   mode's probe spans (median of 5); the
+   ``torch.profiler`` streams of a split run (busy time, time busy at
+   once, the device's idle share); K3 on strided thin windows (the left
+   and top bands, grey and RGB, 16-byte aligned and unaligned origins,
+   written into a rectangle of a larger output) against its plain
+   version, and the RGB left band's time (event-timed and device) beside
+   its bound.
+13. ``witness`` — ``integrity.witness.device_witness`` re-executes the
+   40-rep job through torch ops on the card (one ``padded_step`` per rep,
+   no hand kernel launched) and equals K1's, K2's and the 2x2 K3 runner's
+   outputs; a flipped byte of K1's output is caught; at a probe size the
+   NumPy golden agrees with K1 and catches a flip; two samplers with one
+   seed pick alike.
+14. ``times`` — ms per rep at 1920x2520 RGB gaussian x40, each the median
    of 7 runs after a warm-up (CUDA events, L2 flushed before each run):
    the three job kernels (K3 alone on the one ext tile of a 1x1 mesh at
    fuse 8), L2's ``current`` body, one L1 launch (``add_i32``, chain of
@@ -134,7 +159,9 @@ one JSON line. The phases that pin launch counts name ``--backend pallas``
    SM at 32x8 (the library's occupancy query).
 
 Then the ``{"kernels": [...]}`` line (for K1, K2 and K3 ``launches`` are
-the main path's timed window's and ``warmup_launches`` its warm-up's),
+the main path's timed window's and ``warmup_launches`` its warm-up's; K3
+adds its window launches and ms per rep under each overlap mode, the
+``auto`` verdict and its thin-window time),
 the ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero before that line; without a CUDA device the script exits
 non-zero at once.
@@ -1557,6 +1584,448 @@ def phase_autotune_path(dev) -> dict:
     return {"phase": "autotune_path", "ok": True, "runs": out}
 
 
+# The expected K3 launches per tile per chunk of each resolved overlap
+# mode (the monolithic chunk, the split's five pieces, the pipeline's
+# nine), at tiles with a ghost-free interior.
+PIECES = {"off": 1, "split": 5, "fused-split": 5, "edge": 9}
+OVERLAP_MODES = ("off", "fused-split", "edge")
+
+# run_job over a 2x2 mesh of one card in a fresh process (the CLI's
+# --mesh 2x2 needs four visible cards); prints the JobResult's fields and
+# the process's launch counters as its last line.
+COLD_JOB = """import json, sys, torch
+from tpu_stencil_torch import config, driver
+from tpu_stencil_torch.ops import cuda_stencil as cs
+a = json.loads(sys.argv[1])
+dev = torch.device(a["device"])
+cfg = config.JobConfig(image=a["src"], width=a["w"], height=a["h"],
+                       repetitions=a["reps"],
+                       image_type=config.ImageType(a["type"]),
+                       mesh_shape=(2, 2), backend="pallas",
+                       overlap=a["overlap"], output=a["dst"])
+r = driver.run_job(cfg, devices=[dev] * 4)
+print(json.dumps({"compute_seconds": r.compute_seconds,
+                  "total_seconds": r.total_seconds, "launches": r.launches,
+                  "warmup_launches": r.warmup_launches,
+                  "overlap": r.overlap, "counts": cs.launch_counts()}))
+"""
+
+
+def mesh_job(src, w: int, h: int, image_type: str, mode: str, dst, dev,
+             cold: bool = False) -> dict:
+    """``driver.run_job`` at 2x2 over ``[dev] * 4`` with ``--overlap
+    mode``: in a fresh process (``cold``) or here, with the launch
+    counters set to 0 just before and read just after."""
+    from tpu_stencil_torch import config, driver
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+
+    args = {"src": str(src), "w": w, "h": h, "reps": MAIN_REPS,
+            "type": image_type, "overlap": mode, "dst": str(dst),
+            "device": str(dev)}
+    if cold:
+        r = subprocess.run([sys.executable, "-c", COLD_JOB, json.dumps(args)],
+                           cwd=ROOT, capture_output=True, text=True,
+                           timeout=300)
+        require(r.returncode == 0, f"cold run_job {mode} exited "
+                f"{r.returncode}: {r.stderr}")
+        return json.loads(r.stdout.strip().splitlines()[-1])
+    cfg = config.JobConfig(image=str(src), width=w, height=h,
+                           repetitions=MAIN_REPS,
+                           image_type=config.ImageType(image_type),
+                           mesh_shape=(2, 2), backend="pallas",
+                           overlap=mode, output=str(dst))
+    cs.reset_launch_counts()
+    res = driver.run_job(cfg, devices=[dev] * 4)
+    return {**result_fields(res), "overlap": res.overlap,
+            "counts": cs.launch_counts()}
+
+
+def overlap_runner(img: np.ndarray, mode: str, dev):
+    from tpu_stencil_torch.models.blur import IteratedConv2D
+    from tpu_stencil_torch.parallel.sharded import ShardedRunner
+
+    c = img.shape[2] if img.ndim == 3 else 1
+    return ShardedRunner(IteratedConv2D("gaussian", backend="pallas",
+                                        device=dev), img.shape[:2], c,
+                         mesh_shape=(2, 2), devices=[dev] * 4, overlap=mode)
+
+
+@contextlib.contextmanager
+def no_copies_around_k3():
+    """Count, inside the block, every ``torch.cat``, every
+    ``Tensor.contiguous`` and every torch-ops stencil call
+    (``lowering.valid_step``/``valid_window``/``padded_step``, K3's plain
+    version): an overlap chunk on the card makes none."""
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+    from tpu_stencil_torch.ops import lowering
+
+    counted = {}
+    saved = []
+
+    def patch(owner, name):
+        fn = getattr(owner, name)
+        saved.append((owner, name, fn))
+        counted[name] = 0
+
+        def wrapped(*a, **k):
+            counted[name] += 1
+            return fn(*a, **k)
+        setattr(owner, name, wrapped)
+
+    for owner, name in ((torch, "cat"), (torch.Tensor, "contiguous"),
+                        (lowering, "valid_step"), (lowering, "valid_window"),
+                        (lowering, "padded_step"),
+                        (cs, "stencil_valid_plain")):
+        patch(owner, name)
+    try:
+        yield counted
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def device_events(trace_path: str) -> list:
+    """The kernels, copies and memsets of a ``torch.profiler`` Chrome
+    trace: (stream, name, start µs, end µs)."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    return [(str((e.get("args") or {}).get("stream", e.get("tid"))),
+             e.get("name", ""), e["ts"], e["ts"] + e["dur"])
+            for e in events
+            if e.get("ph") == "X" and e.get("cat") in (
+                "kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def stream_concurrency(trace_path: str) -> dict:
+    """From a ``torch.profiler`` Chrome trace: the device streams that ran
+    kernels or copies, each one's busy time and count, the time any and
+    the time two or more were busy at once, and the span from the first
+    start to the last end (µs); the device's idle share of that span."""
+    evs = device_events(trace_path)
+    busy, count = {}, {}
+    edges = []
+    for s, _, a, b in evs:
+        busy[s] = busy.get(s, 0.0) + (b - a)
+        count[s] = count.get(s, 0) + 1
+        edges += [(a, 1), (b, -1)]
+    edges.sort()
+    depth, last, together, any_busy = 0, None, 0.0, 0.0
+    for t, step in edges:
+        if last is not None:
+            if depth >= 2:
+                together += t - last
+            if depth >= 1:
+                any_busy += t - last
+        depth += step
+        last = t
+    span = (edges[-1][0] - edges[0][0]) if edges else 0.0
+    return {"streams": len(busy), "busy_us": busy, "kernels": count,
+            "concurrent_us": together, "any_busy_us": any_busy,
+            "span_us": span,
+            "idle_share": 1.0 - any_busy / span if span else None}
+
+
+def thin_windows(dev) -> dict:
+    """K3 on strided thin windows against its plain version at the 2x2
+    tile of the main path, fuse 8 (g = 8): the left band (the tile's rows,
+    g*C output lanes) and the top band (g output rows) of a slab-sized
+    buffer, grey (an 8-lane border) and RGB, at a 16-byte aligned and an
+    unaligned origin, written into a rectangle of a larger output at an
+    unaligned origin whose other bytes must stay as they were; global
+    origins at the image's corner and inside it. Then the RGB left band's
+    time against its bound and its plain version's."""
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+
+    g = plan_of("gaussian")
+    fuse = cs.DEFAULT_FUSE
+    d = fuse * g.halo
+    th, tw = MAIN_H // 2, MAIN_W // 2
+    cases, worst = [], 0
+    timed = None
+    for c in (1, 3):
+        dc = d * c
+        glob = (MAIN_H, MAIN_W * c)
+        big = seeded((th + 2 * d, tw * c + 2 * dc + 16), 31 + c, dev)
+        for band in ("left", "top"):
+            for lane0 in (0, 5):
+                if band == "left":
+                    win = big[:, lane0:lane0 + 3 * dc]
+                    rows, lanes = th, dc
+                else:
+                    win = big[0:3 * d, lane0:lane0 + tw * c + 2 * dc]
+                    rows, lanes = d, tw * c
+                for row0, col0 in ((0, 0), (th, tw * c)):
+                    out_big = torch.full((rows + 4, lanes + 40), 77,
+                                         dtype=torch.uint8, device=dev)
+                    rect = out_big[2:2 + rows, 3 + lane0:3 + lane0 + lanes]
+                    cs.valid_fused(win, g, fuse, c, row0, col0, glob,
+                                   out=rect)
+                    want = cs.stencil_valid_plain(win, g, c, fuse, row0,
+                                                  col0, glob)
+                    torch.cuda.synchronize()
+                    err = max_err(rect, want)
+                    outside = out_big.clone()
+                    outside[2:2 + rows, 3 + lane0:3 + lane0 + lanes] = 77
+                    kept = bool((outside == 77).all().item())
+                    worst = max(worst, err)
+                    cases.append({
+                        "case": f"C={c} {band} lane0={lane0} origin="
+                                f"({row0},{col0}) out={rows}x{lanes}",
+                        "pitch": [win.stride(0), rect.stride(0)],
+                        "err": err, "outside_kept": kept})
+                    if c == 3 and band == "left" and lane0 == 0 and row0:
+                        timed = (win, rect, row0, col0, glob)
+    bad = [x for x in cases if x["err"] or not x["outside_kept"]]
+    require(not bad, f"K3 on a window disagrees with its plain version: {bad}")
+    win, rect, row0, col0, glob = timed
+    # Event-timed, one launch: what the runner pays per piece, host issue
+    # included (the card waits for it); the kernel's own device time from
+    # the profiler over 20 launches.
+    ms = time_ms(lambda: cs.valid_fused(win, g, fuse, 3, row0, col0, glob,
+                                        out=rect), dev)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            cs.valid_fused(win, g, fuse, 3, row0, col0, glob, out=rect)
+        torch.cuda.synchronize()
+    path = str(WORK / "thin_window_trace.json")
+    prof.export_chrome_trace(path)
+    durs = [b - a for _, name, a, b in device_events(path)
+            if "stencil_valid_kernel" in name]
+    # The profiler may miss a launch at the edge of its window.
+    require(len(durs) >= 10, f"profiled {len(durs)} of 20 K3 window "
+            f"launches")
+    plain = time_ms(lambda: cs.stencil_valid_plain(win, g, 3, fuse, row0,
+                                                   col0, glob), dev)
+    bound, by = bound_ms_per_rep(g, rect.numel(), fuse,
+                                 n_bytes=win.numel() + rect.numel())
+    return {"cases": cases, "max_abs_err": worst,
+            "left_band_rgb": {
+                "window": list(win.shape), "out": list(rect.shape),
+                "ms": ms, "device_ms": statistics.median(durs) / 1e3,
+                "device_launches_profiled": len(durs),
+                "plain_ms": plain, "bound_ms": bound * fuse,
+                "bound_by": by,
+                "unit": "ms per launch, fuse 8, 1260x24 lanes out"}}
+
+
+def phase_overlap_path(dev) -> dict:
+    """The overlap schedules on 2x2 over ``[cuda:0] * 4`` at the main
+    path's size (1920x2520 RGB gaussian x40, tile 1260x960, g = 8 at
+    fuse 8), each run byte-equal to ``off``, to K1 and to torch ops."""
+    from tpu_stencil_torch import obs
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+    from tpu_stencil_torch.ops import lowering
+    from tpu_stencil_torch.runtime import autotune
+
+    src, img = main_raw()
+    g = plan_of("gaussian")
+    img_dev = torch.from_numpy(img).to(dev)
+    want = lowering.iterate(img_dev, MAIN_REPS, g).cpu().numpy()
+    k1 = cs.iterate(img_dev, MAIN_REPS, g).cpu().numpy()
+    require(np.array_equal(k1, want), "K1 disagrees with torch ops")
+    out = {}
+    saved_cache = os.environ[autotune.ENV_CACHE]
+    cache = WORK / "overlap_autotune.json"
+    cache.unlink(missing_ok=True)
+    os.environ[autotune.ENV_CACHE] = str(cache)
+    try:
+        chunks = len(cs.launch_schedule(MAIN_REPS, cs.DEFAULT_FUSE))
+        # 1. The auto verdict: one probe bundle on a cold cache, none warm.
+        before = autotune.overlap_probe_count
+        r_auto = overlap_runner(img, "auto", dev)
+        probes_cold = autotune.overlap_probe_count - before
+        r_again = overlap_runner(img, "auto", dev)
+        probes_warm = autotune.overlap_probe_count - before - probes_cold
+        require(probes_cold == 1 and probes_warm == 0
+                and r_again.overlap == r_auto.overlap,
+                f"auto: {probes_cold} probes cold, {probes_warm} warm, "
+                f"{r_auto.overlap} then {r_again.overlap}")
+        entry = json.loads(cache.read_text())["entries"]
+        out["auto"] = {"verdict": r_auto.overlap, "probes_cold": probes_cold,
+                       "probes_warm": probes_warm,
+                       "cache_entry": list(entry.values())[0]}
+        # 2. Each mode through run_job (warm, in this process), and auto
+        # on the warm cache, against torch ops and K1; its window's K3
+        # launches those of its pieces; its warm-up one chunk of each.
+        for mode in OVERLAP_MODES + ("auto",):
+            dst = WORK / f"blur_overlap_{mode}.raw"
+            r = mesh_job(src, MAIN_W, MAIN_H, "rgb", mode, dst, dev)
+            ran = r_auto.overlap if mode == "auto" else mode
+            expect = launches(stencil_valid=PIECES[ran] * 4 * chunks)
+            warm = launches(stencil_valid=PIECES[ran] * 4)
+            require(r["overlap"] == ran and r["launches"] == expect
+                    and r["warmup_launches"] == warm
+                    and r["counts"] == add_counts(expect, warm),
+                    f"overlap {mode}: ran {r['overlap']}, launches "
+                    f"{r['launches']} + warm-up {r['warmup_launches']} "
+                    f"(counted {r['counts']}), expected {expect} + {warm}")
+            got = np.fromfile(dst, np.uint8).reshape(img.shape)
+            err = int(np.abs(got.astype(int) - want.astype(int)).max())
+            require(err == 0, f"overlap {mode} disagrees with torch ops / "
+                    f"K1 / off ({err})")
+            out[f"job_{mode}"] = {**r, "max_abs_err": err,
+                                  "k3_per_chunk": PIECES[ran] * 4}
+        # 3. Cold (a fresh process) near warm under the two split modes.
+        for mode in ("fused-split", "edge"):
+            dst = WORK / f"blur_overlap_{mode}_cold.raw"
+            r = mesh_job(src, MAIN_W, MAIN_H, "rgb", mode, dst, dev,
+                         cold=True)
+            got = np.fromfile(dst, np.uint8).reshape(img.shape)
+            require(np.array_equal(got, want) and r["overlap"] == mode
+                    and r["launches"] == out[f"job_{mode}"]["launches"],
+                    f"cold {mode}: {r}")
+            out[f"job_{mode}_cold"] = r
+            out[f"{mode}_cold_bound_s"] = require_cold_near_warm(
+                f"overlap {mode}", r["compute_seconds"],
+                out[f"job_{mode}"]["compute_seconds"])
+        # 4. A grey image: 8-lane border pieces at fuse 8.
+        gsrc = WORK / "waterfall_grey.raw"
+        grey = np.ascontiguousarray(img[..., 0])
+        grey.tofile(gsrc)
+        gwant = lowering.iterate(torch.from_numpy(grey).to(dev), MAIN_REPS,
+                                 g).cpu().numpy()
+        for mode in ("fused-split", "edge"):
+            dst = WORK / f"blur_overlap_grey_{mode}.raw"
+            r = mesh_job(gsrc, MAIN_W, MAIN_H, "grey", mode, dst, dev)
+            got = np.fromfile(dst, np.uint8).reshape(grey.shape)
+            require(np.array_equal(got, gwant) and r["launches"] == launches(
+                stencil_valid=PIECES[mode] * 4 * chunks),
+                f"grey {mode}: {r['launches']}, equal "
+                f"{np.array_equal(got, gwant)}")
+            out[f"grey_{mode}"] = {"launches": r["launches"],
+                                   "max_abs_err": 0}
+        # 5. No torch-ops call, no band copy, no stitch around K3.
+        runners = {m: overlap_runner(img, m, dev) for m in OVERLAP_MODES}
+        tiles = runners["off"].put(img)
+        for mode in ("fused-split", "edge"):
+            r = runners[mode]
+            r.prepare()
+            r.warmup(tiles, r.warm_reps([MAIN_REPS]))
+            torch.cuda.synchronize()
+            with no_copies_around_k3() as counted:
+                cs.reset_launch_counts()
+                res = r.run(tiles, MAIN_REPS)
+                torch.cuda.synchronize()
+                counts = cs.launch_counts()
+            require(not any(counted.values()) and counts == launches(
+                stencil_valid=PIECES[mode] * 4 * chunks),
+                f"{mode}: around K3 {counted}, launches {counts}")
+            require(np.array_equal(r.fetch(res), want), f"{mode} runner")
+            out[f"no_copies_{mode}"] = {"counted": counted,
+                                        "launches": counts}
+        # 6. ms per rep of each mode's runner and of auto's, taking turns:
+        # auto must not take a measured loss (1.5x off at most, as the
+        # times phase holds the backend verdict).
+        timed = {**runners, "auto": r_again}
+        per = interleaved_ms({m: (lambda r=r: r.run(tiles, MAIN_REPS))
+                              for m, r in timed.items()}, dev)
+        out["ms_per_rep"] = {m: t / MAIN_REPS for m, t in per.items()}
+        require(per["auto"] <= 1.5 * per["off"],
+                f"auto ({r_auto.overlap}) takes {per['auto']} ms, off "
+                f"{per['off']} ms")
+        # 7. The probes of each mode (median of 5 traced runs).
+        probes = {}
+        for mode, r in runners.items():
+            obs.reset()
+            obs.enable()
+            try:
+                for _ in range(5):
+                    r.trace_phase_probes(tiles)
+                spans = obs.get_tracer().spans()
+            finally:
+                obs.reset()
+            names = sorted({s.name for s in spans} - {"sharded.probe_compile"})
+            probes[mode] = {n: statistics.median(
+                1e3 * s.seconds for s in spans if s.name == n) for n in names}
+        out["probes_ms"] = probes
+        # 8. Whether the side stream overlaps: the profiler's streams.
+        from torch.profiler import ProfilerActivity, profile
+
+        streams = {}
+        for mode in ("fused-split", "edge"):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                runners[mode].run(tiles, MAIN_REPS)
+                torch.cuda.synchronize()
+            path = str(WORK / f"overlap_{mode}_trace.json")
+            prof.export_chrome_trace(path)
+            streams[mode] = stream_concurrency(path)
+        out["streams"] = streams
+        out["thin_windows"] = thin_windows(dev)
+    finally:
+        os.environ[autotune.ENV_CACHE] = saved_cache
+    return {"phase": "overlap_path", "ok": True, "shape": list(img.shape),
+            "reps": MAIN_REPS, "mesh": [2, 2], "runs": out}
+
+
+def phase_witness(dev) -> dict:
+    """The witness re-executes the 40-rep job through torch ops on the card
+    (one ``padded_step`` per rep, no hand kernel) and must equal K1's, K2's
+    and the 2x2 K3 runner's outputs; one flipped byte of K1's output is
+    caught; at a probe size the NumPy golden agrees with K1 and catches a
+    flip too."""
+    from tpu_stencil_torch.integrity import witness
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+    from tpu_stencil_torch.ops import lowering
+
+    _, img = main_raw()
+    g = plan_of("gaussian")
+    img_dev = torch.from_numpy(img).to(dev)
+    outs = {"stencil_fused": cs.iterate(img_dev, MAIN_REPS, g),
+            "stencil_resident": cs.iterate(img_dev, MAIN_REPS, g,
+                                           schedule="deep")}
+    r = overlap_runner(img, "off", dev)
+    outs = {k: v.cpu().numpy() for k, v in outs.items()}
+    outs["stencil_valid_2x2"] = r.fetch(r.run(r.put(img), MAIN_REPS))
+    seen = []
+    real = lowering.padded_step
+
+    def spy(x, *a, **k):
+        seen.append(x.device.type)
+        return real(x, *a, **k)
+
+    lowering.padded_step = spy
+    cs.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        wit = witness.device_witness(img, "gaussian", MAIN_REPS, device=dev)
+        secs = time.perf_counter() - t0
+    finally:
+        lowering.padded_step = real
+    counts = cs.launch_counts()
+    require(counts == NO_LAUNCHES, f"the witness launched {counts}")
+    require(len(seen) == MAIN_REPS and set(seen) == {"cuda"},
+            f"the witness ran {len(seen)} steps on {set(seen)}")
+    equal = {k: bool(np.array_equal(wit, v)) for k, v in outs.items()}
+    require(all(equal.values()), f"witness disagrees: {equal}")
+    flipped = outs["stencil_fused"].copy()
+    flipped[MAIN_H // 2, MAIN_W // 3, 1] ^= 0x01
+    caught = not np.array_equal(wit, flipped)
+    require(caught, "a flipped byte of K1's output went unnoticed")
+    small = img[:24, :32].copy()
+    k1_small = cs.iterate(torch.from_numpy(small).to(dev), 5,
+                          g).cpu().numpy()
+    golden_ok = witness.golden_witness(small, "gaussian", 5, k1_small)
+    k1_small[3, 4, 2] ^= 0x80
+    golden_caught = not witness.golden_witness(small, "gaussian", 5,
+                                               k1_small)
+    require(golden_ok and golden_caught,
+            f"golden: agrees {golden_ok}, caught a flip {golden_caught}")
+    a = witness.WitnessSampler(witness.DEFAULT_RATE, seed=7)
+    b = witness.WitnessSampler(witness.DEFAULT_RATE, seed=7)
+    require([a.pick() for _ in range(4096)] == [b.pick() for _ in
+                                                range(4096)],
+            "two samplers with one seed picked differently")
+    return {"phase": "witness", "ok": True, "reps": MAIN_REPS,
+            "equal": equal, "flip_caught": caught,
+            "golden_agrees": golden_ok, "golden_flip_caught": golden_caught,
+            "witness_launches": counts, "witness_devices": sorted(set(seen)),
+            "witness_seconds": secs}
+
+
 def phase_times(dev) -> dict:
     from tpu_stencil_torch.ops import cuda_stencil as cs
     from tpu_stencil_torch.ops import lowering
@@ -1801,6 +2270,9 @@ def run(dev: torch.device) -> None:
     autotune_path = phase_autotune_path(dev)
     emit(autotune_path)
     emit(phase_job_hardened(dev))
+    overlap_path = phase_overlap_path(dev)
+    emit(overlap_path)
+    emit(phase_witness(dev))
     times = phase_times(dev)
     emit(times)
 
@@ -1838,12 +2310,22 @@ def run(dev: torch.device) -> None:
              "window_launches"]["stencil_valid"],
          "warmup_launches": sharded_path["runs"]["cli_mesh1x1_warm"][
              "warmup_launches"]["stencil_valid"],
-         "max_abs_err": max(k3["max_abs_err"], sharded_path["max_abs_err"]),
+         "max_abs_err": max(k3["max_abs_err"], sharded_path["max_abs_err"],
+                            overlap_path["runs"]["thin_windows"][
+                                "max_abs_err"]),
          "ms": times["stencil_valid_ms"],
          **common, "plain_ms": times["stencil_valid_plain_ms"],
          "bound_ms": times["stencil_valid_bound_ms"],
          "bound_by": times["stencil_valid_bound_by"],
-         "body": times["tile_ab"]["gaussian"]["body"]},
+         "body": times["tile_ab"]["gaussian"]["body"],
+         # K3 under each overlap mode on the 2x2 job (window launches,
+         # ms per rep of the runner), and K3 on one thin border window.
+         "overlap_launches": {
+             m: overlap_path["runs"][f"job_{m}"]["launches"]["stencil_valid"]
+             for m in OVERLAP_MODES + ("auto",)},
+         "overlap_auto": overlap_path["runs"]["auto"]["verdict"],
+         "overlap_ms_per_rep": overlap_path["runs"]["ms_per_rep"],
+         "window": overlap_path["runs"]["thin_windows"]["left_band_rgb"]},
         # L2 and L1 run on the tools' path, not the job's: their launches
         # are those of the tool runs in phases l2 and l1, with no warm-up.
         {"name": "stencil_lab",

@@ -69,7 +69,9 @@ def test_every_module_is_found():
               "tpu_stencil_torch.serve.metrics",
               "tpu_stencil_torch.resilience.faults",
               "tpu_stencil_torch.resilience.fallback",
-              "tpu_stencil_torch.runtime.checkpoint"):
+              "tpu_stencil_torch.runtime.checkpoint",
+              "tpu_stencil_torch.integrity.witness",
+              "tpu_stencil_torch.parallel.overlap"):
         assert m in mods
 
 

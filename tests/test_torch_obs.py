@@ -5,8 +5,7 @@ and the text exposition: a traced job of the port must record the span
 names of the JAX package's job in the same order, one ``iterate.rep`` per
 rep, the same breakdown rows, and a registry with the same metric keys
 (apart from the ``introspect_*`` and device-memory gauges, whose
-instruments differ by design, and the sharded runner's ``overlap_mode``
-gauge, which comes with ``--overlap``); the exposition text round-trips
+instruments differ by design); the exposition text round-trips
 exactly. Inputs: seeded 64x48 grey and RGB raw files; outputs compared
 byte for byte.
 """
@@ -154,16 +153,14 @@ def test_sharded_trace_has_phase_probes(tmp_path, backend):
             "--backend", backend]
     tt, jt = _both(tmp_path, argv, mesh=True)
     names = [r.name for r in tt.spans()]
-    # The JAX runner's per-edge exchange spans come with --overlap.
-    jnames = [r.name for r in jt.spans()
-              if not r.name.startswith("sharded.exchange_edge")]
+    jnames = [r.name for r in jt.spans()]
     assert names == jnames
     assert {"sharded.probe_compile", "sharded.halo_exchange",
             "sharded.interior_compute"} <= set(names)
+    assert {f"sharded.exchange_edge[{x}]" for x in "nswe"} <= set(names)
     assert names.count("iterate.rep") == 3
     rows = [r["name"] for r in obs.breakdown.aggregate(tt)]
-    jrows = [r["name"] for r in jobs.breakdown.aggregate(jt)
-             if not r["name"].startswith("sharded.exchange_edge")]
+    jrows = [r["name"] for r in jobs.breakdown.aggregate(jt)]
     assert rows == jrows
 
 
@@ -183,7 +180,7 @@ def test_metric_keys_match_jax(tmp_path, mesh, traced):
             "pallas"] + (["--mesh", "2x2"] if mesh else [])
     _both(tmp_path, argv, mesh=mesh, traced=traced)
     tkeys = _keys(obs.snapshot())
-    jkeys = _keys(jobs.snapshot(), drop=("overlap_mode",))
+    jkeys = _keys(jobs.snapshot())
     assert tkeys == jkeys
     phases = {n for s, n in tkeys if s == "histograms"}
     want = {"load", "compile", "iterate", "store"} | (

@@ -516,7 +516,8 @@ def test_autotune_on_a_mesh_runs_and_reports_the_tile_verdict(
                       "--backend", "autotune", "--platform", "cpu", "--time",
                       "--output", str(tmp_path / "c.raw")]) == 0
     line = capsys.readouterr().out.rstrip().splitlines()[1]
-    assert ("backend=pallas schedule=fused block_h=32 fuse=10 mesh=(1, 1)"
+    assert ("backend=pallas schedule=fused block_h=32 fuse=10 overlap=off "
+            "mesh=(1, 1)"
             in line), line
     assert "stencil_valid:0" in line and "tune_probes=" in line
     assert (tmp_path / "c.raw").read_bytes() == want

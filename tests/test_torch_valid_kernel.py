@@ -158,7 +158,11 @@ def test_valid_geometry_fits_shared_memory(name, th, fuse, block_h, want):
 
 
 def test_binding_mirrors_the_c_layout():
-    assert ctypes.sizeof(cs._ValidGeometry) == 4 * 11
+    # Eleven ints, then the input and output row pitches as 64-bit ints
+    # at their natural alignment.
+    assert ctypes.sizeof(cs._ValidGeometry) == 4 * 11 + 4 + 8 * 2
+    assert cs._ValidGeometry.src_pitch.offset == 48
+    assert cs._ValidGeometry.dst_pitch.offset == 56
     assert _build.SOURCES["stencil_valid"] == ("stencil_valid.cu",
                                                "stencil_tile.cuh")
     path = _build.library_path("stencil_valid")

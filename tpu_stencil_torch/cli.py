@@ -10,7 +10,8 @@ CPU instead, and with no GPU and no ``--platform cpu`` it exits 2 with a
 message rather than running on the CPU.
 
 ``--trace``/``--breakdown`` trace the job's phases (the breakdown tables
-print before the ``Execution time`` line, as the JAX package's do),
+print before the ``Execution time`` line, as the JAX package's do; a
+sharded run adds the overlap table),
 ``--metrics-text`` writes the driver registry, ``--hlo-dump`` is accepted
 and writes nothing.
 """
@@ -71,6 +72,10 @@ def main(argv=None) -> int:
         if result.block_h is not None:
             # Effective launched geometry (post align/clamp).
             sched += f" block_h={result.block_h} fuse={result.fuse}"
+        if result.overlap is not None:
+            # The resolved overlap schedule (auto and fused-split resolve,
+            # a degenerate tile runs off): what ran.
+            sched += f" overlap={result.overlap}"
         launches = ",".join(f"{k}:{v}" for k, v in result.launches.items())
         if result.body:
             # The tile body the kernels ran (cuda_stencil.tile_body).
@@ -120,6 +125,25 @@ def _report_observability(trace_path, breakdown, cfg, result) -> None:
         "steady_depth": steady_depth,
     }), end="")
     print(obs.breakdown.render_resilience(obs.snapshot()), end="")
+    if result.mesh_shape is not None and result.overlap is not None:
+        # Sharded runs: the ghost-bytes model beside the probe spans, at
+        # fuse 1 and 1 byte per element: the probes exchange one
+        # halo-deep ring of the uint8 tile.
+        from tpu_stencil_torch import filters
+        from tpu_stencil_torch.ops import lowering
+        from tpu_stencil_torch.parallel import partition
+
+        plan = lowering.plan_filter(filters.get_filter(cfg.filter_name))
+        print(obs.breakdown.render_overlap(tracer, {
+            "overlap": result.overlap,
+            "tile": partition.tile_shape(cfg.height, cfg.width,
+                                         result.mesh_shape),
+            "channels": cfg.channels,
+            "halo": plan.halo,
+            "mesh_shape": result.mesh_shape,
+            "fuse": 1,
+            "elem_bytes": 1,
+        }), end="")
 
 
 def _report_introspection(breakdown, cfg, result, hlo_dump) -> None:

@@ -26,6 +26,15 @@ from typing import Optional, Tuple
 # L2 budget, else the fused kernel at the deep depth.
 PALLAS_SCHEDULES = ("pad", "shrink", "strips", "pack", "pack_strips", "deep")
 
+# Interior/border overlap schedules of the sharded path, the JAX
+# package's vocabulary (tpu_stencil_torch/parallel/overlap.py imports it):
+# "off" exchanges then computes; "split"/"fused-split" compute the
+# ghost-free interior on a side stream while the ghosts are copied and
+# finish four border bands after one join; "edge" copies each edge on its
+# own and finishes each border piece after its own edge; "auto" resolves
+# from measured probes (runtime/autotune.best_overlap), cached.
+OVERLAP_MODES = ("auto", "split", "fused-split", "edge", "off")
+
 # The JAX package's backend names plus the port's own spellings:
 # "cuda" = "pallas" (the hand-written kernels), "torch" = "xla" (torch ops).
 BACKENDS = ("auto", "xla", "pallas", "reference", "autotune", "cuda", "torch")
@@ -68,6 +77,11 @@ def _validate_common(cfg) -> None:
         raise ValueError(
             f"fuse must be a positive rep count (reps per HBM "
             f"round-trip), got {cfg.fuse}"
+        )
+    if cfg.overlap not in OVERLAP_MODES:
+        raise ValueError(
+            f"unknown overlap mode {cfg.overlap!r}; expected one of "
+            f"{'|'.join(OVERLAP_MODES)}"
         )
     if cfg.dispatch_timeout_s < 0:
         raise ValueError(
@@ -116,6 +130,9 @@ class JobConfig:
     # a job on the CPU walks past the kernel rungs; a card job refuses it
     # (resilience.fallback.job_ladder).
     fallback_backend: Optional[str] = None
+    # Interior/border overlap schedule of a sharded run (OVERLAP_MODES);
+    # single-device runs have no exchange and ignore it.
+    overlap: str = "off"
 
     def __post_init__(self) -> None:
         _validate_common(self)
@@ -294,6 +311,17 @@ def build_parser() -> argparse.ArgumentParser:
         help="resume from a matching checkpoint if present",
     )
     p.add_argument(
+        "--overlap", default="off", choices=list(OVERLAP_MODES),
+        help="compute/exchange overlap schedule on sharded meshes: off "
+             "exchanges the ghosts, then runs each tile; split computes "
+             "each tile's ghost-free interior on a side stream while the "
+             "ghosts are copied and finishes the four border bands from "
+             "them; fused-split does so per chunk of fuse reps (split off "
+             "the kernels); edge copies each edge on its own and finishes "
+             "each border piece as soon as its own edge has arrived; auto "
+             "picks from measured probes (cached). Ignored off a mesh",
+    )
+    p.add_argument(
         "--time", action="store_true",
         help="additionally print whole-job time incl. I/O, the backend, "
              "schedule and kernel launch counts; the compute-window line "
@@ -341,6 +369,7 @@ def parse_args(argv=None) -> Tuple[JobConfig, argparse.Namespace]:
             fuse=ns.fuse,
             dispatch_timeout_s=ns.dispatch_timeout_s,
             fallback_backend=ns.fallback_backend,
+            overlap=ns.overlap,
         )
     except ValueError as e:
         parser.error(str(e))

@@ -320,6 +320,10 @@ class JobResult:
     # Kernel launches of the warm-up before the window, by kernel name
     # (not the autotuner's probes nor a sharded run's tracing probes).
     warmup_launches: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # The interior/border overlap schedule a sharded run ran ("off",
+    # "split", "fused-split" or "edge": "auto" resolved, and a mode that
+    # degraded reported as what ran); None on one device (no exchange).
+    overlap: Optional[str] = None
 
 
 def _ran_geometry(model: IteratedConv2D, rows: int, w: int, channels: int,
@@ -517,14 +521,17 @@ def _run_sharded(cfg: JobConfig, model: IteratedConv2D,
     on every mesh device outside the window; under tracing, the
     exchange/compute probes; the rep loop fenced on every mesh device,
     chunked by ``checkpoint_every``; each tile's rectangle written at its
-    offsets into a raw output (else the stitched image saved)."""
+    offsets into a raw output (else the stitched image saved). The
+    runner takes ``cfg.overlap``; each call of the window (a
+    ``--checkpoint-every`` chunk among them) starts its own slab and
+    exchanges it from the tiles it is given."""
     from tpu_stencil_torch.parallel import distributed, sharded
     from tpu_stencil_torch.runtime import checkpoint as ckpt
 
     h, w, ch = cfg.height, cfg.width, cfg.channels
     runner = sharded.ShardedRunner(model, (h, w), ch,
                                    mesh_shape=cfg.mesh_shape,
-                                   devices=devices)
+                                   devices=devices, overlap=cfg.overlap)
     start_rep, tiles = 0, None
     if resume:
         restored = ckpt.restore_sharded(cfg, runner)
@@ -612,4 +619,5 @@ def _run_sharded(cfg: JobConfig, model: IteratedConv2D,
         tune_probes=autotune.probe_count - probes_before,
         body=runner.body,
         warmup_launches=warm_launches,
+        overlap=runner.overlap,
     )

@@ -14,9 +14,10 @@ and ``sharded.interior_compute`` are top-level spans whose time counts.
 Side tables the CLI prints after the phase table:
 :func:`render_introspection` (the kernel instances the warm-up launched,
 beside the traffic model), :func:`render_resilience` (every nonzero
-resilience counter) and :func:`render_memory` (the device allocator, or
-an explicit "unavailable" line). The overlap and stream tables come with
-their slices.
+resilience counter), :func:`render_memory` (the device allocator, or
+an explicit "unavailable" line) and, for a sharded run,
+:func:`render_overlap` (the ghost-bytes model beside the probe spans). The
+stream table comes with its slice.
 """
 
 from __future__ import annotations
@@ -207,3 +208,85 @@ def render_memory(stats: Optional[dict]) -> str:
              "bytes_free", "bytes_limit")
     parts = [f"{k}={stats[k] / 1e6:.2f}MB" for k in order if k in stats]
     return "device memory: " + " ".join(parts) + "\n"
+
+
+def render_overlap(tracer: Tracer, info: dict) -> str:
+    """The overlap side table of a sharded ``--breakdown`` run: the
+    modelled ghost bytes per rep and tile
+    (:func:`tpu_stencil_torch.runtime.roofline.ici_ghost_bytes_per_rep`)
+    beside the measured probe spans (exchange, interior, and under an
+    overlap mode its interior and border halves), the exchange's implied
+    GB/s, a per-edge table (one row per ``sharded.exchange_edge[*]`` span:
+    its seconds, its modelled bytes, its implied GB/s) and the
+    exchange/interior ratio ``--overlap auto`` gates on.
+
+    The implied rates stand against no ceiling: on one card the exchange
+    is device-to-device copies, and no interconnect rate is modelled.
+
+    ``info``: ``{overlap, tile, channels, halo, mesh_shape, fuse,
+    elem_bytes}``. Renders nothing when no probe span was recorded."""
+    from tpu_stencil_torch.parallel.overlap import EDGE_NAMES
+
+    by = {r["name"]: r for r in aggregate(tracer)}
+    names = [n for n in (
+        "sharded.halo_exchange", "sharded.interior_compute",
+        "sharded.interior_overlap", "sharded.border_compute",
+    ) if n in by]
+    edge_rows = [(x, f"sharded.exchange_edge[{x}]") for x in EDGE_NAMES
+                 if f"sharded.exchange_edge[{x}]" in by]
+    if not names and not edge_rows:
+        return ""
+    from tpu_stencil_torch.runtime import roofline
+
+    kw = dict(fuse=info.get("fuse") or 1,
+              elem_bytes=info.get("elem_bytes", 1))
+    model_mode = "edge" if info.get("overlap") == "edge" else "phased"
+    bytes_rep = roofline.ici_ghost_bytes_per_rep(
+        info["tile"], info["channels"], info["halo"], info["mesh_shape"],
+        mode=model_mode, **kw)
+    # The halo_exchange probe runs the phased (corner-routed) exchange, so
+    # its rate divides the phased bytes whatever the schedule.
+    bytes_phased = roofline.ici_ghost_bytes_per_rep(
+        info["tile"], info["channels"], info["halo"], info["mesh_shape"],
+        **kw)
+    lines = [
+        "",
+        f"overlap schedule: {info['overlap']}  (ghost model: "
+        f"{bytes_rep / 1e6:.6g} MB/rep/tile; implied GB/s against no "
+        f"ceiling)",
+    ]
+    head = f"{'probe span':<26}  {'seconds':>10}  {'GB/s':>8}"
+    lines += [head, "-" * len(head)]
+    for n in names:
+        sec = by[n]["seconds"] / by[n]["count"]
+        gbps = ""
+        if n == "sharded.halo_exchange" and sec > 0 and bytes_phased > 0:
+            gbps = f"{bytes_phased / sec / 1e9:8.2f}"
+        lines.append(f"{n:<26}  {sec:>10.6f}  {gbps:>8}")
+    if edge_rows:
+        # The per-edge probes copy one bare-tile strip each: the edge
+        # pipeline's geometry, each span over its own edge's bytes.
+        per_edge = roofline.ici_ghost_bytes_per_edge(
+            info["tile"], info["channels"], info["halo"],
+            info["mesh_shape"], elem_bytes=info.get("elem_bytes", 1),
+            mode="edge")
+        lines.append("per-edge exchange (one strip copy per edge; border "
+                     "pieces wait per edge):")
+        ehead = f"{'edge':<6}  {'seconds':>10}  {'model KB':>8}  {'GB/s':>8}"
+        lines += [ehead, "-" * len(ehead)]
+        for x, span_name in edge_rows:
+            sec = by[span_name]["seconds"] / by[span_name]["count"]
+            b = per_edge.get(x, 0.0)
+            gbps = f"{b / sec / 1e9:8.2f}" if sec > 0 and b > 0 else ""
+            lines.append(f"{x:<6}  {sec:>10.6f}  {b / 1e3:>8.3f}  {gbps:>8}")
+    ex = by.get("sharded.halo_exchange")
+    it = by.get("sharded.interior_compute")
+    if ex and it and it["seconds"] > 0:
+        from tpu_stencil_torch.runtime.autotune import OVERLAP_MIN_RATIO
+
+        ratio = (ex["seconds"] / ex["count"]) / (it["seconds"] / it["count"])
+        lines.append(
+            f"probe ratio exchange/interior: {ratio:.3f} (--overlap auto "
+            f"splits above {OVERLAP_MIN_RATIO:g} where a split measures "
+            f"faster than off)")
+    return "\n".join(lines) + "\n"

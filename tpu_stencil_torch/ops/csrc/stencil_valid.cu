@@ -5,6 +5,10 @@
 // plus g = fuse*halo ghost rows and g*C ghost lanes per side, delivered by
 // the halo exchange (real neighbour data, zeros past the global image);
 // the kernel runs `fuse` reps on it and returns the (th, tw*C) interior.
+// The ext tile may be a window of a larger array and the interior a
+// rectangle of another: each comes with its own row pitch (lanes are unit
+// stride), so the interior/border overlap schedules run K3 on a thin
+// border band in place, with no copy in and no stitch out.
 // Each rep re-zeroes only the pixels outside the *global* padded extent,
 // found from the shard's global origin (row0, col0) by one unsigned
 // compare per axis; the tile's own edges are not a boundary — their
@@ -18,7 +22,7 @@
 // bottom or right edge on a partial last tile — those positions are at
 // least g away from any stored pixel), runs the `fuse` reps in shared
 // memory over a band that shrinks by halo rows and halo*C lanes per rep,
-// and stores its interior straight into the contiguous output.
+// and stores its interior straight into the output rows.
 //
 // What bounds it on an H100: as K1, the work inside the block (~5 int32
 // ops per flat element per rep for the 3x3 gaussian against ~2 bytes of
@@ -46,6 +50,8 @@ struct StencilValidGeometry {
   int cols_glob_c;   // flat lanes of the padded global image
   int tile_h;        // output rows per block
   int tile_w;        // output lanes per block
+  long long src_pitch;  // bytes between input rows (>= wc_ext)
+  long long dst_pitch;  // bytes between output rows (>= wc_out)
 };
 
 // Tile coordinates are ext-tile coordinates; the global position of ext
@@ -57,6 +63,7 @@ struct StencilValidBounds {
   uint8_t* dst;
   int rows_ext, wc_ext;
   int rows_out, wc_out;
+  long long src_pitch, dst_pitch;
   int ghost_rows, ghost_lanes;
   int row_off, col_off;
   int rows_glob, cols_glob_c;
@@ -64,7 +71,7 @@ struct StencilValidBounds {
   static constexpr bool coherent = false;
 
   __device__ __forceinline__ const uint8_t* load_row(int row) const {
-    return (unsigned)row < (unsigned)rows_ext ? src + (size_t)row * wc_ext
+    return (unsigned)row < (unsigned)rows_ext ? src + row * src_pitch
                                               : nullptr;
   }
   __device__ __forceinline__ int load_wc() const { return wc_ext; }
@@ -80,7 +87,7 @@ struct StencilValidBounds {
   }
   __device__ __forceinline__ uint8_t* store_row(int row) const {
     row -= ghost_rows;
-    return (unsigned)row < (unsigned)rows_out ? dst + (size_t)row * wc_out
+    return (unsigned)row < (unsigned)rows_out ? dst + row * dst_pitch
                                               : nullptr;
   }
   __device__ __forceinline__ int store_off() const { return ghost_lanes; }
@@ -141,7 +148,8 @@ static const void* prepare(const StencilParams* p,
     return nullptr;
   const int ghost = fuse * (p->k / 2);
   if (v->rows_ext != v->rows_out + 2 * ghost ||
-      v->wc_ext != v->wc_out + 2 * ghost * v->channels)
+      v->wc_ext != v->wc_out + 2 * ghost * v->channels ||
+      v->src_pitch < v->wc_ext || v->dst_pitch < v->wc_out)
     return nullptr;
   const StencilGeometry g = ext_geometry(v);
   if (!stencil_body_runs(*p, g, body)) return nullptr;
@@ -157,7 +165,10 @@ static int g_last_body = -1;
 extern "C" {
 
 // One launch: `fuse` reps of the ext tile src into the interior dst
-// (distinct buffers) with the tile body `body` (STENCIL_BODY_*). Returns the
+// (distinct buffers, rows v->src_pitch and v->dst_pitch bytes apart) with
+// the tile body `body` (STENCIL_BODY_*). The widest access of each side is
+// picked from its base and its pitch together, so a window whose origin
+// or pitch is not 16-byte aligned loads and stores narrower. Returns the
 // cudaError_t of the launch (0 = launched); a body that does not run the
 // plan is cudaErrorInvalidValue.
 int stencil_valid_launch(const void* src, void* dst, const StencilParams* p,
@@ -171,10 +182,12 @@ int stencil_valid_launch(const void* src, void* dst, const StencilParams* p,
   StencilValidBounds b{
       static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst),
       v->rows_ext, v->wc_ext, v->rows_out, v->wc_out,
+      v->src_pitch, v->dst_pitch,
       ghost, ghost * v->channels,
       v->row0 - ghost, v->col0 - ghost * v->channels,
       v->rows_glob, v->cols_glob_c,
-      stencil_vec_width(src, v->wc_ext), stencil_vec_width(dst, v->wc_out)};
+      stencil_vec_width(src, v->src_pitch),
+      stencil_vec_width(dst, v->dst_pitch)};
   StencilParams pv = *p;
   StencilGeometry gv = ext_geometry(v);
   int fz = fuse;

@@ -21,7 +21,10 @@ sharded`):
 * **K3** :func:`stencil_valid` (``csrc/stencil_valid.cu``, replaces
   ``_valid_kernel``; :func:`valid_fused` is the JAX package's entry):
   ``fuse`` reps of one shard's ghost-extended tile, re-zeroing only the
-  pixels outside the global padded extent, returning the interior.
+  pixels outside the global padded extent, returning the interior. Its
+  input and output may be windows of larger arrays, a row pitch each: the
+  overlap schedules (:mod:`tpu_stencil_torch.parallel.overlap`) run it on
+  thin border bands in place.
 
 Each wrapper takes its plain PyTorch version (int32 shifted slices, the
 same function) only for a tensor on the CPU. For a CUDA tensor it launches
@@ -441,7 +444,8 @@ def stencil_valid_plain(ext2: torch.Tensor, plan: StencilPlan, channels: int,
     ``global_shape`` = (rows, cols * C), placed by the interior's global
     origin (``row0``, flat ``col0``). Returns the (th, tw * C) interior —
     what ``_valid_kernel`` keeps after its re-pad by halo each rep, whose
-    padded band never reaches the interior."""
+    padded band never reaches the interior. ``ext2`` may be a window of a
+    larger array at any row pitch, as K3 takes it."""
     h = plan.halo
     g = fuse * h
     rows_ext, wc_ext = ext2.shape
@@ -499,7 +503,8 @@ class _ValidGeometry(ctypes.Structure):
         ("channels", ctypes.c_int), ("row0", ctypes.c_int),
         ("col0", ctypes.c_int), ("rows_glob", ctypes.c_int),
         ("cols_glob_c", ctypes.c_int), ("tile_h", ctypes.c_int),
-        ("tile_w", ctypes.c_int),
+        ("tile_w", ctypes.c_int), ("src_pitch", ctypes.c_longlong),
+        ("dst_pitch", ctypes.c_longlong),
     ]
 
 
@@ -593,7 +598,8 @@ def _tile_query(kernel: str, fn: str, plan: StencilPlan, block_h: int,
         g = fuse * plan.halo
         geom = _ValidGeometry(block_h + 2 * g, TILE_W + 2 * g * channels,
                               block_h, TILE_W, channels, 0, 0, block_h,
-                              TILE_W, block_h, TILE_W)
+                              TILE_W, block_h, TILE_W,
+                              TILE_W + 2 * g * channels, TILE_W)
     lib = _tile_lib(kernel)
     params = _params(plan)
     return lib, getattr(lib, f"{kernel}_{fn}")(
@@ -738,6 +744,26 @@ def _check_input(x2: torch.Tensor) -> None:
         )
 
 
+def row_pitch(x2: torch.Tensor) -> int:
+    """The row pitch of a 2-D window (:func:`_check_window`): its row
+    stride, or its width when it has one row (any stride is then one)."""
+    return x2.stride(0) if x2.shape[0] > 1 else x2.shape[1]
+
+
+def _check_window(x2: torch.Tensor) -> None:
+    """K3's window form: a 2-D uint8 view whose lanes are unit stride and
+    whose rows lie a positive pitch of at least one row apart (a rectangle
+    of a larger row-major array)."""
+    if (x2.dtype != torch.uint8 or x2.dim() != 2
+            or (x2.shape[1] > 1 and x2.stride(1) != 1)
+            or (x2.shape[0] > 1 and x2.stride(0) < x2.shape[1])):
+        raise ValueError(
+            f"expected a 2-D uint8 window with unit lane stride and a row "
+            f"pitch of at least its width, got {x2.dtype} "
+            f"{tuple(x2.shape)} strides {tuple(x2.stride())}"
+        )
+
+
 def _check_cuda(*ts: torch.Tensor) -> None:
     dev = ts[0].device
     for t in ts:
@@ -838,12 +864,17 @@ def stencil_valid(ext2: torch.Tensor, plan: StencilPlan, channels: int,
                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K3: ``fuse`` reps of the flat ghost-extended shard tile ``ext2``
     ((th + 2g, (tw + 2g) * C) uint8, g = fuse * halo) into the (th, tw * C)
-    interior ``out`` (allocated when None), in the tile body
-    :func:`tile_body` names for ``plan``. ``row0``/``col0``: the global
-    row and flat lane of the interior's origin; ``global_shape``: the
-    padded global (rows, cols * C). CPU tensors run
-    :func:`stencil_valid_plain`."""
-    _check_input(ext2)
+    interior ``out`` (allocated when None; a distinct buffer), in the tile
+    body :func:`tile_body` names for ``plan``. ``row0``/``col0``: the
+    global row and flat lane of the interior's origin; ``global_shape``:
+    the padded global (rows, cols * C).
+
+    ``ext2`` and ``out`` may be windows of larger arrays
+    (:func:`_check_window`: unit lane stride, any row pitch): a border band
+    of an exchanged tile runs in place and writes straight into its
+    rectangle of the output tile, as thin as ``g`` rows or ``g * C`` lanes.
+    CPU tensors run :func:`stencil_valid_plain`."""
+    _check_window(ext2)
     g = fuse * plan.halo
     th = ext2.shape[0] - 2 * g
     twc = ext2.shape[1] - 2 * g * channels
@@ -852,6 +883,11 @@ def stencil_valid(ext2: torch.Tensor, plan: StencilPlan, channels: int,
             f"ext tile {tuple(ext2.shape)} leaves no interior inside its "
             f"{g}-wide ghost band"
         )
+    if out is not None:
+        _check_window(out)
+        if tuple(out.shape) != (th, twc):
+            raise ValueError(
+                f"out must be ({th}, {twc}), got {tuple(out.shape)}")
     if ext2.device.type == "cpu":
         res = stencil_valid_plain(ext2, plan, channels, fuse, row0, col0,
                                   global_shape)
@@ -860,13 +896,12 @@ def stencil_valid(ext2: torch.Tensor, plan: StencilPlan, channels: int,
     if out is None:
         out = torch.empty((th, twc), dtype=torch.uint8, device=ext2.device)
     _check_cuda(ext2, out)
-    _check_input(out)
-    if tuple(out.shape) != (th, twc):
-        raise ValueError(f"out must be ({th}, {twc}), got {tuple(out.shape)}")
+    if out.data_ptr() == ext2.data_ptr():
+        raise ValueError("out must be a distinct buffer from ext2")
     params = _params(plan)
     geom = _ValidGeometry(ext2.shape[0], ext2.shape[1], th, twc, channels,
                           row0, col0, global_shape[0], global_shape[1],
-                          block_h, TILE_W)
+                          block_h, TILE_W, row_pitch(ext2), row_pitch(out))
     with torch.cuda.device(ext2.device):
         rc = lib.stencil_valid_launch(
             ext2.data_ptr(), out.data_ptr(), ctypes.addressof(params),
@@ -1012,11 +1047,13 @@ def padded_step(img_u8: torch.Tensor, plan: StencilPlan) -> torch.Tensor:
 def valid_fused(ext2: torch.Tensor, plan: StencilPlan, fuse: int,
                 channels: int, row0: int, col0: int,
                 global_shape: Tuple[int, int],
-                block_h: Optional[int] = None) -> torch.Tensor:
+                block_h: Optional[int] = None,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The JAX package's ``valid_fused``: ``fuse`` reps of a ghost-extended
-    flat shard tile through K3, at the tile height :func:`valid_geometry`
-    picks for its interior (``block_h`` forces one)."""
+    flat shard tile (or window, :func:`stencil_valid`) through K3, into
+    ``out`` when given, at the tile height :func:`valid_geometry` picks for
+    its interior (``block_h`` forces one)."""
     th = ext2.shape[0] - 2 * fuse * plan.halo
     bh, _ = valid_geometry(plan, th, channels, fuse, block_h)
     return stencil_valid(ext2, plan, channels, fuse, row0, col0,
-                         global_shape, block_h=bh)
+                         global_shape, block_h=bh, out=out)

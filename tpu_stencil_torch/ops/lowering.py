@@ -230,6 +230,22 @@ def valid_step(ext_u8: torch.Tensor, plan: StencilPlan) -> torch.Tensor:
     raise ValueError(f"unknown plan kind {plan.kind!r}")
 
 
+def valid_window(ext: torch.Tensor, plan: StencilPlan,
+                 r0: int, nr: int, c0: int, nc: int) -> torch.Tensor:
+    """Strip-valid pass: the ``[r0, r0+nr) x [c0, c0+nc)`` window of
+    ``valid_step(ext)``, computed by slicing the *input* window first
+    (``nr + 2*halo`` rows, ``nc + 2*halo`` columns of ``ext``), so only
+    the strip's own work is done.
+
+    Equal byte for byte to slicing the whole ``valid_step(ext)``: every
+    output pixel accumulates its taps in the same static order over the
+    same input values however the surrounding array was windowed. The
+    torch-ops overlap schedules (:mod:`tpu_stencil_torch.parallel.overlap`)
+    build their border strips from it."""
+    k = plan.k
+    return valid_step(ext[r0:r0 + nr + (k - 1), c0:c0 + nc + (k - 1)], plan)
+
+
 def force_f32_plan(plan: StencilPlan) -> StencilPlan:
     """Demote any plan to the generic f32 schedule (the 'reference' backend —
     the closest analog of the C program's pre-normalized float MACs)."""

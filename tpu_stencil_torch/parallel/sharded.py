@@ -21,22 +21,33 @@ Indivisible image shapes are padded up to the tile grid and the pad
 re-zeroed after every rep by a mask multiply; the runner then forces
 ``fuse = 1``, because K3 re-zeroes only outside the padded global extent.
 
-Under tracing the runner splits its time into exchange and compute by
-two probes outside the timed window (:meth:`ShardedRunner.
-trace_phase_probes`). The interior/border overlap schedules
-(``--overlap``) with their per-edge probes, several processes
-(``torch.distributed``) and the shared runner cache are not ported yet.
+The interior/border overlap schedules (``--overlap split|fused-split|
+edge|auto``, :mod:`tpu_stencil_torch.parallel.overlap`) replace the
+monolithic chunk with pieces: the interior on a side stream while the
+ghosts are copied, the border bands after them, every piece written in
+place into the next tile of a persistent slab. ``auto`` resolves from
+measured probes (:func:`tpu_stencil_torch.runtime.autotune.best_overlap`,
+cached); the resolved mode is what runs and what is reported.
+
+Under tracing the runner splits its time by probes outside the timed
+window (:meth:`ShardedRunner.trace_phase_probes`): exchange and compute,
+each edge's exchange, and under an overlap mode its interior and border
+halves. Several processes (``torch.distributed``) and the shared runner
+cache are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from tpu_stencil_torch.obs.tracing import fence
 from tpu_stencil_torch.ops import cuda_stencil as cs
 from tpu_stencil_torch.ops import lowering as _lowering
+from tpu_stencil_torch.parallel import overlap as overlap_mod
 from tpu_stencil_torch.parallel import partition
 from tpu_stencil_torch.parallel.halo import Grid, halo_exchange
 from tpu_stencil_torch.parallel.mesh import COLS_AXIS, ROWS_AXIS, make_mesh
@@ -111,14 +122,28 @@ def _valid_chunk(tiles: Grid, ext: Grid, plan: _lowering.StencilPlan,
 def build_sharded_iterate(plan: _lowering.StencilPlan, needs_mask: bool,
                           backend: str = "xla", global_shape=None,
                           fuse: int = 1, boundary: str = "zero",
-                          block_h: Optional[int] = None):
+                          block_h: Optional[int] = None,
+                          overlap: str = "off",
+                          streams: Optional[overlap_mod.Streams] = None):
     """The sharded rep loop: returns ``fn(tiles, reps, mask) -> tiles``.
 
     ``backend='pallas'`` runs ``reps // fuse`` K3 chunks, then the
     ``reps % fuse`` remainder one rep at a time (``global_shape`` = padded
-    (rows, cols * C) required); any other backend runs :func:`_local_step`
-    per rep. ``mask`` (a grid like the tiles, or None) multiplies every
-    step's result."""
+    (rows, cols * C) required); any other backend runs one torch-ops rep
+    per chunk. ``mask`` (a grid like the tiles, or None) multiplies every
+    step's result.
+
+    ``overlap``: a *resolved* mode. ``off`` runs the monolithic chunk
+    (:func:`_pallas_local_chunk`, :func:`_local_step`); ``split``/
+    ``fused-split``/``edge`` run the chunks of
+    :mod:`tpu_stencil_torch.parallel.overlap` on one slab per call, on
+    ``streams`` (the runner's) on a card. ``edge`` under K3 needs a
+    ghost-free interior at every chunk depth (the runner clamps
+    ``fuse``)."""
+    if overlap not in overlap_mod.MODE_CODES:
+        raise ValueError(
+            f"build_sharded_iterate needs a resolved overlap mode, got "
+            f"{overlap!r}")
     if backend == "pallas":
         if boundary != "zero":
             raise ValueError(
@@ -131,7 +156,31 @@ def build_sharded_iterate(plan: _lowering.StencilPlan, needs_mask: bool,
             raise ValueError(
                 "sharded K3 execution with a pad mask requires fuse=1"
             )
+    elif fuse != 1:
+        raise ValueError("the torch-ops sharded step runs one rep per chunk")
 
+    if overlap != "off":
+        def iterate(tiles: Grid, reps: int,
+                    mask: Optional[Grid] = None) -> Grid:
+            def chunk(slab, n):
+                if backend == "pallas":
+                    run = (overlap_mod.fused_edge_chunk if overlap == "edge"
+                           else overlap_mod.fused_split_chunk)
+                    run(slab, plan, n, global_shape, block_h, mask, streams)
+                elif overlap == "edge":
+                    overlap_mod.edge_step(slab, plan, mask, boundary,
+                                          streams)
+                else:
+                    overlap_mod.split_step(slab, plan, mask, boundary,
+                                           streams)
+
+            return overlap_mod.edge_iterate(
+                tiles, cs.launch_schedule(int(reps), fuse), plan.halo, chunk,
+                streams)
+
+        return iterate
+
+    if backend == "pallas":
         def step_chunk(tiles, n_fused, mask):
             return _pallas_local_chunk(tiles, plan, n_fused, global_shape,
                                        mask, block_h=block_h)
@@ -141,12 +190,8 @@ def build_sharded_iterate(plan: _lowering.StencilPlan, needs_mask: bool,
 
     def iterate(tiles: Grid, reps: int, mask: Optional[Grid] = None) -> Grid:
         tiles = [list(row) for row in tiles]
-        if fuse > 1:
-            for _ in range(reps // fuse):
-                tiles = step_chunk(tiles, fuse, mask)
-            reps %= fuse
-        for _ in range(reps):
-            tiles = step_chunk(tiles, 1, mask)
+        for n in cs.launch_schedule(int(reps), fuse):
+            tiles = step_chunk(tiles, n, mask)
         return tiles
 
     return iterate
@@ -167,7 +212,9 @@ class ShardedRunner:
         channels: int,
         mesh_shape: Optional[Tuple[int, int]] = None,
         devices: Optional[Sequence] = None,
+        overlap: str = "off",
     ) -> None:
+        overlap_mod.check_mode(overlap)
         self.model = model
         self.h, self.w = image_shape
         self.channels = channels
@@ -253,12 +300,6 @@ class ShardedRunner:
         self._block_h = geo_bh if self.backend == "pallas" else None
         self._global_shape = (self.padded_shape[0],
                               self.padded_shape[1] * channels)
-        self._fn = build_sharded_iterate(
-            model.plan, self.needs_mask, backend=self.backend,
-            global_shape=self._global_shape,
-            fuse=self.fuse, boundary=self.boundary,
-            block_h=self._block_h,
-        )
         self._mask = None
         if self.needs_mask:
             mask = np.zeros(self.padded_shape, np.uint8)
@@ -266,6 +307,61 @@ class ShardedRunner:
             if channels != 1:
                 mask = np.repeat(mask[..., None], channels, axis=-1)
             self._mask = self.split(mask)
+        self._streams = overlap_mod.Streams()
+        # The overlap schedule, resolved after the chunk depth (auto
+        # measures this runner's own chunks): 'split' is one exchange per
+        # rep, 'edge' keeps a ghost-free interior at every chunk depth.
+        self.overlap_requested = overlap
+        self.overlap = self._resolve_overlap(overlap)
+        self.fuse = self._mode_fuse(self.overlap)
+        from tpu_stencil_torch import obs
+
+        obs.registry().gauge("overlap_mode").set(
+            overlap_mod.MODE_CODES[self.overlap])
+        self._fn = self._build(self.overlap)
+
+    def _build(self, overlap: str):
+        return build_sharded_iterate(
+            self.model.plan, self.needs_mask, backend=self.backend,
+            global_shape=self._global_shape,
+            fuse=self._mode_fuse(overlap), boundary=self.boundary,
+            block_h=self._block_h, overlap=overlap, streams=self._streams,
+        )
+
+    def _mode_fuse(self, mode: str) -> int:
+        """The chunk depth ``mode`` runs at on this runner: the resolved
+        fuse, 1 under 'split' (one exchange per rep), and under 'edge' on
+        K3 at most what leaves a ghost-free interior
+        (``min(tile) > 2 * fuse * halo``)."""
+        halo = self.model.plan.halo
+        if mode == "split" or self.backend != "pallas":
+            return 1
+        if mode == "edge" and halo:
+            return max(1, min(self.fuse, (min(self.tile) - 1) // (2 * halo)))
+        return self.fuse
+
+    def _resolve_overlap(self, requested: str) -> str:
+        """The mode this runner runs for ``requested``: 'off' on a tile
+        with no ghost-free interior even at one rep (every split would run
+        the monolithic chunk; the gauge and the JobResult name what runs);
+        'fused-split' is 'split' off the kernels; 'auto' asks
+        :func:`autotune.best_overlap` (this runner's probes, measured once
+        and cached; a warm cache measures nothing)."""
+        if requested == "off":
+            return "off"
+        h = self.model.plan.halo
+        if h < 1 or min(self.tile) <= 2 * h:
+            return "off"
+        if requested == "auto":
+            from tpu_stencil_torch.runtime import autotune
+
+            requested = autotune.best_overlap(
+                self.model.plan, self.tile, self.channels, self.mesh_shape,
+                self.backend, measure=self._measure_overlap_probes,
+                device=self.devices[0])
+        if requested == "fused-split" and self.backend != "pallas":
+            return "split"
+        return requested
 
     @property
     def devices(self) -> List[torch.device]:
@@ -299,14 +395,17 @@ class ShardedRunner:
     def describe_launches(self, depths) -> List[dict]:
         """The K3 instance each chunk of ``depths`` reps launches on every
         tile (:func:`cuda_stencil.describe_launch`, with ``launches`` the
-        tiles per chunk); empty off the kernels."""
+        K3 launches per chunk: one per tile, or a piece's each under an
+        overlap mode); empty off the kernels."""
         if self.backend != "pallas":
             return []
         th, tw = self.tile
+        per_tile = [overlap_mod.launches_per_chunk(
+            self.overlap, th, tw, d * self.model.plan.halo) for d in depths]
         return [dict(cs.describe_launch(
             "stencil_valid", self.model.plan, th, tw * self.channels,
             self.channels, self._block_h, d, self.devices[0]),
-            launches=len(self.devices)) for d in depths]
+            launches=len(self.devices) * n) for d, n in zip(depths, per_tile)]
 
     def introspect_warmup(self, depths, site_info) -> Optional[dict]:
         """Record the K3 instances the warm-up launched for ``depths`` at
@@ -351,26 +450,156 @@ class ShardedRunner:
                         for row in pair[1]]
         return exchange, compute
 
+    def edge_probes(self) -> Dict[str, Callable]:
+        """Per-edge exchange-only probes: ``{edge: fn(slab)}`` for the
+        edges of :data:`overlap.EDGE_NAMES` whose axis has more than one
+        tile (an axis of one exchanges nothing). Each copies only that
+        edge's ghost strips of every tile, ``max(1, halo)`` deep, into the
+        slab (:func:`overlap.exchange_edge`, the copies the pipeline's
+        border pieces wait on) and returns the slab's buffers to fence."""
+        g = max(1, self.model.plan.halo)
+        r, c = self.mesh_shape
+        sizes = {"n": r, "s": r, "w": c, "e": c}
+
+        def probe(name):
+            def fn(slab):
+                overlap_mod.exchange_edge(slab, name, g, self.boundary)
+                return slab.buffers
+            return fn
+
+        return {name: probe(name) for name in overlap_mod.EDGE_NAMES
+                if sizes[name] > 1}
+
+    def _overlap_probes(self):
+        """(interior_fn, border_fn) of the overlap mode's two halves at one
+        rep (``halo`` deep: traced runs launch one rep per call), each
+        ``fn(slab)`` on an exchanged slab, writing the pieces into the
+        slab's other buffer and returning the buffers to fence: the
+        interior pieces, and the border pieces (the split's four bands, or
+        the pipeline's eight). None on a tile with no ghost-free interior
+        at one rep."""
+        plan = self.model.plan
+        h = plan.halo
+        th, tw = self.tile
+        if overlap_mod.degenerate(th, tw, h):
+            return None
+        kernel = overlap_mod.PieceKernel(
+            plan, "pallas" if self.backend == "pallas" else "xla", 1,
+            self._global_shape, self._block_h)
+        rects = overlap_mod.piece_rects(self.overlap, th, tw, h,
+                                        self.channels)
+
+        def run(names):
+            def fn(slab):
+                for i in range(slab.grid[0]):
+                    for j in range(slab.grid[1]):
+                        for name in names:
+                            kernel(slab, i, j, rects[name], 1 - slab.cur)
+                return slab.buffers
+            return fn
+
+        return (run(["interior"]),
+                run([n for n in rects if n != "interior"]))
+
+    def _candidate_probes(self) -> Dict[str, Tuple[Callable, int]]:
+        """``{mode: (fn(tiles, reps), depth)}`` for 'off', the split
+        flavour ('fused-split' on K3, else 'split') and 'edge': each this
+        runner's rep loop under that mode at the chunk depth it would run,
+        which :meth:`_measure_overlap_probes` times over a few chunks."""
+        split = "fused-split" if self.backend == "pallas" else "split"
+        out = {}
+        for key, mode in (("off", "off"), ("split", split), ("edge", "edge")):
+            fn = self._build(mode)
+            out[key] = (lambda t, n, _fn=fn: _fn(t, n, self._mask),
+                        self._mode_fuse(mode))
+        return out
+
+    def _measure_overlap_probes(self) -> dict:
+        """The probe bundle ``--overlap auto`` decides on, on a zero canvas
+        of this runner's padded shape: ``{"exchange_s", "interior_s",
+        "edges": {edge: s}, "candidates": {"off", "split", "edge": s per
+        rep}}``. The exchange and compute probes are one chunk's halves
+        (:meth:`_phase_probes`), the edges :meth:`edge_probes`, best of 3
+        fenced runs each after an untimed one. A candidate's seconds per
+        rep are its best of 5 fenced runs of 4 chunks, the candidates
+        taking turns within each round so that a slow spell of a shared
+        host falls on all of them; a split's slab set-up stays in its time
+        (it pays it in every window)."""
+        shape = self.padded_shape + ((self.channels,) if self.channels != 1
+                                     else ())
+        tiles = self.split(np.zeros(shape, np.uint8))
+
+        def best_of(fn, n=3):
+            fence(fn())
+            best = float("inf")
+            for _ in range(n):
+                t0 = time.perf_counter()
+                fence(fn())
+                best = min(best, time.perf_counter() - t0)
+            return best
+
+        exchange, compute = self._phase_probes()
+        pair = exchange(tiles)
+        slab = overlap_mod.Slab(tiles, max(1, self.model.plan.halo))
+        edges = {name: best_of(lambda fn=fn: fn(slab))
+                 for name, fn in self.edge_probes().items()}
+        runs = self._candidate_probes()
+        cands = {key: float("inf") for key in runs}
+        for key, (fn, depth) in runs.items():
+            fence(fn(tiles, depth))
+        for _ in range(5):
+            for key, (fn, depth) in runs.items():
+                t0 = time.perf_counter()
+                fence(fn(tiles, 4 * depth))
+                cands[key] = min(cands[key], (time.perf_counter() - t0)
+                                 / (4 * depth))
+        return {"exchange_s": best_of(lambda: exchange(tiles)),
+                "interior_s": best_of(lambda: compute(pair)),
+                "edges": edges, "candidates": cands}
+
     def trace_phase_probes(self, tiles: Grid) -> None:
-        """Emit ``sharded.halo_exchange`` and ``sharded.interior_compute``
-        spans: one measured run each of an exchange-only and a
-        compute-only step of one chunk (``reps`` = its depth), after one
-        untimed run of both (``sharded.probe_compile``), so the trace
-        splits the runner's time into exchange and compute. Tracing only;
-        the timed window never runs them."""
+        """Emit the probe spans, each one measured run after one untimed
+        run of all (``sharded.probe_compile``), so the trace splits the
+        runner's time: ``sharded.halo_exchange`` and
+        ``sharded.interior_compute`` (an exchange-only and a compute-only
+        step of one chunk, ``reps`` = its depth); one
+        ``sharded.exchange_edge[x]`` per edge (:meth:`edge_probes`: four
+        distinct fences on a 2-D mesh, no single join); and under an
+        overlap mode ``sharded.interior_overlap`` and
+        ``sharded.border_compute`` (:meth:`_overlap_probes`). Tracing
+        only; the timed window never runs them."""
         from tpu_stencil_torch import obs
 
         if not obs.enabled() or self.model.plan.halo < 1:
             return
         exchange, compute = self._phase_probes()
         reps = self.fuse if self.backend == "pallas" else 1
+        edge_fns = self.edge_probes()
+        halves = (self._overlap_probes() if self.overlap != "off"
+                  else None)
         with obs.span("sharded.probe_compile", "sharded") as s:
             s.fence(compute(s.fence(exchange(tiles))))
+            slab = overlap_mod.Slab(tiles, self.model.plan.halo)
+            for fn in edge_fns.values():
+                s.fence(fn(slab))
+            if halves is not None:
+                overlap_mod.exchange_edge_slab(slab, self.model.plan.halo,
+                                               self.boundary)
+                s.fence(halves[0](slab))
+                s.fence(halves[1](slab))
         with obs.span("sharded.halo_exchange", "sharded", reps=reps) as s:
             pair = s.fence(exchange(tiles))
         with obs.span("sharded.interior_compute", "sharded",
                       reps=reps) as s:
             s.fence(compute(pair))
+        for name, fn in edge_fns.items():
+            with obs.span(f"sharded.exchange_edge[{name}]", "sharded") as s:
+                s.fence(fn(slab))
+        if halves is not None:
+            with obs.span("sharded.interior_overlap", "sharded") as s:
+                s.fence(halves[0](slab))
+            with obs.span("sharded.border_compute", "sharded") as s:
+                s.fence(halves[1](slab))
 
     def split(self, padded: np.ndarray) -> Grid:
         """Cut a padded global (H, W[, C]) array into the tile grid, each

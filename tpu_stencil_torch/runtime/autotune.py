@@ -3,8 +3,8 @@
 pruned by the shared-memory model and cached on disk.
 
 The port's counterpart of the JAX package's ``runtime/autotune.py``
-(``best_full_config`` and its cache; the overlap and stream verdicts are
-not ported yet). The candidates are the port's: backends ``xla`` (torch
+(``best_full_config`` and its cache, and the overlap verdict
+``best_overlap``; the stream verdicts are not ported yet). The candidates are the port's: backends ``xla`` (torch
 ops) and ``pallas`` (the hand-written kernels); schedules ``fused`` (K1)
 and ``deep`` (K2 when the image fits the L2 budget, else K1 at the deep
 depth); then a geometry stage over :data:`_GEOMETRY_GRID` at the winning
@@ -62,6 +62,8 @@ ENV_CACHE = "TPU_STENCIL_TORCH_AUTOTUNE_CACHE"
 # Measurements made by best_full_config in this process (a warm cache
 # leaves it unchanged).
 probe_count = 0
+# Probe bundles measured by best_overlap in this process (likewise).
+overlap_probe_count = 0
 
 
 def _cache_path() -> str:
@@ -455,3 +457,128 @@ def best_backend(
     """The backend half of :func:`best_config`."""
     return best_config(plan, shape, channels, cache=cache, measure=measure,
                        device=device)[0]
+
+
+# --- interior/border overlap schedule ("--overlap auto") ---------------
+#
+# The split (tpu_stencil_torch.parallel.overlap) pays more launches and a
+# side stream's synchronization to run the ghost-free interior while the
+# ghosts are copied. It can only win where the exchange is a real share of
+# a chunk: below OVERLAP_MIN_RATIO there is nothing to hide. Above it the
+# measured candidates decide, and no mode is taken that did not measure
+# strictly faster than the one it displaces.
+OVERLAP_MIN_RATIO = 0.05  # exchange below 5% of interior: overlap is moot
+
+_OVERLAP_MODES = ("off", "split", "fused-split", "edge")
+
+
+def overlap_from_ratio(ratio: float, backend: str) -> str:
+    """Map a measured exchange/interior time ratio to an overlap mode:
+    ``off`` below :data:`OVERLAP_MIN_RATIO`, else the chunked
+    ``fused-split`` on the kernels and the per-rep ``split`` elsewhere.
+    Never ``edge``: it has no candidate A/B to justify it with."""
+    if not ratio > OVERLAP_MIN_RATIO:
+        return "off"
+    return "fused-split" if backend == "pallas" else "split"
+
+
+def _probe_bundle(measured) -> dict:
+    """Normalize a ``measure()`` result: the ``(exchange_s, interior_s)``
+    pair or the bundle dict (``exchange_s``/``interior_s``/``edges``/
+    ``candidates``) the runner produces."""
+    if isinstance(measured, dict):
+        return measured
+    exchange_s, interior_s = measured
+    return {"exchange_s": exchange_s, "interior_s": interior_s}
+
+
+def overlap_verdict(bundle: dict, backend: str) -> str:
+    """The measured verdict ``--overlap auto`` resolves to.
+
+    ``off`` when the exchange/interior ratio is at most
+    :data:`OVERLAP_MIN_RATIO`. Otherwise the candidates decide: ``edge``
+    only when the per-edge pipeline measured strictly faster than the
+    split, else the split flavour (``fused-split`` on the kernels); and
+    where the bundle also timed ``off`` (the port's runner does), the
+    flavour chosen must be strictly faster than ``off`` too, else ``off``:
+    never enable a measured loss. A bundle without candidates falls back to
+    :func:`overlap_from_ratio`."""
+    exchange_s = bundle["exchange_s"]
+    interior_s = bundle["interior_s"]
+    ratio = exchange_s / interior_s if interior_s > 0 else float("inf")
+    if not ratio > OVERLAP_MIN_RATIO:
+        return "off"
+    split_mode = "fused-split" if backend == "pallas" else "split"
+    cand = bundle.get("candidates") or {}
+    if "split" not in cand or "edge" not in cand:
+        return split_mode
+    key = "edge" if cand["edge"] < cand["split"] else "split"
+    if "off" in cand and not cand[key] < cand["off"]:
+        return "off"
+    return "edge" if key == "edge" else split_mode
+
+
+def _overlap_key(plan: StencilPlan, tile: Tuple[int, int], channels: int,
+                 mesh_shape: Tuple[int, int], backend: str,
+                 device="cuda") -> str:
+    # _key's identity (card, stack, plan, shape), then the mesh (the ratio
+    # depends on how many neighbours exchange) and the backend (the split
+    # flavour and the interior's cost differ). The stack stays the key's
+    # second segment, which the loader reads.
+    return "|".join([_key(plan, tuple(tile), channels, device), "overlap",
+                     f"mesh{mesh_shape[0]}x{mesh_shape[1]}", backend])
+
+
+def cached_overlap(plan: StencilPlan, tile: Tuple[int, int], channels: int,
+                   mesh_shape: Tuple[int, int], backend: str,
+                   device="cuda") -> Optional[str]:
+    """The cached overlap verdict for this key, or None (a miss, or a mode
+    name it does not know)."""
+    hit = _load_cache().get(
+        _overlap_key(plan, tile, channels, mesh_shape, backend, device))
+    if isinstance(hit, dict) and hit.get("overlap") in _OVERLAP_MODES:
+        return hit["overlap"]
+    return None
+
+
+def best_overlap(plan: StencilPlan, tile: Tuple[int, int], channels: int,
+                 mesh_shape: Tuple[int, int], backend: str, measure,
+                 cache: bool = True, device="cuda") -> str:
+    """The overlap mode for this (card, filter, tile, mesh, backend): from
+    the cache when it holds one (a warm cache measures nothing), else
+    measured once by ``measure()`` (the runner's probe bundle,
+    :meth:`ShardedRunner._measure_overlap_probes`, or an
+    ``(exchange_s, interior_s)`` pair), decided by
+    :func:`overlap_verdict` and cached with the probe times beside the
+    verdict. The runner passes its probes, so this module owns only the
+    decision and its persistence. Counts each measurement in
+    :data:`overlap_probe_count`."""
+    global overlap_probe_count
+    if cache:
+        hit = cached_overlap(plan, tile, channels, mesh_shape, backend,
+                             device)
+        if hit is not None:
+            return hit
+    overlap_probe_count += 1
+    bundle = _probe_bundle(measure())
+    mode = overlap_verdict(bundle, backend)
+    if cache:
+        exchange_s, interior_s = bundle["exchange_s"], bundle["interior_s"]
+        ratio = exchange_s / interior_s if interior_s > 0 else float("inf")
+        entry = {
+            "overlap": mode,
+            "ratio": round(ratio, 4),
+            "exchange_us": round(exchange_s * 1e6, 2),
+            "interior_us": round(interior_s * 1e6, 2),
+        }
+        if bundle.get("edges"):
+            entry["edge_us"] = {k: round(v * 1e6, 2)
+                                for k, v in bundle["edges"].items()}
+        if bundle.get("candidates"):
+            entry["candidate_us"] = {k: round(v * 1e6, 2)
+                                     for k, v in bundle["candidates"].items()}
+        store = _load_cache()
+        store[_overlap_key(plan, tile, channels, mesh_shape, backend,
+                           device)] = entry
+        _store_cache(store)
+    return mode

@@ -15,7 +15,10 @@ reports all read.
 
 The peak rates are those of one H100 SXM from NVIDIA's data sheet (dense,
 at the full 700 W power limit). The interconnect, host-link, streaming,
-mesh and pipeline models of the JAX module are not ported yet.
+mesh and pipeline models of the JAX module are not ported yet; its ghost
+byte counts of the sharded exchange are (:func:`ici_ghost_bytes_per_edge`,
+:func:`ici_ghost_bytes_per_rep`, pure counts under the JAX names, with no
+interconnect rate beside them).
 """
 
 from __future__ import annotations
@@ -176,3 +179,47 @@ def bound_ms_per_rep(plan, n_elems: int, reps: int,
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"
+
+
+def ici_ghost_bytes_per_edge(tile_shape, channels: int, halo: int,
+                             mesh_shape, fuse: int = 1,
+                             elem_bytes: int = 1,
+                             mode: str = "phased") -> dict:
+    """Modelled ghost bytes *received per tile per repetition* on the
+    sharded mesh, per edge: ``{"n", "s", "w", "e"[, "corners"]}`` (keys
+    only for edges that exchange: an axis of one tile exchanges nothing).
+
+    ``mode="phased"`` is the corner-routed exchange of the joined
+    schedules (off, split, fused-split): the column strips ride the
+    row-extended tile, so W/E are ``tile_h + 2*g`` tall and carry the
+    corners. ``mode="edge"`` is the per-edge pipeline: every strip covers
+    the bare tile (W/E ``tile_h`` tall) and the four ``g x g`` corner
+    patches come by the packed second hop, as ``"corners"``. A chunk of
+    ``fuse`` reps pays one exchange ``g = fuse*halo`` deep, so per-rep
+    bytes divide by ``fuse``. The JAX package's model, unchanged."""
+    th, tw = tile_shape
+    r, c = mesh_shape
+    g = fuse * halo
+    scale = elem_bytes / max(1, fuse)
+    per_edge = {}
+    if r > 1:
+        per_edge["n"] = per_edge["s"] = g * tw * channels * scale
+    if c > 1:
+        rows = th + (2 * g if (r > 1 and mode != "edge") else 0)
+        per_edge["w"] = per_edge["e"] = g * rows * channels * scale
+        if mode == "edge":
+            per_edge["corners"] = 4 * g * g * channels * scale
+    return per_edge
+
+
+def ici_ghost_bytes_per_rep(tile_shape, channels: int, halo: int,
+                            mesh_shape, fuse: int = 1,
+                            elem_bytes: int = 1,
+                            mode: str = "phased") -> float:
+    """Total modelled ghost bytes received per tile per repetition: the sum
+    of :func:`ici_ghost_bytes_per_edge` (``elem_bytes`` 1 for the uint8
+    exchanges, 4 for the torch-ops sep_int step's int32 phases)."""
+    return float(sum(ici_ghost_bytes_per_edge(
+        tile_shape, channels, halo, mesh_shape, fuse=fuse,
+        elem_bytes=elem_bytes, mode=mode,
+    ).values()))
