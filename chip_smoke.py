@@ -138,7 +138,25 @@ one JSON line. The phases that pin launch counts name ``--backend pallas``
    outputs; a flipped byte of K1's output is caught; at a probe size the
    NumPy golden agrees with K1 and catches a flip; two samplers with one
    seed pick alike.
-14. ``times`` — ms per rep at 1920x2520 RGB gaussian x40, each the median
+14. ``multiprocess`` — two processes on this card (a gloo group, every
+   strip between them staged through pinned host buffers), at 1920x2520
+   RGB gaussian x40, every output byte-equal to K1 and every subprocess
+   within its own time limit: (a) ``python -m torch.distributed.run
+   --standalone --nproc-per-node 2 -m tpu_stencil_torch ... --mesh 2x1``
+   and ``1x2`` with ``--time``, equal to the same mesh in one process,
+   each rank's ``launches=`` showing K3's 5; (b) 2 ranks x 2 tiles (2x2)
+   through ``run_job`` under ``off`` (cold, then warm, held as
+   ``main_path`` holds them), ``fused-split``, ``edge``, ``auto`` and grey
+   ``off``, every rank reporting the same mode and K3 launches of its
+   pieces, then per rank the exchange probe of one chunk, the bytes it
+   stages and the runner's ms per rep, beside the same 2x2 in one
+   process; (c) divergent argv (rank 1 asks for 7 reps and another
+   output) running rank 0's job; (d) ``--checkpoint-every 10`` killed at
+   rep 25 on both ranks, resumed from rep 20; (e) ``--trace``: one merged
+   file with both ranks' ``pid`` values and 40 ``iterate.rep`` spans each;
+   (f) rank 1 stalled before its first send under ``--dispatch-timeout
+   5``: rank 0 raises ``CollectiveTimeout``.
+15. ``times`` — ms per rep at 1920x2520 RGB gaussian x40, each the median
    of 7 runs after a warm-up (CUDA events, L2 flushed before each run):
    the three job kernels (K3 alone on the one ext tile of a 1x1 mesh at
    fuse 8), L2's ``current`` body, one L1 launch (``add_i32``, chain of
@@ -1961,6 +1979,368 @@ def phase_overlap_path(dev) -> dict:
             "reps": MAIN_REPS, "mesh": [2, 2], "runs": out}
 
 
+# One rank of a job of several processes on this card, started by
+# mp_workers with the environment torch.distributed.run sets (RANK,
+# WORLD_SIZE, MASTER_ADDR, MASTER_PORT, LOCAL_RANK); prints one JSON line.
+# "jobs": driver.run_job over [dev] * 2 per rank (2x2 in all) for each
+# job, then the runner alone (its exchange probe, the bytes one chunk
+# stages, ms per rep), then cli.main with this rank's argv; "stall": rank
+# 1 sleeps before its first send of the window, and rank 0 reports the
+# CollectiveTimeout it raised.
+MP_WORKER = """import contextlib, io, json, os, statistics, sys, time
+import torch
+from tpu_stencil_torch import config, driver
+from tpu_stencil_torch.models.blur import IteratedConv2D
+from tpu_stencil_torch.ops import cuda_stencil as cs
+from tpu_stencil_torch.parallel import distributed, sharded
+from tpu_stencil_torch.resilience.errors import CollectiveTimeout
+a = json.loads(sys.argv[1])
+rank = int(os.environ["RANK"])
+dev = torch.device("cuda", int(os.environ["LOCAL_RANK"])
+                   % torch.cuda.device_count())
+distributed.initialize(timeout_s=a.get("timeout", 0.0))
+out = {"rank": rank, "device": str(dev)}
+
+def job(j):
+    cfg = config.JobConfig(image=j["src"], width=a["w"], height=a["h"],
+                           repetitions=a["reps"],
+                           image_type=config.ImageType(j.get("type", "rgb")),
+                           mesh_shape=(2, 2), backend="pallas",
+                           overlap=j.get("overlap", "off"), output=j["dst"],
+                           dispatch_timeout_s=a.get("timeout", 0.0))
+    cs.reset_launch_counts()
+    return driver.run_job(cfg, devices=[dev] * 2)
+
+def timed(fn, n):
+    ts = []
+    for _ in range(n):
+        distributed.barrier()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return statistics.median(ts) * 1e3
+
+if a["mode"] == "stall":
+    if rank == 1:
+        warm, run, armed = (sharded.ShardedRunner.warmup,
+                            sharded.ShardedRunner.run, [])
+        def warmup(self, *x):
+            r = warm(self, *x)
+            armed.append(1)
+            return r
+        def stalled(self, *x):
+            if armed:
+                time.sleep(a["stall"])
+            return run(self, *x)
+        sharded.ShardedRunner.warmup = warmup
+        sharded.ShardedRunner.run = stalled
+    t0 = time.perf_counter()
+    try:
+        job(a["jobs"][0])
+        out["timeout"] = None
+    except CollectiveTimeout as e:
+        out.update(timeout=type(e).__name__, label=e.label,
+                   seconds=e.seconds, edges=e.edges)
+    out["elapsed_s"] = time.perf_counter() - t0
+else:
+    for j in a["jobs"]:
+        r = job(j)
+        out[j["name"]] = {"compute_seconds": r.compute_seconds,
+                          "total_seconds": r.total_seconds,
+                          "launches": r.launches,
+                          "warmup_launches": r.warmup_launches,
+                          "overlap": r.overlap, "counts": cs.launch_counts()}
+    runner = sharded.ShardedRunner(
+        IteratedConv2D("gaussian", backend="pallas", device=dev),
+        (a["h"], a["w"]), 3, mesh_shape=(2, 2), devices=[dev] * 2,
+        timeout_s=60.0)
+    tiles = distributed.read_sharded(a["jobs"][0]["src"], a["h"], a["w"],
+                                     3, runner.mesh)
+    runner.prepare()
+    exchange, compute = runner._phase_probes()
+    pair = exchange(tiles)
+    before = runner.peers.bytes_staged
+    exchange(tiles)
+    out["staged_bytes_per_chunk"] = runner.peers.bytes_staged - before
+    out["exchange_ms_per_chunk"] = timed(lambda: exchange(tiles), 21)
+    out["k3_ms_per_chunk"] = timed(lambda: compute(pair), 21)
+    runner.run(tiles, a["reps"])
+    out["runner_ms_per_rep"] = timed(lambda: runner.run(tiles, a["reps"]),
+                                     7) / a["reps"]
+    out["fuse"] = runner.fuse
+    out["tiles_here"] = len(runner.devices)
+    from tpu_stencil_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out["cli_rc"] = cli.main(a["argv"][rank])
+    out["cli_lines"] = buf.getvalue().splitlines()
+print(json.dumps(out), flush=True)
+os._exit(0)
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mp_workers(args: dict, n: int = 2, timeout: float = 300,
+               first_only: bool = False) -> list:
+    """``n`` ranks of :data:`MP_WORKER` on this card (each its own
+    process, the environment torch.distributed.run would give it), each
+    within ``timeout`` s; returns each rank's JSON line. A rank that fails
+    or times out fails the smoke. ``first_only``: wait for rank 0, then
+    kill the others (a stalled rank)."""
+    port = str(free_port())
+    procs = []
+    for r in range(n):
+        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                   WORLD_SIZE=str(n), LOCAL_WORLD_SIZE=str(n),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=port)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", MP_WORKER, json.dumps(args)], cwd=ROOT,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    res = []
+    try:
+        for r, p in enumerate(procs[:1] if first_only else procs):
+            try:
+                so, se = p.communicate(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                raise AssertionError(
+                    f"{args['mode']} rank {r} ran past {timeout} s")
+            require(p.returncode == 0, f"{args['mode']} rank {r} exited "
+                    f"{p.returncode}: {se[-3000:]}")
+            res.append(json.loads(so.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return res
+
+
+def torchrun(args, timeout: float = 300, expect_ok: bool = True) -> dict:
+    """``python -m torch.distributed.run --standalone --nproc-per-node 2
+    -m tpu_stencil_torch ARGS`` as a user runs it: returns its exit code
+    and each rank's lines (``--tee 3`` prefixes them ``[defaultR]:``)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "2", "--log-dir", str(WORK / "torchrun"),
+           "--tee", "3", "-m", "tpu_stencil_torch", *map(str, args)]
+    try:
+        r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                           timeout=timeout)
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"torchrun {args} ran past {timeout} s")
+    ranks = {0: [], 1: []}
+    for line in r.stdout.splitlines():
+        for k in ranks:
+            tag = f"[default{k}]:"
+            if line.startswith(tag):
+                ranks[k].append(line[len(tag):])
+    require((r.returncode == 0) == expect_ok,
+            f"torchrun {args} exited {r.returncode}: {r.stderr[-3000:]}")
+    return {"rc": r.returncode, "ranks": ranks}
+
+
+def rank_report(lines) -> dict:
+    """A rank's ``Execution time`` and ``--time`` lines."""
+    time_line = next(ln for ln in lines if ln.startswith("Execution time:"))
+    report = next((ln for ln in lines if ln.startswith("total (incl.")), "")
+    return {"window_s": float(time_line.split()[2]),
+            "total_s": (float(report.split()[3]) if report else None),
+            "launches": parse_launches(report) if report else None,
+            "report": report}
+
+
+def one_process_runner(src, dev) -> dict:
+    """The 2x2 runner over ``[dev] * 4`` in this process, timed as each
+    rank of :data:`MP_WORKER` times its own: one chunk's exchange probe
+    and the 40-rep loop, host clock to a synchronize, median of 21 / 7."""
+    from tpu_stencil_torch.models.blur import IteratedConv2D
+    from tpu_stencil_torch.parallel import distributed
+    from tpu_stencil_torch.parallel.sharded import ShardedRunner
+
+    runner = ShardedRunner(IteratedConv2D("gaussian", backend="pallas",
+                                          device=dev),
+                           (MAIN_H, MAIN_W), MAIN_C, mesh_shape=(2, 2),
+                           devices=[dev] * 4)
+    tiles = distributed.read_sharded(str(src), MAIN_H, MAIN_W, MAIN_C,
+                                     runner.mesh)
+    exchange, compute = runner._phase_probes()
+    pair = exchange(tiles)
+
+    def timed(fn, n):
+        fn()
+        ts = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return statistics.median(ts) * 1e3
+
+    return {"exchange_ms_per_chunk": timed(lambda: exchange(tiles), 21),
+            "k3_ms_per_chunk": timed(lambda: compute(pair), 21),
+            "runner_ms_per_rep": timed(lambda: runner.run(tiles, MAIN_REPS),
+                                       7) / MAIN_REPS}
+
+
+def phase_multiprocess(dev) -> dict:
+    """Two processes on this card (gloo, strips staged through pinned host
+    buffers), at 1920x2520 RGB gaussian x40 (a)-(f) as the module
+    docstring lists them; every output byte-equal to K1 and to the same
+    job in one process."""
+    from tpu_stencil_torch import config, driver
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+
+    src, img = main_raw()
+    g = plan_of("gaussian")
+    k1 = cs.iterate(torch.from_numpy(img).to(dev), MAIN_REPS, g).cpu().numpy()
+    fuse = cs.DEFAULT_FUSE
+    chunks = len(cs.launch_schedule(MAIN_REPS, fuse))
+    out = {}
+
+    def same(path, want=k1, what=""):
+        got = np.fromfile(path, np.uint8).reshape(want.shape)
+        err = int(np.abs(got.astype(int) - want.astype(int)).max())
+        require(err == 0, f"multiprocess {what}: {err} off K1")
+        return err
+
+    def one_process(mesh, dst, image=src, image_type="rgb"):
+        cfg = config.JobConfig(image=str(image), width=MAIN_W, height=MAIN_H,
+                               repetitions=MAIN_REPS,
+                               image_type=config.ImageType(image_type),
+                               mesh_shape=mesh, backend="pallas",
+                               output=str(dst))
+        r = driver.run_job(cfg, devices=[dev] * (mesh[0] * mesh[1]))
+        return r.compute_seconds
+
+    base = [src, MAIN_W, MAIN_H, MAIN_REPS, "rgb", *PALLAS]
+    # (a) The CLI with two ranks, one tile each, --mesh 2x1 and 1x2.
+    for mesh in ("2x1", "1x2"):
+        dst = WORK / f"blur_mp_{mesh}.raw"
+        one = WORK / f"blur_mp_{mesh}_one.raw"
+        shape = tuple(int(v) for v in mesh.split("x"))
+        t_one = one_process(shape, one)
+        r = torchrun(base + ["--mesh", mesh, "--time", "--output", dst])
+        reps = {k: rank_report(v) for k, v in r["ranks"].items()}
+        for k, rep in reps.items():
+            require(rep["launches"] == launches(stencil_valid=chunks),
+                    f"--mesh {mesh} rank {k}: launches {rep['launches']}")
+        same(dst, what=f"--mesh {mesh}")
+        require(np.array_equal(np.fromfile(dst, np.uint8),
+                               np.fromfile(one, np.uint8)),
+                f"--mesh {mesh}: two processes != one process")
+        out[f"cli_{mesh}"] = {"ranks": reps, "one_process_window_s": t_one,
+                              "max_abs_err": 0}
+    # (b) 2 ranks x 2 tiles (2x2) through run_job under each overlap
+    # mode, off twice (cold, then warm) and grey; then the runner alone.
+    gsrc = WORK / "waterfall_grey.raw"
+    grey = np.ascontiguousarray(img[..., 0])
+    grey.tofile(gsrc)
+    gk1 = cs.iterate(torch.from_numpy(grey).to(dev), MAIN_REPS,
+                     g).cpu().numpy()
+    jobs = [{"name": "off_cold", "overlap": "off"},
+            {"name": "off", "overlap": "off"},
+            {"name": "fused-split", "overlap": "fused-split"},
+            {"name": "edge", "overlap": "edge"},
+            {"name": "auto", "overlap": "auto"},
+            {"name": "grey_off", "overlap": "off", "type": "grey"}]
+    for j in jobs:
+        j["src"] = str(gsrc if j.get("type") == "grey" else src)
+        j["dst"] = str(WORK / f"blur_mp_{j['name']}.raw")
+    # (c) rides on the same ranks: divergent argv (rank 1 asks for other
+    # reps and another output) runs rank 0's job.
+    div = WORK / "blur_mp_divergent.raw"
+    wrong = WORK / "blur_mp_divergent_wrong.raw"
+    wrong.unlink(missing_ok=True)
+    cli_base = [str(src), str(MAIN_W), str(MAIN_H)]
+    argv = [cli_base + [str(MAIN_REPS), "rgb", *PALLAS, "--mesh", "2x1",
+                        "--output", str(div)],
+            cli_base + ["7", "rgb", *PALLAS, "--mesh", "2x1", "--output",
+                        str(wrong)]]
+    cache = WORK / "mp_autotune.json"
+    cache.unlink(missing_ok=True)
+    saved = os.environ.get("TPU_STENCIL_TORCH_AUTOTUNE_CACHE")
+    os.environ["TPU_STENCIL_TORCH_AUTOTUNE_CACHE"] = str(cache)
+    try:
+        ranks = mp_workers({"mode": "jobs", "w": MAIN_W, "h": MAIN_H,
+                            "reps": MAIN_REPS, "jobs": jobs, "argv": argv})
+    finally:
+        if saved is not None:
+            os.environ["TPU_STENCIL_TORCH_AUTOTUNE_CACHE"] = saved
+    for j in jobs:
+        same(j["dst"], gk1 if j.get("type") == "grey" else k1, j["name"])
+        ran = [r[j["name"]]["overlap"] for r in ranks]
+        require(len(set(ran)) == 1, f"{j['name']}: ranks ran {ran}")
+        want = launches(stencil_valid=PIECES[ran[0]] * 2 * chunks)
+        for r in ranks:
+            require(r[j["name"]]["launches"] == want,
+                    f"{j['name']} rank {r['rank']}: launches "
+                    f"{r[j['name']]['launches']}, expected {want}")
+    for r in ranks:
+        r["off_cold_bound_s"] = require_cold_near_warm(
+            f"multiprocess off rank {r['rank']}",
+            r["off_cold"]["compute_seconds"], r["off"]["compute_seconds"])
+    out["jobs"] = ranks
+    require([x["cli_rc"] for x in ranks] == [0, 0] and not wrong.exists(),
+            f"divergent argv: {[x['cli_rc'] for x in ranks]}, "
+            f"{wrong.exists()}")
+    same(div, what="divergent argv")
+    out["divergent_argv"] = {"rcs": [0, 0], "rank1_output_written": False}
+    # The same 2x2 in one process, timed as the ranks time theirs.
+    one = WORK / "blur_mp_one_2x2.raw"
+    out["one_process_2x2_window_s"] = one_process((2, 2), one)
+    out["one_process_2x2"] = one_process_runner(src, dev)
+    # (d) --checkpoint-every 10, killed at rep 25 on both ranks, resumed.
+    dst = WORK / "blur_mp_ckpt.raw"
+    ck = base + ["--mesh", "2x1", "--checkpoint-every", "10", "--output",
+                 dst]
+    killed = torchrun(ck + ["--faults", "compute:rep=25"], expect_ok=False)
+    meta = json.loads(Path(f"{dst}.ckpt.json").read_text())
+    require(meta["rep"] == 20, f"checkpoint at rep {meta['rep']}, not 20")
+    resumed = torchrun(ck + ["--resume", "--time"])
+    same(dst, what="checkpoint resume")
+    left = [p.name for p in WORK.iterdir() if p.name.startswith(
+        "blur_mp_ckpt.raw.ckpt")]
+    require(not left, f"checkpoint artifacts left: {left}")
+    out["checkpoint"] = {"killed_rc": killed["rc"], "resumed_from": 20,
+                         "ranks": {k: rank_report(v) for k, v in
+                                   resumed["ranks"].items()}}
+    # (e) --trace: one merged file, both ranks' pids and iterate.rep spans.
+    trace = WORK / "mp_trace.json"
+    trace.unlink(missing_ok=True)
+    dst = WORK / "blur_mp_trace.raw"
+    torchrun(base + ["--mesh", "2x1", "--trace", trace, "--output", dst])
+    same(dst, what="--trace")
+    ev = json.loads(trace.read_text())["traceEvents"]
+    per_pid = {p: sum(1 for e in ev if e.get("ph") == "X" and e["pid"] == p
+                      and e["name"] == "iterate.rep") for p in (0, 1)}
+    require(per_pid == {0: MAIN_REPS, 1: MAIN_REPS}
+            and {e["pid"] for e in ev} == {0, 1},
+            f"merged trace: iterate.rep spans per pid {per_pid}")
+    out["trace"] = {"iterate_rep_spans_per_pid": per_pid,
+                    "events": len(ev)}
+    # (f) A rank stalled before its first send: the other raises
+    # CollectiveTimeout within --dispatch-timeout 5.
+    r = mp_workers({"mode": "stall", "w": MAIN_W, "h": MAIN_H,
+                    "reps": MAIN_REPS, "timeout": 5.0, "stall": 120,
+                    "jobs": [{"src": str(src),
+                              "dst": str(WORK / "blur_mp_stall.raw")}]},
+                   first_only=True, timeout=120)[0]
+    require(r["timeout"] == "CollectiveTimeout" and r["seconds"] == 5.0
+            and r["elapsed_s"] < 60, f"stalled peer: {r}")
+    out["stall"] = r
+    return {"phase": "multiprocess", "ok": True, "shape": list(img.shape),
+            "reps": MAIN_REPS, "transport": "gloo, pinned host staging",
+            "runs": out}
+
+
 def phase_witness(dev) -> dict:
     """The witness re-executes the 40-rep job through torch ops on the card
     (one ``padded_step`` per rep, no hand kernel) and must equal K1's, K2's
@@ -2273,6 +2653,8 @@ def run(dev: torch.device) -> None:
     overlap_path = phase_overlap_path(dev)
     emit(overlap_path)
     emit(phase_witness(dev))
+    multiprocess = phase_multiprocess(dev)
+    emit(multiprocess)
     times = phase_times(dev)
     emit(times)
 
@@ -2325,7 +2707,11 @@ def run(dev: torch.device) -> None:
              for m in OVERLAP_MODES + ("auto",)},
          "overlap_auto": overlap_path["runs"]["auto"]["verdict"],
          "overlap_ms_per_rep": overlap_path["runs"]["ms_per_rep"],
-         "window": overlap_path["runs"]["thin_windows"]["left_band_rgb"]},
+         "window": overlap_path["runs"]["thin_windows"]["left_band_rgb"],
+         # K3 on each rank of two processes (--mesh 2x1, one tile each).
+         "launches_per_rank_2proc": {
+             k: v["launches"]["stencil_valid"] for k, v in
+             multiprocess["runs"]["cli_2x1"]["ranks"].items()}},
         # L2 and L1 run on the tools' path, not the job's: their launches
         # are those of the tool runs in phases l2 and l1, with no warm-up.
         {"name": "stencil_lab",

@@ -9,8 +9,10 @@ import ast
 import json
 import os
 import pkgutil
+import socket
 import subprocess
 import sys
+import time
 
 import pytest
 
@@ -71,7 +73,11 @@ def test_every_module_is_found():
               "tpu_stencil_torch.resilience.fallback",
               "tpu_stencil_torch.runtime.checkpoint",
               "tpu_stencil_torch.integrity.witness",
-              "tpu_stencil_torch.parallel.overlap"):
+              "tpu_stencil_torch.parallel.overlap",
+              "tpu_stencil_torch.parallel.distributed",
+              "tpu_stencil_torch.parallel.transport",
+              "tpu_stencil_torch.parallel.mesh",
+              "tpu_stencil_torch.utils.timing"):
         assert m in mods
 
 
@@ -121,3 +127,28 @@ def _sources():
 def test_no_forbidden_import_in_source(path):
     bad = [n for n in _imported_names(path) if _forbidden(n)]
     assert bad == [], f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("rank", ["0", "1"])
+def test_initialize_raises_when_the_rendezvous_is_unreachable(rank):
+    # WORLD_SIZE=2 and no peer at the rendezvous: initialize() raises
+    # within its timeout; it never goes on as a process of its own.
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    code = (
+        "from tpu_stencil_torch.parallel import distributed as d\n"
+        "try:\n"
+        "    d.initialize(timeout_s=3)\n"
+        "except Exception as e:\n"
+        "    print('RAISED', type(e).__name__)\n"
+        "else:\n"
+        "    print('ALONE', d.process_count())\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO, WORLD_SIZE="2", RANK=rank,
+               LOCAL_RANK=rank, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=REPO, env=env, timeout=120)
+    assert "RAISED" in r.stdout, (r.stdout, r.stderr[-2000:])
+    assert time.perf_counter() - t0 < 60

@@ -14,21 +14,46 @@ print before the ``Execution time`` line, as the JAX package's do; a
 sharded run adds the overlap table),
 ``--metrics-text`` writes the driver registry, ``--hlo-dump`` is accepted
 and writes nothing.
+
+Several processes (the reference's ``mpiexec -n P``)::
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m tpu_stencil_torch image.raw 1920 2520 40 rgb --mesh 2x1
+
+Each process joins the gloo group first (``distributed.initialize``),
+takes rank 0's job (``broadcast_config``) and rank 0's observability
+flags, and runs on device ``LOCAL_RANK % device_count`` (on one card
+every rank runs on ``cuda:0``); the trace, the breakdown, the
+introspection tables and the metrics text are rank 0's to write.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 
 from tpu_stencil_torch import driver, obs
 from tpu_stencil_torch.config import parse_args
 from tpu_stencil_torch.devices import NoDeviceError, resolve_devices
+from tpu_stencil_torch.parallel import distributed
+from tpu_stencil_torch.resilience import deadline as _deadline
 
 
 def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
     cfg, ns = parse_args(argv)
+    # Joining the job's processes leads main, as MPI_Init does
+    # (mpi/mpi_convolution.c:23); a no-op for one process.
+    distributed.initialize(timeout_s=_deadline.resolve(cfg.dispatch_timeout_s))
+    multi = distributed.process_count() > 1
+    rank0 = distributed.process_index() == 0
+    if multi:
+        # Rank 0 validates, everyone else receives (mpi/mpi_convolution.c:
+        # 50-70): ranks launched with divergent argv would otherwise run
+        # different jobs against the same files.
+        cfg = distributed.broadcast_config(cfg if rank0 else None)
+    trace_path, breakdown = _broadcast_obs_flags(ns)
     if ns.faults is not None:
         # Arm the fault-injection harness (the spec was validated at
         # parse time); it overrides TPU_STENCIL_TORCH_FAULTS.
@@ -40,7 +65,10 @@ def main(argv=None) -> int:
     except NoDeviceError as e:
         print(f"tpu_stencil_torch: error: {e}", file=sys.stderr)
         return 2
-    tracing = bool(ns.trace or ns.breakdown)
+    if multi and devices[0].type == "cuda":
+        devices = [devices[int(os.environ.get("LOCAL_RANK", "0"))
+                           % len(devices)]]
+    tracing = bool(trace_path or breakdown)
     # Introspection rides on any traced run or an explicit --hlo-dump.
     introspecting = tracing or bool(ns.hlo_dump)
     if introspecting:
@@ -53,14 +81,15 @@ def main(argv=None) -> int:
             checkpoint_every=ns.checkpoint_every, resume=ns.resume,
         )
         if tracing:
-            _report_observability(ns.trace, ns.breakdown, cfg, result)
-        if introspecting:
-            _report_introspection(ns.breakdown, cfg, result, ns.hlo_dump)
+            _report_observability(trace_path, breakdown, cfg, result)
+        if introspecting and rank0:
+            _report_introspection(breakdown, cfg, result, ns.hlo_dump)
     finally:
         if introspecting:
             obs.disable()
             obs.introspect.disable()
-    if ns.metrics_text:
+    if ns.metrics_text and rank0:
+        # One writer: several racing on one path would interleave it.
         _write_metrics_text(ns.metrics_text)
     # Reference-format output line (mpi/mpi_convolution.c:274 prints seconds).
     print(f"Execution time: {result.compute_seconds:.3f} sec")
@@ -93,13 +122,26 @@ def main(argv=None) -> int:
     return 0
 
 
+def _broadcast_obs_flags(ns):
+    """Rank 0's ``--trace`` path and ``--breakdown`` flag on every rank:
+    tracing changes what every rank exchanges (one rep per call, the
+    sharded runner's probes, the trace merge), so ranks that disagreed
+    would hang. Returns (trace_path, breakdown)."""
+    path, breakdown = distributed.broadcast_strs(
+        [ns.trace or "", "1" if ns.breakdown else ""])
+    return path or None, bool(breakdown)
+
+
 def _report_observability(trace_path, breakdown, cfg, result) -> None:
     """Write the trace and/or print the breakdown of one traced run, while
-    the tracer is still installed."""
+    the tracer is still installed. Every process joins the trace merge;
+    rank 0 writes it and prints the breakdown."""
     tracer = obs.get_tracer()
     if trace_path:
-        print(f"wrote trace {obs.export.write_chrome_trace(trace_path, tracer)}")
-    if not breakdown:
+        wrote = obs.export.write_chrome_trace(trace_path, tracer)
+        if wrote:
+            print(f"wrote trace {wrote}")
+    if not breakdown or distributed.process_index() != 0:
         return
     # fuse is 1 for the GB/s: a traced run launches one rep at a time, so
     # it pays device memory every rep; the steady-state depth beside it is

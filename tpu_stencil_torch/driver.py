@@ -4,11 +4,13 @@ The port's counterpart of the JAX package's driver (and of each reference
 variant's ``main``): CLI -> load -> place -> warm-up -> [compute loop] ->
 fetch -> store -> metrics, each step an ``obs.phase``. One image on one
 device, or spatially sharded over a mesh of devices (``--mesh RxC``, or
-more than one device); ``--frames`` clips run as one batch on one device.
-The compute window is fenced on every device of the job at both ends, and
-excludes file I/O, the kernel build and the warm-up that launches each
-kernel instance once before it (the reference's timer opens after
-``MPI_Barrier``).
+more than one device, or several processes); ``--frames`` clips run as
+one batch on one device, or as one contiguous frame range per process.
+The compute window opens after a barrier of the processes, is fenced on
+every local device of the job at both ends, is max-reduced over the
+processes, and excludes file I/O, the kernel build and the warm-up that
+launches each kernel instance once before it (the reference's timer opens
+after ``MPI_Barrier``).
 
 The job is hardened as the JAX package's is: named fault points
 (``resilience.faults``), the fallback ladder around the warm-up
@@ -37,7 +39,9 @@ from tpu_stencil_torch.io import raw as raw_io
 from tpu_stencil_torch.models.blur import IteratedConv2D
 from tpu_stencil_torch.ops import cuda_stencil
 from tpu_stencil_torch.ops import lowering as _lowering
+from tpu_stencil_torch.parallel import distributed
 from tpu_stencil_torch.resilience import deadline as _deadline
+from tpu_stencil_torch.resilience import errors as _errors
 from tpu_stencil_torch.resilience import fallback as _fallback
 from tpu_stencil_torch.resilience import faults as _faults
 from tpu_stencil_torch.runtime import autotune
@@ -248,11 +252,12 @@ def _checkpointed_iterate(cfg: JobConfig, run_fn: Callable,
                           fault: Optional[Callable] = None,
                           timeout_s: float = 0.0):
     """Run the remaining reps, checkpointing every ``checkpoint_every``.
-    Returns (out, compute_seconds): each chunk is fenced on every device
-    of ``devices`` at both ends (its end under the dispatch watchdog,
-    :func:`deadline.fence`), the window is the sum of the chunks, and the
-    checkpoint I/O between chunks stays outside it. The final state is the
-    job's output, not a checkpoint.
+    Returns (out, compute_seconds): each chunk opens after a barrier of
+    the processes and is fenced on every device of ``devices`` at both
+    ends (its end under the dispatch watchdog, :func:`deadline.fence`),
+    the window is the sum of the chunks, and the checkpoint I/O between
+    chunks stays outside it. The final state is the job's output, not a
+    checkpoint. Every process runs the same chunks.
 
     ``fault`` is the ``compute`` injection site, resolved once by the
     caller (None when unarmed): a call covering reps [r, r+n) checks it
@@ -273,6 +278,7 @@ def _checkpointed_iterate(cfg: JobConfig, run_fn: Callable,
         n = cfg.repetitions - rep
         if checkpoint_every:
             n = min(checkpoint_every, n)
+        distributed.barrier(timeout_s)
         with Timer("iterate", device=devices) as t:
             img_dev = _reps_spanned(run_fn, img_dev, n, rep)
             _deadline.fence(img_dev, timeout_s, f"driver.iterate[rep={rep}]")
@@ -352,7 +358,10 @@ def run_job(cfg: JobConfig, device: Optional[torch.device] = None,
     several tiles on one card); None means ``[device]`` when ``device`` is
     given, else every visible CUDA device (raising when there is none). A
     single image with more than one device, or with any ``--mesh``, runs
-    sharded; ``--mesh RxC`` takes the first R*C devices.
+    sharded; ``--mesh RxC`` takes the first R*C devices. Across processes
+    (:func:`distributed.initialize`) ``devices`` are this process's: a
+    single image runs sharded over every device of every process, and a
+    clip splits into one contiguous frame range per process.
 
     ``profile_dir``: a ``torch.profiler`` trace of the window there.
     ``checkpoint_every``/``resume``: checkpoint every N reps, and resume
@@ -369,6 +378,7 @@ def run_job(cfg: JobConfig, device: Optional[torch.device] = None,
     rungs = _fallback.job_ladder(cfg.backend, cfg.schedule,
                                  cfg.fallback_backend, devices[0])
     probes_before = autotune.probe_count
+    multi = distributed.process_count() > 1
     obs.registry().counter("jobs_total").inc()
     with Timer() as total_t:
         model = IteratedConv2D(cfg.filter_name, backend=cfg.backend,
@@ -383,6 +393,10 @@ def run_job(cfg: JobConfig, device: Optional[torch.device] = None,
                     "headerless frames); single-image containers cannot "
                     "hold a clip"
                 )
+            if multi:
+                return _run_frames_multiprocess(
+                    cfg, model, devices, total_t, probes_before,
+                    profile_dir, checkpoint_every, resume)
             if cfg.mesh_shape is not None:
                 n_b = cfg.mesh_shape[0] * cfg.mesh_shape[1]
                 if n_b > len(devices):
@@ -397,12 +411,13 @@ def run_job(cfg: JobConfig, device: Optional[torch.device] = None,
                     "not ported yet; it comes with the streaming slice. "
                     "Run the clip on one device (--mesh 1x1)"
                 )
-        elif len(devices) > 1 or cfg.mesh_shape is not None:
-            if cfg.boundary != "zero" and cfg.mesh_shape is None:
+        elif multi or len(devices) > 1 or cfg.mesh_shape is not None:
+            if not multi and cfg.boundary != "zero" and cfg.mesh_shape is None:
                 # A periodic run that never asked for a mesh must not fail
                 # on an auto-chosen grid the image does not divide.
                 devices = devices[:1]
-            if cfg.mesh_shape is not None:
+            if not multi and cfg.mesh_shape is not None:
+                # Across processes a mesh spans every device instead.
                 devices = devices[:cfg.mesh_shape[0] * cfg.mesh_shape[1]]
             return _run_sharded(cfg, model, devices, total_t, probes_before,
                                 profile_dir, checkpoint_every, resume)
@@ -524,14 +539,29 @@ def _run_sharded(cfg: JobConfig, model: IteratedConv2D,
     offsets into a raw output (else the stitched image saved). The
     runner takes ``cfg.overlap``; each call of the window (a
     ``--checkpoint-every`` chunk among them) starts its own slab and
-    exchanges it from the tiles it is given."""
-    from tpu_stencil_torch.parallel import distributed, sharded
+    exchanges it from the tiles it is given.
+
+    Across processes each process reads, runs and writes only its own
+    tiles (raw input and output only), the exchange crosses processes,
+    and the window is max-reduced. A dispatch timeout of the window (a
+    device fence, or a wait on a peer's strip) is raised as
+    :class:`~tpu_stencil_torch.resilience.errors.CollectiveTimeout`,
+    with per-edge verdicts in one process only."""
+    from tpu_stencil_torch.parallel import sharded
     from tpu_stencil_torch.runtime import checkpoint as ckpt
 
     h, w, ch = cfg.height, cfg.width, cfg.channels
+    multi = distributed.process_count() > 1
+    if multi and not images_io.is_raw(cfg.output_path):
+        # Fail before the compute: no process holds the whole image.
+        raise NotImplementedError(
+            "a job of several processes needs a .raw output path "
+            "(per-process strided writes); convert afterwards")
+    timeout_s = _deadline.resolve(cfg.dispatch_timeout_s)
     runner = sharded.ShardedRunner(model, (h, w), ch,
                                    mesh_shape=cfg.mesh_shape,
-                                   devices=devices, overlap=cfg.overlap)
+                                   devices=devices, overlap=cfg.overlap,
+                                   timeout_s=timeout_s)
     start_rep, tiles = 0, None
     if resume:
         restored = ckpt.restore_sharded(cfg, runner)
@@ -545,11 +575,14 @@ def _run_sharded(cfg: JobConfig, model: IteratedConv2D,
             if images_io.is_raw(cfg.image, sniff=True):
                 tiles = distributed.read_sharded(cfg.image, h, w, ch,
                                                  runner.mesh)
+            elif multi:
+                raise NotImplementedError(
+                    "a job of several processes needs a .raw input "
+                    "(per-process strided reads); convert it first")
             else:
                 tiles = runner.put(_load_input(cfg))
     calls = _window_calls(cfg.repetitions - start_rep, checkpoint_every,
                           obs.enabled())
-    timeout_s = _deadline.resolve(cfg.dispatch_timeout_s)
     fault_compile = _faults.site("compile")
     with obs.phase("compile") as s:
         if fault_compile is not None:
@@ -587,13 +620,27 @@ def _run_sharded(cfg: JobConfig, model: IteratedConv2D,
             fault_coll()
             return _inner(x, n)
     before = cuda_stencil.launch_counts()
-    with _maybe_profile(profile_dir, runner.devices):
-        with obs.phase("iterate", reps=cfg.repetitions):
-            out, compute = _checkpointed_iterate(
-                cfg, run_fn, save_fn, tiles, checkpoint_every, start_rep,
-                runner.devices, fault=_faults.site("compute"),
-                timeout_s=timeout_s,
-            )
+    try:
+        with _maybe_profile(profile_dir, runner.devices):
+            with obs.phase("iterate", reps=cfg.repetitions):
+                out, compute = _checkpointed_iterate(
+                    cfg, run_fn, save_fn, tiles, checkpoint_every, start_rep,
+                    runner.devices, fault=_faults.site("compute"),
+                    timeout_s=timeout_s,
+                )
+    except _errors.DispatchTimeout as e:
+        edges = {}
+        if not multi:
+            # Which edge is wedged, itself under a watchdog; across
+            # processes the probes would exchange with ranks that did not
+            # time out and will not join them.
+            try:
+                edges = runner.diagnose_edges(
+                    timeout_s=min(10.0, timeout_s or 10.0))
+            except Exception:
+                pass
+        raise _errors.CollectiveTimeout(e.label, e.seconds,
+                                        edges=edges) from e
     after = cuda_stencil.launch_counts()
     _record_device_memory(runner.devices[0])
     compute_seconds = max_across_processes(compute)
@@ -620,4 +667,109 @@ def _run_sharded(cfg: JobConfig, model: IteratedConv2D,
         body=runner.body,
         warmup_launches=warm_launches,
         overlap=runner.overlap,
+    )
+
+
+def _run_frames_multiprocess(cfg: JobConfig, model: IteratedConv2D,
+                             devices: List[torch.device], total_t: Timer,
+                             probes_before: int = 0,
+                             profile_dir: Optional[str] = None,
+                             checkpoint_every: int = 0,
+                             resume: bool = False) -> JobResult:
+    """A ``--frames`` clip across processes: each process owns one
+    contiguous frame range (frames never mix, so nothing is exchanged),
+    reads and writes only its byte range of the raw files, and runs it as
+    one batch on its first local device (batching frames over several
+    devices comes with the streaming slice). The window is max-reduced
+    over the processes. Checkpoints use the frames format: every process
+    writes its range into one shared versioned data file each chunk
+    (:func:`checkpoint.save_frames_sharded`); a process with no frames
+    runs the same chunk loop on nothing, so it joins every barrier and
+    every commit."""
+    from tpu_stencil_torch.io import native
+    from tpu_stencil_torch.runtime import checkpoint as ckpt
+
+    if cfg.mesh_shape is not None:
+        raise NotImplementedError(
+            "--mesh with --frames across processes is not supported: each "
+            "process runs its frame range on its first local device")
+    p, n_proc = distributed.process_index(), distributed.process_count()
+    per = -(-cfg.frames // n_proc)
+    f0 = min(cfg.frames, p * per)
+    n_local = min(cfg.frames, f0 + per) - f0
+    h, w, ch = cfg.height, cfg.width, cfg.channels
+    start_rep, imgs = 0, None
+    if resume:
+        restored = ckpt.restore_frames_sharded(cfg, f0, n_local)
+        if restored is not None:
+            start_rep, imgs = restored
+    calls = _window_calls(cfg.repetitions - start_rep, checkpoint_every,
+                          obs.enabled())
+    timeout_s = _deadline.resolve(cfg.dispatch_timeout_s)
+
+    def save_fn(rep, x):
+        ckpt.save_frames_sharded(cfg, rep, None if x is None
+                                 else x.cpu().numpy(), f0)
+
+    out, launches, warm_launches = None, {}, {}
+    if n_local:
+        if imgs is None:
+            fault_read = _faults.site("read")
+            with obs.phase("load"):
+                if fault_read is not None:
+                    fault_read()
+                imgs = raw_io.read_raw_rows(cfg.image, f0 * h, n_local * h,
+                                            w, ch).reshape(n_local, h, w, ch)
+                if ch == 1:
+                    imgs = imgs[..., 0]
+        engine = prepare_engine(model, imgs, frames=n_local, calls=calls,
+                                timeout_s=timeout_s)
+        warm_launches = engine.warm_launches
+        before = cuda_stencil.launch_counts()
+        with _maybe_profile(profile_dir, [model.device]):
+            with obs.phase("iterate", reps=cfg.repetitions):
+                out_dev, compute = _checkpointed_iterate(
+                    cfg, engine.step_fn, save_fn, engine.img_dev,
+                    checkpoint_every, start_rep, [model.device],
+                    fault=_faults.site("compute"), timeout_s=timeout_s,
+                )
+        launches = _delta(cuda_stencil.launch_counts(), before)
+        with obs.phase("fetch"):
+            out = engine.fetch(out_dev)
+        _record_device_memory(model.device)
+    else:
+        _checkpointed_iterate(cfg, lambda x, n: x, save_fn, None,
+                              checkpoint_every, start_rep, [])
+        compute = 0.0
+    compute_seconds = max_across_processes(compute)
+    fault_write = _faults.site("write")
+    with obs.phase("store"):
+        if fault_write is not None:
+            fault_write()
+        native.set_size(cfg.output_path, cfg.frames * h * w * ch)
+        if n_local:
+            raw_io.write_raw_block(cfg.output_path, f0 * h, 0,
+                                   out.reshape((n_local * h,) + out.shape[2:]),
+                                   w, ch, cfg.frames * h)
+    _clear_checkpoint(cfg, checkpoint_every, resume)
+    backend, schedule = model.batch_config((h, w), ch)
+    bh, fz, body = None, None, None
+    if backend == "pallas":
+        bh, fz = _ran_geometry(
+            model, cuda_stencil.frames_rows(model.plan, h, n_local or per),
+            w, ch, schedule)
+        body = cuda_stencil.tile_body(model.plan)
+    return JobResult(
+        output_path=cfg.output_path,
+        compute_seconds=compute_seconds,
+        total_seconds=total_t.elapsed,
+        backend=backend,
+        mesh_shape=None,
+        schedule=schedule,
+        block_h=bh,
+        fuse=fz,
+        launches=launches,
+        tune_probes=autotune.probe_count - probes_before,
+        body=body,
+        warmup_launches=warm_launches,
     )

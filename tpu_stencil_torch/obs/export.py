@@ -1,11 +1,11 @@
 """Chrome trace-event JSON export (Perfetto/chrome://tracing loadable).
 
-The port's counterpart of the JAX package's ``obs/export.py`` for one
-process: span records become complete ("X") events, ``ts``/``dur`` in
-microseconds relative to the tracer's origin, one ``tid`` track per
-recording thread (metadata events name the process and each thread). The
-merge of several processes' events comes with the port's several-process
-slice.
+The port's counterpart of the JAX package's ``obs/export.py``: span
+records become complete ("X") events, ``ts``/``dur`` in microseconds
+relative to the tracer's origin, one ``tid`` track per recording thread
+(metadata events name the process and each thread). With several
+processes every rank's events are gathered (:func:`merged_events`, its
+``pid`` the rank) and rank 0 writes the one merged file.
 """
 
 from __future__ import annotations
@@ -58,12 +58,33 @@ def chrome_events(tracer: Tracer, pid: int = 0,
     return events
 
 
+def merged_events(tracer: Tracer,
+                  trace_id: Optional[str] = None) -> List[dict]:
+    """Every process's events (``pid`` = its rank), gathered to every
+    process; one process: this tracer's. ``trace_id`` filters on each
+    process before the gather. A collective: every process calls it."""
+    from tpu_stencil_torch.parallel import distributed
+
+    local = chrome_events(tracer, pid=distributed.process_index(),
+                          trace_id=trace_id)
+    if distributed.process_count() == 1:
+        return local
+    merged: List[dict] = []
+    for blob in distributed.allgather_bytes(json.dumps(local).encode()):
+        merged.extend(json.loads(blob.decode()))
+    return merged
+
+
 def write_chrome_trace(path: str, tracer: Tracer,
-                       trace_id: Optional[str] = None) -> str:
-    """Write this process's trace to ``path`` (``trace_id``: one
-    request's cross-thread view instead of the whole run). Returns
-    ``path``."""
-    events = chrome_events(tracer, trace_id=trace_id)
+                       trace_id: Optional[str] = None) -> Optional[str]:
+    """Write the merged trace to ``path`` (``trace_id``: one request's
+    cross-thread view instead of the whole run): every process joins the
+    gather, rank 0 writes. Returns ``path`` on rank 0, None elsewhere."""
+    from tpu_stencil_torch.parallel import distributed
+
+    events = merged_events(tracer, trace_id=trace_id)
+    if distributed.process_index() != 0:
+        return None
     with open(path, "w") as fh:
         json.dump({"traceEvents": events, "displayTimeUnit": "ms"}, fh)
         fh.write("\n")

@@ -107,8 +107,14 @@ def capture(site: str, describe: Callable[[], dict],
     the compiler counts (None: unavailable) and ``available`` (every
     instance's registers and blocks per SM were read, i.e. on a card).
     Headline numbers are mirrored as ``introspect_<site>_*`` gauges.
-    Returns None when disarmed; never raises."""
+    Returns None when disarmed, and on every rank but 0 of a job of
+    several processes (each would record the same instances); never
+    raises."""
     if not _enabled:
+        return None
+    from tpu_stencil_torch.parallel import distributed
+
+    if distributed.process_index() != 0:
         return None
     rec = {
         "site": site,

@@ -22,6 +22,14 @@ ordering to XLA. Here it is written out with CUDA streams and events:
   eight border pieces on a border stream, each waiting only on its own
   edge's event (the corner pieces on the corner hop's).
 
+When the mesh spans several processes the slab holds this process's
+tiles only (``Slab.peers``), and a strip between tiles of two processes
+moves by ``isend``/``irecv`` through host buffers
+(:mod:`tpu_stencil_torch.parallel.transport`): the edge's receive lands in
+the ghost band on the caller's stream before the edge's event is
+recorded, and the corner hop is still a second hop after the N and S
+strips it reads.
+
 All of it works on a :class:`Slab`: per tile two ghost-extended buffers,
 allocated once per run and refilled in place every chunk (the port's
 counterpart of the loop-carried slab of :func:`edge_iterate`). Chunk ``c``
@@ -199,33 +207,46 @@ class Slab:
     not change over a run."""
 
     def __init__(self, tiles: Grid, depth: int,
-                 streams: Optional[Streams] = None) -> None:
-        t = tiles[0][0]
+                 streams: Optional[Streams] = None, peers=None) -> None:
+        t = next(x for row in tiles for x in row if x is not None)
         self.grid = (len(tiles), len(tiles[0]))
         self.th, self.tw = int(t.shape[0]), int(t.shape[1])
         self.channels = int(t.shape[2]) if t.dim() == 3 else 1
         self.twc = self.tw * self.channels
         self.depth = depth
+        self.peers = peers
         shape = (self.th + 2 * depth,
                  self.twc + 2 * depth * self.channels)
-        self.devices = [[x.device for x in row] for row in tiles]
-        self.bufs = [[tuple(torch.zeros(shape, dtype=torch.uint8,
-                                        device=x.device) for _ in range(2))
-                      for x in row] for row in tiles]
+        self.devices = [[None if x is None else x.device for x in row]
+                        for row in tiles]
+        self.bufs = [[None if x is None else tuple(
+            torch.zeros(shape, dtype=torch.uint8, device=x.device)
+            for _ in range(2)) for x in row] for row in tiles]
         self.cur = 0
         if streams is not None:
             for b in self.buffers:
                 streams.keep(b)
         for i, row in enumerate(tiles):
             for j, x in enumerate(row):
-                self.tile2(i, j).copy_(x.reshape(self.th, self.twc))
+                if x is not None:
+                    self.tile2(i, j).copy_(x.reshape(self.th, self.twc))
 
     @property
     def buffers(self) -> List[torch.Tensor]:
-        return [b for row in self.bufs for pair in row for b in pair]
+        return [b for row in self.bufs for pair in row if pair is not None
+                for b in pair]
 
     def flat_devices(self) -> List[torch.device]:
-        return [d for row in self.devices for d in row]
+        return [d for row in self.devices for d in row if d is not None]
+
+    def local(self, i: int, j: int) -> bool:
+        """Whether this process holds tile (i, j)."""
+        return self.bufs[i][j] is not None
+
+    def local_tiles(self) -> List[Tuple[int, int]]:
+        """The (i, j) of this process's tiles, row-major."""
+        return [(i, j) for i in range(self.grid[0])
+                for j in range(self.grid[1]) if self.local(i, j)]
 
     def ext(self, i: int, j: int, d: int, k: Optional[int] = None
             ) -> torch.Tensor:
@@ -248,7 +269,8 @@ class Slab:
         def shaped(x):
             return x if self.channels == 1 else x.unflatten(
                 1, (self.tw, self.channels))
-        return [[shaped(self.tile2(i, j)) for j in range(self.grid[1])]
+        return [[shaped(self.tile2(i, j)) if self.local(i, j) else None
+                 for j in range(self.grid[1])]
                 for i in range(self.grid[0])]
 
 
@@ -293,6 +315,21 @@ def _strip(slab: Slab, i: int, j: int, name: str, d: int, ghost: bool
             else e[d:d + th, twc:twc + dc])
 
 
+def _move(slab: Slab, batch, into: Tuple[int, int], slot: str,
+          frm: Tuple[int, int], dst: Callable[[], torch.Tensor],
+          src: Callable[[], torch.Tensor]) -> None:
+    """One strip from tile ``frm`` to slot ``slot`` of tile ``into``:
+    a copy when this process holds both, a receive or a send on ``batch``
+    when it holds one, nothing when it holds neither."""
+    here, there = slab.local(*into), slab.local(*frm)
+    if here and there:
+        dst().copy_(src())
+    elif here:
+        batch.recv(into, slot, frm, dst())
+    elif there:
+        batch.send(into, slot, src())
+
+
 def exchange_edge(slab: Slab, name: str, d: int,
                   boundary: str = "zero") -> None:
     """ONE edge's ghost strips, ``d`` deep, for every tile: the strip copy
@@ -300,15 +337,21 @@ def exchange_edge(slab: Slab, name: str, d: int,
     dependence on any other edge. N's ghost of tile (i, j) is the bottom of
     tile (i-1, j), and so on; a tile with no neighbour there keeps its zero
     band ('zero'), or takes the opposite tile's strip ('periodic', which is
-    its own on an axis of one tile)."""
+    its own on an axis of one tile). Across processes the edge's strips
+    are one batch, received into the ghost bands before this returns."""
     step, _ = _EDGE_STEP[name]
     mirror = {"n": "s", "s": "n", "w": "e", "e": "w"}[name]
+    batch = (None if slab.peers is None
+             else slab.peers.batch(f"overlap.exchange_edge[{name}]"))
     for i in range(slab.grid[0]):
         for j in range(slab.grid[1]):
             nb = _neighbour(slab.grid, i, j, step, boundary)
             if nb is not None:
-                _strip(slab, i, j, name, d, True).copy_(
-                    _strip(slab, nb[0], nb[1], mirror, d, False))
+                _move(slab, batch, (i, j), name, nb,
+                      lambda: _strip(slab, i, j, name, d, True),
+                      lambda: _strip(slab, nb[0], nb[1], mirror, d, False))
+    if batch is not None:
+        batch.run()
 
 
 def _corner_pack(slab: Slab, i: int, j: int, d: int, lane0: int
@@ -334,16 +377,22 @@ def exchange_corners(slab: Slab, d: int, boundary: str = "zero") -> None:
     if slab.grid[0] == 1 and boundary == "zero":
         return
     twc, dc = slab.twc, d * slab.channels
+    batch = (None if slab.peers is None
+             else slab.peers.batch("overlap.exchange_corners"))
     for i in range(slab.grid[0]):
         for j in range(slab.grid[1]):
             west = _neighbour(slab.grid, i, j, (0, -1), boundary)
             if west is not None:
-                _corner_pack(slab, i, j, d, 0).copy_(
-                    _corner_pack(slab, west[0], west[1], d, twc))
+                _move(slab, batch, (i, j), "corners_w", west,
+                      lambda: _corner_pack(slab, i, j, d, 0),
+                      lambda: _corner_pack(slab, west[0], west[1], d, twc))
             east = _neighbour(slab.grid, i, j, (0, 1), boundary)
             if east is not None:
-                _corner_pack(slab, i, j, d, dc + twc).copy_(
-                    _corner_pack(slab, east[0], east[1], d, dc))
+                _move(slab, batch, (i, j), "corners_e", east,
+                      lambda: _corner_pack(slab, i, j, d, dc + twc),
+                      lambda: _corner_pack(slab, east[0], east[1], d, dc))
+    if batch is not None:
+        batch.run()
 
 
 def exchange_edge_slab(slab: Slab, d: int, boundary: str = "zero",
@@ -463,10 +512,6 @@ def _on(streams: Optional[Streams], which: str, dev):
             else streams.on(which, dev))
 
 
-def _tile_indices(slab: Slab):
-    return [(i, j) for i in range(slab.grid[0]) for j in range(slab.grid[1])]
-
-
 def _finish(slab: Slab, k_out: int, mask: Optional[Grid],
             streams: Optional[Streams]) -> None:
     """Join the streams, make buffer ``k_out`` current and re-zero the
@@ -475,7 +520,7 @@ def _finish(slab: Slab, k_out: int, mask: Optional[Grid],
         streams.join(slab.flat_devices())
     slab.cur = k_out
     if mask is not None:
-        for i, j in _tile_indices(slab):
+        for i, j in slab.local_tiles():
             slab.tile2(i, j).mul_(mask[i][j].reshape(slab.th, slab.twc))
 
 
@@ -490,7 +535,7 @@ def _chunk(slab: Slab, kernel: PieceKernel, mode: str, boundary: str,
     d = kernel.depth
     k_out = 1 - slab.cur
     rects = piece_rects(mode, slab.th, slab.tw, d, slab.channels)
-    idx = _tile_indices(slab)
+    idx = slab.local_tiles()
     dev = slab.devices
     if streams is not None:
         streams.begin(slab.flat_devices())
@@ -579,7 +624,7 @@ def fused_edge_chunk(slab: Slab, plan: _lowering.StencilPlan, fuse: int,
 
 def edge_iterate(tiles: Grid, depths: Sequence[int], halo: int,
                  chunk_fn: Callable[[Slab, int], None],
-                 streams: Optional[Streams] = None) -> Grid:
+                 streams: Optional[Streams] = None, peers=None) -> Grid:
     """The persistent-exchange rep loop: one :class:`Slab` as deep as the
     deepest chunk, allocated once; then ``chunk_fn(slab, n)`` per entry of
     ``depths`` (its rep count), each refilling the slab's ghost bands in
@@ -587,7 +632,7 @@ def edge_iterate(tiles: Grid, depths: Sequence[int], halo: int,
     final tiles (views of the slab). Serves every overlap mode."""
     if not depths:
         return [list(row) for row in tiles]
-    slab = Slab(tiles, max(depths) * halo, streams)
+    slab = Slab(tiles, max(depths) * halo, streams, peers)
     for n in depths:
         chunk_fn(slab, n)
     return slab.tiles()

@@ -4,9 +4,12 @@ The port's counterpart of the JAX package's ``parallel/sharded.py``
 (``shard_map`` over a 2-D device mesh) and of the reference MPI program's
 hot loop (``mpi/mpi_convolution.c:156-240``): per iteration, a halo
 exchange between the tiles (:mod:`tpu_stencil_torch.parallel.halo`), then
-the local stencil on each ghost-extended tile. All tiles live in one
-process, each on its mesh device (:mod:`tpu_stencil_torch.parallel.mesh`);
-the rep loop is a Python loop and every step builds fresh tiles.
+the local stencil on each ghost-extended tile. Each tile lives on its
+mesh device (:mod:`tpu_stencil_torch.parallel.mesh`); when the mesh spans
+several processes a process holds, places, runs and writes only its own
+tiles (a grid holds ``None`` for another rank's) and the exchange reaches
+the others through :mod:`tpu_stencil_torch.parallel.transport`. The rep
+loop is a Python loop and every step builds fresh tiles.
 
 Two local steps, as in the JAX package:
 
@@ -32,8 +35,11 @@ cached); the resolved mode is what runs and what is reported.
 Under tracing the runner splits its time by probes outside the timed
 window (:meth:`ShardedRunner.trace_phase_probes`): exchange and compute,
 each edge's exchange, and under an overlap mode its interior and border
-halves. Several processes (``torch.distributed``) and the shared runner
-cache are not ported yet.
+halves. Across processes every verdict that shapes the exchange
+sequence is rank 0's (:func:`_agreed_config`, ``_agreed_overlap``): ranks
+that disagreed on the backend, the chunk depth or the overlap mode would
+issue different sends and receives and hang. The shared runner cache is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -51,17 +57,26 @@ from tpu_stencil_torch.parallel import overlap as overlap_mod
 from tpu_stencil_torch.parallel import partition
 from tpu_stencil_torch.parallel.halo import Grid, halo_exchange
 from tpu_stencil_torch.parallel.mesh import COLS_AXIS, ROWS_AXIS, make_mesh
+from tpu_stencil_torch.parallel.transport import Peers
+
+
+def _map(fn, *grids) -> Grid:
+    """``fn`` over the tiles this process holds (position by position
+    across ``grids``); ``None`` where the first grid holds another rank's
+    tile."""
+    return [[None if ts[0] is None else fn(*ts) for ts in zip(*rows)]
+            for rows in zip(*grids)]
 
 
 def _apply_mask(tiles: Grid, mask: Optional[Grid]) -> Grid:
     if mask is None:
         return tiles
-    return [[t * m for t, m in zip(row, mrow)]
-            for row, mrow in zip(tiles, mask)]
+    return _map(lambda t, m: t * m, tiles, mask)
 
 
 def _local_step(tiles: Grid, plan: _lowering.StencilPlan,
-                mask: Optional[Grid], boundary: str = "zero") -> Grid:
+                mask: Optional[Grid], boundary: str = "zero",
+                peers=None) -> Grid:
     """One rep over the grid in torch ops: halo exchange, the plan's step
     on every ghost-extended tile, then the pad re-zero.
 
@@ -70,28 +85,27 @@ def _local_step(tiles: Grid, plan: _lowering.StencilPlan,
     output and the cols pass — the corner ghosts are never needed."""
     halo = plan.halo
     if plan.kind == "sep_int":
-        xi = [[t.to(torch.int32) for t in row] for row in tiles]
-        ext0 = halo_exchange(xi, halo, (0,), boundary)
-        a = [[_lowering.sep_rows_pass(t, plan) for t in row] for row in ext0]
-        ext1 = halo_exchange(a, halo, (1,), boundary)
-        out = [[_lowering.sep_cols_pass(t, plan) for t in row]
-               for row in ext1]
+        xi = _map(lambda t: t.to(torch.int32), tiles)
+        ext0 = halo_exchange(xi, halo, (0,), boundary, peers)
+        a = _map(lambda t: _lowering.sep_rows_pass(t, plan), ext0)
+        ext1 = halo_exchange(a, halo, (1,), boundary, peers)
+        out = _map(lambda t: _lowering.sep_cols_pass(t, plan), ext1)
     else:
-        ext = halo_exchange(tiles, halo, (0, 1), boundary)
-        out = [[_lowering.valid_step(t, plan) for t in row] for row in ext]
+        ext = halo_exchange(tiles, halo, (0, 1), boundary, peers)
+        out = _map(lambda t: _lowering.valid_step(t, plan), ext)
     return _apply_mask(out, mask)
 
 
 def _pallas_local_chunk(tiles: Grid, plan: _lowering.StencilPlan, fuse: int,
                         global_shape: Tuple[int, int],
                         mask: Optional[Grid],
-                        block_h: Optional[int] = None) -> Grid:
+                        block_h: Optional[int] = None, peers=None) -> Grid:
     """``fuse`` reps for one exchange: widen the exchange to ``fuse *
     halo`` uint8 ghosts and run K3 on every tile, whose trusted band
     contracts by ``halo`` per rep — the ghosts recompute the neighbours'
     values exactly, so no further exchange is needed until the next
     chunk."""
-    ext = halo_exchange(tiles, fuse * plan.halo, (0, 1))
+    ext = halo_exchange(tiles, fuse * plan.halo, (0, 1), peers=peers)
     return _apply_mask(_valid_chunk(tiles, ext, plan, fuse, global_shape,
                                     block_h), mask)
 
@@ -107,6 +121,9 @@ def _valid_chunk(tiles: Grid, ext: Grid, plan: _lowering.StencilPlan,
     for i, (row, erow) in enumerate(zip(tiles, ext)):
         orow = []
         for j, (t, e) in enumerate(zip(row, erow)):
+            if t is None:
+                orow.append(None)
+                continue
             th, tw = t.shape[0], t.shape[1]
             channels = t.shape[2] if t.dim() == 3 else 1
             out2 = cs.valid_fused(
@@ -124,7 +141,8 @@ def build_sharded_iterate(plan: _lowering.StencilPlan, needs_mask: bool,
                           fuse: int = 1, boundary: str = "zero",
                           block_h: Optional[int] = None,
                           overlap: str = "off",
-                          streams: Optional[overlap_mod.Streams] = None):
+                          streams: Optional[overlap_mod.Streams] = None,
+                          peers=None):
     """The sharded rep loop: returns ``fn(tiles, reps, mask) -> tiles``.
 
     ``backend='pallas'`` runs ``reps // fuse`` K3 chunks, then the
@@ -139,7 +157,8 @@ def build_sharded_iterate(plan: _lowering.StencilPlan, needs_mask: bool,
     :mod:`tpu_stencil_torch.parallel.overlap` on one slab per call, on
     ``streams`` (the runner's) on a card. ``edge`` under K3 needs a
     ghost-free interior at every chunk depth (the runner clamps
-    ``fuse``)."""
+    ``fuse``). ``peers``: the tile owners of a mesh that spans several
+    processes (:class:`~tpu_stencil_torch.parallel.transport.Peers`)."""
     if overlap not in overlap_mod.MODE_CODES:
         raise ValueError(
             f"build_sharded_iterate needs a resolved overlap mode, got "
@@ -176,17 +195,17 @@ def build_sharded_iterate(plan: _lowering.StencilPlan, needs_mask: bool,
 
             return overlap_mod.edge_iterate(
                 tiles, cs.launch_schedule(int(reps), fuse), plan.halo, chunk,
-                streams)
+                streams, peers)
 
         return iterate
 
     if backend == "pallas":
         def step_chunk(tiles, n_fused, mask):
             return _pallas_local_chunk(tiles, plan, n_fused, global_shape,
-                                       mask, block_h=block_h)
+                                       mask, block_h=block_h, peers=peers)
     else:
         def step_chunk(tiles, n_fused, mask):
-            return _local_step(tiles, plan, mask, boundary)
+            return _local_step(tiles, plan, mask, boundary, peers)
 
     def iterate(tiles: Grid, reps: int, mask: Optional[Grid] = None) -> Grid:
         tiles = [list(row) for row in tiles]
@@ -197,13 +216,40 @@ def build_sharded_iterate(plan: _lowering.StencilPlan, needs_mask: bool,
     return iterate
 
 
+def _agreed_config(model, tile: Tuple[int, int], channels: int):
+    """The (backend, schedule, block_h, fuse) the runner runs at ``tile``:
+    the model's resolution (the autotuner's verdict for ``auto``/
+    ``autotune``, measured once on a card). Across processes rank 0
+    resolves and every rank receives its verdict: a divergent backend or
+    fuse (the exchange's chunk depth) would make the ranks issue
+    different sends and receives."""
+    from tpu_stencil_torch.parallel import distributed
+
+    def resolve():
+        backend, schedule = model.resolved_config(tile, channels)
+        bh, fz = model.resolved_geometry(tile, channels)
+        return backend, schedule, bh, fz
+
+    if distributed.process_count() == 1:
+        return resolve()
+    vote = ["", "", "", ""]
+    if distributed.process_index() == 0:
+        vote = ["" if v is None else str(v) for v in resolve()]
+    backend, schedule, bh, fz = distributed.broadcast_strs(vote)
+    return (backend, schedule or None, int(bh) if bh else None,
+            int(fz) if fz else None)
+
+
 class ShardedRunner:
     """The mesh, padding geometry, mask and resolved local step for one
     image shape — the per-job state every reference rank kept in locals
     (tile dims, neighbour ranks, datatypes).
 
     ``devices`` may name one device several times (see
-    :mod:`tpu_stencil_torch.parallel.mesh`)."""
+    :mod:`tpu_stencil_torch.parallel.mesh`); across processes they are
+    this process's devices, and the mesh is built from every rank's.
+    ``timeout_s``: the dispatch timeout every wait of a cross-process
+    exchange takes (0: gloo's own)."""
 
     def __init__(
         self,
@@ -213,6 +259,7 @@ class ShardedRunner:
         mesh_shape: Optional[Tuple[int, int]] = None,
         devices: Optional[Sequence] = None,
         overlap: str = "off",
+        timeout_s: float = 0.0,
     ) -> None:
         overlap_mod.check_mode(overlap)
         self.model = model
@@ -221,6 +268,9 @@ class ShardedRunner:
         self.mesh = make_mesh(mesh_shape, devices, image_shape=image_shape)
         self.mesh_shape = (self.mesh.shape[ROWS_AXIS],
                            self.mesh.shape[COLS_AXIS])
+        # The transport of a mesh that spans several processes.
+        self.peers = (None if self.mesh.owners is None
+                      else Peers(self.mesh.owners, timeout_s))
         ph, pw = partition.pad_amounts(self.h, self.w, self.mesh_shape)
         self.padded_shape = (self.h + ph, self.w + pw)
         tile = partition.tile_shape(self.h, self.w, self.mesh_shape)
@@ -238,10 +288,11 @@ class ShardedRunner:
         # local kernel runs on (a proxy: the autotuner times K1's rep loop
         # on a tile-sized image, not K3, but they share the tile code):
         # the autotune cache is consulted, and on a card a cold cache
-        # measures once per tile shape. One process holds every tile, so
-        # the model's verdict needs no agreement step. A plan K3 cannot
-        # take, or a periodic run, resolves to xla.
-        self.backend, tuned_schedule = model.resolved_config(tile, channels)
+        # measures once per tile shape (on rank 0, whose verdict every
+        # rank takes). A plan K3 cannot take, or a periodic run, resolves
+        # to xla.
+        self.backend, tuned_schedule, geo_bh, geo_fz = _agreed_config(
+            model, tile, channels)
         halo = model.plan.halo
         if min(tile) < halo:
             # One exchange hop supplies at most one neighbour tile of
@@ -262,7 +313,6 @@ class ShardedRunner:
         # probe times K1 alone, and here every chunk also costs a halo
         # exchange the probe never saw, so fewer reps per chunk can only
         # be judged by timing this runner.
-        geo_bh, geo_fz = model.resolved_geometry(tile, channels)
         forced = model.block_h is not None or model.fuse is not None
         if not forced and geo_fz is not None and geo_fz < cs.DEFAULT_FUSE:
             geo_bh = geo_fz = None
@@ -326,6 +376,7 @@ class ShardedRunner:
             global_shape=self._global_shape,
             fuse=self._mode_fuse(overlap), boundary=self.boundary,
             block_h=self._block_h, overlap=overlap, streams=self._streams,
+            peers=self.peers,
         )
 
     def _mode_fuse(self, mode: str) -> int:
@@ -353,19 +404,44 @@ class ShardedRunner:
         if h < 1 or min(self.tile) <= 2 * h:
             return "off"
         if requested == "auto":
-            from tpu_stencil_torch.runtime import autotune
-
-            requested = autotune.best_overlap(
-                self.model.plan, self.tile, self.channels, self.mesh_shape,
-                self.backend, measure=self._measure_overlap_probes,
-                device=self.devices[0])
+            requested = self._agreed_overlap()
         if requested == "fused-split" and self.backend != "pallas":
             return "split"
         return requested
 
+    def _agreed_overlap(self) -> str:
+        """``auto``'s verdict: :func:`autotune.best_overlap` (the cache,
+        else this runner's probes, measured once and cached). Across
+        processes the probes exchange, so every rank runs them or none
+        does: rank 0 checks the cache and broadcasts whether it hit; on a
+        miss every rank measures, and rank 0's verdict is stored and
+        broadcast (the mode sets every rank's send and receive
+        sequence)."""
+        from tpu_stencil_torch.parallel import distributed
+        from tpu_stencil_torch.runtime import autotune
+
+        key = (self.model.plan, self.tile, self.channels, self.mesh_shape,
+               self.backend)
+        if distributed.process_count() == 1:
+            return autotune.best_overlap(
+                *key, measure=self._measure_overlap_probes,
+                device=self.devices[0])
+        rank0 = distributed.process_index() == 0
+        hit = (autotune.cached_overlap(*key, device=self.devices[0])
+               if rank0 else None)
+        hit = distributed.broadcast_strs([hit or ""])[0]
+        if hit:
+            return hit
+        measured = self._measure_overlap_probes()
+        mode = (autotune.best_overlap(*key, measure=lambda: measured,
+                                      device=self.devices[0])
+                if rank0 else "")
+        return distributed.broadcast_strs([mode])[0]
+
     @property
     def devices(self) -> List[torch.device]:
-        """Every device of the mesh, in row-major order."""
+        """The devices of this process's tiles, in row-major order (every
+        tile's in one process)."""
         return self.mesh.flat()
 
     def prepare(self) -> None:
@@ -387,7 +463,7 @@ class ShardedRunner:
         """Run ``depths`` (:meth:`warm_reps`) on a scratch copy of the
         tiles, never on the tiles themselves; returns the scratch grid
         for the caller to fence."""
-        scratch = [[t.clone() for t in row] for row in tiles]
+        scratch = _map(torch.clone, tiles)
         for n in depths:
             scratch = self.run(scratch, n)
         return scratch
@@ -435,7 +511,8 @@ class ShardedRunner:
             g = self.fuse * plan.halo
 
             def exchange(tiles):
-                return tiles, halo_exchange(tiles, g, (0, 1))
+                return tiles, halo_exchange(tiles, g, (0, 1),
+                                            peers=self.peers)
 
             def compute(pair):
                 return _valid_chunk(pair[0], pair[1], plan, self.fuse,
@@ -443,11 +520,11 @@ class ShardedRunner:
         else:
             def exchange(tiles):
                 return tiles, halo_exchange(tiles, plan.halo, (0, 1),
-                                            self.boundary)
+                                            self.boundary, self.peers)
 
             def compute(pair):
-                return [[_lowering.valid_step(t, plan) for t in row]
-                        for row in pair[1]]
+                return _map(lambda t: _lowering.valid_step(t, plan),
+                            pair[1])
         return exchange, compute
 
     def edge_probes(self) -> Dict[str, Callable]:
@@ -491,10 +568,9 @@ class ShardedRunner:
 
         def run(names):
             def fn(slab):
-                for i in range(slab.grid[0]):
-                    for j in range(slab.grid[1]):
-                        for name in names:
-                            kernel(slab, i, j, rects[name], 1 - slab.cur)
+                for i, j in slab.local_tiles():
+                    for name in names:
+                        kernel(slab, i, j, rects[name], 1 - slab.cur)
                 return slab.buffers
             return fn
 
@@ -540,7 +616,7 @@ class ShardedRunner:
 
         exchange, compute = self._phase_probes()
         pair = exchange(tiles)
-        slab = overlap_mod.Slab(tiles, max(1, self.model.plan.halo))
+        slab = self._slab(tiles, max(1, self.model.plan.halo))
         edges = {name: best_of(lambda fn=fn: fn(slab))
                  for name, fn in self.edge_probes().items()}
         runs = self._candidate_probes()
@@ -579,7 +655,7 @@ class ShardedRunner:
                   else None)
         with obs.span("sharded.probe_compile", "sharded") as s:
             s.fence(compute(s.fence(exchange(tiles))))
-            slab = overlap_mod.Slab(tiles, self.model.plan.halo)
+            slab = self._slab(tiles, self.model.plan.halo)
             for fn in edge_fns.values():
                 s.fence(fn(slab))
             if halves is not None:
@@ -601,14 +677,51 @@ class ShardedRunner:
             with obs.span("sharded.border_compute", "sharded") as s:
                 s.fence(halves[1](slab))
 
+    def _slab(self, tiles: Grid, depth: int) -> overlap_mod.Slab:
+        """A probe's slab of ``tiles``, on this runner's transport."""
+        return overlap_mod.Slab(tiles, depth, peers=self.peers)
+
+    def diagnose_edges(self, timeout_s: float = 10.0) -> Dict[str, str]:
+        """Per-edge exchange verdicts after a suspected hang, one process
+        only: each edge's exchange probe (:meth:`edge_probes`) on a fresh
+        zero canvas, twice under its own watchdog (the second run timed),
+        reported as ``"ok (<ms>)"``, ``"timeout"`` or ``"error: <type>"``
+        per edge. A wedged device costs at most two watchdog windows per
+        edge. Across processes the probes would exchange with ranks that
+        did not time out and will not join them, so the driver leaves
+        the verdicts empty there."""
+        from tpu_stencil_torch.resilience import deadline as _deadline
+        from tpu_stencil_torch.resilience.errors import DispatchTimeout
+
+        shape = self.padded_shape + ((self.channels,) if self.channels != 1
+                                     else ())
+        slab = self._slab(self.split(np.zeros(shape, np.uint8)),
+                          max(1, self.model.plan.halo))
+        verdicts = {}
+        for name, fn in self.edge_probes().items():
+            label = f"sharded.exchange_edge[{name}]"
+            try:
+                _deadline.fence(fn(slab), timeout_s, f"{label}/first")
+                t0 = time.perf_counter()
+                _deadline.fence(fn(slab), timeout_s, label)
+                verdicts[name] = (
+                    f"ok ({(time.perf_counter() - t0) * 1e3:.2f}ms)")
+            except DispatchTimeout:
+                verdicts[name] = "timeout"
+            except Exception as e:
+                verdicts[name] = f"error: {type(e).__name__}"
+        return verdicts
+
     def split(self, padded: np.ndarray) -> Grid:
         """Cut a padded global (H, W[, C]) array into the tile grid, each
-        tile on its mesh device."""
+        tile this process holds on its mesh device (``None`` for another
+        rank's)."""
         th, tw = self.tile
         return [
             [torch.from_numpy(np.ascontiguousarray(
                 padded[i * th:(i + 1) * th, j * tw:(j + 1) * tw]))
-             .to(dev) for j, dev in enumerate(row)]
+             .to(dev) if self.mesh.is_local(i, j) else None
+             for j, dev in enumerate(row)]
             for i, row in enumerate(self.mesh.devices)
         ]
 
@@ -631,7 +744,13 @@ class ShardedRunner:
         return self._fn(tiles, int(repetitions), self._mask)
 
     def fetch(self, tiles: Grid) -> np.ndarray:
-        """Stitch the tiles on the host and crop the pad off."""
+        """Stitch the tiles on the host and crop the pad off (one process
+        holding every tile; across processes each writes its own,
+        :func:`distributed.write_sharded`)."""
+        if self.peers is not None:
+            raise NotImplementedError(
+                "a mesh over several processes is not stitched on one "
+                "host; write it with distributed.write_sharded")
         rows = [np.concatenate([t.cpu().numpy() for t in row], axis=1)
                 for row in tiles]
         return np.concatenate(rows, axis=0)[: self.h, : self.w]

@@ -3,8 +3,7 @@
 The port's counterpart of the JAX package's ``resilience/errors.py``:
 every error a layer raises on purpose is a class here, so callers can
 assert "failed typed" instead of matching messages. The classes of parts
-not ported yet (the sharded collective timeout, the serve worker, remote
-hosts) come with those parts.
+not ported yet (the serve worker, remote hosts) come with those parts.
 """
 
 from __future__ import annotations
@@ -70,3 +69,24 @@ class DispatchTimeout(ResilienceError):
         )
         self.label = label
         self.seconds = seconds
+
+
+class CollectiveTimeout(DispatchTimeout):
+    """A sharded run's dispatch timed out: a device fence of the window,
+    or a wait on a cross-process strip exchange (a wedged peer blocks the
+    host there). ``edges`` carries the per-edge exchange-probe verdicts
+    (``{"n": "ok (1.2ms)"|"timeout"|"error: ...", "s": ..., "w": ...,
+    "e": ...}``, :meth:`~tpu_stencil_torch.parallel.sharded.
+    ShardedRunner.diagnose_edges`) when a post-mortem could run: which
+    edge's ghost traffic is wedged, beside the healthy edges' latencies.
+    Across processes it stays empty (the probes would exchange with ranks
+    that did not time out)."""
+
+    def __init__(self, label: str, seconds: float,
+                 edges: Optional[dict] = None) -> None:
+        super().__init__(label, seconds)
+        self.edges = dict(edges or {})
+        if self.edges:
+            self.args = (
+                f"{self.args[0]} (per-edge exchange probes: {self.edges})",
+            )

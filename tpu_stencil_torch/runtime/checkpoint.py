@@ -14,9 +14,12 @@ in the other.
 The sharded format writes every tile's rectangle into one versioned data
 file ``<base>.ckpt.r<rep>`` (:func:`tpu_stencil_torch.parallel.
 distributed.write_sharded`), then commits a sidecar naming it and sweeps
-older versions. One process writes it here; the commit barrier of
-several processes, and the frames and stream halves, come with their
-slices.
+older versions. With several processes every process writes its own
+tiles (or, for ``--frames``, its own frame range: the frames half) into
+the one shared data file, and after a barrier of all of them rank 0
+alone publishes the sidecar (:func:`_commit_meta`); a process with no
+frames still joins every commit. Only rank 0 clears. The stream half
+comes with its slice.
 """
 
 from __future__ import annotations
@@ -194,23 +197,83 @@ def _stale_versions(data_path: str, before_rep: Optional[int] = None):
             yield os.path.join(d, name)
 
 
+def _commit_meta(cfg: JobConfig, rep: int, versioned: str) -> None:
+    """Sharded-format commit: after a barrier of every process (each
+    writer's data is durable), rank 0 publishes the sidecar naming the
+    versioned data file, then sweeps older versions."""
+    from tpu_stencil_torch.parallel import distributed
+
+    data_path, meta_path = _paths(cfg)
+    distributed.barrier()
+    if distributed.process_index() == 0:
+        _write_meta(meta_path, dict(_fingerprint(cfg), rep=rep,
+                                    data=os.path.basename(versioned)))
+        for name in _stale_versions(data_path, before_rep=rep):
+            os.remove(name)
+
+
 def save_sharded(cfg: JobConfig, rep: int, tiles) -> None:
-    """Sharded checkpoint of a tile grid: every tile's in-bounds rectangle
-    into the versioned data file ``<base>.ckpt.r<rep>``, fsynced, then the
-    sidecar naming it, then a sweep of older versions. An in-flight write
-    never touches the last committed checkpoint."""
+    """Sharded checkpoint of a tile grid: every tile this process holds,
+    its in-bounds rectangle, into the versioned data file
+    ``<base>.ckpt.r<rep>``, fsynced, then the commit (:func:`_commit_meta`).
+    An in-flight write never touches the last committed checkpoint."""
     from tpu_stencil_torch.parallel import distributed
 
     _checkpoint_fault(rep)
-    data_path, meta_path = _paths(cfg)
+    data_path, _ = _paths(cfg)
     versioned = f"{data_path}.r{rep}"
     distributed.write_sharded(versioned, tiles, cfg.height, cfg.width,
                               cfg.channels)
     fsync_path(versioned)
-    _write_meta(meta_path, dict(_fingerprint(cfg), rep=rep,
-                                data=os.path.basename(versioned)))
-    for name in _stale_versions(data_path, before_rep=rep):
-        os.remove(name)
+    _commit_meta(cfg, rep, versioned)
+
+
+def save_frames_sharded(cfg: JobConfig, rep: int,
+                        frames_local: Optional[np.ndarray], f0: int) -> None:
+    """``--frames`` checkpoint of several processes: this process's
+    contiguous frame range [f0, f0 + n) into the shared versioned data
+    file at its offset in the clip's byte layout, fsynced, then the
+    commit. A process with no frames passes ``frames_local=None``: it
+    writes nothing but must call this every chunk (the commit barrier
+    counts every process)."""
+    _checkpoint_fault(rep)
+    data_path, _ = _paths(cfg)
+    versioned = f"{data_path}.r{rep}"
+    frame_bytes = cfg.height * cfg.width * cfg.channels
+    if frames_local is not None and len(frames_local):
+        arr = np.ascontiguousarray(np.asarray(frames_local, np.uint8))
+        native.ensure_size(versioned, cfg.frames * frame_bytes)
+        native.pwrite_full(versioned, f0 * frame_bytes, arr.tobytes())
+        fsync_path(versioned)
+    _commit_meta(cfg, rep, versioned)
+
+
+def restore_frames_sharded(cfg: JobConfig, f0: int, n_local: int
+                           ) -> Optional[Tuple[int, np.ndarray]]:
+    """(completed reps, this process's frames [f0, f0 + n_local)) from a
+    matching checkpoint, or None. Sharded-format data is read by byte
+    range (each process touches only its frames); a single-file clip
+    checkpoint is read whole and sliced, so progress survives a switch to
+    several processes."""
+    data_path, meta_path = _paths(cfg)
+    if not os.path.exists(meta_path):
+        return None
+    meta = _load_meta(meta_path)
+    _check_meta(meta, cfg, meta_path)
+    frame_bytes = cfg.height * cfg.width * cfg.channels
+    shape = (n_local,) + _frame_shape(cfg)[1:]
+    if meta.get("data"):
+        versioned = _data_file(data_path, meta)
+        if not os.path.exists(versioned):
+            return None
+        buf = native.pread_full(versioned, f0 * frame_bytes,
+                                n_local * frame_bytes)
+        return int(meta["rep"]), np.frombuffer(buf, np.uint8).reshape(shape)
+    legacy = restore(cfg)
+    if legacy is None:
+        return None
+    rep, clip = legacy
+    return rep, clip[f0:f0 + n_local]
 
 
 def restore_sharded(cfg: JobConfig, runner) -> Optional[Tuple[int, list]]:
@@ -241,7 +304,13 @@ def restore_sharded(cfg: JobConfig, runner) -> Optional[Tuple[int, list]]:
 
 
 def clear(cfg: JobConfig) -> None:
-    """Remove the checkpoint artifacts (after a successful finish)."""
+    """Remove the checkpoint artifacts (after a successful finish). With
+    several processes only rank 0 removes them (every writer is done by
+    then)."""
+    from tpu_stencil_torch.parallel import distributed
+
+    if distributed.process_index() != 0:
+        return
     data_path, meta_path = _paths(cfg)
     for p in (data_path, meta_path):
         if os.path.exists(p):

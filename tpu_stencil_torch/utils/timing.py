@@ -2,12 +2,13 @@
 
 The reference's MPI metric is: barrier, ``MPI_Wtime`` around the
 compute/comm loop only (file I/O excluded), then max across ranks
-(``mpi/mpi_convolution.c:151-155,242,264-275``). Here a
-``torch.cuda.synchronize()`` on every device of the job plays the barrier
-at both ends of the window (PyTorch returns before the card finishes, so
-an unfenced host clock measures the enqueue), a monotonic clock times the
-window, and the max across processes is the identity of a single-process
-job.
+(``mpi/mpi_convolution.c:151-155,242,264-275``). Here the driver opens
+each window after a barrier of the processes (:func:`tpu_stencil_torch.
+parallel.distributed.barrier`, a no-op with one), a
+``torch.cuda.synchronize()`` on every local device of the job fences both
+ends of the window (PyTorch returns before the card finishes, so an
+unfenced host clock measures the enqueue), a monotonic clock times it,
+and :func:`max_across_processes` takes the max over the ranks.
 """
 
 from __future__ import annotations
@@ -83,6 +84,15 @@ class Timer:
 
 def max_across_processes(seconds: float) -> float:
     """Max-reduce a host-side scalar across processes — the reference's
-    Send/Recv max at ``mpi/mpi_convolution.c:264-275``. The port runs one
-    process, so this is the identity."""
-    return seconds
+    Send/Recv max at ``mpi/mpi_convolution.c:264-275``: an ``all_reduce``
+    (MAX) of a CPU float64 tensor, which every process joins. The
+    identity with one process."""
+    from tpu_stencil_torch.parallel import distributed
+
+    if distributed.process_count() == 1:
+        return seconds
+    import torch.distributed as dist
+
+    t = torch.tensor([float(seconds)], dtype=torch.float64)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return float(t.item())
