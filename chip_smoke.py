@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
 It builds every hand-written kernel and every lab variant from
 ``tpu_stencil_torch/ops/csrc/`` (one ``nvcc`` per library, all started
-together, into ``build/kernels/``), points the autotune cache at
+together, into ``build/kernels/``, with the stream's host ``crc32c``
+library beside them), points the autotune cache at
 ``build/chip_smoke/autotune.json``, then runs these phases, each printing
 one JSON line. The phases that pin launch counts name ``--backend pallas``
 (K1 at its default geometry); ``autotune_path`` drives the default
@@ -156,7 +157,25 @@ one JSON line. The phases that pin launch counts name ``--backend pallas``
    file with both ranks' ``pid`` values and 40 ``iterate.rep`` spans each;
    (f) rank 1 stalled before its first send under ``--dispatch-timeout
    5``: rank 0 raises ``CollectiveTimeout``.
-15. ``times`` — ms per rep at 1920x2520 RGB gaussian x40, each the median
+15. ``stream_path`` — the streaming engine (``python -m tpu_stencil_torch
+   stream``) on a seeded clip of 1920x2520 frames x40 gaussian (464 MB RGB
+   and 77 MB grey under ``build/chip_smoke/stream``, removed at the end):
+   16 frames file to file at depth 2, RGB and grey, through the CLI
+   (``--backend pallas``: K1 5 launches a frame plus the warm-up's one;
+   ``--schedule deep``: K2 one a frame plus one), the fan
+   ``--mesh-frames 2`` over ``[cuda:0] * 2`` (K1, and K2 under
+   ``--dispatch-timeout 60``), ``run_job --frames 16`` on one device and
+   over ``[cuda:0] * 2`` (the batch axis), every output byte-equal to the
+   torch-ops path and every run's launches counted from 0; a
+   ``compute`` fault at frame 9 under ``--checkpoint-every 4`` restarts
+   the engine once and finishes byte-equal; a torn staging buffer
+   (``integrity.corrupt_ingest``) fails with rc 1 and
+   ``ChecksumMismatch``; then 32 frames to a null sink at depths 1, 2 and
+   4, taking turns, median of 3: wall and steady-state frames/s, the
+   stage histograms per frame, the CRC32C of a frame, the modelled bound,
+   and from a ``torch.profiler`` trace of a depth-2 run the time an H2D
+   copy and K1 were busy at once and the device's idle share.
+16. ``times`` — ms per rep at 1920x2520 RGB gaussian x40, each the median
    of 7 runs after a warm-up (CUDA events, L2 flushed before each run):
    the three job kernels (K3 alone on the one ext tile of a 1x1 mesh at
    fuse 8), L2's ``current`` body, one L1 launch (``add_i32``, chain of
@@ -177,7 +196,9 @@ one JSON line. The phases that pin launch counts name ``--backend pallas``
    SM at 32x8 (the library's occupancy query).
 
 Then the ``{"kernels": [...]}`` line (for K1, K2 and K3 ``launches`` are
-the main path's timed window's and ``warmup_launches`` its warm-up's; K3
+the main path's timed window's and ``warmup_launches`` its warm-up's; K1
+and K2 add ``stream_launches``, those of the 16-frame stream and of the
+2-lane fan in ``stream_path``; K3
 adds its window launches and ms per rep under each overlap mode, the
 ``auto`` verdict and its thin-window time),
 the ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -2406,6 +2427,317 @@ def phase_witness(dev) -> dict:
             "witness_seconds": secs}
 
 
+STREAM_FRAMES, STREAM_TIMED_FRAMES = 16, 32
+STREAM_DEPTHS = (1, 2, 4)
+STREAM_ROUNDS = 3
+
+
+def stream_clip() -> Path:
+    """A seeded clip of 32 frames of 1920x2520 RGB (464 MB) and of 16 grey
+    frames, raw, under ``WORK/stream``; removed at the end of the phase."""
+    d = WORK / "stream"
+    d.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(9)
+    rng.integers(0, 256, (STREAM_TIMED_FRAMES, MAIN_H, MAIN_W, MAIN_C),
+                 np.uint8).tofile(d / "clip_rgb.raw")
+    rng.integers(0, 256, (STREAM_FRAMES, MAIN_H, MAIN_W),
+                 np.uint8).tofile(d / "clip_grey.raw")
+    return d
+
+
+def run_stream_cli(args, expect_rc: int = 0) -> dict:
+    """``python -m tpu_stencil_torch stream ...`` as ``cli.main`` in this
+    process, with the launch counters set to 0 just before it and read
+    just after; its StreamResult, stdout and stderr kept."""
+    from tpu_stencil_torch import cli
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+    from tpu_stencil_torch.stream import engine
+
+    out, err = io.StringIO(), io.StringIO()
+    real = engine.run_stream
+    box = {}
+
+    def keep(*a, **k):
+        box["res"] = real(*a, **k)
+        return box["res"]
+
+    engine.run_stream = keep
+    cs.reset_launch_counts()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(["stream", *map(str, args)])
+    finally:
+        engine.run_stream = real
+    counts = cs.launch_counts()
+    print(out.getvalue().strip(), flush=True)
+    require(rc == expect_rc, f"stream {args} returned {rc} (expected "
+            f"{expect_rc}): {err.getvalue()[-2000:]}")
+    return {"rc": rc, "counts": counts, "res": box.get("res"),
+            "stdout": out.getvalue(), "stderr": err.getvalue()}
+
+
+def counted(fn):
+    """``fn()`` with the launch counters set to 0 just before and read just
+    after: (its value, the counts)."""
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+
+    cs.reset_launch_counts()
+    value = fn()
+    return value, cs.launch_counts()
+
+
+def copy_kernel_overlap(trace_path: str, kernel: str) -> dict:
+    """From a ``torch.profiler`` Chrome trace: the time during which a
+    host-to-device copy and a ``kernel`` launch were busy at once (µs),
+    their counts, and the streams each ran on."""
+    evs = device_events(trace_path)
+    copies = [(s, a, b) for s, n, a, b in evs if "HtoD" in n]
+    kerns = [(s, a, b) for s, n, a, b in evs if kernel in n]
+    both = sum(max(0.0, min(b1, b2) - max(a1, a2))
+               for _, a1, b1 in copies for _, a2, b2 in kerns)
+    return {"h2d_copies": len(copies), "kernels": len(kerns),
+            "copy_streams": sorted({s for s, _, _ in copies}),
+            "kernel_streams": sorted({s for s, _, _ in kerns}),
+            "copy_and_kernel_us": both}
+
+
+class ClockSink:
+    """A null sink that keeps the time of each write: the steady-state
+    rate of a stream is (n - 1) frames over the first to the last write,
+    without the engine's bootstrap."""
+
+    retryable_writes = True
+
+    def __init__(self) -> None:
+        self.times = []
+
+    def write(self, index, frame) -> None:
+        self.times.append(time.perf_counter())
+
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+    def steady_fps(self) -> float:
+        t = self.times
+        return (len(t) - 1) / (t[-1] - t[0]) if len(t) > 1 else 0.0
+
+
+def phase_stream_path(dev) -> dict:
+    """The streaming engine at 1920x2520 x40 gaussian, on a seeded clip.
+
+    Bytes: 16 frames, file to file, depth 2, RGB and grey: the stream
+    through the CLI (``--backend pallas``: K1, 5 launches a frame plus the
+    warm-up's one; ``--schedule deep``: K2, one a frame plus one), the fan
+    ``--mesh-frames 2`` over ``[cuda:0] * 2`` (``run_stream``; K1 and, under
+    ``--dispatch-timeout 60``, K2's two cooperative grids on one card),
+    ``run_job --frames 16`` on one device (K1's tall layout) and over
+    ``[cuda:0] * 2`` (the batch axis), every output equal to the torch-ops
+    path (``run_job --frames 16 --backend xla``). Resume:
+    ``--checkpoint-every 4`` with a ``compute`` fault at frame 9 restarts
+    the engine once and finishes byte-equal. Torn buffer:
+    ``integrity.corrupt_ingest`` at frame 3 fails the CLI with rc 1 naming
+    ``ChecksumMismatch``. Throughput: 32 frames to a null sink at depths
+    1, 2 and 4, taking turns, median of 3 (wall and steady-state
+    frames/s, the stage histograms per frame), the CRC32C of one frame,
+    the modelled bound, and a ``torch.profiler`` trace of an 8-frame
+    depth-2 run: H2D copies and K1 busy at once, the device's idle share."""
+    from tpu_stencil_torch import config, driver, obs
+    from tpu_stencil_torch.integrity import checksum
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+    from tpu_stencil_torch.runtime import roofline
+    from tpu_stencil_torch.stream import engine
+
+    d = stream_clip()
+    n = STREAM_FRAMES
+    fuse = cs.effective_geometry(plan_of("gaussian"), MAIN_H, MAIN_C)[1]
+    per_frame = len(cs.launch_schedule(MAIN_REPS, fuse))
+    warm = len(set(cs.launch_schedule(MAIN_REPS, fuse)))
+    runs, errs = {}, {}
+
+    def frames_file(path, itype):
+        shape = (n, MAIN_H, MAIN_W) + ((MAIN_C,) if itype == "rgb" else ())
+        got = np.fromfile(path, np.uint8)
+        require(got.size == int(np.prod(shape)),
+                f"{path}: {got.size} bytes, expected {int(np.prod(shape))}")
+        os.unlink(path)
+        return got.reshape(shape)
+
+    def job(src, itype, backend, devices, dst):
+        cfg = config.JobConfig(str(src), MAIN_W, MAIN_H, MAIN_REPS,
+                               config.ImageType(itype), frames=n,
+                               backend=backend, output=str(dst))
+        return driver.run_job(cfg, devices=devices)
+
+    for itype in ("rgb", "grey"):
+        src = d / f"clip_{itype}.raw"
+        res, _ = counted(lambda: job(src, itype, "xla", [dev],
+                                     d / "want.raw"))
+        want = frames_file(d / "want.raw", itype)
+        cases = {}
+        res, counts = counted(lambda: job(src, itype, "pallas", [dev],
+                                          d / "o.raw"))
+        cases["job_frames"] = (frames_file(d / "o.raw", itype), counts,
+                               add_counts(res.launches,
+                                          res.warmup_launches),
+                               launches(stencil_fused=per_frame + warm))
+        res, counts = counted(lambda: job(src, itype, "pallas", [dev, dev],
+                                          d / "o.raw"))
+        cases["job_frames_batch2"] = (
+            frames_file(d / "o.raw", itype), counts,
+            add_counts(res.launches, res.warmup_launches),
+            launches(stencil_fused=2 * (per_frame + warm)))
+        base = [src, MAIN_W, MAIN_H, MAIN_REPS, itype, "--frames", n,
+                "--output", d / "o.raw", *PALLAS]
+        r = run_stream_cli(base)
+        cases["stream"] = (frames_file(d / "o.raw", itype), r["counts"],
+                           r["counts"],
+                           launches(stencil_fused=n * per_frame + warm))
+        runs[f"stream_{itype}"] = {
+            "launches": r["counts"], "frames_per_second":
+            r["res"].frames_per_second, "stage_seconds":
+            r["res"].stage_seconds, "report": r["stdout"].splitlines()[0]}
+        r = run_stream_cli(base + ["--schedule", "deep"])
+        cases["stream_deep"] = (frames_file(d / "o.raw", itype),
+                                r["counts"], r["counts"],
+                                launches(stencil_resident=n + 1))
+        require(r["res"].schedule == "deep", "--schedule deep ran "
+                f"{r['res'].schedule}")
+        runs[f"stream_deep_{itype}"] = {"launches": r["counts"]}
+        for sched, expect in ((None, launches(stencil_fused=n * per_frame)),
+                              ("deep", launches(stencil_resident=n))):
+            cfg = config.StreamConfig(
+                str(src), MAIN_W, MAIN_H, MAIN_REPS, config.ImageType(itype),
+                backend="pallas", schedule=sched, frames=n,
+                output=str(d / "o.raw"), mesh_frames=2,
+                dispatch_timeout_s=60.0)
+            t0 = time.perf_counter()
+            res, counts = counted(lambda: engine.run_stream(
+                cfg, devices=[dev, dev]))
+            label = f"mesh2{'_deep' if sched else ''}"
+            cases[label] = (frames_file(d / "o.raw", itype), counts, counts,
+                            expect)
+            require(res.per_device_frames == [n // 2, n // 2],
+                    f"{label}: per-device frames {res.per_device_frames}")
+            runs[f"{label}_{itype}"] = {
+                "launches": counts, "seconds": time.perf_counter() - t0,
+                "per_device_frames": res.per_device_frames}
+        for label, (got, counts, seen, expect) in cases.items():
+            err = int(np.abs(got.astype(np.int16)
+                             - want.astype(np.int16)).max())
+            errs[f"{label}_{itype}"] = err
+            require(err == 0, f"stream_path {label} {itype} disagrees with "
+                    f"torch ops ({err})")
+            require(seen == expect and counts == expect,
+                    f"stream_path {label} {itype}: launches {counts} "
+                    f"(result {seen}), expected {expect}")
+        del want, cases
+
+    # Resume: killed by a compute fault at frame 9, restarted from the
+    # frame-8 checkpoint.
+    src = d / "clip_rgb.raw"
+    r = run_stream_cli([src, MAIN_W, MAIN_H, MAIN_REPS, "rgb", "--frames",
+                        n, "--output", d / "o.raw", *PALLAS,
+                        "--checkpoint-every", 4, "--faults",
+                        "compute:frame=9"])
+    require(r["res"].restarts == 1 and "engine restarted 1x" in r["stdout"],
+            f"resume: {r['res'].restarts} restarts: {r['stdout']}")
+    resumed = frames_file(d / "o.raw", "rgb")
+    res, _ = counted(lambda: job(src, "rgb", "pallas", [dev], d / "o.raw"))
+    want = frames_file(d / "o.raw", "rgb")
+    errs["resume"] = int(np.abs(resumed.astype(np.int16)
+                                - want.astype(np.int16)).max())
+    require(errs["resume"] == 0, "the resumed stream disagrees with run_job")
+    runs["resume"] = {"restarts": r["res"].restarts,
+                      "skipped": r["res"].skipped,
+                      "frames": r["res"].frames, "launches": r["counts"]}
+    del resumed, want
+
+    # A torn staging buffer fails typed, non-zero.
+    r = run_stream_cli([src, MAIN_W, MAIN_H, MAIN_REPS, "rgb", "--frames",
+                        n, "--output", d / "o.raw", *PALLAS, "--faults",
+                        "integrity.corrupt_ingest:frame=3"], expect_rc=1)
+    require("ChecksumMismatch" in r["stderr"], f"torn buffer: {r['stderr']}")
+    runs["torn_buffer"] = {"rc": r["rc"], "stderr":
+                           r["stderr"].strip().splitlines()[-1]}
+    (d / "o.raw").unlink(missing_ok=True)
+
+    # Throughput: 32 frames to a null sink, depths taking turns.
+    fb = MAIN_H * MAIN_W * MAIN_C
+    slot = torch.empty(fb, dtype=torch.uint8, pin_memory=True)
+    slot.numpy()[:] = np.fromfile(src, np.uint8, count=fb)
+    crc_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        checksum.crc32c(slot.numpy())
+        crc_ms.append((time.perf_counter() - t0) * 1e3)
+    samples = {k: [] for k in STREAM_DEPTHS}
+    for _ in range(STREAM_ROUNDS):
+        for depth in STREAM_DEPTHS:
+            cfg = config.StreamConfig(
+                str(src), MAIN_W, MAIN_H, MAIN_REPS, config.ImageType.RGB,
+                backend="pallas", frames=STREAM_TIMED_FRAMES,
+                output="null", pipeline_depth=depth)
+            obs.reset()
+            sink = ClockSink()
+            res = engine.run_stream(cfg, devices=[dev], sink=sink)
+            hist = obs.snapshot()["histograms"]
+            samples[depth].append({
+                "wall_fps": res.frames_per_second,
+                "steady_fps": sink.steady_fps(),
+                "stage_s_per_frame": {
+                    s: hist[f"stream_{s}_seconds"]["mean"]
+                    for s in ("read", "h2d", "compute", "d2h", "write")}})
+    obs.reset()
+    throughput = {}
+    for depth, rows in samples.items():
+        med = lambda k: statistics.median(r[k] for r in rows)  # noqa: E731
+        throughput[f"depth{depth}"] = {
+            "wall_fps": med("wall_fps"), "steady_fps": med("steady_fps"),
+            "stage_s_per_frame": {
+                s: statistics.median(r["stage_s_per_frame"][s] for r in rows)
+                for s in rows[0]["stage_s_per_frame"]},
+            "runs": rows,
+            "modeled_fps": roofline.stream_frames_per_second(
+                fb, MAIN_REPS, "pallas", "gaussian", MAIN_H,
+                pipeline_depth=depth, w_img=MAIN_W, channels=MAIN_C,
+                device=dev)}
+
+    # The profiler's view of a depth-2 run: copies beside K1.
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = config.StreamConfig(
+        str(src), MAIN_W, MAIN_H, MAIN_REPS, config.ImageType.RGB,
+        backend="pallas", frames=8, output="null", pipeline_depth=2)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.run_stream(cfg, devices=[dev], sink=ClockSink())
+        torch.cuda.synchronize()
+    path = str(WORK / "stream_trace.json")
+    prof.export_chrome_trace(path)
+    profiled = {**copy_kernel_overlap(path, "stencil_fused_kernel"),
+                **{k: v for k, v in stream_concurrency(path).items()
+                   if k in ("streams", "concurrent_us", "any_busy_us",
+                            "span_us", "idle_share")}}
+    os.unlink(path)
+    import shutil
+
+    shutil.rmtree(d)
+    return {"phase": "stream_path", "ok": True, "frames": n,
+            "shape": [MAIN_H, MAIN_W, MAIN_C], "reps": MAIN_REPS,
+            "max_abs_err": max(errs.values()), "errs": errs,
+            "k1_launches_per_frame": per_frame, "runs": runs,
+            "crc": {"implementation": checksum.implementation(),
+                    "ms_per_frame_pass": statistics.median(crc_ms),
+                    "passes_per_frame": 2},
+            "throughput": throughput, "profile_depth2": profiled,
+            "modeled_stage_s": roofline.stream_stage_seconds(
+                fb, MAIN_REPS, "pallas", "gaussian", MAIN_H, w_img=MAIN_W,
+                channels=MAIN_C, device=dev)}
+
+
 def phase_times(dev) -> dict:
     from tpu_stencil_torch.ops import cuda_stencil as cs
     from tpu_stencil_torch.ops import lowering
@@ -2609,7 +2941,7 @@ def run(dev: torch.device) -> None:
     variants = [lab.parse_variant(n) for n in kernel_lab.DEFAULT_VARIANTS
                 if n not in kernel_lab.SPECIAL + tuple(kernel_lab.K2_FORMS)]
     targets = [*_build.JOB_KERNELS, "op_chain", *lab.lab_targets(variants),
-               lab.BAND_TARGET]
+               lab.BAND_TARGET, "crc32c"]
     built = _build.build(targets)
 
     def label(t):
@@ -2623,7 +2955,8 @@ def run(dev: torch.device) -> None:
              lab.BAND_TARGET)
     ptxas = {label(t): [ln.strip() for ln in log_of(t).splitlines()
                         if "registers" in ln or "spill" in ln][:6]
-             for t in built if t != "op_chain" and t not in tiles}
+             for t in built if t not in ("op_chain", "crc32c")
+             and t not in tiles}
     for t in tiles:
         ptxas[label(t)] = tile_instances(log_of(t))
     spills = [ln for t in built for ln in log_of(t).splitlines()
@@ -2655,6 +2988,8 @@ def run(dev: torch.device) -> None:
     emit(phase_witness(dev))
     multiprocess = phase_multiprocess(dev)
     emit(multiprocess)
+    stream_path = phase_stream_path(dev)
+    emit(stream_path)
     times = phase_times(dev)
     emit(times)
 
@@ -2674,7 +3009,12 @@ def run(dev: torch.device) -> None:
                             runs["default_warm"]["max_abs_err"],
                             runs["default_cold"]["max_abs_err"]),
          "ms": times["stencil_fused_ms"], **common,
-         "body": times["tile_ab"]["gaussian"]["body"]},
+         "body": times["tile_ab"]["gaussian"]["body"],
+         # The stream of 16 frames through the CLI (5 a frame + the
+         # warm-up's), the fan of 2 lanes on this card, the batch axis.
+         "stream_launches": {
+             k: stream_path["runs"][k]["launches"]["stencil_fused"]
+             for k in ("stream_rgb", "mesh2_rgb")}},
         {"name": "stencil_resident",
          "source": "tpu_stencil_torch/ops/csrc/stencil_resident.cu",
          "replaces": "tpu_stencil/ops/pallas_stencil.py:1079",
@@ -2684,7 +3024,10 @@ def run(dev: torch.device) -> None:
                             runs["deep_cold"]["max_abs_err"]),
          "ms": times["stencil_resident_ms"], **common,
          "body": times["tile_ab"]["gaussian"]["body"],
-         "k2_over_k1_same_call": times["resident_ab"]["k2_over_k1"]},
+         "k2_over_k1_same_call": times["resident_ab"]["k2_over_k1"],
+         "stream_launches": {
+             k: stream_path["runs"][k]["launches"]["stencil_resident"]
+             for k in ("stream_deep_rgb", "mesh2_deep_rgb")}},
         {"name": "stencil_valid",
          "source": "tpu_stencil_torch/ops/csrc/stencil_valid.cu",
          "replaces": "tpu_stencil/ops/pallas_stencil.py:909",

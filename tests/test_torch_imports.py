@@ -77,6 +77,11 @@ def test_every_module_is_found():
               "tpu_stencil_torch.parallel.distributed",
               "tpu_stencil_torch.parallel.transport",
               "tpu_stencil_torch.parallel.mesh",
+              "tpu_stencil_torch.parallel.fanout",
+              "tpu_stencil_torch.stream",
+              "tpu_stencil_torch.stream.frames",
+              "tpu_stencil_torch.stream.engine",
+              "tpu_stencil_torch.stream.cli",
               "tpu_stencil_torch.utils.timing"):
         assert m in mods
 
@@ -127,6 +132,35 @@ def _sources():
 def test_no_forbidden_import_in_source(path):
     bad = [n for n in _imported_names(path) if _forbidden(n)]
     assert bad == [], f"{path} imports {bad}"
+
+
+def test_the_crc_loader_and_the_stream_load_no_jax_module(tmp_path):
+    # Build and load the crc32c library, checksum a frame and run a
+    # two-lane stream on the CPU in a fresh process: still no JAX module.
+    import numpy as np
+
+    clip = tmp_path / "clip.raw"
+    np.random.default_rng(0).integers(0, 256, (3, 40, 40, 3),
+                                      np.uint8).tofile(clip)
+    code = (
+        "import json, sys, torch\n"
+        "from tpu_stencil_torch.integrity import checksum\n"
+        "from tpu_stencil_torch.config import ImageType, StreamConfig\n"
+        "from tpu_stencil_torch.stream import run_stream\n"
+        "checksum.native_library()\n"
+        f"cfg = StreamConfig({str(clip)!r}, 40, 40, 2, ImageType.RGB,\n"
+        "                   output='null', frames=3, mesh_frames=2)\n"
+        "r = run_stream(cfg, devices=[torch.device('cpu')] * 2)\n"
+        "assert r.frames == 3\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=REPO, env=env, timeout=300)
+    assert r.returncode == 0, r.stderr
+    loaded = json.loads(r.stdout.strip().splitlines()[-1])
+    assert "tpu_stencil_torch.parallel.fanout" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
 
 
 @pytest.mark.parametrize("rank", ["0", "1"])

@@ -9,7 +9,8 @@ validation messages, so one command line runs on both packages:
 --frames --output --time --platform``, the hardening flags ``--faults
 --fallback-backend --dispatch-timeout --checkpoint-every --resume`` and
 the observability flags ``--trace --breakdown --hlo-dump --metrics-text
---profile``.
+--profile``. :class:`StreamConfig` is the ``stream`` subcommand's
+configuration, field for field the JAX package's.
 """
 
 from __future__ import annotations
@@ -164,6 +165,193 @@ class JobConfig:
     @property
     def nbytes(self) -> int:
         return self.width * self.height * self.channels * self.frames
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamConfig:
+    """Configuration of the streaming engine (:mod:`tpu_stencil_torch.
+    stream`), field for field and check for check the JAX package's, so a
+    command line parses the same in both packages.
+
+    The geometry/filter/backend vocabulary is :class:`JobConfig`'s: the
+    engine runs the job's model step, so plans, filters, schedules and
+    kernel geometry apply unchanged. ``pipeline_depth`` bounds the frames
+    in flight between the reader and the writer (1 = the serial stage
+    chain); ``ring_buffers`` bounds the pinned host staging slots the
+    reader fills (None = ``pipeline_depth + 2``). Host memory is
+    ``O(ring_buffers)`` frames, device memory ``O(pipeline_depth)``.
+
+    ``mesh_frames``: 1 = one device; N > 1 deals frames round-robin over N
+    devices (:mod:`tpu_stencil_torch.parallel.fanout`), failing when fewer
+    exist; 0 = a measured single-against-fan A/B decides. ``shard_frames``
+    ((R, C), or (0, 0) for auto), ``shard_min_pixels``, ``overlap`` and
+    ``pipe_stages`` parse and validate as in the JAX package; a run that
+    resolves a spatial shard or more than one pipeline stage raises
+    ``NotImplementedError`` (those engines are not ported yet).
+    """
+
+    input: str               # stream file | FIFO | '-' (stdin) | frame dir
+    width: int
+    height: int
+    repetitions: int
+    image_type: ImageType
+    filter_name: str = "gaussian"
+    backend: str = "auto"    # same vocabulary as JobConfig.backend
+    output: Optional[str] = None  # path | dir | '-' (stdout) | 'null'
+    frames: Optional[int] = None  # exact frame count; None = until EOF
+    schedule: Optional[str] = None
+    boundary: str = "zero"
+    block_h: Optional[int] = None
+    fuse: Optional[int] = None
+    pipeline_depth: int = 2  # frames in flight (1 = serial stages)
+    ring_buffers: Optional[int] = None  # host staging slots (None = depth+2)
+    mesh_frames: int = 1     # fan width: 1 single, N explicit, 0 auto
+    shard_frames: Optional[Tuple[int, int]] = None  # (R, C) | (0, 0) auto
+    shard_min_pixels: int = 1 << 20
+    overlap: str = "edge"
+    pipe_stages: int = 1     # temporal stages: 1 off, K explicit, 0 auto
+    checkpoint_every: int = 0  # frame-index checkpoint period (0 = off)
+    progress_every: int = 0    # stderr frame-index heartbeat (0 = off)
+    # Watchdog window (seconds) around the drain's compute fence, as
+    # JobConfig.dispatch_timeout_s.
+    dispatch_timeout_s: float = 0.0
+    # Transient-I/O retries per frame read/write (rewindable sources and
+    # idempotent sinks only).
+    io_retries: int = 2
+    # Mid-stream engine restarts after a transient h2d/compute/d2h fault:
+    # re-prepare the engine and resume from the frame checkpoint (needs
+    # checkpoint_every and a regular-file or directory source). 0 = off.
+    max_engine_restarts: int = 1
+    # CRC32C each frame as the reader stages it and re-verify it before
+    # its copy to the card (the built crc32c library; a failed build fails
+    # the stream typed).
+    verify_ingest: bool = True
+    # The fraction of frames re-executed through torch ops in the writer
+    # and compared bit for bit before the write (0 = off; never past
+    # integrity.witness.WITNESS_MAX_REPS reps).
+    witness_rate: float = 1.0 / 256.0
+    witness_seed: int = 0
+
+    def __post_init__(self) -> None:
+        _validate_common(self)
+        if self.frames is not None and self.frames < 0:
+            raise ValueError(
+                f"frames must be >= 0 (None = until EOF), got {self.frames}"
+            )
+        if self.pipeline_depth < 1:
+            raise ValueError(
+                f"pipeline_depth must be >= 1, got {self.pipeline_depth}"
+            )
+        if self.mesh_frames < 0:
+            raise ValueError(
+                f"mesh_frames must be >= 0 (0 = auto, 1 = single-device, "
+                f"N = fan width), got {self.mesh_frames}"
+            )
+        if self.shard_frames is not None:
+            sf = tuple(self.shard_frames)
+            if len(sf) != 2 or any(
+                not isinstance(d, int) or d < 0 for d in sf
+            ) or (0 in sf and sf != (0, 0)):
+                raise ValueError(
+                    f"shard_frames must be (rows, cols) positive ints, or "
+                    f"(0, 0) for auto, got {self.shard_frames}"
+                )
+            object.__setattr__(self, "shard_frames", sf)
+        if self.pipe_stages < 0:
+            raise ValueError(
+                f"pipe_stages must be >= 0 (0 = auto, 1 = off, K = stage "
+                f"count), got {self.pipe_stages}"
+            )
+        # A composed topology (two or more multi-device axes) must be
+        # explicit on every active axis.
+        active = (
+            int(self.mesh_frames != 1)
+            + int(self.shard_frames is not None)
+            + int(self.pipe_stages != 1)
+        )
+        if active >= 2:
+            autos = []
+            if self.mesh_frames == 0:
+                autos.append("mesh_frames=0")
+            if self.shard_frames == (0, 0):
+                autos.append("shard_frames=(0, 0)")
+            if self.pipe_stages == 0:
+                autos.append("pipe_stages=0")
+            if autos:
+                raise ValueError(
+                    "composed topologies must be explicit on every active "
+                    "axis (auto resolves only a sole multi-device axis); "
+                    "auto on: " + ", ".join(autos)
+                )
+        if self.shard_min_pixels < 1:
+            raise ValueError(
+                f"shard_min_pixels must be >= 1, got "
+                f"{self.shard_min_pixels}"
+            )
+        if self.ring_buffers is not None and (
+            self.ring_buffers < self.pipeline_depth + 1
+        ):
+            raise ValueError(
+                f"ring_buffers must be >= pipeline_depth + 1 "
+                f"(= {self.pipeline_depth + 1}), got {self.ring_buffers}"
+            )
+        if self.checkpoint_every < 0:
+            raise ValueError(
+                f"checkpoint_every must be >= 0, got {self.checkpoint_every}"
+            )
+        if self.progress_every < 0:
+            raise ValueError(
+                f"progress_every must be >= 0, got {self.progress_every}"
+            )
+        if self.io_retries < 0:
+            raise ValueError(
+                f"io_retries must be >= 0, got {self.io_retries}"
+            )
+        if self.max_engine_restarts < 0:
+            raise ValueError(
+                f"max_engine_restarts must be >= 0, got "
+                f"{self.max_engine_restarts}"
+            )
+        if not 0.0 <= self.witness_rate <= 1.0:
+            raise ValueError(
+                f"witness_rate must be in [0, 1], got {self.witness_rate}"
+            )
+
+    @property
+    def channels(self) -> int:
+        return self.image_type.channels
+
+    @property
+    def frame_bytes(self) -> int:
+        return self.width * self.height * self.channels
+
+    @property
+    def frame_shape(self) -> Tuple[int, ...]:
+        """(H, W) grey, (H, W, C) otherwise."""
+        if self.channels == 1:
+            return (self.height, self.width)
+        return (self.height, self.width, self.channels)
+
+    @property
+    def ring_size(self) -> int:
+        return (
+            self.ring_buffers if self.ring_buffers is not None
+            else self.pipeline_depth + 2
+        )
+
+    @property
+    def output_path(self) -> str:
+        """``blur_<input basename>`` beside the input, as
+        :attr:`JobConfig.output_path`; stdin has no "beside", so it needs
+        an explicit ``--output``."""
+        if self.output is not None:
+            return self.output
+        if self.input == "-":
+            raise ValueError(
+                "stdin streams have no default output path; pass --output"
+            )
+        d, base = os.path.split(self.input.rstrip(os.sep))
+        return os.path.join(d, f"blur_{base}")
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -5,7 +5,9 @@ variant's ``main``): CLI -> load -> place -> warm-up -> [compute loop] ->
 fetch -> store -> metrics, each step an ``obs.phase``. One image on one
 device, or spatially sharded over a mesh of devices (``--mesh RxC``, or
 more than one device, or several processes); ``--frames`` clips run as
-one batch on one device, or as one contiguous frame range per process.
+one batch per device, each device taking a contiguous share of the frames
+(the JAX package's batch axis), and across processes one contiguous frame
+range per process, batched over its devices.
 The compute window opens after a barrier of the processes, is fenced on
 every local device of the job at both ends, is max-reduced over the
 processes, and excludes file I/O, the kernel build and the warm-up that
@@ -106,10 +108,32 @@ class Engine(NamedTuple):
     warm_launches: Dict[str, int]  # the kernel launches it made
 
 
+def _share(n_frames: int, n_devices: int) -> int:
+    """Frames per device of a batch over ``n_devices``: the clip is
+    zero-padded to a multiple of the device count."""
+    return -(-n_frames // n_devices)
+
+
+def _place_frames(imgs: np.ndarray, devices) -> List[torch.Tensor]:
+    """An (N, H, W[, C]) clip as one contiguous share per device: N
+    zero-padded to a multiple of ``len(devices)`` (the JAX package's
+    ``_put_batched``; :func:`prepare_engine`'s fetch crops), share ``d`` on
+    ``devices[d]``. Frames never mix, so nothing is exchanged."""
+    per = _share(imgs.shape[0], len(devices))
+    pad = per * len(devices) - imgs.shape[0]
+    if pad:
+        imgs = np.concatenate(
+            [imgs, np.zeros((pad,) + imgs.shape[1:], np.uint8)])
+    return [torch.from_numpy(np.array(imgs[d * per:(d + 1) * per]))
+            .to(dev) for d, dev in enumerate(devices)]
+
+
 def prepare_engine(model: IteratedConv2D, imgs: np.ndarray,
                    frames: Optional[int] = None,
                    calls: Sequence[int] = (),
-                   timeout_s: float = 0.0) -> Engine:
+                   timeout_s: float = 0.0,
+                   devices: Optional[Sequence[torch.device]] = None
+                   ) -> Engine:
     """Place ``imgs`` on the model's device, build the kernels it will
     launch, and warm them up, all before the timed window (the JAX
     package's ``prepare_engine``; the reference's timer opens after
@@ -130,16 +154,32 @@ def prepare_engine(model: IteratedConv2D, imgs: np.ndarray,
     counters, before the window's.
 
     ``frames=None``: one (H, W[, C]) image; an int: an (N, H, W[, C])
-    clip. Returns an :class:`Engine`."""
+    clip. ``devices`` (a clip only): more than one batches it over them,
+    a contiguous share each (:func:`_place_frames`); the engine's tensor
+    is then the list of shares, the step runs each share on its device
+    and the fetch joins and crops them. Returns an :class:`Engine`."""
     fault_h2d = _faults.site("h2d")
     fault_compile = _faults.site("compile")
+    batched = frames is not None and devices is not None and len(devices) > 1
     with obs.phase("place"):
         if fault_h2d is not None:
             fault_h2d()
-        img_dev = torch.from_numpy(np.array(imgs, np.uint8)).to(model.device)
-    if frames is not None:
+        if batched:
+            img_dev = _place_frames(np.asarray(imgs, np.uint8), devices)
+        else:
+            img_dev = torch.from_numpy(
+                np.array(imgs, np.uint8)).to(model.device)
+    if batched:
         shape = tuple(imgs.shape[1:3])
         channels = imgs.shape[3] if imgs.ndim == 4 else 1
+        per_device = _share(frames, len(devices))
+
+        def step_fn(xs, n):
+            return [model.batch_on(x, n) for x in xs]
+    elif frames is not None:
+        shape = tuple(imgs.shape[1:3])
+        channels = imgs.shape[3] if imgs.ndim == 4 else 1
+        per_device = frames
         step_fn = model.batch
     else:
         shape = tuple(imgs.shape[:2])
@@ -149,15 +189,20 @@ def prepare_engine(model: IteratedConv2D, imgs: np.ndarray,
         if fault_compile is not None:
             fault_compile()
         model.prepare(shape, channels)
-        warm = model.warm_reps(shape, channels, calls, n_frames=frames)
+        warm = model.warm_reps(shape, channels, calls,
+                               n_frames=None if frames is None
+                               else per_device)
         before = cuda_stencil.launch_counts()
-        scratch = img_dev.clone()
+        scratch = ([x.clone() for x in img_dev] if batched
+                   else img_dev.clone())
         for n in warm:
             scratch = step_fn(scratch, n)
         s.fence(_deadline.fence(scratch, timeout_s, "driver.warmup"))
         warm_launches = _delta(cuda_stencil.launch_counts(), before)
 
-    def fetch(x: torch.Tensor) -> np.ndarray:
+    def fetch(x) -> np.ndarray:
+        if batched:
+            return np.concatenate([t.cpu().numpy() for t in x])[:frames]
         return x.cpu().numpy()
 
     return Engine(img_dev, step_fn, fetch, warm, warm_launches)
@@ -405,12 +450,7 @@ def run_job(cfg: JobConfig, device: Optional[torch.device] = None,
                     )
             else:
                 n_b = min(len(devices), cfg.frames)
-            if n_b > 1:
-                raise NotImplementedError(
-                    f"--frames over {n_b} devices (batch-axis sharding) is "
-                    "not ported yet; it comes with the streaming slice. "
-                    "Run the clip on one device (--mesh 1x1)"
-                )
+            devices = devices[:n_b]
         elif multi or len(devices) > 1 or cfg.mesh_shape is not None:
             if not multi and cfg.boundary != "zero" and cfg.mesh_shape is None:
                 # A periodic run that never asked for a mesh must not fail
@@ -431,6 +471,10 @@ def run_job(cfg: JobConfig, device: Optional[torch.device] = None,
         calls = _window_calls(cfg.repetitions - start_rep, checkpoint_every,
                               obs.enabled())
         timeout_s = _deadline.resolve(cfg.dispatch_timeout_s)
+        # A clip batches over its devices (one share each); one image
+        # runs on the model's device.
+        run_devices = devices if frames else [model.device]
+        share = _share(cfg.frames, len(run_devices))
         # The fallback ladder: a resource failure of the warm-up (the card
         # out of memory, a launch asking for more than the card has, an
         # injected OOM) steps deep -> default schedule; on the CPU on to
@@ -446,8 +490,10 @@ def run_job(cfg: JobConfig, device: Optional[torch.device] = None,
                     device=(torch.device(rung.platform) if rung.platform
                             else devices[0]))
             try:
-                engine = prepare_engine(model, img, frames=frames,
-                                        calls=calls, timeout_s=timeout_s)
+                engine = prepare_engine(
+                    model, img, frames=frames, calls=calls,
+                    timeout_s=timeout_s,
+                    devices=run_devices if frames else None)
                 break
             except Exception as e:
                 if i + 1 >= len(rungs) or not _fallback.demotable(e):
@@ -457,7 +503,7 @@ def run_job(cfg: JobConfig, device: Optional[torch.device] = None,
         if cfg.frames > 1:
             backend, schedule = model.batch_config(shape2, cfg.channels)
             geo_rows = cuda_stencil.frames_rows(model.plan, cfg.height,
-                                                cfg.frames)
+                                                share)
         else:
             backend, schedule = model.resolved_config(shape2, cfg.channels)
             geo_rows = cfg.height
@@ -471,12 +517,12 @@ def run_job(cfg: JobConfig, device: Optional[torch.device] = None,
             obs.introspect.capture(
                 "driver.warmup",
                 lambda: _describe_site(
-                    cfg, model.describe_launches(shape2, cfg.channels,
-                                                 engine.warm_reps,
-                                                 n_frames=frames),
+                    cfg, model.describe_launches(
+                        shape2, cfg.channels, engine.warm_reps,
+                        n_frames=share if frames else None),
                     backend, schedule, bh, fz, model.device),
                 meta={"shape": tuple(np.asarray(img).shape),
-                      "frames": frames, "devices": 1,
+                      "frames": frames, "devices": len(run_devices),
                       "warm_reps": engine.warm_reps})
 
         def save_fn(rep, x):
@@ -485,11 +531,11 @@ def run_job(cfg: JobConfig, device: Optional[torch.device] = None,
             ckpt.save(cfg, rep, engine.fetch(x))
 
         before = cuda_stencil.launch_counts()
-        with _maybe_profile(profile_dir, [model.device]):
+        with _maybe_profile(profile_dir, run_devices):
             with obs.phase("iterate", reps=cfg.repetitions):
                 out_dev, compute = _checkpointed_iterate(
                     cfg, engine.step_fn, save_fn, engine.img_dev,
-                    checkpoint_every, start_rep, [model.device],
+                    checkpoint_every, start_rep, run_devices,
                     fault=_faults.site("compute"), timeout_s=timeout_s,
                 )
         after = cuda_stencil.launch_counts()
@@ -678,9 +724,9 @@ def _run_frames_multiprocess(cfg: JobConfig, model: IteratedConv2D,
                              resume: bool = False) -> JobResult:
     """A ``--frames`` clip across processes: each process owns one
     contiguous frame range (frames never mix, so nothing is exchanged),
-    reads and writes only its byte range of the raw files, and runs it as
-    one batch on its first local device (batching frames over several
-    devices comes with the streaming slice). The window is max-reduced
+    reads and writes only its byte range of the raw files, and batches it
+    over its local ``devices`` (a contiguous share each, as one process
+    does). The window is max-reduced
     over the processes. Checkpoints use the frames format: every process
     writes its range into one shared versioned data file each chunk
     (:func:`checkpoint.save_frames_sharded`); a process with no frames
@@ -692,7 +738,7 @@ def _run_frames_multiprocess(cfg: JobConfig, model: IteratedConv2D,
     if cfg.mesh_shape is not None:
         raise NotImplementedError(
             "--mesh with --frames across processes is not supported: each "
-            "process runs its frame range on its first local device")
+            "process batches its frame range over its local devices")
     p, n_proc = distributed.process_index(), distributed.process_count()
     per = -(-cfg.frames // n_proc)
     f0 = min(cfg.frames, p * per)
@@ -709,9 +755,10 @@ def _run_frames_multiprocess(cfg: JobConfig, model: IteratedConv2D,
 
     def save_fn(rep, x):
         ckpt.save_frames_sharded(cfg, rep, None if x is None
-                                 else x.cpu().numpy(), f0)
+                                 else engine.fetch(x), f0)
 
     out, launches, warm_launches = None, {}, {}
+    run_devices = devices[:max(1, min(len(devices), n_local))]
     if n_local:
         if imgs is None:
             fault_read = _faults.site("read")
@@ -723,14 +770,14 @@ def _run_frames_multiprocess(cfg: JobConfig, model: IteratedConv2D,
                 if ch == 1:
                     imgs = imgs[..., 0]
         engine = prepare_engine(model, imgs, frames=n_local, calls=calls,
-                                timeout_s=timeout_s)
+                                timeout_s=timeout_s, devices=run_devices)
         warm_launches = engine.warm_launches
         before = cuda_stencil.launch_counts()
-        with _maybe_profile(profile_dir, [model.device]):
+        with _maybe_profile(profile_dir, run_devices):
             with obs.phase("iterate", reps=cfg.repetitions):
                 out_dev, compute = _checkpointed_iterate(
                     cfg, engine.step_fn, save_fn, engine.img_dev,
-                    checkpoint_every, start_rep, [model.device],
+                    checkpoint_every, start_rep, run_devices,
                     fault=_faults.site("compute"), timeout_s=timeout_s,
                 )
         launches = _delta(cuda_stencil.launch_counts(), before)
@@ -756,7 +803,8 @@ def _run_frames_multiprocess(cfg: JobConfig, model: IteratedConv2D,
     bh, fz, body = None, None, None
     if backend == "pallas":
         bh, fz = _ran_geometry(
-            model, cuda_stencil.frames_rows(model.plan, h, n_local or per),
+            model, cuda_stencil.frames_rows(
+                model.plan, h, _share(n_local or per, len(run_devices))),
             w, ch, schedule)
         body = cuda_stencil.tile_body(model.plan)
     return JobResult(

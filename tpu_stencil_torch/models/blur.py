@@ -204,7 +204,14 @@ class IteratedConv2D(torch.nn.Module):
         """``repetitions`` stencil applications of an (H, W[, C]) uint8
         image (numpy or tensor; placed on the model's device). The input
         is never written."""
-        x = self._place(img_u8)
+        return self.run_on(self._place(img_u8), repetitions)
+
+    def run_on(self, x: torch.Tensor, repetitions: int) -> torch.Tensor:
+        """:meth:`forward` on the device ``x`` (a uint8 tensor) lies on,
+        which need not be the model's: the stream's fan-out and the
+        batch-axis ``--frames`` run one model on several devices. The
+        configuration resolves on the model's device (the devices of one
+        job are alike)."""
         ch = x.shape[2] if x.dim() == 3 else 1
         shape2 = tuple(x.shape[:2])
         backend, schedule = self.resolved_config(shape2, ch)
@@ -227,7 +234,10 @@ class IteratedConv2D(torch.nn.Module):
 
     def batch(self, imgs_u8, repetitions: int) -> torch.Tensor:
         """Batched video/burst mode: (N, H, W[, C]) frames, never mixed."""
-        x = self._place(imgs_u8)
+        return self.batch_on(self._place(imgs_u8), repetitions)
+
+    def batch_on(self, x: torch.Tensor, repetitions: int) -> torch.Tensor:
+        """:meth:`batch` on the device ``x`` lies on (see :meth:`run_on`)."""
         ch = x.shape[3] if x.dim() == 4 else 1
         frame_shape = tuple(x.shape[1:3])
         backend, schedule = self.batch_config(frame_shape, ch)

@@ -16,8 +16,9 @@ Side tables the CLI prints after the phase table:
 beside the traffic model), :func:`render_resilience` (every nonzero
 resilience counter), :func:`render_memory` (the device allocator, or
 an explicit "unavailable" line) and, for a sharded run,
-:func:`render_overlap` (the ghost-bytes model beside the probe spans). The
-stream table comes with its slice.
+:func:`render_overlap` (the ghost-bytes model beside the probe spans). A
+stream ``--breakdown`` adds :func:`render_stream` (the stage table beside
+the modelled bound).
 """
 
 from __future__ import annotations
@@ -289,4 +290,92 @@ def render_overlap(tracer: Tracer, info: dict) -> str:
             f"probe ratio exchange/interior: {ratio:.3f} (--overlap auto "
             f"splits above {OVERLAP_MIN_RATIO:g} where a split measures "
             f"faster than off)")
+    return "\n".join(lines) + "\n"
+
+
+_STREAM_STAGES = ("stream.read", "stream.h2d", "stream.compute",
+                  "stream.d2h", "stream.write")
+
+
+def render_stream(tracer: Tracer, info: dict) -> str:
+    """The stream side table: busy seconds per frame of each stage from the
+    ``stream.*`` spans beside the modelled seconds
+    (:func:`tpu_stencil_torch.runtime.roofline.stream_stage_seconds`), the
+    measured pipeline bound (the slowest stage once the stages overlap,
+    their sum at depth 1), and the modelled device-side bound beside the
+    measured frames/s; under a fan, the whole-fan bound and the host
+    link's cap.
+
+    ``info``: ``{frame_bytes, reps, backend, schedule, filter_name, h_img,
+    w_img, channels, block_h, fuse, pipeline_depth, frames, wall_seconds,
+    n_devices}``. Renders nothing when no stream span was recorded."""
+    by = {r["name"]: r for r in aggregate(tracer)}
+    stages = [n for n in _STREAM_STAGES if n in by]
+    if not stages:
+        return ""
+    from tpu_stencil_torch.runtime import roofline
+
+    geometry = {"w_img": info.get("w_img"),
+                "channels": info.get("channels", 1),
+                "schedule": info.get("schedule")}
+    model_stages = roofline.stream_stage_seconds(
+        info["frame_bytes"], info["reps"], info["backend"],
+        info["filter_name"], info["h_img"], block_h=info.get("block_h"),
+        fuse=info.get("fuse"), **geometry)
+    depth = info.get("pipeline_depth", 2)
+    n_dev = info.get("n_devices", 1) or 1
+    lines = [
+        "",
+        f"stream pipeline: depth={depth}  "
+        f"(steady state bound = {'max' if depth > 1 else 'sum'}(stage))",
+    ]
+    head = (f"{'stage':<16}  {'s/frame':>10}  {'frames':>6}  "
+            f"{'model s/frame':>13}")
+    lines += [head, "-" * len(head)]
+    slowest = ("", 0.0)
+    total = 0.0
+    for n in stages:
+        per = by[n]["seconds"] / by[n]["count"]
+        # On a fan the device stages run in n_dev lanes at once: a frame's
+        # share of the fan's throughput is per / n_dev; read and write
+        # serve every frame on one thread.
+        eff = (per / n_dev
+               if n in ("stream.h2d", "stream.compute", "stream.d2h")
+               else per)
+        total += eff
+        if eff > slowest[1]:
+            slowest = (n, eff)
+        model = model_stages.get(n[len("stream."):])
+        model_s = "" if model is None else f"{model:13.6f}"
+        lines.append(
+            f"{n:<16}  {per:>10.6f}  {by[n]['count']:>6}  {model_s:>13}")
+    lanes = f" ({n_dev} lanes)" if n_dev > 1 else ""
+    if depth > 1 and slowest[1] > 0:
+        lines.append(f"pipeline bound{lanes}: {slowest[0]} -> "
+                     f"{1.0 / slowest[1]:.2f} frames/s")
+    elif total > 0:
+        lines.append(f"pipeline bound{lanes}: sum(stages) -> "
+                     f"{1.0 / total:.2f} frames/s")
+    measured = ""
+    if info.get("frames") and info.get("wall_seconds"):
+        measured = (f"measured {info['frames'] / info['wall_seconds']:.2f} "
+                    f"frames/s vs ")
+    fps_model = roofline.stream_frames_per_second(
+        info["frame_bytes"], info["reps"], info["backend"],
+        info["filter_name"], info["h_img"], block_h=info.get("block_h"),
+        fuse=info.get("fuse"), pipeline_depth=depth, **geometry)
+    label = "per-device " if n_dev > 1 else "device-side "
+    lines.append(f"{measured}modeled {label}bound {fps_model:.2f} frames/s "
+                 "(host read/write measured, not modeled)")
+    if n_dev > 1:
+        mesh_fps = roofline.mesh_stream_frames_per_second(
+            info["frame_bytes"], info["reps"], info["backend"],
+            info["filter_name"], info["h_img"], block_h=info.get("block_h"),
+            fuse=info.get("fuse"), pipeline_depth=depth, n_devices=n_dev,
+            **geometry)
+        cap = roofline.pcie_contention_frames_per_second(info["frame_bytes"])
+        lines.append(
+            f"mesh fan-out: {n_dev} devices -> modeled whole-mesh bound "
+            f"{mesh_fps:.2f} frames/s (PCIe contention cap {cap:.2f} "
+            f"frames/s)")
     return "\n".join(lines) + "\n"

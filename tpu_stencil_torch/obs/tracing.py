@@ -198,6 +198,12 @@ def get_tracer() -> Optional[Tracer]:
     return _tracer
 
 
+def sinks_active() -> bool:
+    """True when a span sink (the tracer or the flight recorder) is
+    installed: the guard for per-frame record work."""
+    return _tracer is not None or _flight is not None
+
+
 def _set_flight(recorder) -> None:
     """Install (or clear) the flight-recorder sink; called only by
     :mod:`tpu_stencil_torch.obs.flight`."""

@@ -7,6 +7,11 @@ file name carries a hash of its sources and flags, so a changed source
 rebuilds and an unchanged one is loaded as it is. A missing ``nvcc`` or a
 failed build raises :class:`KernelBuildError`; nothing falls back.
 
+One library is host code: ``crc32c`` (``csrc/crc32c.cpp``, the stream
+engine's checksum of every frame) builds with the host C++ compiler
+(``g++``/``c++`` on PATH) and :data:`HOST_FLAGS`, into the same directory
+under the same naming; :data:`NVCC_FLAGS` stay the kernels' alone.
+
 A library may be built as a *variant*: the same source compiled with a tuple
 of ``-D`` defines (``("LAB_BODY=3", "LAB_NO_MASK=1")``), hashed into the
 file name with the sources and flags. A target is a library name or a
@@ -22,6 +27,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Tuple, Union
@@ -35,14 +41,21 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Kernel library name -> its sources (the first is compiled; all are hashed).
+# Flags of the host-code libraries (HOST_LIBS).
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
+
+# Library name -> its sources (the first is compiled; all are hashed).
 SOURCES: Dict[str, tuple] = {
     "stencil_fused": ("stencil_fused.cu", "stencil_tile.cuh"),
     "stencil_resident": ("stencil_resident.cu", "stencil_tile.cuh"),
     "stencil_valid": ("stencil_valid.cu", "stencil_tile.cuh"),
     "stencil_lab": ("stencil_lab.cu", "stencil_tile.cuh"),
     "op_chain": ("op_chain.cu",),
+    "crc32c": ("crc32c.cpp",),
 }
+
+# The libraries of host code, built with the host compiler.
+HOST_LIBS = ("crc32c",)
 
 # The libraries the job's path launches (what :func:`build` builds when
 # given no targets, and what :func:`fingerprint` names).
@@ -73,6 +86,20 @@ def nvcc_path() -> str:
     )
 
 
+def host_compiler() -> list:
+    """The command that compiles a host library: ``g++`` (or ``c++``) on
+    PATH, with :data:`HOST_FLAGS` (``nvcc`` needs one too, so a machine
+    that builds the kernels has it). Raises KernelBuildError when there is
+    none."""
+    for name in ("g++", "c++"):
+        found = shutil.which(name)
+        if found:
+            return [found, *HOST_FLAGS]
+    raise KernelBuildError(
+        "no host C++ compiler (g++, c++) on PATH: the host libraries "
+        "cannot be built")
+
+
 def _split(target: Target) -> Tuple[str, Tuple[str, ...]]:
     if isinstance(target, str):
         return target, ()
@@ -86,7 +113,8 @@ def library_path(name: str, defines: Iterable[str] = ()) -> Path:
     defines."""
     if name not in SOURCES:
         raise KeyError(f"unknown kernel library {name!r}")
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    flags = HOST_FLAGS if name in HOST_LIBS else NVCC_FLAGS
+    h = hashlib.sha256(" ".join(flags).encode())
     for src in SOURCES[name]:
         h.update(src.encode())
         h.update((CSRC / src).read_bytes())
@@ -103,8 +131,9 @@ def fingerprint(names: Iterable[str] = JOB_KERNELS) -> str:
 
 
 def build(targets: Iterable[Target] = JOB_KERNELS) -> Dict[Target, Path]:
-    """Build every library of ``targets`` not built yet, one ``nvcc`` per
-    target, all started together. Returns target -> library path. Each
+    """Build every library of ``targets`` not built yet, one compiler per
+    target (``nvcc``, or the host compiler for :data:`HOST_LIBS`), all
+    started together. Returns target -> library path. Each
     build's compiler output (``-Xptxas -v``: registers, shared memory,
     spills) is kept beside the library as ``<lib>.log``, ending with the
     line ``# build_seconds S`` (the ``nvcc`` wall time)."""
@@ -113,26 +142,31 @@ def build(targets: Iterable[Target] = JOB_KERNELS) -> Dict[Target, Path]:
     todo = {t: p for t, p in paths.items() if not p.exists()}
     if not todo:
         return paths
-    nvcc = nvcc_path()
+    kernels = [t for t in todo if _split(t)[0] not in HOST_LIBS]
+    nvcc = nvcc_path() if kernels else None
+    host = host_compiler() if len(kernels) < len(todo) else None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
     for n, p in todo.items():
         name, defines = _split(n)
-        tmp = p.with_name(f"{p.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
+        tmp = p.with_name(
+            f"{p.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+        compiler = host if name in HOST_LIBS else [nvcc, *NVCC_FLAGS]
+        cmd = [*compiler, *(f"-D{d}" for d in defines), "-o",
                str(tmp), str(CSRC / SOURCES[name][0])]
-        procs[n] = (tmp, subprocess.Popen(
+        procs[n] = (tmp, cmd[0], subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
     failed = []
-    for n, (tmp, proc) in procs.items():
+    for n, (tmp, exe, proc) in procs.items():
         out, _ = proc.communicate()
         p = todo[n]
         p.with_name(p.name + ".log").write_text(
             f"{out}# build_seconds {time.perf_counter() - t0:.3f}\n")
         if proc.returncode != 0:
-            failed.append(f"{n}: nvcc exited {proc.returncode}:\n{out[-4000:]}")
+            failed.append(f"{n}: {os.path.basename(exe)} exited "
+                          f"{proc.returncode}:\n{out[-4000:]}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, p)

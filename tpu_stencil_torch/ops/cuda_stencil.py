@@ -30,7 +30,8 @@ Each wrapper takes its plain PyTorch version (int32 shifted slices, the
 same function) only for a tensor on the CPU. For a CUDA tensor it launches
 its kernel or raises; nothing falls back. ``stencil_fused.launches``,
 ``stencil_resident.launches`` and ``stencil_valid.launches`` count the
-launches and nothing else.
+launches and nothing else, under one lock (the stream engine launches from
+one thread per lane).
 
 The image is viewed flat as ``(rows, W*C)``: a column-pass tap moves by
 ``C`` flat lanes, so channels never mix, and the column boundary is the
@@ -56,6 +57,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
@@ -810,7 +812,7 @@ def stencil_fused(x2: torch.Tensor, plan: StencilPlan, channels: int,
             torch.cuda.current_stream(x2.device).cuda_stream,
         )
     _raise_on(rc, lib, "stencil_fused_error_string", "stencil_fused")
-    stencil_fused.launches += 1
+    _count(stencil_fused)
     return out
 
 
@@ -850,7 +852,7 @@ def stencil_resident(x2: torch.Tensor, plan: StencilPlan, channels: int,
             torch.cuda.current_stream(x2.device).cuda_stream,
         )
     _raise_on(rc, lib, "stencil_resident_error_string", "stencil_resident")
-    stencil_resident.launches += 1
+    _count(stencil_resident)
     return out
 
 
@@ -909,11 +911,21 @@ def stencil_valid(ext2: torch.Tensor, plan: StencilPlan, channels: int,
             torch.cuda.current_stream(ext2.device).cuda_stream,
         )
     _raise_on(rc, lib, "stencil_valid_error_string", "stencil_valid")
-    stencil_valid.launches += 1
+    _count(stencil_valid)
     return out
 
 
 stencil_valid.launches = 0
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(wrapper) -> None:
+    """One launch of ``wrapper``'s kernel, counted under the lock (a
+    read-modify-write of the counter from several threads)."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def launch_counts() -> Dict[str, int]:
@@ -924,9 +936,10 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    stencil_fused.launches = 0
-    stencil_resident.launches = 0
-    stencil_valid.launches = 0
+    with _COUNT_LOCK:
+        stencil_fused.launches = 0
+        stencil_resident.launches = 0
+        stencil_valid.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -114,6 +114,11 @@ class RetryPolicy:
 
 DEFAULT_POLICY = RetryPolicy()
 
+# The stream reader's and writer's transient-I/O shape: short backoff (a
+# hiccup of a disk or a network file system, not an outage).
+IO_POLICY = RetryPolicy(attempts=3, base_delay=0.05, multiplier=2.0,
+                        max_delay=1.0)
+
 
 def retry_call(
     fn: Callable,

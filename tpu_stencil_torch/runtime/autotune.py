@@ -3,8 +3,9 @@
 pruned by the shared-memory model and cached on disk.
 
 The port's counterpart of the JAX package's ``runtime/autotune.py``
-(``best_full_config`` and its cache, and the overlap verdict
-``best_overlap``; the stream verdicts are not ported yet). The candidates are the port's: backends ``xla`` (torch
+(``best_full_config`` and its cache, the overlap verdict
+``best_overlap``, and the stream verdicts ``cached_stream_verdict``,
+``store_stream_verdict`` and the modelled ``choose_stream_topology``). The candidates are the port's: backends ``xla`` (torch
 ops) and ``pallas`` (the hand-written kernels); schedules ``fused`` (K1)
 and ``deep`` (K2 when the image fits the L2 budget, else K1 at the deep
 depth); then a geometry stage over :data:`_GEOMETRY_GRID` at the winning
@@ -582,3 +583,95 @@ def best_overlap(plan: StencilPlan, tile: Tuple[int, int], channels: int,
                            device)] = entry
         _store_cache(store)
     return mode
+
+
+# --- stream composition verdicts (--mesh-frames 0) -----------------------
+#
+# The stream's auto knob decides by a measured A/B (one device against the
+# fan; a loss is never enabled). The A/B streams real frames through the
+# real engines, so its verdict persists here like the overlap verdict,
+# keyed on the card, the stack, the frame geometry, reps, depth and the
+# topology decided over: a warm cache pays zero probe frames.
+
+def stream_cfg_token(cfg) -> str:
+    """The compute identity of a stream verdict's key: everything that
+    changes the timed step (filter, backend request, forced schedule and
+    geometry, boundary, overlap) splits the key, so a verdict measured
+    under one filter or backend never answers for another."""
+    return "|".join([
+        cfg.filter_name, cfg.backend, str(cfg.schedule),
+        str(cfg.block_h), str(cfg.fuse), cfg.boundary,
+        getattr(cfg, "overlap", "off"),
+    ])
+
+
+def _stream_verdict_key(kind: str, geometry: Tuple[int, int, int],
+                        reps: int, depth: int, topo: str,
+                        cfg_token: str = "", device="cuda") -> str:
+    # The card's name, then the stack (the loader reads the second
+    # segment), then what the A/B decided over.
+    h, w, channels = geometry
+    return "|".join([
+        _card_name(device), _stack_version(), "stream", kind,
+        f"{h}x{w}x{channels}", f"reps{reps}", f"depth{depth}", topo,
+        cfg_token,
+    ])
+
+
+def cached_stream_verdict(kind: str, geometry: Tuple[int, int, int],
+                          reps: int, depth: int, topo: str,
+                          cfg_token: str = "",
+                          device="cuda") -> Optional[dict]:
+    """The cached auto verdict of one stream composition, or None (a miss,
+    or an entry without a ``pick``). ``kind`` is ``"fanout"``
+    (``--mesh-frames 0``); ``topo`` pins the device population decided
+    over (``ndev4``); ``cfg_token`` (:func:`stream_cfg_token`) the compute
+    identity."""
+    hit = _load_cache().get(_stream_verdict_key(
+        kind, geometry, reps, depth, topo, cfg_token, device))
+    if isinstance(hit, dict) and "pick" in hit:
+        return hit
+    return None
+
+
+def store_stream_verdict(kind: str, geometry: Tuple[int, int, int],
+                         reps: int, depth: int, topo: str, entry: dict,
+                         cfg_token: str = "", device="cuda") -> None:
+    """Persist one measured stream verdict (``entry`` carries ``pick`` and
+    the measured arms beside it)."""
+    store = _load_cache()
+    store[_stream_verdict_key(kind, geometry, reps, depth, topo, cfg_token,
+                              device)] = entry
+    _store_cache(store)
+
+
+def choose_stream_topology(geometry: Tuple[int, int, int], reps: int,
+                           depth: int, n_devices: int,
+                           backend: str = "xla",
+                           filter_name: str = "gaussian",
+                           frames: Optional[int] = None,
+                           halo: int = 1) -> str:
+    """The modelled best stream topology for one (geometry, reps, depth)
+    on ``n_devices``, ranked by the roofline's steady-state frames/s
+    (:mod:`tpu_stencil_torch.runtime.roofline`): ``"single"`` or
+    ``"fanout"``. A fan is chosen only when its modelled bound strictly
+    beats one device's (a tie stays single). The JAX package also ranks
+    a spatial shard and a temporal pipeline here; those arms come with
+    the sharded-stream and pipeline engines, whose models are not ported
+    yet, so ``frames`` and ``halo`` (their inputs) are accepted and
+    unused."""
+    from tpu_stencil_torch.runtime import roofline
+
+    h, w, channels = geometry
+    frame_bytes = h * w * channels
+    single = roofline.stream_frames_per_second(
+        frame_bytes, reps, backend, filter_name, h, pipeline_depth=depth,
+        w_img=w, channels=channels)
+    if n_devices >= 2:
+        fan = roofline.mesh_stream_frames_per_second(
+            frame_bytes, reps, backend, filter_name, h,
+            pipeline_depth=depth, n_devices=n_devices, w_img=w,
+            channels=channels)
+        if fan > single:
+            return "fanout"
+    return "single"

@@ -18,8 +18,15 @@ older versions. With several processes every process writes its own
 tiles (or, for ``--frames``, its own frame range: the frames half) into
 the one shared data file, and after a barrier of all of them rank 0
 alone publishes the sidecar (:func:`_commit_meta`); a process with no
-frames still joins every commit. Only rank 0 clears. The stream half
-comes with its slice.
+frames still joins every commit. Only rank 0 clears.
+
+The stream half (:func:`save_stream_progress`,
+:func:`restore_stream_progress`, :func:`clear_stream_progress`,
+:class:`MeshCursorMismatch`) records a stream's progress beside its sink:
+frames [0, n) are durably written, plus the job's fingerprint and the
+topology that wrote them (the fan width with its per-device cursors, a
+spatial shard, the pipeline stages), in the JAX package's sidecar format.
+A resume under another topology fails typed.
 """
 
 from __future__ import annotations
@@ -317,3 +324,172 @@ def clear(cfg: JobConfig) -> None:
             os.remove(p)
     for p in _stale_versions(data_path):
         os.remove(p)
+
+
+class MeshCursorMismatch(ValueError):
+    """A ``--resume`` of a mesh-composed stream run under a different
+    mesh topology than the one that wrote the checkpoint — the fan
+    width (``--mesh-frames`` device count), the spatial shard topology
+    (``--shard-frames RxC``), or the temporal stage count
+    (``--pipe-stages K``). The recorded cursor/scatter/fill layout is
+    aligned to the writing run's topology, so silently adopting it
+    under another one would misattribute frames to devices (fan),
+    mis-scatter tiles (shard) or mis-weave the deal (pipeline); the
+    resume must fail typed, naming both topologies (the recorded one
+    and the requested one).
+
+    ``recorded``/``requested`` are device counts (ints) for the fan
+    guard, descriptive topology strings for the spatial-shard and
+    pipeline guards."""
+
+    def __init__(self, recorded, requested, path: str) -> None:
+        if isinstance(recorded, str) or isinstance(requested, str):
+            super().__init__(
+                f"stream checkpoint at {path} records topology "
+                f"{recorded} but --resume is running {requested}; "
+                f"re-run at the recorded topology (or delete the "
+                f"checkpoint to start over)"
+            )
+        else:
+            super().__init__(
+                f"stream checkpoint at {path} was written by a "
+                f"{recorded}-device mesh-fan run but --resume is running "
+                f"on {requested} device(s); re-run with --mesh-frames "
+                f"{recorded} (or delete the checkpoint to start over)"
+            )
+        self.recorded = recorded
+        self.requested = requested
+
+
+def _stream_paths(cfg) -> str:
+    """The stream progress sidecar lives beside the sink (the artifact
+    it describes), like the frame checkpoints beside the job output.
+    Normalized: ``outdir`` and ``outdir/`` are the same sink and must
+    resolve to the same sidecar, or a resume spelled the other way
+    silently finds no checkpoint."""
+    return cfg.output_path.rstrip(os.sep) + ".stream.ckpt.json"
+
+
+def _stream_fingerprint(cfg) -> dict:
+    """Identity of a streaming job (:class:`~tpu_stencil_torch.config
+    .StreamConfig`): a progress record from a different geometry,
+    filter, rep count or boundary must be refused, not resumed —
+    the same discipline as :func:`_fingerprint`. The input spec is
+    deliberately EXCLUDED: a resumed pipe has a different fd/path each
+    run, and the sink identity (where the sidecar lives) already pins
+    the artifact being continued."""
+    return {
+        "width": cfg.width,
+        "height": cfg.height,
+        "channels": cfg.channels,
+        "filter": cfg.filter_name,
+        "repetitions": cfg.repetitions,
+        "boundary": cfg.boundary,
+        "frames": cfg.frames,
+    }
+
+
+def save_stream_progress(cfg, frames_done: int,
+                         mesh_devices: int = 1,
+                         cursors: Optional[list] = None,
+                         shard_frames: Optional[Tuple[int, int]] = None,
+                         pipe_stages: int = 1
+                         ) -> None:
+    """Atomically record that frames [0, frames_done) are durably in
+    the sink. No frame payload — unlike the rep checkpoints, a stream's
+    completed frames already live in the output; progress is one
+    integer plus the fingerprint.
+
+    Mesh-fan runs (``mesh_devices > 1``) additionally record the device
+    count and the per-device frame cursors (the next frame index each
+    of the WRITING run's round-robin lanes would have received) —
+    ``cursors[d]``, one per device. The in-order drain means
+    ``frames_done`` alone pins global progress, and a resume re-deals
+    the remaining frames from there (it does not re-adopt the recorded
+    cursors — they are the diagnostic record of where the interrupted
+    fan stood); what the resume contract enforces is the device count,
+    which a different-count resume must refuse
+    (:class:`MeshCursorMismatch`).
+
+    Spatially-sharded runs (``--shard-frames``) record the RxC shard
+    topology instead — the scatter layout every staged tile of the
+    writing run followed. A resume under a different topology (or
+    under no topology at all) must refuse typed rather than silently
+    mis-scatter, the same contract as the fan's device count.
+
+    Temporal-pipeline runs (``pipe_stages > 1``) record the stage
+    count too — the three axes together pin the writing run's full
+    placement, and a resume under any different axis value refuses
+    typed (the recorded deal/scatter/fill discipline is only
+    meaningful at the recorded topology)."""
+    _checkpoint_fault(int(frames_done))
+    path = _stream_paths(cfg)
+    meta = dict(_stream_fingerprint(cfg), frames_done=int(frames_done))
+    if mesh_devices > 1:
+        meta["mesh_devices"] = int(mesh_devices)
+        if cursors is not None:
+            meta["device_cursors"] = [int(c) for c in cursors]
+    if shard_frames is not None:
+        meta["shard_frames"] = [int(d) for d in shard_frames]
+    if pipe_stages > 1:
+        meta["pipe_stages"] = int(pipe_stages)
+    _write_meta(path, meta)
+
+
+def _topology_str(shard) -> str:
+    return "single-device" if shard is None else f"{shard[0]}x{shard[1]}"
+
+
+def restore_stream_progress(cfg, mesh_devices: int = 1,
+                            shard_frames: Optional[Tuple[int, int]] = None,
+                            pipe_stages: int = 1
+                            ) -> Optional[int]:
+    """Frames already completed by a matching prior run, or None. A
+    fingerprint mismatch raises (resuming a different job's sink would
+    silently mix outputs); a device-count mismatch against a mesh-fan
+    checkpoint — or a spatial-shard-topology mismatch against a
+    ``--shard-frames`` checkpoint — raises typed
+    (:class:`MeshCursorMismatch`: the recorded cursor/scatter layout is
+    aligned to the writing run's topology, so a different one must
+    never silently adopt it); a sidecar that fails its embedded CRC (or
+    no longer parses) raises typed (:class:`CorruptCheckpoint` naming
+    the file) — a flipped bit in ``frames_done`` would otherwise
+    silently skip or rewrite frames."""
+    path = _stream_paths(cfg)
+    if not os.path.exists(path):
+        return None
+    meta = _load_meta(path)
+    want = _stream_fingerprint(cfg)
+    if {k: meta.get(k) for k in want} != want:
+        raise ValueError(
+            f"stream checkpoint at {path} was written for a different "
+            f"job ({meta} != {want}); delete it or change --output"
+        )
+    recorded = int(meta.get("mesh_devices", 1))
+    if recorded != int(mesh_devices):
+        raise MeshCursorMismatch(recorded, int(mesh_devices), path)
+    rec_shard = meta.get("shard_frames")
+    rec_shard = tuple(int(d) for d in rec_shard) if rec_shard else None
+    req_shard = tuple(int(d) for d in shard_frames) if shard_frames else None
+    if rec_shard != req_shard:
+        raise MeshCursorMismatch(
+            f"spatial shard {_topology_str(rec_shard)} (--shard-frames)",
+            (f"--shard-frames {_topology_str(req_shard)}"
+             if req_shard else "single-device"),
+            path,
+        )
+    rec_pipe = int(meta.get("pipe_stages", 1))
+    if rec_pipe != int(pipe_stages):
+        # The temporal-axis guard, same contract as the other two.
+        raise MeshCursorMismatch(
+            f"{rec_pipe} pipeline stage(s) (--pipe-stages)",
+            f"--pipe-stages {int(pipe_stages)}",
+            path,
+        )
+    return int(meta["frames_done"])
+
+
+def clear_stream_progress(cfg) -> None:
+    path = _stream_paths(cfg)
+    if os.path.exists(path):
+        os.remove(path)

@@ -13,12 +13,19 @@ bound :func:`plan_ops` and :func:`bound_ms_per_rep`, which the on-card
 smoke test, the kernel lab, the benchmark sweep and the autotuner's
 reports all read.
 
+The stream half: :func:`stream_stage_seconds`,
+:func:`stream_frames_per_second`, :func:`pcie_contention_frames_per_second`
+and :func:`mesh_stream_frames_per_second` model the streaming engine's
+device-side stages (one frame's copy to the card and back over the host
+link, its reps at the operations bound) and the bound they put on
+frames/s, on one card and over a fan of cards behind one host.
+
 The peak rates are those of one H100 SXM from NVIDIA's data sheet (dense,
-at the full 700 W power limit). The interconnect, host-link, streaming,
-mesh and pipeline models of the JAX module are not ported yet; its ghost
-byte counts of the sharded exchange are (:func:`ici_ghost_bytes_per_edge`,
-:func:`ici_ghost_bytes_per_rep`, pure counts under the JAX names, with no
-interconnect rate beside them).
+at the full 700 W power limit; the host link PCIe Gen5 x16). The
+interconnect model and the sharded-stream and pipeline models of the JAX
+module are not ported yet; its ghost byte counts of the sharded exchange
+are (:func:`ici_ghost_bytes_per_edge`, :func:`ici_ghost_bytes_per_rep`,
+pure counts under the JAX names, with no interconnect rate beside them).
 """
 
 from __future__ import annotations
@@ -37,6 +44,10 @@ H100_HBM_BYTES = 80 * 10 ** 9
 H100_F32_FLOPS = 67e12
 H100_INT32_OPS_PER_S = H100_F32_FLOPS / 4
 H100_F32_OPS_PER_S = H100_F32_FLOPS / 2
+# The H100 SXM's host link (data sheet): PCIe Gen5 x16, 64 GB/s in each
+# direction; a frame's copy to the card and its copy back use one
+# direction each.
+H100_PCIE_BYTES_PER_S = 64e9
 
 ENV_DEVICE_HBM_BYTES = "TPU_STENCIL_TORCH_DEVICE_HBM_BYTES"
 
@@ -223,3 +234,77 @@ def ici_ghost_bytes_per_rep(tile_shape, channels: int, halo: int,
         tile_shape, channels, halo, mesh_shape, fuse=fuse,
         elem_bytes=elem_bytes, mode=mode,
     ).values()))
+
+
+# ---------------------------------------------------------------------------
+# The stream half
+# ---------------------------------------------------------------------------
+
+
+def stream_stage_seconds(frame_bytes: int, reps: int, backend: str,
+                         filter_name: str, h_img: int,
+                         block_h=None, fuse=None, w_img=None,
+                         channels: int = 1, schedule=None,
+                         device=None) -> dict:
+    """Modelled seconds per frame of the streaming engine's device-side
+    stages: ``h2d`` and ``d2h`` move one frame over the host link in one
+    direction each; ``compute`` runs ``reps`` reps at
+    :func:`bound_ms_per_rep` over the bytes the backend moves (the kernels
+    once per :func:`effective_fuse` reps, the torch ops every rep). The
+    host's ``read`` and ``write`` are measured, never modelled: no
+    constant holds for every disk and pipe."""
+    compute = 0.0
+    if reps > 0:
+        per_rep_bytes = analytic_bytes_per_rep(
+            frame_bytes, backend, filter_name, h_img, block_h, fuse,
+            schedule=schedule, w_img=w_img, channels=channels, reps=reps,
+            device=device)
+        ms, _ = bound_ms_per_rep(_plan(filter_name), frame_bytes, reps,
+                                 n_bytes=per_rep_bytes * reps)
+        compute = reps * ms / 1e3
+    link = frame_bytes / H100_PCIE_BYTES_PER_S
+    return {"h2d": link, "compute": compute, "d2h": link}
+
+
+def stream_frames_per_second(frame_bytes: int, reps: int, backend: str,
+                             filter_name: str, h_img: int,
+                             block_h=None, fuse=None,
+                             pipeline_depth: int = 2, **geometry) -> float:
+    """The modelled steady-state frames/s of one device's stream: with
+    frames in flight (``pipeline_depth`` >= 2) the stages overlap and the
+    bound is ``1 / max(stage)``; at depth 1 they run one after another and
+    it is ``1 / sum(stage)``. ``geometry``: :func:`stream_stage_seconds`'s
+    ``w_img``, ``channels``, ``schedule``, ``device``."""
+    stages = stream_stage_seconds(frame_bytes, reps, backend, filter_name,
+                                  h_img, block_h, fuse, **geometry)
+    bound = (sum(stages.values()) if pipeline_depth <= 1
+             else max(stages.values()))
+    return 1.0 / bound if bound > 0 else float("inf")
+
+
+def pcie_contention_frames_per_second(frame_bytes: int) -> float:
+    """The host link's ceiling on a whole fan's frames/s: every frame goes
+    to a card and comes back, one direction each, and the fan's lanes
+    share one host, so whatever the number of cards the model lets no
+    more than ``H100_PCIE_BYTES_PER_S / frame_bytes`` frames a second
+    through (the conservative shape of one shared link; a host with a
+    link per card would scale it, and then it does not bind)."""
+    return H100_PCIE_BYTES_PER_S / float(frame_bytes)
+
+
+def mesh_stream_frames_per_second(frame_bytes: int, reps: int,
+                                  backend: str, filter_name: str,
+                                  h_img: int, block_h=None, fuse=None,
+                                  pipeline_depth: int = 2,
+                                  n_devices: int = 1,
+                                  **geometry) -> float:
+    """The modelled whole-fan frames/s of the mesh fan-out
+    (:mod:`tpu_stencil_torch.parallel.fanout`): frames are independent,
+    so ``n_devices`` times one device's bound
+    (:func:`stream_frames_per_second`), capped by the shared host link
+    (:func:`pcie_contention_frames_per_second`)."""
+    per_device = stream_frames_per_second(
+        frame_bytes, reps, backend, filter_name, h_img, block_h, fuse,
+        pipeline_depth=pipeline_depth, **geometry)
+    return min(per_device * max(1, n_devices),
+               pcie_contention_frames_per_second(frame_bytes))
