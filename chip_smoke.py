@@ -175,7 +175,25 @@ one JSON line. The phases that pin launch counts name ``--backend pallas``
    stage histograms per frame, the CRC32C of a frame, the modelled bound,
    and from a ``torch.profiler`` trace of a depth-2 run the time an H2D
    copy and K1 were busy at once and the device's idle share.
-16. ``times`` — ms per rep at 1920x2520 RGB gaussian x40, each the median
+16. ``shard_stream_path`` — the spatially sharded stream and the temporal
+   pipeline on virtual meshes of this card (``[cuda:0] * k``), 1920x2520
+   x40 gaussian, ``--backend pallas``: 16 frames file to file at depth 2
+   with ``--shard-frames 2x2`` under ``--overlap edge`` and ``off`` and
+   1x2 on grey frames, each byte-equal to the torch-ops path and to the
+   same clip streamed on one device, K3's launches equal to the runner's
+   schedule; 32 frames to a null sink at depths 1 and 2 under both modes
+   and through 2 and 4 stages (median of 3, taking turns; stage seconds
+   per shard); 8 frames of
+   7680x4320 RGB under 2x2 ``off`` against torch ops, with frames/s;
+   ``--pipe-stages 2`` and ``4`` (16 frames), reps 3 with K 4, 2 frames
+   with K 4 and ``--mesh-frames 2 --pipe-stages 2 --shard-frames 2x1``
+   over ``[cuda:0] * 8``, each byte-equal to one device; a compute fault
+   restarting the pipeline from its checkpoint; a resume under another
+   stage count raising ``MeshCursorMismatch``; ``--shard-frames 0`` and
+   ``--pipe-stages 0`` printing measured verdicts, then zero probe frames
+   from the warm cache; a profiled 8-frame depth-2 2x2 run (shard H2D
+   and K3 busy at once, the device's idle share); the phase's seconds.
+17. ``times`` — ms per rep at 1920x2520 RGB gaussian x40, each the median
    of 7 runs after a warm-up (CUDA events, L2 flushed before each run):
    the three job kernels (K3 alone on the one ext tile of a 1x1 mesh at
    fuse 8), L2's ``current`` body, one L1 launch (``add_i32``, chain of
@@ -200,7 +218,8 @@ the main path's timed window's and ``warmup_launches`` its warm-up's; K1
 and K2 add ``stream_launches``, those of the 16-frame stream and of the
 2-lane fan in ``stream_path``; K3
 adds its window launches and ms per rep under each overlap mode, the
-``auto`` verdict and its thin-window time),
+``auto`` verdict and its thin-window time, and ``shard_stream_launches``,
+those of the sharded streams in ``shard_stream_path``),
 the ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero before that line; without a CUDA device the script exits
 non-zero at once.
@@ -209,6 +228,7 @@ non-zero at once.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -2738,6 +2758,330 @@ def phase_stream_path(dev) -> dict:
                 channels=MAIN_C, device=dev)}
 
 
+BIG_W, BIG_H, BIG_FRAMES = 7680, 4320, 8  # 99.5 MB an RGB frame
+
+
+def phase_shard_stream_path(dev) -> dict:
+    """The spatially sharded stream and the temporal pipeline on virtual
+    meshes of this card, 1920x2520 x40 gaussian, ``--backend pallas``.
+
+    Bytes: 16 frames file to file at depth 2 with ``--shard-frames 2x2``
+    over ``[cuda:0] * 4`` under ``--overlap edge`` (the default) and
+    ``off``, and 1x2 on grey frames, each equal to the torch-ops path
+    (``run_job --frames 16 --backend xla``) and to the same clip streamed
+    on one device, K3's launches on each run equal to the runner's
+    schedule (frames x launches a frame + the warm-up's) and no K1 or K2
+    launch. Throughput: 32 frames to a null sink at depths 1 and 2 under
+    both modes and through ``--pipe-stages 2`` and ``4`` at depth 2,
+    taking turns, median of 3, with the stage seconds per shard. The
+    larger frame: 8 frames of 7680x4320 RGB under 2x2 ``off``
+    against torch ops, with frames/s. The pipeline (torch-ops stages):
+    ``--pipe-stages 2`` and ``4`` over ``[cuda:0] * K`` on 16 frames,
+    reps 3 with K 4, 2 frames with K 4, and ``--mesh-frames 2
+    --pipe-stages 2 --shard-frames 2x1`` over ``[cuda:0] * 8``, each equal
+    to one device's output; a compute fault at frame 9 restarts the
+    pipeline once from its checkpoint, and a resume under another stage
+    count raises ``MeshCursorMismatch``. Auto: ``--shard-frames 0`` and
+    ``--pipe-stages 0`` over ``[cuda:0] * 4`` print their measured
+    verdicts, and a second call pays no probe frame. The profiler: an
+    8-frame depth-2 2x2 run, the time a shard's H2D and K3 were busy at
+    once, the device's idle share."""
+    from tpu_stencil_torch import config, driver, obs
+    from tpu_stencil_torch.models.blur import IteratedConv2D
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+    from tpu_stencil_torch.ops import lowering
+    from tpu_stencil_torch.parallel import pipeline
+    from tpu_stencil_torch.parallel import sharded as psharded
+    from tpu_stencil_torch.resilience import faults
+    from tpu_stencil_torch.runtime import checkpoint as ckpt
+    from tpu_stencil_torch.runtime import roofline
+    from tpu_stencil_torch.stream import engine
+    from tpu_stencil_torch.stream import sharded as shardstream
+
+    t_phase = time.perf_counter()
+    d = stream_clip()
+    n = STREAM_FRAMES
+    plan = plan_of("gaussian")
+    runs, errs = {}, {}
+
+    def frames_file(path, itype, frames=n, h=MAIN_H, w=MAIN_W):
+        shape = (frames, h, w) + ((MAIN_C,) if itype == "rgb" else ())
+        got = np.fromfile(path, np.uint8)
+        require(got.size == int(np.prod(shape)),
+                f"{path}: {got.size} bytes, expected {int(np.prod(shape))}")
+        os.unlink(path)
+        return got.reshape(shape)
+
+    def scfg(itype, reps=MAIN_REPS, src=None, **kw):
+        kw.setdefault("frames", n)
+        kw.setdefault("output", str(d / "o.raw"))
+        return config.StreamConfig(
+            str(src or d / f"clip_{itype}.raw"), MAIN_W, MAIN_H, reps,
+            config.ImageType(itype), backend="pallas", **kw)
+
+    def check(label, got, want):
+        err = int(np.abs(got.astype(np.int16) - want.astype(np.int16)).max())
+        errs[label] = err
+        require(err == 0, f"shard_stream_path {label} disagrees ({err})")
+
+    def k3_schedule(ch, mesh, overlap, frames):
+        # The runner the stream ran: the shared cache's (a hit).
+        model = IteratedConv2D("gaussian", backend="pallas", device=dev)
+        runner = psharded.shared_runner(
+            model, (MAIN_H, MAIN_W), ch, mesh_shape=mesh,
+            devices=[dev] * (mesh[0] * mesh[1]), overlap=overlap)
+        per = sum(x["launches"] for x in runner.describe_launches(
+            cs.launch_schedule(MAIN_REPS, runner.fuse)))
+        warm = sum(x["launches"] for x in runner.describe_launches(
+            runner.warm_reps([MAIN_REPS])))
+        return frames * per + warm, per, warm, runner.fuse
+
+    wants, ones = {}, {}
+    for itype in ("rgb", "grey"):
+        src = d / f"clip_{itype}.raw"
+        cfg = config.JobConfig(str(src), MAIN_W, MAIN_H, MAIN_REPS,
+                               config.ImageType(itype), frames=n,
+                               backend="xla", output=str(d / "want.raw"))
+        driver.run_job(cfg, devices=[dev])
+        wants[itype] = frames_file(d / "want.raw", itype)
+        res, counts = counted(lambda: engine.run_stream(scfg(itype),
+                                                        devices=[dev]))
+        ones[itype] = frames_file(d / "o.raw", itype)
+        check(f"one_device_{itype}", ones[itype], wants[itype])
+
+    # The sharded stream, file to file, K3's launches against the schedule.
+    for label, itype, mesh, overlap in (
+            ("shard2x2_edge", "rgb", (2, 2), "edge"),
+            ("shard2x2_off", "rgb", (2, 2), "off"),
+            ("shard1x2_grey", "grey", (1, 2), "edge")):
+        k = mesh[0] * mesh[1]
+        cfg = scfg(itype, shard_frames=mesh, overlap=overlap)
+        t0 = time.perf_counter()
+        res, counts = counted(lambda: engine.run_stream(cfg,
+                                                        devices=[dev] * k))
+        secs = time.perf_counter() - t0
+        got = frames_file(d / "o.raw", itype)
+        check(label, got, wants[itype])
+        check(label + "_vs_one_device", got, ones[itype])
+        expect, per, warm, fuse = k3_schedule(1 if itype == "grey" else 3,
+                                              mesh, overlap, n)
+        require(counts == launches(stencil_valid=expect),
+                f"{label}: launches {counts}, expected K3 {expect} "
+                f"({n} x {per} + {warm})")
+        require(res.shard_frames == mesh and res.n_devices == k
+                and res.backend == "pallas",
+                f"{label}: ran {res.shard_frames} on {res.n_devices} "
+                f"({res.backend})")
+        runs[label] = {"launches": counts, "k3_per_frame": per,
+                       "k3_warmup": warm, "fuse": fuse, "seconds": secs,
+                       "frames_per_second": res.frames_per_second}
+        del got
+
+    # Throughput: 32 frames to a null sink, the 2x2 modes and depths and
+    # the pipeline's stage counts taking turns.
+    fb = MAIN_H * MAIN_W * MAIN_C
+    arms = {f"{m}_depth{dp}": (dict(shard_frames=(2, 2), overlap=m,
+                                    pipeline_depth=dp), 4)
+            for m in ("off", "edge") for dp in (1, 2)}
+    arms.update({f"pipe{k}_depth2": (dict(pipe_stages=k), k) for k in (2, 4)})
+    samples = {a: [] for a in arms}
+    for _ in range(STREAM_ROUNDS):
+        for label, (kw, k) in arms.items():
+            cfg = scfg("rgb", frames=STREAM_TIMED_FRAMES, output="null", **kw)
+            obs.reset()
+            sink = ClockSink()
+            res = engine.run_stream(cfg, devices=[dev] * k, sink=sink)
+            hist = obs.snapshot()["histograms"]
+            samples[label].append({
+                "wall_fps": res.frames_per_second,
+                "steady_fps": sink.steady_fps(),
+                "stage_s": {s: hist[f"stream_{s}_seconds"]["mean"]
+                            for s in ("read", "h2d", "compute", "d2h",
+                                      "write")}})
+    obs.reset()
+    throughput = {}
+    for label, rows in samples.items():
+        kw = arms[label][0]
+        throughput[label] = {
+            "steady_fps": statistics.median(r["steady_fps"] for r in rows),
+            "wall_fps": statistics.median(r["wall_fps"] for r in rows),
+            # A shard's h2d and d2h: seconds per shard (one span each); a
+            # pipeline's compute: from a frame's feed to its finish.
+            "stage_s": {s: statistics.median(r["stage_s"][s] for r in rows)
+                        for s in rows[0]["stage_s"]},
+            "runs": rows,
+            "modeled_fps": (
+                roofline.sharded_stream_frames_per_second(
+                    fb, MAIN_REPS, "pallas", "gaussian", MAIN_H, MAIN_W,
+                    MAIN_C, (2, 2), pipeline_depth=kw["pipeline_depth"],
+                    one_card=True) if "shard_frames" in kw
+                else roofline.pipeline_stream_frames_per_second(
+                    fb, MAIN_REPS, "xla", "gaussian", MAIN_H,
+                    kw["pipe_stages"], frames=STREAM_TIMED_FRAMES,
+                    one_card=True))}
+
+    # The larger frame: 8 frames of 7680x4320 RGB, 2x2 off.
+    big = d / "clip_big.raw"
+    clip = np.random.default_rng(10).integers(
+        0, 256, (BIG_FRAMES, BIG_H, BIG_W, MAIN_C), np.uint8)
+    clip.tofile(big)
+    cfg = config.StreamConfig(
+        str(big), BIG_W, BIG_H, MAIN_REPS, config.ImageType.RGB,
+        backend="pallas", frames=BIG_FRAMES, output=str(d / "o.raw"),
+        shard_frames=(2, 2), overlap="off")
+    res, counts = counted(lambda: engine.run_stream(cfg, devices=[dev] * 4))
+    got = frames_file(d / "o.raw", "rgb", BIG_FRAMES, BIG_H, BIG_W)
+    big_err = 0
+    for i in range(BIG_FRAMES):
+        want = lowering.iterate(torch.from_numpy(clip[i]).to(dev),
+                                MAIN_REPS, plan).cpu().numpy()
+        big_err = max(big_err, int(np.abs(got[i].astype(np.int16)
+                                          - want.astype(np.int16)).max()))
+    errs["big_8k"] = big_err
+    require(big_err == 0, f"7680x4320 sharded stream disagrees ({big_err})")
+    sink = ClockSink()
+    res2 = engine.run_stream(dataclasses.replace(cfg, output="null"),
+                             devices=[dev] * 4, sink=sink)
+    runs["big_8k"] = {"frame_bytes": cfg.frame_bytes, "launches": counts,
+                      "wall_fps_file": res.frames_per_second,
+                      "wall_fps_null": res2.frames_per_second,
+                      "steady_fps_null": sink.steady_fps(),
+                      "stage_seconds_file": res.stage_seconds}
+    del clip, got
+    big.unlink()
+
+    # The temporal pipeline, byte for byte against one device.
+    def pipe_run(label, want, devices, reps=MAIN_REPS, **kw):
+        frames = kw.get("frames", n)
+        cfg = scfg("rgb", reps=reps, **kw)
+        t0 = time.perf_counter()
+        res, counts = counted(lambda: engine.run_stream(cfg,
+                                                        devices=devices))
+        got = frames_file(d / "o.raw", "rgb", frames)
+        check(label, got, want)
+        require(counts == NO_LAUNCHES, f"{label}: the torch-ops stages "
+                f"launched {counts}")
+        runs[label] = {"seconds": time.perf_counter() - t0,
+                       "frames_per_second": res.frames_per_second,
+                       "pipe_stages": res.pipe_stages,
+                       "n_devices": res.n_devices, "backend": res.backend,
+                       "restarts": res.restarts,
+                       "stage_seconds": res.stage_seconds}
+        return res
+
+    for k in (2, 4):
+        res = pipe_run(f"pipe{k}", ones["rgb"], [dev] * k, pipe_stages=k)
+        require(res.pipe_stages == k and res.backend == "xla",
+                f"pipe{k}: ran {res.pipe_stages} ({res.backend})")
+    rgb = np.fromfile(d / "clip_rgb.raw", np.uint8, count=4 * fb).reshape(
+        4, MAIN_H, MAIN_W, MAIN_C)
+    want3 = np.stack([lowering.iterate(torch.from_numpy(f).to(dev), 3,
+                                       plan).cpu().numpy() for f in rgb])
+    pipe_run("pipe4_reps3", want3, [dev] * 4, reps=3, frames=4,
+             pipe_stages=4)
+    pipe_run("pipe4_frames2", ones["rgb"][:2], [dev] * 4, frames=2,
+             pipe_stages=4)
+    res = pipe_run("mesh2_pipe2_shard2x1", ones["rgb"], [dev] * 8,
+                   mesh_frames=2, pipe_stages=2, shard_frames=(2, 1),
+                   shard_min_pixels=1)
+    require(res.n_devices == 8 and res.per_device_frames == [n // 2] * 2,
+            f"three axes: {res.n_devices} devices, "
+            f"{res.per_device_frames}")
+    faults.configure("compute:frame=9")
+    try:
+        res = pipe_run("pipe2_resume", ones["rgb"], [dev] * 2,
+                       pipe_stages=2, checkpoint_every=4)
+    finally:
+        faults.clear()
+    require(res.restarts == 1, f"pipe resume: {res.restarts} restarts")
+    cfg = scfg("rgb", pipe_stages=2, checkpoint_every=4)
+    ckpt.save_stream_progress(cfg, 4, pipe_stages=2)
+    open(cfg.output_path, "wb").write(ones["rgb"][:4].tobytes())
+    try:
+        engine.run_stream(dataclasses.replace(cfg, pipe_stages=4),
+                          devices=[dev] * 4, resume=True)
+        mismatch = None
+    except ckpt.MeshCursorMismatch as e:
+        mismatch = str(e)
+    require(mismatch is not None, "a resume under 4 stages of a 2-stage "
+            "sidecar did not raise MeshCursorMismatch")
+    runs["resume_other_topology"] = {"raised": "MeshCursorMismatch",
+                                     "message": mismatch}
+    ckpt.clear_stream_progress(cfg)
+    (d / "o.raw").unlink(missing_ok=True)
+
+    # Auto: measured verdicts, then the warm cache (no probe frame).
+    probes = {"shard": 0, "pipe": 0}
+    real = (shardstream.measure_shard_ab, pipeline.measure_pipeline_ab)
+
+    def count_shard(*a, **k):
+        probes["shard"] += 1
+        return real[0](*a, **k)
+
+    def count_pipe(*a, **k):
+        probes["pipe"] += 1
+        return real[1](*a, **k)
+
+    shardstream.measure_shard_ab = count_shard
+    pipeline.measure_pipeline_ab = count_pipe
+    try:
+        for knob, kw in (("shard", {"shard_frames": (0, 0)}),
+                         ("pipe", {"pipe_stages": 0})):
+            for call in ("cold", "warm"):
+                before = dict(probes)
+                err = io.StringIO()
+                with contextlib.redirect_stderr(err):
+                    res = engine.run_stream(scfg("rgb", **kw),
+                                            devices=[dev] * 4)
+                check(f"auto_{knob}_{call}",
+                      frames_file(d / "o.raw", "rgb"), ones["rgb"])
+                lines = [ln for ln in err.getvalue().splitlines()
+                         if "auto" in ln]
+                print("\n".join(lines), flush=True)
+                paid = probes[knob] - before[knob]
+                if call == "cold":
+                    require(paid == 1 and any("measured" in ln
+                                              for ln in lines),
+                            f"auto {knob}: no measured verdict: {lines}")
+                else:
+                    require(paid == 0 and any("warm cache" in ln
+                                              for ln in lines),
+                            f"auto {knob}: the warm call probed: {lines}")
+                runs[f"auto_{knob}_{call}"] = {
+                    "verdict": lines, "probes": paid,
+                    "shard_frames": res.shard_frames,
+                    "pipe_stages": res.pipe_stages}
+    finally:
+        shardstream.measure_shard_ab, pipeline.measure_pipeline_ab = real
+
+    # The profiler's view of a depth-2 2x2 run: shard copies beside K3.
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = scfg("rgb", frames=8, output="null", shard_frames=(2, 2))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.run_stream(cfg, devices=[dev] * 4, sink=ClockSink())
+        torch.cuda.synchronize()
+    path = str(WORK / "shard_stream_trace.json")
+    prof.export_chrome_trace(path)
+    profiled = {**copy_kernel_overlap(path, "stencil_valid_kernel"),
+                **{k: v for k, v in stream_concurrency(path).items()
+                   if k in ("streams", "concurrent_us", "any_busy_us",
+                            "span_us", "idle_share")}}
+    os.unlink(path)
+    import shutil
+
+    shutil.rmtree(d)
+    return {"phase": "shard_stream_path", "ok": True, "frames": n,
+            "shape": [MAIN_H, MAIN_W, MAIN_C], "reps": MAIN_REPS,
+            "max_abs_err": max(errs.values()), "errs": errs, "runs": runs,
+            "throughput": throughput, "profile_depth2": profiled,
+            "modeled_stage_s": roofline.sharded_stream_stage_seconds(
+                MAIN_REPS, "pallas", "gaussian", MAIN_H, MAIN_W, MAIN_C,
+                (2, 2), one_card=True),
+            "seconds": time.perf_counter() - t_phase}
+
+
 def phase_times(dev) -> dict:
     from tpu_stencil_torch.ops import cuda_stencil as cs
     from tpu_stencil_torch.ops import lowering
@@ -2990,6 +3334,8 @@ def run(dev: torch.device) -> None:
     emit(multiprocess)
     stream_path = phase_stream_path(dev)
     emit(stream_path)
+    shard_stream = phase_shard_stream_path(dev)
+    emit(shard_stream)
     times = phase_times(dev)
     emit(times)
 
@@ -3037,7 +3383,8 @@ def run(dev: torch.device) -> None:
              "warmup_launches"]["stencil_valid"],
          "max_abs_err": max(k3["max_abs_err"], sharded_path["max_abs_err"],
                             overlap_path["runs"]["thin_windows"][
-                                "max_abs_err"]),
+                                "max_abs_err"],
+                            shard_stream["max_abs_err"]),
          "ms": times["stencil_valid_ms"],
          **common, "plain_ms": times["stencil_valid_plain_ms"],
          "bound_ms": times["stencil_valid_bound_ms"],
@@ -3054,7 +3401,13 @@ def run(dev: torch.device) -> None:
          # K3 on each rank of two processes (--mesh 2x1, one tile each).
          "launches_per_rank_2proc": {
              k: v["launches"]["stencil_valid"] for k, v in
-             multiprocess["runs"]["cli_2x1"]["ranks"].items()}},
+             multiprocess["runs"]["cli_2x1"]["ranks"].items()},
+         # K3 on the sharded stream of 16 frames (frames x a frame's
+         # launches + the warm-up's), and on 8 frames of 7680x4320.
+         "shard_stream_launches": {
+             k: shard_stream["runs"][k]["launches"]["stencil_valid"]
+             for k in ("shard2x2_edge", "shard2x2_off", "shard1x2_grey",
+                       "big_8k")}},
         # L2 and L1 run on the tools' path, not the job's: their launches
         # are those of the tool runs in phases l2 and l1, with no warm-up.
         {"name": "stencil_lab",

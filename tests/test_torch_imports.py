@@ -78,7 +78,11 @@ def test_every_module_is_found():
               "tpu_stencil_torch.parallel.transport",
               "tpu_stencil_torch.parallel.mesh",
               "tpu_stencil_torch.parallel.fanout",
+              "tpu_stencil_torch.parallel.pipeline",
+              "tpu_stencil_torch.parallel.sharded",
               "tpu_stencil_torch.stream",
+              "tpu_stencil_torch.stream.sharded",
+              "tpu_stencil_torch.stream.pipelined",
               "tpu_stencil_torch.stream.frames",
               "tpu_stencil_torch.stream.engine",
               "tpu_stencil_torch.stream.cli",
@@ -160,6 +164,39 @@ def test_the_crc_loader_and_the_stream_load_no_jax_module(tmp_path):
     assert r.returncode == 0, r.stderr
     loaded = json.loads(r.stdout.strip().splitlines()[-1])
     assert "tpu_stencil_torch.parallel.fanout" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_the_sharded_and_pipelined_streams_load_no_jax_module(tmp_path):
+    # A sharded stream and a composed pipeline on the CPU in a fresh
+    # process: every module they load is the port's.
+    import numpy as np
+
+    clip = tmp_path / "clip.raw"
+    np.random.default_rng(1).integers(0, 256, (3, 24, 20, 3),
+                                      np.uint8).tofile(clip)
+    code = (
+        "import json, sys, torch\n"
+        "from tpu_stencil_torch.config import ImageType, StreamConfig\n"
+        "from tpu_stencil_torch.stream import run_stream\n"
+        "cpu = [torch.device('cpu')] * 8\n"
+        f"base = dict(input={str(clip)!r}, width=20, height=24,\n"
+        "            repetitions=2, image_type=ImageType.RGB,\n"
+        "            output='null', frames=3, shard_min_pixels=1)\n"
+        "r = run_stream(StreamConfig(**base, shard_frames=(2, 2)), cpu)\n"
+        "assert r.shard_frames == (2, 2)\n"
+        "r = run_stream(StreamConfig(**base, mesh_frames=2, pipe_stages=2,\n"
+        "                            shard_frames=(2, 1)), cpu)\n"
+        "assert r.pipe_stages == 2 and r.n_devices == 8\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=REPO, env=env, timeout=300)
+    assert r.returncode == 0, r.stderr
+    loaded = json.loads(r.stdout.strip().splitlines()[-1])
+    assert "tpu_stencil_torch.stream.pipelined" in loaded
+    assert "tpu_stencil_torch.stream.sharded" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 

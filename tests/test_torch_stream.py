@@ -11,7 +11,8 @@ exact. Then the engine's own contracts, mirroring ``tests/test_stream.py``
 checkpoint sidecar in the JAX package's format, the pipeline ladder in the
 trace, the CLI), the ingest CRC32C (the built library against the
 pure-Python table and the JAX package), the torn staging buffer, the
-witness, the engine restart, and the slices not ported yet failing loudly.
+witness, the engine restart, and the sharded and pipelined engines running
+where they once failed loudly.
 
 No assertion here reads a wall clock: the throughput claim is measured on
 the card (``chip_smoke.py`` phase ``stream_path``). Every run of the port,
@@ -769,7 +770,8 @@ def test_launch_counter_is_exact_under_threads():
     cs.reset_launch_counts()
 
 
-# -- the slices not ported yet fail loudly ---------------------------------
+# -- the sharded stream and the pipeline run (tests/test_torch_shardstream.py
+# and tests/test_torch_pipeline.py hold them in full) ------------------------
 
 @pytest.mark.parametrize("kw", [
     {"shard_frames": (2, 1), "shard_min_pixels": 1},
@@ -778,13 +780,22 @@ def test_launch_counter_is_exact_under_threads():
     {"pipe_stages": 0},
 ])
 def test_shard_and_pipeline_streams_raise(tmp_path, kw):
+    # Once they raised NotImplementedError; now each runs over two CPU
+    # devices (the auto knobs decide for themselves) and writes the JAX
+    # package's bytes.
     clip_path = tmp_path / "clip.raw"
     _make_clip(clip_path, 2, 8, 6, 1)
+    want = _jax_stream(clip_path, 8, 6, tconfig.ImageType.GREY, 1,
+                       str(tmp_path / "jax.raw"), frames=2)
     cfg = _port_cfg(clip_path, 8, 6, tconfig.ImageType.GREY, 1,
                     output=str(tmp_path / "o.raw"), frames=2, **kw)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        _port_stream(cfg, devices=[CPU, CPU])
-    assert not os.path.exists(str(tmp_path / "o.raw"))
+    res = _port_stream(cfg, devices=[CPU, CPU])
+    assert res.frames == 2
+    if kw.get("shard_frames") == (2, 1):
+        assert res.shard_frames == (2, 1) and res.n_devices == 2
+    if kw.get("pipe_stages") == 2:
+        assert res.pipe_stages == 2 and res.n_devices == 2
+    assert open(str(tmp_path / "o.raw"), "rb").read() == want
 
 
 def test_small_frames_under_shard_frames_stay_on_one_device(tmp_path):
@@ -807,13 +818,19 @@ def test_small_frames_under_shard_frames_stay_on_one_device(tmp_path):
 
 
 def test_cli_shard_frames_exits_two_naming_the_slice(tmp_path, capsys):
+    # Once rc 2 naming the next slice; now --pipe-stages 2 on --platform cpu
+    # runs over the CPU twice over, rc 0, with the JAX package's bytes.
     clip_path = tmp_path / "clip.raw"
     _make_clip(clip_path, 2, 8, 6, 1)
+    want = _jax_stream(clip_path, 8, 6, tconfig.ImageType.GREY, 1,
+                       str(tmp_path / "jax.raw"), frames=2)
+    out = str(tmp_path / "o.raw")
     rc = stream_cli.main([str(clip_path), "6", "8", "1", "grey",
                           "--frames", "2", "--platform", "cpu",
-                          "--pipe-stages", "2", "--output", "null"])
-    assert rc == 2
-    assert "next slice" in capsys.readouterr().err
+                          "--pipe-stages", "2", "--output", out])
+    assert rc == 0
+    assert "pipe-stages=2" in capsys.readouterr().out
+    assert open(out, "rb").read() == want
 
 
 # -- CLI ---------------------------------------------------------------------

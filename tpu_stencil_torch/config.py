@@ -184,10 +184,12 @@ class StreamConfig:
     ``mesh_frames``: 1 = one device; N > 1 deals frames round-robin over N
     devices (:mod:`tpu_stencil_torch.parallel.fanout`), failing when fewer
     exist; 0 = a measured single-against-fan A/B decides. ``shard_frames``
-    ((R, C), or (0, 0) for auto), ``shard_min_pixels``, ``overlap`` and
-    ``pipe_stages`` parse and validate as in the JAX package; a run that
-    resolves a spatial shard or more than one pipeline stage raises
-    ``NotImplementedError`` (those engines are not ported yet).
+    ((R, C), or (0, 0) for auto) cuts every frame over an R x C mesh
+    (:mod:`tpu_stencil_torch.stream.sharded`; frames below
+    ``shard_min_pixels`` stay on one device; ``overlap`` is the mesh's
+    schedule); ``pipe_stages`` splits the reps into K stages
+    (:mod:`tpu_stencil_torch.stream.pipelined`; 0 = auto). Two or more
+    multi-device axes compose, each explicit.
     """
 
     input: str               # stream file | FIFO | '-' (stdin) | frame dir

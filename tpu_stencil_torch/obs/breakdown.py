@@ -304,11 +304,19 @@ def render_stream(tracer: Tracer, info: dict) -> str:
     measured pipeline bound (the slowest stage once the stages overlap,
     their sum at depth 1), and the modelled device-side bound beside the
     measured frames/s; under a fan, the whole-fan bound and the host
-    link's cap.
+    link's cap; on a sharded run the per-tile model
+    (:func:`~tpu_stencil_torch.runtime.roofline.
+    sharded_stream_stage_seconds`), with H2D and D2H summed over a frame's
+    shards; on a pipeline one stage's share of the reps and the fill and
+    drain (:func:`~tpu_stencil_torch.runtime.roofline.
+    pipeline_stream_stage_seconds`).
 
     ``info``: ``{frame_bytes, reps, backend, schedule, filter_name, h_img,
     w_img, channels, block_h, fuse, pipeline_depth, frames, wall_seconds,
-    n_devices}``. Renders nothing when no stream span was recorded."""
+    n_devices}``, plus ``{shard_frames, pipe_stages, halo, one_card}`` (the
+    topology that ran, the filter's halo for the ghost model, whether the
+    devices are one card). Renders nothing when no stream span was
+    recorded."""
     by = {r["name"]: r for r in aggregate(tracer)}
     stages = [n for n in _STREAM_STAGES if n in by]
     if not stages:
@@ -318,12 +326,30 @@ def render_stream(tracer: Tracer, info: dict) -> str:
     geometry = {"w_img": info.get("w_img"),
                 "channels": info.get("channels", 1),
                 "schedule": info.get("schedule")}
-    model_stages = roofline.stream_stage_seconds(
-        info["frame_bytes"], info["reps"], info["backend"],
-        info["filter_name"], info["h_img"], block_h=info.get("block_h"),
-        fuse=info.get("fuse"), **geometry)
+    shard = info.get("shard_frames")
+    pipe = info.get("pipe_stages") or 1
+    one_card = bool(info.get("one_card"))
+    halo = info.get("halo") or 1
+    if shard:
+        model_stages = roofline.sharded_stream_stage_seconds(
+            info["reps"], info["backend"], info["filter_name"],
+            info["h_img"], info["w_img"], info.get("channels", 1),
+            tuple(shard), halo=halo, block_h=info.get("block_h"),
+            fuse=info.get("fuse"), one_card=one_card)
+    elif pipe > 1:
+        model_stages = roofline.pipeline_stream_stage_seconds(
+            info["frame_bytes"], info["reps"], info["backend"],
+            info["filter_name"], info["h_img"], pipe,
+            block_h=info.get("block_h"), fuse=info.get("fuse"),
+            one_card=one_card)
+    else:
+        model_stages = roofline.stream_stage_seconds(
+            info["frame_bytes"], info["reps"], info["backend"],
+            info["filter_name"], info["h_img"], block_h=info.get("block_h"),
+            fuse=info.get("fuse"), **geometry)
     depth = info.get("pipeline_depth", 2)
     n_dev = info.get("n_devices", 1) or 1
+    n_frames = info.get("frames") or 0
     lines = [
         "",
         f"stream pipeline: depth={depth}  "
@@ -336,11 +362,16 @@ def render_stream(tracer: Tracer, info: dict) -> str:
     total = 0.0
     for n in stages:
         per = by[n]["seconds"] / by[n]["count"]
-        # On a fan the device stages run in n_dev lanes at once: a frame's
-        # share of the fan's throughput is per / n_dev; read and write
-        # serve every frame on one thread.
+        if shard and n_frames and n in ("stream.h2d", "stream.d2h"):
+            # One span per shard: a frame's copy is the sum of its shards'.
+            per = by[n]["seconds"] / n_frames
+        # On a fan (and a pipeline's devices) the device stages run n_dev
+        # at once: a frame's share of the throughput is per / n_dev; read
+        # and write serve every frame on one thread, and a sharded mesh
+        # computes one frame at a time.
         eff = (per / n_dev
-               if n in ("stream.h2d", "stream.compute", "stream.d2h")
+               if not shard
+               and n in ("stream.h2d", "stream.compute", "stream.d2h")
                else per)
         total += eff
         if eff > slowest[1]:
@@ -349,17 +380,50 @@ def render_stream(tracer: Tracer, info: dict) -> str:
         model_s = "" if model is None else f"{model:13.6f}"
         lines.append(
             f"{n:<16}  {per:>10.6f}  {by[n]['count']:>6}  {model_s:>13}")
-    lanes = f" ({n_dev} lanes)" if n_dev > 1 else ""
+    note = (f" ({shard[0]}x{shard[1]} shards)" if shard
+            else f" ({pipe} stages)" if pipe > 1
+            else f" ({n_dev} lanes)" if n_dev > 1 else "")
     if depth > 1 and slowest[1] > 0:
-        lines.append(f"pipeline bound{lanes}: {slowest[0]} -> "
+        lines.append(f"pipeline bound{note}: {slowest[0]} -> "
                      f"{1.0 / slowest[1]:.2f} frames/s")
     elif total > 0:
-        lines.append(f"pipeline bound{lanes}: sum(stages) -> "
+        lines.append(f"pipeline bound{note}: sum(stages) -> "
                      f"{1.0 / total:.2f} frames/s")
     measured = ""
     if info.get("frames") and info.get("wall_seconds"):
         measured = (f"measured {info['frames'] / info['wall_seconds']:.2f} "
                     f"frames/s vs ")
+    if shard:
+        fps = roofline.sharded_stream_frames_per_second(
+            info["frame_bytes"], info["reps"], info["backend"],
+            info["filter_name"], info["h_img"], info["w_img"],
+            info.get("channels", 1), tuple(shard), halo=halo,
+            block_h=info.get("block_h"), fuse=info.get("fuse"),
+            pipeline_depth=depth, one_card=one_card)
+        th, tw = roofline.shard_tile_shape(info["h_img"], info["w_img"],
+                                           tuple(shard))
+        ghost = roofline.ici_ghost_bytes_per_rep(
+            (th, tw), info.get("channels", 1), halo, tuple(shard),
+            mode="edge")
+        lines.append(
+            f"{measured}modeled sharded bound {fps:.2f} frames/s (tile "
+            f"{th}x{tw}/device, ICI ghost model {ghost / 1e3:.3f} "
+            f"KB/rep/device over "
+            f"{'one card' if one_card else 'NVLink'}; host read/write "
+            f"measured, not modeled)")
+        return "\n".join(lines) + "\n"
+    if pipe > 1:
+        fps = roofline.pipeline_stream_frames_per_second(
+            info["frame_bytes"], info["reps"], info["backend"],
+            info["filter_name"], info["h_img"], pipe,
+            frames=n_frames or None, block_h=info.get("block_h"),
+            fuse=info.get("fuse"), pipeline_depth=depth, one_card=one_card)
+        fill = roofline.pipeline_fill_drain_factor(n_frames or None, pipe)
+        lines.append(
+            f"{measured}modeled pipeline bound {fps:.2f} frames/s ({pipe} "
+            f"stages, fill/drain factor {fill:.3f}; host read/write "
+            f"measured, not modeled)")
+        return "\n".join(lines) + "\n"
     fps_model = roofline.stream_frames_per_second(
         info["frame_bytes"], info["reps"], info["backend"],
         info["filter_name"], info["h_img"], block_h=info.get("block_h"),

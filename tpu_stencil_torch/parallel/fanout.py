@@ -46,7 +46,6 @@ import threading
 import time
 from typing import Callable, List, Optional, Tuple
 
-import numpy as np
 import torch
 
 from tpu_stencil_torch import obs
@@ -55,7 +54,6 @@ from tpu_stencil_torch.integrity import checksum as _checksum
 from tpu_stencil_torch.resilience import deadline as _deadline
 from tpu_stencil_torch.resilience import faults as _faults
 from tpu_stencil_torch.stream import engine as _sengine
-from tpu_stencil_torch.stream import frames as frames_io
 
 _EOF = object()
 
@@ -228,13 +226,21 @@ def _drainer(ctrl: _Control, cfg: StreamConfig, lane: _Lane,
 
 
 def _writer(ctrl: _Control, cfg: StreamConfig, sink, lanes: List[_Lane],
-            start_frame: int, done: list) -> None:
+            start_frame: int, done: list, save_progress=None) -> None:
     """Frame ``i`` from lane ``(i - start) % n``, written in order, counted
-    and checkpointed with the per-device cursors. ``done[0]`` tracks the
-    frames fully written (global index)."""
+    and checkpointed with the per-device cursors (``save_progress(n)``
+    commits another record: the composed engine's, with its topology).
+    ``done[0]`` tracks the frames fully written (global index)."""
     n = len(lanes)
     idx = start_frame
     write_frame = _sengine._make_write_frame(cfg, sink)
+    if save_progress is None:
+        from tpu_stencil_torch.runtime import checkpoint as ckpt
+
+        def save_progress(k: int) -> None:
+            ckpt.save_stream_progress(
+                cfg, k, mesh_devices=n,
+                cursors=device_cursors(k, start_frame, n))
     try:
         while True:
             lane = lanes[(idx - start_frame) % n]
@@ -254,13 +260,7 @@ def _writer(ctrl: _Control, cfg: StreamConfig, sink, lanes: List[_Lane],
             done[0] = idx + 1
             obs.registry().counter("stream_frames_total").inc()
             if cfg.checkpoint_every and done[0] % cfg.checkpoint_every == 0:
-                from tpu_stencil_torch.runtime import checkpoint as ckpt
-
-                _sengine._commit_progress(
-                    cfg, sink, done[0],
-                    lambda k: ckpt.save_stream_progress(
-                        cfg, k, mesh_devices=n,
-                        cursors=device_cursors(k, start_frame, n)))
+                _sengine._commit_progress(cfg, sink, done[0], save_progress)
             if cfg.progress_every and done[0] % cfg.progress_every == 0:
                 print(f"stream: frame {done[0]}", file=sys.stderr,
                       flush=True)
@@ -352,31 +352,11 @@ def measure_fanout_ab(cfg: StreamConfig, devices,
     Returns ``(single_seconds, mesh_seconds)``. Its counters and spans go
     to a scratch registry."""
     frames = max(frames, len(devices))
-    frame = np.random.default_rng(0).integers(0, 256, cfg.frame_bytes,
-                                              dtype=np.uint8)
-
-    class _Synth(frames_io.FrameSource):
-        def __init__(self, k: int) -> None:
-            self._left = k
-
-        def read_into(self, buf) -> bool:
-            if self._left <= 0:
-                return False
-            np.copyto(buf, frame)
-            self._left -= 1
-            return True
 
     def one(n_dev: int) -> float:
-        pcfg = dataclasses.replace(
+        return _sengine.probe_seconds(dataclasses.replace(
             cfg, frames=frames, mesh_frames=max(1, n_dev), output="null",
-            checkpoint_every=0, progress_every=0,
-        )
-        _sengine.run_stream(pcfg, devices=list(devices),
-                            source=_Synth(frames), sink=frames_io.NullSink())
-        t0 = time.perf_counter()
-        _sengine.run_stream(pcfg, devices=list(devices),
-                            source=_Synth(frames), sink=frames_io.NullSink())
-        return time.perf_counter() - t0
+            checkpoint_every=0, progress_every=0), devices)
 
     with obs.scratch_registry():
         return one(1), one(len(devices))

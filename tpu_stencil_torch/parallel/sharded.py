@@ -38,12 +38,18 @@ each edge's exchange, and under an overlap mode its interior and border
 halves. Across processes every verdict that shapes the exchange
 sequence is rank 0's (:func:`_agreed_config`, ``_agreed_overlap``): ranks
 that disagreed on the backend, the chunk depth or the overlap mode would
-issue different sends and receives and hang. The shared runner cache is
-not ported yet.
+issue different sends and receives and hang.
+
+The process-shared runner cache (:func:`shared_runner`,
+:func:`cached_runner`) holds the runners the sharded stream and the
+temporal pipeline build, keyed by everything a runner depends on, so one
+process never resolves (nor autotunes) the same runner twice.
 """
 
 from __future__ import annotations
 
+import collections
+import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -754,3 +760,130 @@ class ShardedRunner:
         rows = [np.concatenate([t.cpu().numpy() for t in row], axis=1)
                 for row in tiles]
         return np.concatenate(rows, axis=0)[: self.h, : self.w]
+
+
+# ---------------------------------------------------------------------------
+# The process-shared runner cache
+# ---------------------------------------------------------------------------
+
+RUNNER_CACHE_CAP = 8
+
+# A geometry the mesh cannot serve, cached so that a retry never re-pays
+# the refused build.
+_UNSERVABLE = object()
+_runner_cache: "collections.OrderedDict" = collections.OrderedDict()
+_runner_cache_lock = threading.Lock()
+
+
+def _resolved_mesh_for_key(mesh_shape, devices, image_shape):
+    """(mesh_shape, devices) as the runner will build over them: an
+    explicit RxC takes the first R*C devices; None takes every device
+    under the perimeter-minimizing grid. Keyed on the resolved shape, an
+    explicit RxC and the default grid share an entry whenever they
+    resolve alike."""
+    if devices is None:
+        from tpu_stencil_torch.devices import resolve_devices
+
+        devices = resolve_devices()
+    devices = [torch.device(d) for d in devices]
+    if mesh_shape is not None:
+        r, c = mesh_shape
+        if r * c > len(devices):
+            raise ValueError(
+                f"mesh shape {r}x{c} needs {r * c} devices, "
+                f"have {len(devices)}"
+            )
+        return (r, c), devices[: r * c]
+    shape = partition.grid_shape(len(devices), *image_shape)
+    return tuple(shape), devices
+
+
+def runner_key(model, image_shape, channels, mesh_shape, devices,
+               overlap: str, pipe_stages: int = 1):
+    """The cache identity of one runner: everything it depends on (the
+    plan, the image and channels, the model's backend request, schedule,
+    forced geometry and boundary, the spatial mesh shape, the device set,
+    the overlap mode, and the temporal stage count: a K-stage pipeline
+    over the same devices is another runner than the K'-stage one)."""
+    plan = model.plan
+    taps = ";".join(",".join(str(v) for v in row) for row in plan.taps)
+    return (
+        plan.kind, str(plan.divisor), taps, bool(plan.xla_pair_add),
+        tuple(image_shape), channels,
+        getattr(model, "backend", "auto"),
+        getattr(model, "schedule", None),
+        getattr(model, "block_h", None),
+        getattr(model, "fuse", None),
+        getattr(model, "boundary", "zero"),
+        tuple(mesh_shape),
+        tuple(str(torch.device(d)) for d in devices),
+        overlap,
+        int(pipe_stages),
+    )
+
+
+def shared_runner(model, image_shape, channels, mesh_shape=None,
+                  devices=None, overlap: str = "off",
+                  registry=None) -> Optional["ShardedRunner"]:
+    """The cached :class:`ShardedRunner` for this identity, or None when
+    the mesh cannot serve the geometry (the build raised ValueError or
+    NotImplementedError: a tile smaller than the filter halo, a periodic
+    image that does not divide the grid; the refusal is cached).
+    ``registry`` counts ``sharded_runner_{hits,misses,evictions}_total``
+    and ``sharded_fallbacks_total``."""
+    rshape, rdevs = _resolved_mesh_for_key(mesh_shape, devices,
+                                           image_shape)
+    key = runner_key(model, image_shape, channels, rshape, rdevs, overlap)
+
+    def build():
+        return ShardedRunner(model, tuple(image_shape), channels,
+                             mesh_shape=rshape, devices=rdevs,
+                             overlap=overlap)
+
+    return cached_runner(key, build, registry=registry)
+
+
+def cached_runner(key, build, registry=None):
+    """Get or build against the one process-shared LRU of runners
+    (:class:`ShardedRunner`, and the temporal pipeline's
+    :class:`~tpu_stencil_torch.parallel.pipeline.PipelineRunner` under its
+    own key): one cap, one set of counters, a deterministic geometry
+    refusal cached as unservable (None)."""
+    with _runner_cache_lock:
+        hit = _runner_cache.get(key)
+        if hit is not None:
+            _runner_cache.move_to_end(key)
+    if hit is not None:
+        if registry is not None:
+            registry.counter("sharded_runner_hits_total").inc()
+        return None if hit is _UNSERVABLE else hit
+    if registry is not None:
+        registry.counter("sharded_runner_misses_total").inc()
+    try:
+        runner = build()
+    except (ValueError, NotImplementedError):
+        # A deterministic geometry refusal; transient and build failures
+        # raise other types and are not cached.
+        runner = _UNSERVABLE
+        if registry is not None:
+            registry.counter("sharded_fallbacks_total").inc()
+    with _runner_cache_lock:
+        _runner_cache[key] = runner
+        _runner_cache.move_to_end(key)
+        while len(_runner_cache) > RUNNER_CACHE_CAP:
+            _runner_cache.popitem(last=False)
+            if registry is not None:
+                registry.counter("sharded_runner_evictions_total").inc()
+    return None if runner is _UNSERVABLE else runner
+
+
+def runner_cache_len() -> int:
+    with _runner_cache_lock:
+        return len(_runner_cache)
+
+
+def clear_runner_cache() -> None:
+    """Drop every cached runner (tests; the LRU cap bounds a long-lived
+    process)."""
+    with _runner_cache_lock:
+        _runner_cache.clear()

@@ -650,16 +650,16 @@ def choose_stream_topology(geometry: Tuple[int, int, int], reps: int,
                            backend: str = "xla",
                            filter_name: str = "gaussian",
                            frames: Optional[int] = None,
-                           halo: int = 1) -> str:
+                           halo: int = 1, one_card: bool = False) -> str:
     """The modelled best stream topology for one (geometry, reps, depth)
-    on ``n_devices``, ranked by the roofline's steady-state frames/s
-    (:mod:`tpu_stencil_torch.runtime.roofline`): ``"single"`` or
-    ``"fanout"``. A fan is chosen only when its modelled bound strictly
-    beats one device's (a tie stays single). The JAX package also ranks
-    a spatial shard and a temporal pipeline here; those arms come with
-    the sharded-stream and pipeline engines, whose models are not ported
-    yet, so ``frames`` and ``halo`` (their inputs) are accepted and
-    unused."""
+    on ``n_devices``: ``"single"``, ``"fanout"``, ``"shard"`` or
+    ``"pipeline"``, ranked by the roofline's steady-state frames/s
+    (:mod:`tpu_stencil_torch.runtime.roofline`), the pipeline paying its
+    fill and drain over ``frames``. A multi-device topology is chosen only
+    when its modelled bound strictly beats one device's (a tie stays
+    single, the rule the measured verdicts keep). ``one_card``: the
+    devices are one card, so ghosts and hand-offs are device-to-device
+    copies (:func:`roofline.device_link_bytes_per_s`)."""
     from tpu_stencil_torch.runtime import roofline
 
     h, w, channels = geometry
@@ -667,11 +667,25 @@ def choose_stream_topology(geometry: Tuple[int, int, int], reps: int,
     single = roofline.stream_frames_per_second(
         frame_bytes, reps, backend, filter_name, h, pipeline_depth=depth,
         w_img=w, channels=channels)
+    best, best_fps = "single", single
     if n_devices >= 2:
         fan = roofline.mesh_stream_frames_per_second(
             frame_bytes, reps, backend, filter_name, h,
             pipeline_depth=depth, n_devices=n_devices, w_img=w,
             channels=channels)
-        if fan > single:
-            return "fanout"
-    return "single"
+        if fan > best_fps:
+            best, best_fps = "fanout", fan
+        grid = (n_devices, 1) if h >= w else (1, n_devices)
+        if min(roofline.shard_tile_shape(h, w, grid)) >= halo:
+            shard = roofline.sharded_stream_frames_per_second(
+                frame_bytes, reps, backend, filter_name, h, w, channels,
+                grid, halo=halo, pipeline_depth=depth, one_card=one_card)
+            if shard > best_fps:
+                best, best_fps = "shard", shard
+        pipe = roofline.pipeline_stream_frames_per_second(
+            frame_bytes, reps, backend, filter_name, h,
+            pipe_stages=n_devices, frames=frames, pipeline_depth=depth,
+            one_card=one_card)
+        if pipe > best_fps:
+            best, best_fps = "pipeline", pipe
+    return best

@@ -14,13 +14,16 @@ lowering (``exact``).
 
 Timing: steady-state two-point differencing (autotune's
 ``_steady_state_per_rep``), each run fenced with a synchronize, under the
-shared retry policy. The temporal-pipeline (``pipe``) rows of the JAX
-harness are not ported yet.
+shared retry policy. ``--pipe-stages K`` adds the temporal pipeline's row
+(``xla:pipeK``): steady-state seconds per frame-rep through K stages on
+``[device] * K`` (the fill outside the timer), its finished frame held
+against the torch-ops path.
 
 Usage:
     python -m tpu_stencil_torch.runtime.bench_sweep [--quick] [--stress]
         [--csv out.csv] [--filters gaussian,gaussian5,gaussian7]
-        [--backends xla,pallas,auto] [--frames N] [--platform cpu]
+        [--backends xla,pallas,auto] [--frames N] [--pipe-stages K]
+        [--platform cpu]
 """
 
 from __future__ import annotations
@@ -141,6 +144,42 @@ def _measure_batch_per_frame_rep(imgs: np.ndarray, filter_name: str,
     return per / imgs.shape[0], resolved, sched, bh, fz, exact
 
 
+def _measure_pipe_per_frame_rep(img: np.ndarray, filter_name: str,
+                                stages: int, budget_s: float, device,
+                                reps: int = 40):
+    """Steady-state seconds per frame-rep through a K-stage temporal
+    pipeline over ``[device] * stages``: the same frame fed every tick,
+    each steady tick finishing one frame of ``reps`` reps. The fill ticks
+    run before the timer starts. Returns ``(per_frame_rep_s, "xla", None,
+    None, None, exact)``: the finished frame against the torch-ops path."""
+    from tpu_stencil_torch.ops import lowering
+    from tpu_stencil_torch.parallel.pipeline import PipelineRunner
+    from tpu_stencil_torch.utils.timing import fence
+
+    model = _model(filter_name, "xla", device)
+    ch = img.shape[2] if img.ndim == 3 else 1
+    runner = PipelineRunner(model, tuple(img.shape[:2]), ch, stages,
+                            devices=[device] * stages)
+    dev_img = torch.from_numpy(img).to(device)
+    inp = runner.assemble_input([dev_img])
+    carry = runner.warm(reps)
+    for _ in range(stages):  # the fill: every stage holds the frame
+        carry, out = runner.tick(carry, inp, reps)
+    exact = bool(torch.equal(out[0][0],
+                             lowering.iterate(dev_img, reps, model.plan)))
+    fence(device)
+    n = 0
+    t0 = time.perf_counter()
+    while True:
+        carry, out = runner.tick(carry, inp, reps)
+        fence(device)
+        n += 1
+        if n >= 3 and time.perf_counter() - t0 > budget_s:
+            break
+    return (time.perf_counter() - t0) / n / reps, "xla", None, None, None, \
+        exact
+
+
 def _with_retries(measure_fn, label: str, retries: int = 2):
     """Run one measurement under the shared retry policy
     (:mod:`tpu_stencil_torch.resilience.retry`): a transient failure
@@ -213,6 +252,7 @@ def run_sweep(
     device=None,
     sizes=None,
     width: int = WIDTH,
+    pipe_stages: int = 1,
 ) -> List[dict]:
     """Measure the grid on ``device`` (default: the first CUDA device,
     raising without one). ``sizes``/``width`` shrink the grid for a
@@ -281,6 +321,18 @@ def run_sweep(
                           measured, imgs.nbytes // frames,
                           imgs.size // frames, fh, width, 3, 40,
                           base * frames if base else None, n_frames=frames))
+    if pipe_stages > 1:
+        fh = sizes[-1] if small else 2520
+        img = rng.integers(0, 256, size=(fh, width, 3), dtype=np.uint8)
+        base = _CUDA_40REPS.get(("rgb", fh)) if width == WIDTH else None
+        measured = _with_retries(
+            lambda: _measure_pipe_per_frame_rep(img, "gaussian", pipe_stages,
+                                                budget_s, device),
+            f"pipe{pipe_stages} [xla]")
+        row = _make_row("gaussian", "rgb", f"{width}x{fh} pipe{pipe_stages}",
+                        "xla", measured, img.nbytes, img.size, fh, width, 3,
+                        40, base)
+        add({**row, "backend": f"xla:pipe{pipe_stages}"})
     return rows
 
 
@@ -353,6 +405,10 @@ def main(argv=None) -> int:
                    help="also measure the batch mode with N frames of the "
                         "reference size, one row per swept backend; reports "
                         "us per frame*rep")
+    p.add_argument("--pipe-stages", type=int, default=1, metavar="K",
+                   help="also measure the K-stage temporal pipeline at the "
+                        "reference size on K copies of the device (us per "
+                        "frame*rep, steady state)")
     p.add_argument("--platform", default=None, choices=["cpu", "gpu"],
                    help="cpu rehearses on torch ops and the kernels' plain "
                         "versions (use --sizes/--width to keep it small); "
@@ -374,7 +430,7 @@ def main(argv=None) -> int:
         filters=ns.filters.split(","), csv_path=ns.csv,
         backends=ns.backends.split(","), frames=ns.frames, device=device,
         sizes=[int(v) for v in ns.sizes.split(",")] if ns.sizes else None,
-        width=ns.width,
+        width=ns.width, pipe_stages=ns.pipe_stages,
     )
     print(emit_markdown(rows))
     bad = [r for r in rows if not r["exact"]]

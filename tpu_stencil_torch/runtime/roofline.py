@@ -18,14 +18,21 @@ The stream half: :func:`stream_stage_seconds`,
 and :func:`mesh_stream_frames_per_second` model the streaming engine's
 device-side stages (one frame's copy to the card and back over the host
 link, its reps at the operations bound) and the bound they put on
-frames/s, on one card and over a fan of cards behind one host.
+frames/s, on one card and over a fan of cards behind one host. The
+spatially sharded stream (:func:`sharded_stream_stage_seconds`,
+:func:`sharded_stream_frames_per_second`) adds the per-tile reps and the
+ghost exchange between tiles; the temporal pipeline
+(:func:`pipeline_stream_stage_seconds`,
+:func:`pipeline_stream_frames_per_second`,
+:func:`pipeline_fill_drain_factor`) one stage's share of the reps, the
+hand-off of a frame to the next stage every tick, and the fill and drain.
 
 The peak rates are those of one H100 SXM from NVIDIA's data sheet (dense,
-at the full 700 W power limit; the host link PCIe Gen5 x16). The
-interconnect model and the sharded-stream and pipeline models of the JAX
-module are not ported yet; its ghost byte counts of the sharded exchange
-are (:func:`ici_ghost_bytes_per_edge`, :func:`ici_ghost_bytes_per_rep`,
-pure counts under the JAX names, with no interconnect rate beside them).
+at the full 700 W power limit; the host link PCIe Gen5 x16; the link
+between two cards NVLink 4). The ghost byte counts of the sharded exchange
+keep the JAX names (:func:`ici_ghost_bytes_per_edge`,
+:func:`ici_ghost_bytes_per_rep`); the bytes move over
+:func:`device_link_bytes_per_s`.
 """
 
 from __future__ import annotations
@@ -48,6 +55,13 @@ H100_F32_OPS_PER_S = H100_F32_FLOPS / 2
 # direction; a frame's copy to the card and its copy back use one
 # direction each.
 H100_PCIE_BYTES_PER_S = 64e9
+# Between two H100 SXM cards (data sheet): NVLink 4, 900 GB/s in both
+# directions together, 450 GB/s in each; a ghost strip or a stage's frame
+# moves in one direction.
+H100_NVLINK_BYTES_PER_S = 450e9
+# Between two tiles or stages on one card: a device-to-device copy, which
+# reads each byte from HBM and writes it back.
+H100_D2D_COPY_BYTES_PER_S = H100_HBM_BYTES_PER_S / 2
 
 ENV_DEVICE_HBM_BYTES = "TPU_STENCIL_TORCH_DEVICE_HBM_BYTES"
 
@@ -236,6 +250,13 @@ def ici_ghost_bytes_per_rep(tile_shape, channels: int, halo: int,
     ).values()))
 
 
+def device_link_bytes_per_s(one_card: bool) -> float:
+    """The rate a ghost strip or a stage's frame moves between two devices:
+    NVLink between two cards, a device-to-device copy on one card (a mesh
+    of ``[cuda:0] * n``)."""
+    return H100_D2D_COPY_BYTES_PER_S if one_card else H100_NVLINK_BYTES_PER_S
+
+
 # ---------------------------------------------------------------------------
 # The stream half
 # ---------------------------------------------------------------------------
@@ -308,3 +329,134 @@ def mesh_stream_frames_per_second(frame_bytes: int, reps: int,
         pipeline_depth=pipeline_depth, **geometry)
     return min(per_device * max(1, n_devices),
                pcie_contention_frames_per_second(frame_bytes))
+
+
+def shard_tile_shape(h_img: int, w_img: int,
+                     mesh_shape: Tuple[int, int]) -> Tuple[int, int]:
+    """The padded per-device tile of a spatially sharded frame (the
+    partition module's ceil-divide grid)."""
+    r, c = mesh_shape
+    return -(-h_img // r), -(-w_img // c)
+
+
+def _stage_bound(stages: dict, pipeline_depth: int) -> float:
+    """Seconds per frame of a set of stages: their maximum once frames
+    overlap (depth >= 2), their sum at depth 1."""
+    return (sum(stages.values()) if pipeline_depth <= 1
+            else max(stages.values()))
+
+
+def sharded_stream_stage_seconds(reps: int, backend: str, filter_name: str,
+                                 h_img: int, w_img: int, channels: int,
+                                 mesh_shape: Tuple[int, int],
+                                 halo: int = 1, block_h=None, fuse=None,
+                                 one_card: bool = False) -> dict:
+    """Modelled seconds per frame of the spatially sharded stream's device
+    stages (``--shard-frames RxC``): ``h2d`` and ``d2h`` move the padded
+    frame, tile by tile, over the one host link; ``compute`` runs ``reps``
+    reps of one tile at :func:`bound_ms_per_rep` plus each rep's ghost
+    bytes of the per-edge exchange (:func:`ici_ghost_bytes_per_rep`,
+    ``mode="edge"``) over :func:`device_link_bytes_per_s` (``one_card``:
+    every tile on one card). Every byte count derives from the tile
+    geometry. The host's read and write are measured, never modelled."""
+    th, tw = shard_tile_shape(h_img, w_img, mesh_shape)
+    r, c = mesh_shape
+    tile_bytes = th * tw * channels
+    padded_bytes = tile_bytes * r * c
+    compute = 0.0
+    if reps > 0:
+        per_rep_bytes = analytic_bytes_per_rep(
+            tile_bytes, backend, filter_name, th, block_h, fuse,
+            w_img=tw, channels=channels, reps=reps)
+        ms, _ = bound_ms_per_rep(_plan(filter_name), tile_bytes, reps,
+                                 n_bytes=per_rep_bytes * reps)
+        ghost = ici_ghost_bytes_per_rep((th, tw), channels, halo,
+                                        mesh_shape, fuse=fuse or 1,
+                                        mode="edge")
+        compute = reps * (ms / 1e3 + ghost / device_link_bytes_per_s(
+            one_card))
+    link = padded_bytes / H100_PCIE_BYTES_PER_S
+    return {"h2d": link, "compute": compute, "d2h": link}
+
+
+def sharded_stream_frames_per_second(frame_bytes: int, reps: int,
+                                     backend: str, filter_name: str,
+                                     h_img: int, w_img: int, channels: int,
+                                     mesh_shape: Tuple[int, int],
+                                     halo: int = 1, block_h=None, fuse=None,
+                                     pipeline_depth: int = 2,
+                                     one_card: bool = False) -> float:
+    """The modelled steady-state frames/s of the spatially sharded stream:
+    the max-stage bound of :func:`sharded_stream_stage_seconds` at depth
+    >= 2, the sum at depth 1. One mesh computes one frame at a time, so
+    there is no term in the device count: the gain is inside the stages.
+    ``frame_bytes`` keeps :func:`stream_frames_per_second`'s signature;
+    the stages derive every byte count from the tile geometry."""
+    del frame_bytes
+    stages = sharded_stream_stage_seconds(
+        reps, backend, filter_name, h_img, w_img, channels, mesh_shape,
+        halo=halo, block_h=block_h, fuse=fuse, one_card=one_card)
+    bound = _stage_bound(stages, pipeline_depth)
+    return 1.0 / bound if bound > 0 else float("inf")
+
+
+def pipeline_fill_drain_factor(frames: Optional[int],
+                               pipe_stages: int) -> float:
+    """The share of the steady tick rate a K-stage pipeline keeps over F
+    frames: they take ``F + K - 1`` ticks (the first ``K - 1`` outputs are
+    the fill's, the last ``K - 1`` ticks push zero frames through), so
+    ``F / (F + K - 1)``; 1.0 for a stream of unknown length (None)."""
+    if frames is None or frames <= 0:
+        return 1.0
+    k = max(1, pipe_stages)
+    return frames / float(frames + k - 1)
+
+
+def pipeline_stream_stage_seconds(frame_bytes: int, reps: int,
+                                  backend: str, filter_name: str,
+                                  h_img: int, pipe_stages: int,
+                                  block_h=None, fuse=None,
+                                  one_card: bool = False) -> dict:
+    """Modelled seconds per tick of the temporal pipeline's device stages
+    (``--pipe-stages K``): ``h2d`` and ``d2h`` move one whole frame over
+    the host link per tick (one enters stage 0 and one leaves stage K-1);
+    ``compute`` is the widest stage's share of the reps, ``ceil(reps /
+    K)``, at :func:`bound_ms_per_rep`, plus the hand-off of one frame to
+    the next stage over :func:`device_link_bytes_per_s` (none at K = 1).
+    The model takes each stage on a device of its own; ``one_card`` sets
+    only the hand-off's rate. The host's read and write are measured."""
+    k = max(1, pipe_stages)
+    stage_reps = -(-reps // k)
+    compute = 0.0
+    if stage_reps > 0:
+        per_rep_bytes = analytic_bytes_per_rep(
+            frame_bytes, backend, filter_name, h_img, block_h, fuse)
+        ms, _ = bound_ms_per_rep(_plan(filter_name), frame_bytes,
+                                 stage_reps,
+                                 n_bytes=per_rep_bytes * stage_reps)
+        compute = stage_reps * ms / 1e3
+    if k > 1:
+        compute += frame_bytes / device_link_bytes_per_s(one_card)
+    link = frame_bytes / H100_PCIE_BYTES_PER_S
+    return {"h2d": link, "compute": compute, "d2h": link}
+
+
+def pipeline_stream_frames_per_second(frame_bytes: int, reps: int,
+                                      backend: str, filter_name: str,
+                                      h_img: int, pipe_stages: int,
+                                      frames: Optional[int] = None,
+                                      block_h=None, fuse=None,
+                                      pipeline_depth: int = 2,
+                                      one_card: bool = False) -> float:
+    """The modelled frames/s of the temporal pipeline: the tick bound of
+    :func:`pipeline_stream_stage_seconds` (max-stage at depth >= 2, the
+    sum at depth 1) times :func:`pipeline_fill_drain_factor` for the
+    stream's length. Many reps shrink the compute stage by ~K; few reps
+    and a short stream make the hand-off and the fill a modelled loss."""
+    stages = pipeline_stream_stage_seconds(
+        frame_bytes, reps, backend, filter_name, h_img, pipe_stages,
+        block_h=block_h, fuse=fuse, one_card=one_card)
+    bound = _stage_bound(stages, pipeline_depth)
+    if bound <= 0:
+        return float("inf")
+    return pipeline_fill_drain_factor(frames, pipe_stages) / bound

@@ -6,11 +6,10 @@ concatenated headerless ``.raw`` stream (a file, a FIFO, or ``-`` for
 stdin) or a directory of per-frame ``.raw`` files, and exactly one of
 ``--frames N`` (the stream holds N frames; ending early is an error) or
 ``--until-eof``. It runs on the card (every visible CUDA device is
-offered to ``--mesh-frames``) unless ``--platform cpu`` asks for the CPU
-(offered ``--mesh-frames N`` times over); with no GPU and no
-``--platform cpu`` it exits 2. ``--shard-frames`` and
-``--pipe-stages`` parse; a run that would shard a frame or stage the rep
-loop fails (those engines are not ported yet).
+offered to ``--mesh-frames``, ``--shard-frames`` and ``--pipe-stages``)
+unless ``--platform cpu`` asks for the CPU (offered as many times over as
+the explicit topology asks for: ``mesh_frames * pipe_stages * R * C``);
+with no GPU and no ``--platform cpu`` it exits 2.
 """
 
 from __future__ import annotations
@@ -127,16 +126,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--shard-frames", dest="shard_frames", default=None,
         metavar="RxC",
-        help="spatially shard every frame over an RxC mesh (0 = auto); "
-             "parsed and validated as in the JAX package, and frames below "
-             "--shard-min-pixels stay on one device; a run that would "
-             "shard fails: the sharded stream is not ported yet",
+        help="spatially shard every frame over an RxC mesh of devices, "
+             "each tile through the sharded runner (K3 under --overlap); "
+             "frames below --shard-min-pixels stay on one device; 0 = auto: "
+             "shard when one device cannot hold the frame, else a measured "
+             "A/B shards only when strictly faster (cached). Checkpoints "
+             "record RxC, so --resume under another fails typed",
     )
     p.add_argument(
         "--pipe-stages", dest="pipe_stages", type=int, default=1,
         metavar="K",
-        help="temporal pipeline of K stages (1 = off, 0 = auto); a run of "
-             "more than one stage fails: the pipeline is not ported yet",
+        help="temporal pipeline: split the reps into K stages on K "
+             "devices (times the --mesh-frames groups and the "
+             "--shard-frames tiles), frames moving one stage per tick. 1 = "
+             "off (default); 0 = auto: a roofline gate, then a measured "
+             "A/B enables it only when strictly faster (cached)",
     )
     p.add_argument(
         "--shard-min-pixels", dest="shard_min_pixels", type=int,
@@ -208,9 +212,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--platform", default=None, choices=["cpu", "gpu"],
-        help="cpu runs on the CPU (the kernels' plain versions), offering "
-             "--mesh-frames N the CPU N times over; default (or gpu) runs "
-             "on the CUDA devices and fails when there is none",
+        help="cpu runs on the CPU (the kernels' plain versions), offered "
+             "as many times over as --mesh-frames x --pipe-stages x "
+             "--shard-frames ask for; default (or gpu) runs on the CUDA "
+             "devices and fails when there is none",
     )
     p.add_argument(
         "--stats-json", default=None, metavar="PATH",
@@ -322,8 +327,10 @@ def main(argv=None) -> int:
         return 2
     if devices[0].type == "cpu":
         # The CPU as N devices, as the JAX package's forced host device
-        # count gives a CPU fan its lanes.
-        devices = devices * max(1, cfg.mesh_frames)
+        # count gives a CPU mesh its devices.
+        r, c = cfg.shard_frames or (1, 1)
+        devices = devices * (max(1, cfg.mesh_frames) * max(1, cfg.pipe_stages)
+                             * max(1, r * c))
     tracing = bool(ns.trace or ns.breakdown)
     if tracing:
         obs.enable()
@@ -340,9 +347,6 @@ def main(argv=None) -> int:
         except KernelBuildError as e:
             print(f"stream FAILED: {type(e).__name__}: {e}", file=sys.stderr)
             return 1
-        except NotImplementedError as e:
-            print(f"stream: NotImplementedError: {e}", file=sys.stderr)
-            return 2
         except ValueError as e:
             # Runtime-discovered usage errors (non-resumable sink with
             # --checkpoint-every, a checkpoint from a different job on
@@ -350,7 +354,7 @@ def main(argv=None) -> int:
             print(f"stream: {e}", file=sys.stderr)
             return 2
         if tracing:
-            _report_observability(ns, cfg, result, report_out)
+            _report_observability(ns, cfg, result, report_out, devices)
     finally:
         if tracing:
             obs.disable()
@@ -424,13 +428,16 @@ def main(argv=None) -> int:
     return 0
 
 
-def _report_observability(ns, cfg: StreamConfig, result, out) -> None:
+def _report_observability(ns, cfg: StreamConfig, result, out,
+                          devices) -> None:
     tracer = obs.get_tracer()
     if ns.trace:
         wrote = obs.export.write_chrome_trace(ns.trace, tracer)
         if wrote:
             print(f"wrote trace {wrote}", file=out)
     if ns.breakdown:
+        from tpu_stencil_torch.filters import get_filter
+
         print(obs.breakdown.render_breakdown(tracer), end="", file=out)
         print(obs.breakdown.render_stream(tracer, {
             "frame_bytes": cfg.frame_bytes,
@@ -447,6 +454,10 @@ def _report_observability(ns, cfg: StreamConfig, result, out) -> None:
             "frames": result.frames,
             "wall_seconds": result.wall_seconds,
             "n_devices": result.n_devices,
+            "shard_frames": result.shard_frames,
+            "pipe_stages": result.pipe_stages,
+            "halo": get_filter(cfg.filter_name).halo,
+            "one_card": len(set(devices[:result.n_devices])) == 1,
         }), end="", file=out)
         print(obs.breakdown.render_resilience(obs.snapshot()),
               end="", file=out)

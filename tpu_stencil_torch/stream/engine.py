@@ -81,11 +81,6 @@ from tpu_stencil_torch.stream import frames as frames_io
 _EOF = object()          # clean end-of-stream sentinel
 _STAGES = ("read", "h2d", "compute", "d2h", "write")
 
-# The next slice's engines: a run that resolves one raises.
-_NEXT_SLICE = ("it comes with the next slice of the port (the sharded "
-               "stream, stream/sharded.py, and the temporal pipeline, "
-               "parallel/pipeline.py with stream/pipelined.py)")
-
 
 class StreamFailure(RuntimeError):
     """A stage failed on a specific frame; the pipeline drained and
@@ -118,10 +113,10 @@ class StreamResult:
     pipeline_depth: int
     output: str
     restarts: int = 0        # mid-stream engine restarts that recovered
-    n_devices: int = 1       # devices the frames fanned over
-    per_device_frames: Optional[list] = None  # frames per lane (fan)
-    shard_frames: Optional[Tuple[int, int]] = None  # always None here
-    pipe_stages: int = 1     # always 1 here
+    n_devices: int = 1       # devices the run used
+    per_device_frames: Optional[list] = None  # frames per lane or group
+    shard_frames: Optional[Tuple[int, int]] = None  # the RxC that ran
+    pipe_stages: int = 1     # temporal stages that ran
 
 
 class _Abort(Exception):
@@ -543,9 +538,11 @@ def _drain(pl: _Pipeline) -> None:
         pl.fail(stage, max(idx, 0), e)
 
 
-def _writer(pl: _Pipeline, sink, done: list) -> None:
+def _writer(pl: _Pipeline, sink, done: list, save_progress=None) -> None:
     """Write the results in order; witness, checkpoint, progress.
-    ``done[0]`` tracks the frames fully written."""
+    ``done[0]`` tracks the frames fully written. ``save_progress(n)``
+    commits the progress sidecar (None: the single-device record; the
+    sharded stream's records its topology)."""
     cfg = pl.cfg
     slots = pl.slots
     idx = -1
@@ -565,7 +562,7 @@ def _writer(pl: _Pipeline, sink, done: list) -> None:
             done[0] = idx + 1
             obs.registry().counter("stream_frames_total").inc()
             if cfg.checkpoint_every and done[0] % cfg.checkpoint_every == 0:
-                _commit_progress(cfg, sink, done[0], None)
+                _commit_progress(cfg, sink, done[0], save_progress)
             if cfg.progress_every and done[0] % cfg.progress_every == 0:
                 print(f"stream: frame {done[0]}", file=sys.stderr, flush=True)
     except _Abort:
@@ -675,32 +672,45 @@ def run_stream(
     I/O failures are retried inside the pipeline and never restart it;
     injected sources and sinks never restart.
 
-    ``--mesh-frames``: the fan width resolves once per call
-    (:func:`tpu_stencil_torch.parallel.fanout.resolve_mesh_frames`) and
-    every restart fans at the same width, so the checkpoint's per-device
-    cursors stay aligned. A run that resolves a spatial shard
-    (``--shard-frames``) or more than one pipeline stage
-    (``--pipe-stages``) raises ``NotImplementedError``: those engines are
-    not ported yet."""
+    ``--mesh-frames``, ``--shard-frames`` and ``--pipe-stages``: the fan
+    width (:func:`tpu_stencil_torch.parallel.fanout.resolve_mesh_frames`),
+    the RxC shard (:func:`tpu_stencil_torch.stream.sharded.
+    resolve_shard_frames`) and the stage count
+    (:func:`tpu_stencil_torch.parallel.pipeline.resolve_pipe_stages`)
+    resolve once per call, and every restart runs the same topology, so
+    the checkpoint's record of it stays aligned. A run with stages, or a
+    fan of sharded groups, runs the composed engine
+    (:mod:`tpu_stencil_torch.stream.pipelined`); the config makes a
+    composed topology explicit on every axis, so no auto probe resolves
+    one axis while another is live."""
     from tpu_stencil_torch.devices import resolve_devices
 
     if devices is None:
         devices = resolve_devices()
     devices = [torch.device(d) for d in devices]
-    _resolve_shard_frames(cfg, devices)
-    _resolve_pipe_stages(cfg, devices)
     if cfg.verify_ingest:
         # The checksum library is built before any thread starts; a failed
         # build fails the stream typed (KernelBuildError), before a frame.
         _checksum.native_library()
     restarts = 0
     n_mesh = None
+    pipe = None
+    shard = _UNRESOLVED
     while True:
         try:
+            if shard is _UNRESOLVED:
+                shard = _resolve_shard_frames(cfg, devices)
+            if pipe is None:
+                pipe = _resolve_pipe_stages(cfg, devices)
             if n_mesh is None:
-                n_mesh = _resolve_mesh_frames(cfg, devices)
+                if shard is not None or pipe > 1:
+                    # Composed: mesh_frames is explicit (the config
+                    # refuses a composed auto), the group count.
+                    n_mesh = max(1, cfg.mesh_frames)
+                else:
+                    n_mesh = _resolve_mesh_frames(cfg, devices)
             result = _run_stream_once(cfg, devices, resume, source, sink,
-                                      n_mesh=n_mesh)
+                                      n_mesh=n_mesh, shard=shard, pipe=pipe)
             result.restarts = restarts
             return result
         except StreamFailure as e:
@@ -731,9 +741,11 @@ def _finish_result(cfg: StreamConfig, resume: bool, t_start: float,
                    start_frame: int, frames: int, stage_seconds: Dict,
                    backend: str, schedule, out_spec: str,
                    n_devices: int = 1,
-                   per_device_frames: Optional[list] = None) -> StreamResult:
-    """The run epilogue both engines end in: sweep the progress sidecar of
-    a completed run, then assemble the :class:`StreamResult`."""
+                   per_device_frames: Optional[list] = None,
+                   shard_frames: Optional[Tuple[int, int]] = None,
+                   pipe_stages: int = 1) -> StreamResult:
+    """The run epilogue every engine ends in: sweep the progress sidecar
+    of a completed run, then assemble the :class:`StreamResult`."""
     if cfg.checkpoint_every or resume:
         from tpu_stencil_torch.runtime import checkpoint as ckpt
 
@@ -751,6 +763,8 @@ def _finish_result(cfg: StreamConfig, resume: bool, t_start: float,
         output=out_spec,
         n_devices=n_devices,
         per_device_frames=per_device_frames,
+        shard_frames=shard_frames,
+        pipe_stages=pipe_stages,
     )
 
 
@@ -762,35 +776,43 @@ def _resolve_mesh_frames(cfg: StreamConfig, devices) -> int:
     return fanout.resolve_mesh_frames(cfg, devices)
 
 
-def _resolve_shard_frames(cfg: StreamConfig, devices) -> None:
-    """The JAX package's routing of ``--shard-frames``, up to where it
-    would shard: a frame below ``shard_min_pixels``, or auto on one
-    device, runs on one device; a run that would shard raises."""
+# Distinct from None: a shard resolves to None (one device), and the
+# restart loop must not pay the probe again for it.
+_UNRESOLVED = object()
+
+
+def _resolve_shard_frames(cfg: StreamConfig, devices
+                          ) -> Optional[Tuple[int, int]]:
     if cfg.shard_frames is None:
-        return
-    if cfg.width * cfg.height < cfg.shard_min_pixels:
-        print(
-            f"stream: --shard-frames: {cfg.width}x{cfg.height} frame is "
-            f"below the routing threshold ({cfg.shard_min_pixels} px) "
-            f"-> single-device",
-            file=sys.stderr, flush=True,
-        )
-        return
-    if cfg.shard_frames == (0, 0) and len(devices) < 2:
-        return
-    raise NotImplementedError(
-        "--shard-frames: the spatially sharded stream is not ported yet; "
-        + _NEXT_SLICE)
+        return None
+    from tpu_stencil_torch.stream import sharded
+
+    return sharded.resolve_shard_frames(cfg, devices)
 
 
-def _resolve_pipe_stages(cfg: StreamConfig, devices) -> None:
-    """``--pipe-stages``: 1, or auto on one device, runs without stages; a
-    run of more raises."""
-    if cfg.pipe_stages == 1 or (cfg.pipe_stages == 0 and len(devices) < 2):
-        return
-    raise NotImplementedError(
-        "--pipe-stages: the temporal pipeline is not ported yet; "
-        + _NEXT_SLICE)
+def _resolve_pipe_stages(cfg: StreamConfig, devices) -> int:
+    if cfg.pipe_stages == 1:
+        return 1
+    from tpu_stencil_torch.parallel import pipeline
+
+    return pipeline.resolve_pipe_stages(cfg, devices)
+
+
+def probe_seconds(cfg: StreamConfig, devices) -> float:
+    """One arm of an auto knob's A/B: ``cfg.frames`` copies of a seeded
+    random frame to a null sink, once warm and once timed; the timed
+    run's seconds. The caller holds a scratch registry around it."""
+    frame = np.random.default_rng(0).integers(0, 256, cfg.frame_bytes,
+                                              dtype=np.uint8)
+    def run() -> None:
+        run_stream(cfg, devices=list(devices),
+                   source=frames_io.RepeatSource(frame, cfg.frames),
+                   sink=frames_io.NullSink())
+
+    run()  # warm: the kernels built, the runners cached
+    t0 = time.perf_counter()
+    run()
+    return time.perf_counter() - t0
 
 
 def _close_io(own_source, source, own_sink, sink, failed: bool) -> None:
@@ -817,29 +839,38 @@ def _run_stream_once(
     source: Optional[frames_io.FrameSource] = None,
     sink: Optional[frames_io.FrameSink] = None,
     n_mesh: int = 1,
+    shard: Optional[Tuple[int, int]] = None,
+    pipe: int = 1,
 ) -> StreamResult:
     """One pipeline lifetime (:func:`run_stream` owns the restart loop
-    around it): resume, the source and sink, then the single-device
-    engine, or the fan-out's (``n_mesh`` > 1)."""
+    around it): resume, the source and sink, then the engine: the composed
+    one (:mod:`~tpu_stencil_torch.stream.pipelined`) for ``pipe`` > 1 or a
+    fan of sharded groups, the sharded one
+    (:mod:`~tpu_stencil_torch.stream.sharded`) for a ``shard``, the fan's
+    (:mod:`~tpu_stencil_torch.parallel.fanout`) for ``n_mesh`` > 1, else
+    the single-device engine."""
     from tpu_stencil_torch.models.blur import IteratedConv2D
 
     obs.registry().counter("stream_jobs_total").inc()
     t_start = time.perf_counter()
-    devices = devices[:n_mesh]
+    composed = pipe > 1 or (n_mesh > 1 and shard is not None)
+    r, c = shard if shard else (1, 1)
+    devices = devices[:n_mesh * pipe * r * c]
     model = IteratedConv2D(cfg.filter_name, backend=cfg.backend,
                            schedule=cfg.schedule, boundary=cfg.boundary,
                            block_h=cfg.block_h, fuse=cfg.fuse,
                            device=devices[0])
     # What ran in THIS run, on every path.
     obs.registry().gauge("stream_mesh_devices").set(n_mesh)
-    obs.registry().gauge("stream_shard_devices").set(0)
-    obs.registry().gauge("stream_pipe_stages").set(0)
+    obs.registry().gauge("stream_shard_devices").set(r * c if shard else 0)
+    obs.registry().gauge("stream_pipe_stages").set(pipe if pipe > 1 else 0)
 
     start_frame = 0
     if resume:
         from tpu_stencil_torch.runtime import checkpoint as ckpt
 
-        restored = ckpt.restore_stream_progress(cfg, mesh_devices=n_mesh)
+        restored = ckpt.restore_stream_progress(
+            cfg, mesh_devices=n_mesh, shard_frames=shard, pipe_stages=pipe)
         if restored is not None:
             start_frame = restored
     elif cfg.checkpoint_every:
@@ -877,23 +908,40 @@ def _run_stream_once(
             source.close()
         raise
 
-    if n_mesh > 1:
-        from tpu_stencil_torch.parallel import fanout
+    if composed or shard is not None or n_mesh > 1:
+        if composed:
+            from tpu_stencil_torch.stream import pipelined
 
+            def engine():
+                return pipelined.run_pipelined_stream(
+                    cfg, devices, n_mesh, pipe, shard, model, source, sink,
+                    start_frame)
+        elif shard is not None:
+            from tpu_stencil_torch.stream import sharded
+
+            def engine():
+                return sharded.run_shard_stream(cfg, devices, shard, model,
+                                                source, sink, start_frame)
+        else:
+            from tpu_stencil_torch.parallel import fanout
+
+            def engine():
+                return fanout.run_mesh_frames(cfg, devices, n_mesh, model,
+                                              source, sink, start_frame)
         failed = False
         try:
-            mesh = fanout.run_mesh_frames(cfg, devices, n_mesh, model,
-                                          source, sink, start_frame)
+            ran = engine()
         except BaseException:
             failed = True
             raise
         finally:
             _close_io(own_source, source, own_sink, sink, failed)
         return _finish_result(
-            cfg, resume, t_start, start_frame, mesh["frames"],
-            mesh["stage_seconds"], mesh["backend"], mesh["schedule"],
-            out_spec, n_devices=n_mesh,
-            per_device_frames=mesh["per_device_frames"],
+            cfg, resume, t_start, start_frame, ran["frames"],
+            ran["stage_seconds"], ran["backend"], ran["schedule"],
+            out_spec, n_devices=ran.get("n_devices", n_mesh),
+            per_device_frames=ran.get("per_device_frames"),
+            shard_frames=shard, pipe_stages=pipe,
         )
 
     try:

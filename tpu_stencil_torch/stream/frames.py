@@ -1,9 +1,7 @@
 """Frame sources and sinks for the streaming engine.
 
-The port's counterpart of the JAX package's ``stream/frames.py`` (all of
-it but the sharded stream's ``TileScatter``, which comes with that
-engine). The container contract is ``io/raw.py``'s, lifted to streams: a
-frame is
+The port's counterpart of the JAX package's ``stream/frames.py``. The
+container contract is ``io/raw.py``'s, lifted to streams: a frame is
 ``H*W*C`` headerless bytes (trust-the-geometry — width/height/channels
 are supplied out of band), and a *stream* is either
 
@@ -21,6 +19,8 @@ fail loudly on short reads: a stream that ends mid-frame is an error
 with the frame index, never silent garbage (the same discipline
 ``io/raw.py`` applies to short files). A :class:`NullSink` discards
 output for benchmarking the pipeline without a disk-write stage.
+:class:`TileScatter` cuts a frame into the host staging tiles of the
+spatially sharded stream.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ import sys
 from typing import BinaryIO, List
 
 import numpy as np
+import torch
 
 from tpu_stencil_torch.io.raw import discard_stream_bytes, read_stream_into
 
@@ -315,6 +316,100 @@ class NullSink(FrameSink):
 
     def write(self, index: int, frame: np.ndarray) -> None:
         self.frames_written += 1
+
+
+class RepeatSource(FrameSource):
+    """``n`` copies of one frame: the source of the auto knobs' probes."""
+
+    def __init__(self, frame: np.ndarray, n: int) -> None:
+        self._frame = frame
+        self._left = n
+
+    def read_into(self, buf: np.ndarray) -> bool:
+        if self._left <= 0:
+            return False
+        np.copyto(buf, self._frame)
+        self._left -= 1
+        return True
+
+
+class TileScatter:
+    """The host staging tiles of the spatially sharded stream
+    (:mod:`tpu_stencil_torch.stream.sharded`): one reusable tile per mesh
+    position and the copy plan that scatters a flat frame into them.
+
+    Each tile is the H2D unit of its shard, copied to its own device. The
+    pad regions (the grid's ceil-divide overhang at the bottom and right
+    edges) are zeroed once, here, and never written again: a scatter
+    copies only each tile's image-interior window. ``pin``: the tiles are
+    pinned host memory (on a card), so each tile's copy is non-blocking.
+
+    A tile may be rewritten only after its previous copy to the card has
+    landed: the engine hands each copy's event to :meth:`uploaded`, and
+    :meth:`scatter` waits for a tile's event before it writes that tile.
+
+    ``specs``: one ``(rows, cols)`` pair of ``slice`` objects per tile,
+    each a window of the padded global canvas (the engine derives them
+    from the runner's own tile grid)."""
+
+    def __init__(self, frame_shape, specs, pin: bool = False) -> None:
+        self.frame_shape = tuple(frame_shape)
+        h, w = self.frame_shape[:2]
+        trailing = self.frame_shape[2:]
+        self.specs = list(specs)
+        self.tensors: List[torch.Tensor] = []
+        self._copies = []  # (tile_idx, tile_window, frame_window)
+        for i, (rows, cols) in enumerate(self.specs):
+            th = rows.stop - rows.start
+            tw = cols.stop - cols.start
+            self.tensors.append(torch.zeros((th, tw) + trailing,
+                                            dtype=torch.uint8,
+                                            pin_memory=pin))
+            # The image-interior window of this tile (none for a tile
+            # wholly inside the pad overhang: its zeros are the pad).
+            r1 = min(rows.stop, h)
+            c1 = min(cols.stop, w)
+            if r1 > rows.start and c1 > cols.start:
+                self._copies.append((
+                    i,
+                    (slice(0, r1 - rows.start), slice(0, c1 - cols.start)),
+                    (slice(rows.start, r1), slice(cols.start, c1)),
+                ))
+        self.tiles: List[np.ndarray] = [t.numpy() for t in self.tensors]
+        self._pending: list = [None] * len(self.specs)
+
+    def uploaded(self, i: int, event) -> None:
+        """Tile ``i``'s copy to the card was issued; ``event`` (anything
+        with ``synchronize()``) fires when it has landed."""
+        self._pending[i] = event
+
+    def scatter(self, buf: np.ndarray) -> List[np.ndarray]:
+        """Copy one flat frame buffer into the staging tiles, each after its
+        previous copy's event, and return them (the same arrays every
+        call)."""
+        frame = buf.reshape(self.frame_shape)
+        for i, tile_win, frame_win in self._copies:
+            ev = self._pending[i]
+            if ev is not None:
+                ev.synchronize()
+                self._pending[i] = None
+            self.tiles[i][tile_win] = frame[frame_win]
+        return self.tiles
+
+    def gather_into(self, out: np.ndarray, shards) -> np.ndarray:
+        """The inverse: crop each shard's result into the image window of
+        ``out`` (pad rows and columns dropped). ``shards`` iterates
+        ``(tile_index, array)`` in any order."""
+        h, w = self.frame_shape[:2]
+        for i, arr in shards:
+            rows, cols = self.specs[i]
+            r1 = min(rows.stop, h)
+            c1 = min(cols.stop, w)
+            if r1 > rows.start and c1 > cols.start:
+                out[rows.start:r1, cols.start:c1] = np.asarray(arr)[
+                    : r1 - rows.start, : c1 - cols.start
+                ]
+        return out
 
 
 def _is_dir_spec(spec: str) -> bool:
