@@ -193,7 +193,34 @@ one JSON line. The phases that pin launch counts name ``--backend pallas``
    ``--pipe-stages 0`` printing measured verdicts, then zero probe frames
    from the warm cache; a profiled 8-frame depth-2 2x2 run (shard H2D
    and K3 busy at once, the device's idle share); the phase's seconds.
-17. ``times`` — ms per rep at 1920x2520 RGB gaussian x40, each the median
+17. ``serve_path`` — the serving engine (``StencilServer``) on the card:
+   ten mixed requests to a parked server under ``--backend pallas``
+   (the 1920x2520 RGB x40 frame of the main path and a 2500x1900 one,
+   one batch of the 3072x2048 bucket; a 1x1 image; 3100x40 grey, above
+   the ladder's top edge; box, edge, gaussian7, gaussian5; reps 0, 1, 9,
+   40; two frames of one small bucket), each byte-equal to
+   ``driver.run_job --backend xla`` on the card, K1's launches equal to
+   the sum over the batches of their reps and no K2, a repeated key a
+   cache hit; the same under ``xla`` with no launch; the two big frames
+   under ``overlap`` ``off`` (K1) and ``edge`` on the visible card (1x1)
+   and on ``[cuda:0] * 4`` (2x2), K3's launches the runner's schedule;
+   ``serve --self-test`` in a fresh process; the closed-loop load run
+   (``serve --requests 64 --concurrency 8 --shapes 1920x2520 --channels
+   3 --reps 40 --backend pallas --verify golden --stats-json
+   --perf-log``, in this process, its K1 launches counted: 40 a batch)
+   with 64 completed, no fallback and 0 verify failures (the golden
+   checks frames up to 4096 pixels, as in the JAX package: none at this
+   size), and ``perf check`` reading back the record it wrote; then the
+   same 64 seeded requests twice through ``loadgen.run`` on one server,
+   a cold pass and a warm one, every one of the 128 results kept and
+   held against torch ops on the card (``device_witness``), K1's
+   launches 40 a batch: each pass's throughput, client p50 and p99
+   latency and mean ``batch_hbm_gbps``; the card's idle share over a
+   profiled warm 16-request run; the pinned slots the cold pass
+   allocated, one of each key timed; a ``submit_group`` of 4 as one
+   batch; the witness (torch ops on the card) on six requests, no
+   mismatch.
+18. ``times`` — ms per rep at 1920x2520 RGB gaussian x40, each the median
    of 7 runs after a warm-up (CUDA events, L2 flushed before each run):
    the three job kernels (K3 alone on the one ext tile of a 1x1 mesh at
    fuse 8), L2's ``current`` body, one L1 launch (``add_i32``, chain of
@@ -219,7 +246,8 @@ and K2 add ``stream_launches``, those of the 16-frame stream and of the
 2-lane fan in ``stream_path``; K3
 adds its window launches and ms per rep under each overlap mode, the
 ``auto`` verdict and its thin-window time, and ``shard_stream_launches``,
-those of the sharded streams in ``shard_stream_path``),
+those of the sharded streams in ``shard_stream_path``; K1 and K3 add
+``serve_launches``, those of the serving engine in ``serve_path``),
 the ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero before that line; without a CUDA device the script exits
 non-zero at once.
@@ -3082,6 +3110,515 @@ def phase_shard_stream_path(dev) -> dict:
             "seconds": time.perf_counter() - t_phase}
 
 
+# The serve phase's requests: (height, width, channels, filter, reps).
+# The main image (bucket 3072x2048 RGB, 18.9 MB a frame) and a second
+# frame of its bucket (one batch of two), a 1x1 image, a request above
+# the ladder's top edge (3100 rows -> 6144), several filters, grey and
+# RGB, reps 0, 1, 9 and 40; the last two share a key (one batch).
+SERVE_CASES = (
+    (MAIN_H, MAIN_W, MAIN_C, "gaussian", MAIN_REPS),
+    (2500, 1900, 3, "gaussian", MAIN_REPS),
+    (1, 1, 1, "gaussian", 1),
+    (3100, 40, 1, "gaussian", 9),
+    (300, 200, 3, "box", 9),
+    (240, 320, 1, "edge", 1),
+    (300, 200, 3, "gaussian7", 9),
+    (120, 90, 3, "gaussian5", 0),
+    (64, 48, 3, "gaussian", 9),
+    (60, 40, 3, "gaussian", 9),
+)
+
+
+def serve_images(cases) -> list:
+    out = []
+    for i, (h, w, c, _, _) in enumerate(cases):
+        shape = (h, w) if c == 1 else (h, w, c)
+        out.append(np.random.default_rng(100 + i).integers(
+            0, 256, shape, np.uint8))
+    return out
+
+
+def serve_reference(img: np.ndarray, name: str, reps: int, dev,
+                    i: int) -> np.ndarray:
+    """The port's ``driver.run_job --backend xla`` on the card for one
+    request (the torch-ops path, file to file)."""
+    from tpu_stencil_torch import config, driver
+
+    src = WORK / f"serve_req{i}.raw"
+    dst = WORK / f"serve_req{i}_xla.raw"
+    img.tofile(src)
+    kind = config.ImageType.RGB if img.ndim == 3 else config.ImageType.GREY
+    driver.run_job(config.JobConfig(
+        str(src), img.shape[1], img.shape[0], reps, kind, filter_name=name,
+        backend="xla", output=str(dst)), devices=[dev])
+    got = np.fromfile(dst, np.uint8).reshape(img.shape)
+    src.unlink()
+    dst.unlink()
+    return got
+
+
+def serve_batches(cases, edges, max_batch: int) -> list:
+    """The batches a parked server forms from ``cases`` submitted in
+    order, then started: FIFO by key, up to ``max_batch`` a batch, as
+    ``StencilServer._take_batch_locked`` takes them. Returns the reps of
+    each batch."""
+    from tpu_stencil_torch.serve import bucketing
+
+    keys = [(n, bucketing.bucket_shape(h, w, edges), c, r)
+            for h, w, c, n, r in cases]
+    pending, out = list(keys), []
+    while pending:
+        key = pending[0]
+        same = [k for k in pending if k == key][:max_batch]
+        for k in same:
+            pending.remove(k)
+        out.append(key[3])
+    return out
+
+
+# The load run: 64 requests of ``--shapes 1920x2520`` (H x W: the main
+# image's pixels with its sides swapped), RGB, x40.
+LOAD_REQUESTS, LOAD_H, LOAD_W = 64, 1920, 2520
+
+
+class Captured:
+    """A loadgen target that hands every request to ``server`` and keeps
+    each (image, future), so a run's results are checked after it."""
+
+    def __init__(self, server) -> None:
+        self.server, self.taken = server, []
+
+    def submit(self, image, reps, **kw):
+        fut = self.server.submit(image, reps, **kw)
+        self.taken.append((image, fut))
+        return fut
+
+    def submit_retrying(self, image, reps, **kw):
+        fut = self.server.submit_retrying(image, reps, **kw)
+        self.taken.append((image, fut))
+        return fut
+
+    def stats(self) -> dict:
+        return self.server.stats()
+
+
+def nearest_rank(sorted_vals, p: float) -> float:
+    """The nearest-rank percentile the serve registry reports."""
+    k = min(len(sorted_vals) - 1,
+            max(0, int(round(p / 100.0 * (len(sorted_vals) - 1)))))
+    return sorted_vals[k]
+
+
+def serve_load_pass(server, label: str, load_kw: dict, images: list,
+                    want: list) -> dict:
+    """One closed-loop ``loadgen.run`` over ``server`` (``load_kw``, with
+    ``per_request``) whose requests are ``images``: every result held
+    against ``want`` after the pass. Returns the pass's numbers: client
+    latency percentiles, and batch means from the registry's deltas."""
+    from tpu_stencil_torch.serve import loadgen
+
+    n = len(images)
+    index = {img[0, :16].tobytes(): i for i, img in enumerate(images)}
+    require(len(index) == n, "load images share a prefix")
+    target = Captured(server)
+    h0 = server.stats()["histograms"]
+    b0 = server.stats()["counters"]["batches_total"]
+    rep = loadgen.run(target, **load_kw)
+    st = server.stats()
+    require(rep["completed"] == n and len(target.taken) == n
+            and st["counters"]["failed_total"] == 0,
+            f"serve {label} pass: {rep['completed']} completed, "
+            f"{len(target.taken)} taken")
+    seen, err = set(), 0
+    for image, fut in target.taken:
+        i = index.get(image[0, :16].tobytes())
+        require(i is not None and i not in seen
+                and np.array_equal(image, images[i]),
+                f"serve {label} pass: an unknown or repeated request")
+        seen.add(i)
+        got = fut.result(timeout=0)
+        require(got.shape == want[i].shape,
+                f"serve {label} pass: request {i} shape {got.shape}")
+        if not np.array_equal(got, want[i]):
+            err = max(err, int(np.abs(got.astype(int)
+                                      - want[i].astype(int)).max()))
+    require(err == 0, f"serve {label} pass: max abs err {err} against "
+            "torch ops on the card")
+    lat = sorted(r["latency_s"] for r in rep["per_request"])
+
+    def delta_mean(name):
+        h1, h = st["histograms"][name], h0.get(name, {})
+        k = h1["count"] - h.get("count", 0)
+        return (h1["sum"] - h.get("sum", 0.0)) / k if k else None
+
+    return {"throughput_rps": rep["throughput_rps"],
+            "wall_seconds": rep["wall_seconds"],
+            "p50_s": nearest_rank(lat, 50), "p99_s": nearest_rank(lat, 99),
+            "batches": st["counters"]["batches_total"] - b0,
+            "batch_size_mean": delta_mean("batch_size"),
+            "batch_latency_mean_s": delta_mean("batch_latency_seconds"),
+            "batch_hbm_gbps_mean": delta_mean("batch_hbm_gbps"),
+            "arena_alloc_total": st["counters"]["arena_canvas_alloc_total"],
+            "arena_reuse_total": st["counters"]["arena_canvas_reuse_total"],
+            "verified": len(seen), "max_abs_err": err}
+
+
+def serve_run(cfg, images, cases, dev, devices=None) -> tuple:
+    """Every request submitted to a parked server, which is then started,
+    with the launch counters set to 0 just before the start and read
+    after the last result: (results, stats, launches)."""
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+    from tpu_stencil_torch.serve import StencilServer
+
+    server = StencilServer(cfg, start=False, device=dev, devices=devices)
+    try:
+        futs = [server.submit(img, c[4], filter_name=c[3])
+                for img, c in zip(images, cases)]
+        cs.reset_launch_counts()
+        server.start()
+        got = [f.result(timeout=300) for f in futs]
+        torch.cuda.synchronize()
+        counts = cs.launch_counts()
+        stats = server.stats()
+    finally:
+        require(server.close(timeout=60), "the server did not drain")
+    return got, stats, counts
+
+
+def phase_serve_path(dev) -> dict:
+    """Phase ``serve_path``: the serving engine on the card (see the
+    module docstring)."""
+    from tpu_stencil_torch.config import ServeConfig
+    from tpu_stencil_torch.models.blur import IteratedConv2D
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+    from tpu_stencil_torch.parallel import sharded as psharded
+    from tpu_stencil_torch.integrity import witness
+    from tpu_stencil_torch.serve import GroupItem, StencilServer, bucketing
+    from tpu_stencil_torch.serve import cli as serve_cli
+    from tpu_stencil_torch.serve import engine as serve_engine
+    from tpu_stencil_torch.serve import loadgen
+
+    t_phase = time.perf_counter()
+    WORK.mkdir(parents=True, exist_ok=True)
+    out = {}
+    laps, t_lap = {}, [t_phase]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name], t_lap[0] = now - t_lap[0], now
+
+    images = serve_images(SERVE_CASES)
+    want = [serve_reference(img, c[3], c[4], dev, i)
+            for i, (img, c) in enumerate(zip(images, SERVE_CASES))]
+
+    def same(got, label):
+        errs = [int(np.abs(g.astype(int) - w.astype(int)).max())
+                if g.shape == w.shape and g.size else 0
+                for g, w in zip(got, want)]
+        require(all(g.shape == w.shape and g.dtype == np.uint8
+                    for g, w in zip(got, want)) and max(errs) == 0,
+                f"{label}: max abs err {max(errs)} against run_job xla")
+        return max(errs)
+
+    lap("references")
+    # 1. The bucket route through K1: one single-rep launch per rep per
+    # batch, no K2, a repeated key a cache hit.
+    edges = bucketing.DEFAULT_EDGES
+    batch_reps = serve_batches(SERVE_CASES, edges, 8)
+    cfg = ServeConfig(backend="pallas", max_batch=8)
+    got, stats, counts = serve_run(cfg, images, SERVE_CASES, dev)
+    err = same(got, "serve pallas")
+    c = stats["counters"]
+    expect = launches(stencil_fused=sum(batch_reps))
+    require(counts == expect and c["batches_total"] == len(batch_reps),
+            f"serve pallas: launches {counts}, batches {c['batches_total']};"
+            f" expected {expect} over {len(batch_reps)} batches")
+    # A repeated key: a cache hit. Introspection armed: one record for
+    # the key, the K1 instance with the card's registers and occupancy;
+    # the memory sampler's gauges in the server's registry.
+    from tpu_stencil_torch import obs
+
+    obs.introspect.enable()
+    try:
+        with StencilServer(cfg, device=dev) as server:
+            for _ in range(2):
+                server.submit(images[-1],
+                              SERVE_CASES[-1][4]).result(timeout=300)
+            rstats = server.stats()
+            recs = server.introspection()
+    finally:
+        obs.introspect.disable()
+    hits = rstats["counters"]["cache_hits_total"]
+    require(hits >= 1, f"a repeated key made {hits} cache hits")
+    require(len(recs) == 1 and recs[0]["available"]
+            and recs[0]["kernels"][0]["kernel"] == "stencil_fused",
+            f"serve introspection: {recs}")
+    require("device_bytes_in_use" in rstats["gauges"],
+            f"no device memory gauge: {sorted(rstats['gauges'])}")
+    out["pallas"] = {"launches": counts, "batches": c["batches_total"],
+                     "batch_reps": batch_reps, "cache_hits": hits,
+                     "max_abs_err": err, "instance": recs[0]["kernels"][0],
+                     "batch_hbm_gbps": stats["histograms"]["batch_hbm_gbps"]}
+    lap("pallas")
+    # 2. The same requests under xla: torch ops, no kernel launch.
+    got, stats, counts = serve_run(
+        ServeConfig(backend="xla", max_batch=8), images, SERVE_CASES, dev)
+    out["xla"] = {"launches": counts, "max_abs_err": same(got, "serve xla")}
+    require(counts == NO_LAUNCHES, f"serve xla launched {counts}")
+    lap("xla")
+    # 3. Sharded routing of the two 1920-wide frames (shard_min_pixels
+    # below them): "off" keeps them on the bucket route (K1); "edge"
+    # sends them through the runner over the visible card (a 1x1 mesh)
+    # and over [dev] * 4 (2x2). K3's launches are the runner's schedule.
+    big = [0, 1]
+    bcases = [SERVE_CASES[i] for i in big]
+    bimgs = [images[i] for i in big]
+    bwant = [want[i] for i in big]
+    sharded = {}
+    for label, overlap, devices in (("off", "off", None),
+                                    ("edge_1x1", "edge", None),
+                                    ("edge_2x2", "edge", [dev] * 4)):
+        psharded.clear_runner_cache()
+        scfg = ServeConfig(backend="pallas", max_batch=8, overlap=overlap,
+                           shard_min_pixels=1 << 20)
+        got, stats, counts = serve_run(scfg, bimgs, bcases, dev, devices)
+        require(all(np.array_equal(g, w) for g, w in zip(got, bwant)),
+                f"serve sharded {label}: bytes differ from the bucket route")
+        c = stats["counters"]
+        if overlap == "off":
+            expect = launches(stencil_fused=MAIN_REPS)  # one batch of two
+            require(c["sharded_requests_total"] == 0,
+                    "overlap off routed a request to the mesh")
+            sharded[label] = {"launches": counts}
+        else:
+            runner = psharded.shared_runner(
+                IteratedConv2D("gaussian", backend="pallas", device=dev),
+                (MAIN_H, MAIN_W), MAIN_C,
+                devices=devices or [dev], overlap=overlap)
+            tiles = runner.mesh_shape[0] * runner.mesh_shape[1]
+            chunks = MAIN_REPS // runner.fuse + MAIN_REPS % runner.fuse
+            # Both frames: the main one and the 2500x1900 one, each its
+            # own runner of the same mesh and schedule.
+            expect = launches(
+                stencil_valid=2 * PIECES[runner.overlap] * tiles * chunks)
+            require(c["sharded_requests_total"] == 2,
+                    f"{label}: {c['sharded_requests_total']} sharded")
+            sharded[label] = {"launches": counts, "mesh": runner.mesh_shape,
+                              "overlap": runner.overlap,
+                              "fuse": runner.fuse}
+        require(counts == expect,
+                f"serve sharded {label}: launches {counts}, expected "
+                f"{expect}")
+    psharded.clear_runner_cache()
+    out["sharded"] = sharded
+    lap("sharded")
+    # 4. --self-test in a fresh process, as a user runs it.
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_stencil_torch", "serve", "--self-test"],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    require(proc.returncode == 0 and "serve self-test OK" in proc.stdout,
+            f"serve --self-test rc {proc.returncode}: {proc.stderr[-2000:]}")
+    out["self_test"] = proc.stdout.strip().splitlines()[-1]
+    lap("self_test")
+    # 5. The closed-loop load run at the reference's size. (a) As a user
+    # runs it: the CLI in this process (its K1 launches counted), then the
+    # sentry reading back the record it wrote. Its ``--verify golden``
+    # checks frames of at most loadgen.GOLDEN_MAX_PIXELS, as in the JAX
+    # package: none at this size, so (b) holds the bytes.
+    stats_json = WORK / "serve_stats.json"
+    history = WORK / "serve_perf_history.jsonl"
+    history.unlink(missing_ok=True)
+    load_args = ["--requests", str(LOAD_REQUESTS), "--concurrency", "8",
+                 "--shapes", f"{LOAD_H}x{LOAD_W}", "--channels",
+                 str(MAIN_C), "--reps", str(MAIN_REPS), "--backend",
+                 "pallas", "--verify", "golden", "--stats-json",
+                 str(stats_json), "--perf-log", str(history)]
+    obs.reset()
+    buf = io.StringIO()
+    cs.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_cli.main(load_args)
+    counts = cs.launch_counts()
+    lines = buf.getvalue().strip().splitlines()
+    for ln in lines:
+        print(ln, flush=True)
+    require(rc == 0, f"serve load run returned {rc}")
+    report = json.loads(stats_json.read_text())
+    c = report["stats"]["counters"]
+    fallbacks = obs.snapshot()["counters"].get("resilience_fallbacks_total",
+                                               0)
+    require(report["verify_failures_total"] == 0
+            and c["completed_total"] == LOAD_REQUESTS
+            and c["failed_total"] == 0
+            and report["rejected"] == 0 and fallbacks == 0,
+            f"serve load run: {c}, verify failures "
+            f"{report['verify_failures_total']}, fallbacks {fallbacks}")
+    require(counts == launches(stencil_fused=MAIN_REPS * c["batches_total"]),
+            f"serve load run: launches {counts} over {c['batches_total']} "
+            "batches")
+    metric = f"serve.p50_s.closed.c8.reps{MAIN_REPS}"
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_stencil_torch", "perf", "check",
+         "--history", str(history), "--metric", metric,
+         "--value", repr(report["p50_s"]), "--shape", f"{LOAD_H}x{LOAD_W}",
+         "--backend", "pallas", "--platform", "gpu", "--json"],
+        capture_output=True, text=True, timeout=120, cwd=ROOT)
+    verdict = json.loads(proc.stdout.strip().splitlines()[-1])
+    require(proc.returncode == 0 and verdict["n_history"] == 1,
+            f"perf check read {verdict} (rc {proc.returncode})")
+    load = {"cli": {
+        "throughput_rps": report["throughput_rps"],
+        "p50_s": report["p50_s"], "p99_s": report["p99_s"],
+        "wall_seconds": report["wall_seconds"],
+        "batches": c["batches_total"],
+        "batch_hbm_gbps": report["stats"]["histograms"]["batch_hbm_gbps"],
+        "launches": counts, "perf_check": verdict["status"]}}
+    lap("load_cli")
+    # (b) The same seeded requests twice through loadgen.run on one
+    # server built as the CLI builds it: a cold pass (programs built and
+    # pinned slots allocated on first use); then every batch bucket's
+    # ring of slots filled (three groups of nb, nb = 1, 2, 4, 8); then a
+    # warm pass, which allocates nothing. Every result is kept and held,
+    # after its pass, against torch ops on the card, so a pinned slot's
+    # canvas and output, each rewritten many times a pass, are checked
+    # under the load run's own timing.
+    import concurrent.futures
+
+    limages = loadgen.synth_requests(LOAD_REQUESTS, [(LOAD_H, LOAD_W)],
+                                     [MAIN_C], 0)
+    lwant = [witness.device_witness(img, "gaussian", MAIN_REPS, device=dev)
+             for img in limages]
+    lap("load_references")
+    load_kw = dict(mode="closed", requests=LOAD_REQUESTS, concurrency=8,
+                   reps=MAIN_REPS, shapes=[(LOAD_H, LOAD_W)],
+                   channels=[MAIN_C], seed=0, per_request=True)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    def ring_sizes(server) -> dict:
+        return {k: len(e["slots"])
+                for k, e in server._arena._rings.items()}
+
+    cs.reset_launch_counts()
+    with StencilServer(ServeConfig(backend="pallas"), device=dev) as server:
+        cold = serve_load_pass(server, "cold", load_kw, limages, lwant)
+        cold_rings = ring_sizes(server)
+        lap("load_cold_pass")
+        b0 = server.stats()["counters"]["batches_total"]
+        ring = server.cfg.pipeline_depth + 1
+        for nb in (1, 2, 4, 8):
+            for _ in range(ring):
+                items = [GroupItem(image=img,
+                                   future=concurrent.futures.Future(),
+                                   t_submit=time.perf_counter())
+                         for img in limages[:nb]]
+                server.submit_group(items, MAIN_REPS)
+                require(all(np.array_equal(it.future.result(timeout=300),
+                                           lwant[i])
+                            for i, it in enumerate(items)),
+                        f"serve ring fill: a group of {nb} differs")
+        fill_batches = server.stats()["counters"]["batches_total"] - b0
+        a0 = server.stats()["counters"]["arena_canvas_alloc_total"]
+        lap("load_ring_fill")
+        warm = serve_load_pass(server, "warm", load_kw, limages, lwant)
+        require(warm["arena_alloc_total"] == a0,
+                f"serve warm pass allocated "
+                f"{warm['arena_alloc_total'] - a0} pinned slots")
+        lap("load_warm_pass")
+        torch.cuda.synchronize()
+        pcounts = cs.launch_counts()
+        nbatch = cold["batches"] + fill_batches + warm["batches"]
+        require(pcounts == launches(stencil_fused=MAIN_REPS * nbatch),
+                f"serve load passes: launches {pcounts} over {nbatch} "
+                "batches")
+        # The card's idle share over a profiled warm closed-loop run of 16
+        # requests (a run of its own: the profiler's cost stays out of the
+        # numbers above).
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            loadgen.run(server, **dict(load_kw, requests=16,
+                                       per_request=False))
+            torch.cuda.synchronize()
+        lap("load_profiled")
+        # The cold pass's pinned allocations: one slot of each key timed
+        # here, times the slots the cold pass gave the key.
+        alloc_ms, alloc_bytes = 0.0, 0
+        for key, n in cold_rings.items():
+            nb, _bh, bw, ch, stride = key
+            shape = (nb, stride, bw) + ((ch,) if ch > 1 else ())
+            t = time.perf_counter()
+            slot = serve_engine._Slot(shape, True)
+            alloc_ms += 1e3 * (time.perf_counter() - t) * n
+            alloc_bytes += slot.nbytes * n
+            del slot
+        lap("load_alloc_timing")
+    trace = str(WORK / "serve_trace.json")
+    prof.export_chrome_trace(trace)
+    load.update(cold=cold, warm=warm, launches=pcounts,
+                ring_fill_batches=fill_batches,
+                profiled=stream_concurrency(trace),
+                pinned_alloc={"cold_slots": sum(cold_rings.values()),
+                              "ms": alloc_ms, "bytes": alloc_bytes,
+                              "cold_wall_share":
+                                  alloc_ms / 1e3 / cold["wall_seconds"]})
+    out["load"] = load
+    for label, r in (("cold", cold), ("warm", warm)):
+        print(f"serve load {label}: throughput_rps={r['throughput_rps']} "
+              f"p50_s={r['p50_s']} p99_s={r['p99_s']} "
+              f"batch_hbm_gbps_mean={r['batch_hbm_gbps_mean']} "
+              f"verified={r['verified']}", flush=True)
+    print(f"serve load: idle_share={load['profiled']['idle_share']} "
+          f"cold pinned slots={sum(cold_rings.values())} "
+          f"alloc_ms={alloc_ms} cold_wall_share="
+          f"{load['pinned_alloc']['cold_wall_share']}", flush=True)
+    lap("load_report")
+    # 6. submit_group of 4: one stacked batch; the witness on a few
+    # requests (torch ops on the card against K1, launching no kernel: K1
+    # launches only the served batches' 9 + 9 + 40): no mismatch.
+    gcfg = ServeConfig(backend="pallas", max_batch=8, witness_rate=1.0)
+    gimgs = serve_images([(240, 320, 3, "gaussian", 9)] * 4)
+    cs.reset_launch_counts()
+    with StencilServer(gcfg, device=dev) as server:
+        verdicts = []
+        server.on_witness = verdicts.append
+        server.submit(gimgs[0], 9).result(timeout=300)  # the key warm
+        b0 = server.stats()["counters"]["batches_total"]
+        now = time.perf_counter()
+        items = [GroupItem(image=g, future=concurrent.futures.Future(),
+                           t_submit=now) for g in gimgs]
+        server.submit_group(items, 9)
+        ggot = [it.future.result(timeout=300) for it in items]
+        big_got = server.submit(images[0], MAIN_REPS).result(timeout=300)
+        deadline = time.perf_counter() + 120
+        while len(verdicts) < 6 and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        gstats = server.stats()["counters"]
+    torch.cuda.synchronize()
+    gcounts = cs.launch_counts()
+    require(gcounts == launches(stencil_fused=9 + 9 + MAIN_REPS),
+            f"group and witness: launches {gcounts}")
+    gwant = [serve_reference(g, "gaussian", 9, dev, 90 + i)
+             for i, g in enumerate(gimgs)]
+    require(gstats["batches_total"] == b0 + 2
+            and all(np.array_equal(a, b) for a, b in zip(ggot, gwant))
+            and np.array_equal(big_got, want[0]),
+            f"submit_group: batches {gstats['batches_total']} after {b0}")
+    require(verdicts == [True] * 6
+            and gstats["integrity_witness_mismatch_total"] == 0,
+            f"witness verdicts {verdicts}, {gstats}")
+    out["group"] = {"batches": gstats["batches_total"] - b0,
+                    "launches": gcounts,
+                    "witness_total": gstats["integrity_witness_total"],
+                    "witness_mismatch":
+                        gstats["integrity_witness_mismatch_total"]}
+    lap("group_witness")
+    return {"phase": "serve_path", "ok": True,
+            "seconds": time.perf_counter() - t_phase, "laps": laps,
+            "max_abs_err": max(out["pallas"]["max_abs_err"],
+                               out["xla"]["max_abs_err"]),
+            "runs": out}
+
+
 def phase_times(dev) -> dict:
     from tpu_stencil_torch.ops import cuda_stencil as cs
     from tpu_stencil_torch.ops import lowering
@@ -3336,6 +3873,9 @@ def run(dev: torch.device) -> None:
     emit(stream_path)
     shard_stream = phase_shard_stream_path(dev)
     emit(shard_stream)
+    serve_path = phase_serve_path(dev)
+    emit(serve_path)
+    serve_runs = serve_path["runs"]
     times = phase_times(dev)
     emit(times)
 
@@ -3360,7 +3900,19 @@ def run(dev: torch.device) -> None:
          # warm-up's), the fan of 2 lanes on this card, the batch axis.
          "stream_launches": {
              k: stream_path["runs"][k]["launches"]["stencil_fused"]
-             for k in ("stream_rgb", "mesh2_rgb")}},
+             for k in ("stream_rgb", "mesh2_rgb")},
+         # The serving engine: one single-rep launch per rep per bucket
+         # batch (the ten mixed requests, the two big frames under
+         # overlap off, the 64-request load run).
+         "serve_launches": {
+             "mixed_requests": serve_runs["pallas"]["launches"][
+                 "stencil_fused"],
+             "overlap_off": serve_runs["sharded"]["off"]["launches"][
+                 "stencil_fused"],
+             "load_run": serve_runs["load"]["cli"]["launches"][
+                 "stencil_fused"],
+             "load_passes": serve_runs["load"]["launches"][
+                 "stencil_fused"]}},
         {"name": "stencil_resident",
          "source": "tpu_stencil_torch/ops/csrc/stencil_resident.cu",
          "replaces": "tpu_stencil/ops/pallas_stencil.py:1079",
@@ -3407,7 +3959,12 @@ def run(dev: torch.device) -> None:
          "shard_stream_launches": {
              k: shard_stream["runs"][k]["launches"]["stencil_valid"]
              for k in ("shard2x2_edge", "shard2x2_off", "shard1x2_grey",
-                       "big_8k")}},
+                       "big_8k")},
+         # The serving engine's sharded route: the two big frames under
+         # edge on the visible card (1x1) and on [cuda:0] * 4 (2x2).
+         "serve_launches": {
+             k: serve_runs["sharded"][k]["launches"]["stencil_valid"]
+             for k in ("edge_1x1", "edge_2x2")}},
         # L2 and L1 run on the tools' path, not the job's: their launches
         # are those of the tool runs in phases l2 and l1, with no warm-up.
         {"name": "stencil_lab",

@@ -69,6 +69,12 @@ def test_every_module_is_found():
               "tpu_stencil_torch.obs.introspect",
               "tpu_stencil_torch.serve",
               "tpu_stencil_torch.serve.metrics",
+              "tpu_stencil_torch.serve.bucketing",
+              "tpu_stencil_torch.serve.engine",
+              "tpu_stencil_torch.serve.loadgen",
+              "tpu_stencil_torch.serve.cli",
+              "tpu_stencil_torch.obs.ledger",
+              "tpu_stencil_torch.obs.sentry",
               "tpu_stencil_torch.resilience.faults",
               "tpu_stencil_torch.resilience.fallback",
               "tpu_stencil_torch.runtime.checkpoint",
@@ -223,3 +229,27 @@ def test_initialize_raises_when_the_rendezvous_is_unreachable(rank):
                        text=True, cwd=REPO, env=env, timeout=120)
     assert "RAISED" in r.stdout, (r.stdout, r.stderr[-2000:])
     assert time.perf_counter() - t0 < 60
+
+
+@pytest.mark.parametrize("code,module", [
+    ("import tpu_stencil_torch.serve", "tpu_stencil_torch.serve.engine"),
+    ("from tpu_stencil_torch import cli\n"
+     "assert cli.main(['serve', '--self-test', '--platform', 'cpu']) == 0",
+     "tpu_stencil_torch.serve.cli"),
+    ("from tpu_stencil_torch import cli\n"
+     "assert cli.main(['perf', 'report', '--history', 'none.jsonl']) == 0",
+     "tpu_stencil_torch.obs.sentry"),
+    ("from tpu_stencil_torch.serve import cli\n"
+     "assert cli.main(['--platform', 'cpu', '--requests', '3', '--shapes',\n"
+     "                 '8x8', '--reps', '1', '--perf-log', 'h.jsonl']) == 0",
+     "tpu_stencil_torch.serve.loadgen"),
+], ids=["import", "serve_self_test", "perf_report", "serve_loadgen"])
+def test_serve_and_perf_load_no_jax_module(tmp_path, code, module):
+    code += "\nimport json, sys\nprint(json.dumps(sorted(sys.modules)))\n"
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=tmp_path, env=env, timeout=300)
+    assert r.returncode == 0, r.stderr
+    loaded = json.loads(r.stdout.strip().splitlines()[-1])
+    assert module in loaded
+    assert [m for m in loaded if _forbidden(m)] == []

@@ -15,8 +15,10 @@ sharded run adds the overlap table),
 ``--metrics-text`` writes the driver registry, ``--hlo-dump`` is accepted
 and writes nothing.
 
-``python -m tpu_stencil_torch stream ...`` is the streaming engine
-(:mod:`tpu_stencil_torch.stream.cli`), dispatched ahead of the job's
+``python -m tpu_stencil_torch serve ...`` is the serving engine
+(:mod:`tpu_stencil_torch.serve.cli`), ``stream ...`` the streaming engine
+(:mod:`tpu_stencil_torch.stream.cli`) and ``perf ...`` the perf sentry
+(:mod:`tpu_stencil_torch.obs.sentry`), each dispatched ahead of the job's
 parser as in the JAX package.
 
 Several processes (the reference's ``mpiexec -n P``)::
@@ -46,11 +48,21 @@ from tpu_stencil_torch.resilience import deadline as _deadline
 def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
+    if argv and argv[0] == "serve":
+        # The serving engine owns its own flags, one process.
+        from tpu_stencil_torch.serve import cli as serve_cli
+
+        return serve_cli.main(argv[1:])
     if argv and argv[0] == "stream":
         # The streaming engine owns its own flags, one process.
         from tpu_stencil_torch.stream import cli as stream_cli
 
         return stream_cli.main(argv[1:])
+    if argv and argv[0] == "perf":
+        # The perf sentry (log/check/report) touches no device.
+        from tpu_stencil_torch.obs import sentry
+
+        return sentry.main(argv[1:])
     cfg, ns = parse_args(argv)
     # Joining the job's processes leads main, as MPI_Init does
     # (mpi/mpi_convolution.c:23); a no-op for one process.

@@ -356,6 +356,117 @@ class StreamConfig:
         return os.path.join(d, f"blur_{base}")
 
 
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Configuration of the in-process serving engine
+    (:mod:`tpu_stencil_torch.serve`), field for field and check for check
+    the JAX package's. Torch-free, so the ``serve`` CLI validates its
+    flags before any device is touched.
+
+    The queue bound is the backpressure contract: ``submit`` on a full
+    queue raises, it never buffers unboundedly. ``max_batch`` bounds one
+    scheduler dispatch; ``pipeline_depth`` bounds the batches in flight
+    (H2D double-buffered against compute), so peak memory is
+    ``O(max_queue + pipeline_depth * max_batch)`` frames.
+    """
+
+    filter_name: str = "gaussian"
+    backend: str = "auto"      # same vocabulary as JobConfig.backend
+    boundary: str = "zero"
+    max_queue: int = 256       # pending requests before reject-with-error
+    max_batch: int = 8         # requests per micro-batch dispatch
+    pipeline_depth: int = 2    # in-flight batches (2 = double buffering)
+    max_executables: int = 64  # LRU cap on cached bucket programs
+    # Shape-bucket ladder override (ascending edge sizes); None = the
+    # serve default (serve.bucketing.DEFAULT_EDGES). Requests above the
+    # top edge pad to the next top-edge multiple.
+    bucket_edges: Optional[Tuple[int, ...]] = None
+    # Interior/border overlap schedule, JobConfig.overlap's vocabulary.
+    # "off" keeps every request on the single-device bucket route; any
+    # other mode routes requests of at least ``shard_min_pixels`` true
+    # pixels through the sharded runner (K3) under this schedule, keyed
+    # into their own request bucket so small requests never share a batch
+    # with a sharded dispatch. Byte-equal to the bucket route.
+    overlap: str = "off"
+    shard_min_pixels: int = 1 << 20
+    # Device-memory sampler period (seconds): a background thread gauges
+    # the allocator into the server registry. 0 disables; the CPU never
+    # starts the thread.
+    mem_sample_interval_s: float = 0.5
+    # Default per-request deadline (seconds; 0 = none): a request whose
+    # deadline expires while queued fails typed (DeadlineExceeded).
+    request_timeout_s: float = 0.0
+    # Pin every bucket dispatch to cuda:<device_index>; None = the
+    # server's device (the card by default). The replica-fleet knob.
+    device_index: Optional[int] = None
+    # Witness re-execution: this fraction of completed requests (seeded
+    # Bernoulli) re-runs through torch ops and is compared byte for byte.
+    witness_rate: float = 0.0
+    witness_seed: int = 0
+
+    def __post_init__(self) -> None:
+        if self.backend not in BACKENDS:
+            raise ValueError(f"unknown backend {self.backend!r}")
+        if self.device_index is not None and self.device_index < 0:
+            raise ValueError(
+                f"device_index must be >= 0 (None = default device), got "
+                f"{self.device_index}"
+            )
+        if self.boundary not in ("zero", "periodic"):
+            raise ValueError(f"unknown boundary {self.boundary!r}")
+        if self.max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1, got {self.max_queue}")
+        if self.max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1, got {self.max_batch}")
+        if self.pipeline_depth < 1:
+            raise ValueError(
+                f"pipeline_depth must be >= 1, got {self.pipeline_depth}"
+            )
+        if self.max_executables < 1:
+            raise ValueError(
+                f"max_executables must be >= 1, got {self.max_executables}"
+            )
+        if self.overlap not in OVERLAP_MODES:
+            raise ValueError(
+                f"unknown overlap mode {self.overlap!r}; expected one of "
+                f"{'|'.join(OVERLAP_MODES)}"
+            )
+        if self.shard_min_pixels < 1:
+            raise ValueError(
+                f"shard_min_pixels must be >= 1, got "
+                f"{self.shard_min_pixels}"
+            )
+        if self.mem_sample_interval_s < 0:
+            raise ValueError(
+                f"mem_sample_interval_s must be >= 0 (0 = off), got "
+                f"{self.mem_sample_interval_s}"
+            )
+        if self.request_timeout_s < 0:
+            raise ValueError(
+                f"request_timeout_s must be >= 0 (0 = none), got "
+                f"{self.request_timeout_s}"
+            )
+        if not 0.0 <= self.witness_rate <= 1.0:
+            raise ValueError(
+                f"witness_rate must be in [0, 1], got {self.witness_rate}"
+            )
+        if self.bucket_edges is not None:
+            object.__setattr__(
+                self, "bucket_edges", _normalize_bucket_edges(self.bucket_edges)
+            )
+
+
+def _normalize_bucket_edges(edges) -> Tuple[int, ...]:
+    """The bucket-ladder rule: strictly ascending positive ints."""
+    out = tuple(edges)
+    if not out or any(e < 1 for e in out) or list(out) != sorted(set(out)):
+        raise ValueError(
+            "bucket_edges must be strictly ascending positive ints, "
+            f"got {edges!r}"
+        )
+    return out
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tpu_stencil_torch",

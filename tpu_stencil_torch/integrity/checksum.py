@@ -7,8 +7,9 @@ inside ``"fuse": 8`` still parses as JSON; the CRC sees it) and every
 frame of a stream (:mod:`tpu_stencil_torch.stream.engine` checksums each
 staging slot when the reader fills it and again before its copy to the
 card); :func:`verify`, :class:`ChecksumMismatch`, :class:`WitnessMismatch`
-and the deterministic corruption of the chaos sites (:func:`fired`,
-:func:`corrupt_array`). The same values as any standard CRC32C (poly
+the deterministic corruption of the chaos sites (:func:`fired`,
+:func:`corrupt_array`), and the wire stamps a client checks
+(:data:`CRC_HEADER`, :data:`RESULT_HEADER`, :func:`stamp_matches`). The same values as any standard CRC32C (poly
 0x1EDC6F41 reflected; ``crc32c(b"123456789") == 0xE3069283``).
 
 Buffers of :data:`NATIVE_MIN_BYTES` or more go through the port's own C++
@@ -29,6 +30,13 @@ import threading
 from typing import Optional
 
 import numpy as np
+
+#: Optional request header: the client's CRC32C of the request body.
+CRC_HEADER = "X-Content-Crc32c"
+
+#: Response header on every 200 payload: the CRC32C of the result bytes,
+#: computed server-side after the compute.
+RESULT_HEADER = "X-Result-Crc32c"
 
 # Below this many bytes the table loop is cheaper than a ctypes call, and
 # a cache entry or a sidecar never needs the built library.
@@ -152,6 +160,34 @@ def verify(data, expected: int, where: str) -> None:
     got = native_crc32c(data)
     if got != int(expected):
         raise ChecksumMismatch(where, int(expected), got)
+
+
+def parse_crc(value: str, where: str) -> int:
+    """Parse a wire CRC header (unsigned decimal). A malformed header is
+    a plain ``ValueError``."""
+    try:
+        n = int(value)
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"{where}: malformed crc32c {value!r} (unsigned decimal "
+            f"expected)"
+        ) from None
+    if not 0 <= n <= 0xFFFFFFFF:
+        raise ValueError(f"{where}: crc32c {n} outside uint32 range")
+    return n
+
+
+def stamp_matches(stamp: Optional[str], data: bytes) -> bool:
+    """Whether a response's ``X-Result-Crc32c`` stamp verifies ``data``
+    (the client-side check). A missing or malformed stamp is a failure:
+    wire corruption can hit the header bytes as easily as the body."""
+    if stamp is None:
+        return False
+    try:
+        want = parse_crc(stamp, RESULT_HEADER)
+    except ValueError:
+        return False
+    return crc32c(data) == want
 
 
 # -- deterministic corruption (the chaos side of the contract) ----------

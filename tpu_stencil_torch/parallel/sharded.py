@@ -823,14 +823,17 @@ def runner_key(model, image_shape, channels, mesh_shape, devices,
 
 
 def shared_runner(model, image_shape, channels, mesh_shape=None,
-                  devices=None, overlap: str = "off",
-                  registry=None) -> Optional["ShardedRunner"]:
+                  devices=None, overlap: str = "off", registry=None,
+                  build_wrapper=None) -> Optional["ShardedRunner"]:
     """The cached :class:`ShardedRunner` for this identity, or None when
     the mesh cannot serve the geometry (the build raised ValueError or
     NotImplementedError: a tile smaller than the filter halo, a periodic
     image that does not divide the grid; the refusal is cached).
     ``registry`` counts ``sharded_runner_{hits,misses,evictions}_total``
-    and ``sharded_fallbacks_total``."""
+    and ``sharded_fallbacks_total``. ``build_wrapper`` wraps a cold build
+    (serve's ``serve.sharded_runner_build`` span and its ``compile``
+    fault site): it receives the zero-argument builder and must call
+    it."""
     rshape, rdevs = _resolved_mesh_for_key(mesh_shape, devices,
                                            image_shape)
     key = runner_key(model, image_shape, channels, rshape, rdevs, overlap)
@@ -840,10 +843,11 @@ def shared_runner(model, image_shape, channels, mesh_shape=None,
                              mesh_shape=rshape, devices=rdevs,
                              overlap=overlap)
 
-    return cached_runner(key, build, registry=registry)
+    return cached_runner(key, build, registry=registry,
+                         build_wrapper=build_wrapper)
 
 
-def cached_runner(key, build, registry=None):
+def cached_runner(key, build, registry=None, build_wrapper=None):
     """Get or build against the one process-shared LRU of runners
     (:class:`ShardedRunner`, and the temporal pipeline's
     :class:`~tpu_stencil_torch.parallel.pipeline.PipelineRunner` under its
@@ -860,7 +864,7 @@ def cached_runner(key, build, registry=None):
     if registry is not None:
         registry.counter("sharded_runner_misses_total").inc()
     try:
-        runner = build()
+        runner = build_wrapper(build) if build_wrapper else build()
     except (ValueError, NotImplementedError):
         # A deterministic geometry refusal; transient and build failures
         # raise other types and are not cached.

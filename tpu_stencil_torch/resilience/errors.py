@@ -3,7 +3,7 @@
 The port's counterpart of the JAX package's ``resilience/errors.py``:
 every error a layer raises on purpose is a class here, so callers can
 assert "failed typed" instead of matching messages. The classes of parts
-not ported yet (the serve worker, remote hosts) come with those parts.
+not ported yet (remote hosts) come with those parts.
 """
 
 from __future__ import annotations
@@ -20,6 +20,12 @@ class DeadlineExceeded(ResilienceError):
     classification: retrying the same expired request can only expire
     again."""
 
+
+class WorkerCrashed(ResilienceError):
+    """The serve engine's worker thread died from an unhandled exception.
+    Every queued and in-flight future fails with this (they would
+    otherwise wait forever), and later submits are rejected with it: a
+    crashed server stays typed-dead until it is constructed anew."""
 
 
 class InjectedFault(ResilienceError):

@@ -13,11 +13,17 @@ The port's counterpart of the JAX package's ``resilience/retry.py``;
   (``ValueError``/``TypeError``), expired deadlines, missing files, and a
   kernel that did not build or launch (``KernelBuildError``,
   ``KernelLaunchError``: the same sources and the same arguments fail the
-  same way).
+  same way), and a closed or draining server (``ServerClosed``,
+  ``Draining``: it never reopens for this process).
+* **backpressure** (``QueueFull``) is transient: re-offer later.
+  :func:`reoffer_call` is the closed-loop re-offer shape the serving
+  clients share, and a ``retry_after_s`` hint on an error is the floor of
+  the next backoff.
 
 Unknown exceptions default to transient. Backoff is exponential with
 decorrelating jitter so that clients that failed together do not retry
-together. :data:`retries_total` counts the retries of this process.
+together. :data:`retries_total` counts the retries of this process, as
+does the driver registry's ``resilience_retries_total``.
 """
 
 from __future__ import annotations
@@ -57,7 +63,11 @@ _PERMANENT_ERRNOS = frozenset(
 # packages that raise them.
 _PERMANENT_TYPE_NAMES = frozenset({
     "KernelBuildError", "KernelLaunchError", "NoDeviceError",
+    "ServerClosed", "Draining",
 })
+# Backpressure: the serving engine's QueueFull (by name too, since the
+# engine imports this module).
+_TRANSIENT_TYPE_NAMES = frozenset({"QueueFull"})
 
 retries_total = 0
 
@@ -67,6 +77,8 @@ def classify(exc: BaseException) -> str:
     cannot). See the module docstring for the taxonomy."""
     if isinstance(exc, DeadlineExceeded):
         return PERMANENT  # an expired request can only expire again
+    if type(exc).__name__ in _TRANSIENT_TYPE_NAMES:
+        return TRANSIENT
     if type(exc).__name__ in _PERMANENT_TYPE_NAMES:
         return PERMANENT
     msg = str(exc)
@@ -120,19 +132,35 @@ IO_POLICY = RetryPolicy(attempts=3, base_delay=0.05, multiplier=2.0,
                         max_delay=1.0)
 
 
+def _hint_seconds(exc: BaseException) -> Optional[float]:
+    """The ``retry_after_s`` hint an error carries (a server's
+    Retry-After), or None when it has none or it does not parse."""
+    hint = getattr(exc, "retry_after_s", None)
+    try:
+        return float(hint) if hint is not None else None
+    except (TypeError, ValueError):
+        return None
+
+
 def retry_call(
     fn: Callable,
     policy: Optional[RetryPolicy] = None,
     classify_fn: Callable[[BaseException], str] = classify,
     on_retry: Optional[Callable[[int, BaseException], None]] = None,
+    label: str = "",
 ):
     """Call ``fn()`` under ``policy``: permanent failures raise
     immediately, transient ones back off and retry until the attempt
     budget runs out (the last error raises). ``on_retry(attempt, exc)``
     runs before each backoff; a hook that raises aborts the retry loop
     with its own error, which is how callers impose an overall deadline
-    (:class:`~.deadline.Deadline`)."""
+    (:class:`~.deadline.Deadline`). An error's ``retry_after_s`` hint is
+    the floor of its backoff (counted in
+    ``resilience_retry_after_honored_total``); ``label`` names the loop
+    in its ``resilience.retry`` spans."""
     global retries_total
+    from tpu_stencil_torch import obs
+
     policy = policy or DEFAULT_POLICY
     attempts = max(1, policy.attempts)
     for attempt in range(attempts):
@@ -142,8 +170,64 @@ def retry_call(
             if attempt + 1 >= attempts or classify_fn(e) != TRANSIENT:
                 raise
             retries_total += 1
+            obs.registry().counter("resilience_retries_total").inc()
             if on_retry is not None:
                 on_retry(attempt, e)
-            time.sleep(policy.delay(attempt))
+            pause = policy.delay(attempt)
+            hint = _hint_seconds(e)
+            if hint is not None and hint > pause:
+                pause = hint
+                obs.registry().counter(
+                    "resilience_retry_after_honored_total").inc()
+            with obs.span("resilience.retry", "resilience", attempt=attempt,
+                          label=label, error=type(e).__name__):
+                time.sleep(pause)
     raise AssertionError("unreachable")  # the loop returns or raises
 
+
+def reoffer_call(
+    fn: Callable,
+    policy: Optional[RetryPolicy] = None,
+    give_up_after_s: Optional[float] = 300.0,
+    base_delay: float = 0.001,
+    max_delay: float = 0.05,
+    label: str = "reoffer",
+):
+    """:func:`retry_call` under the closed-loop re-offer contract of the
+    serving clients (``StencilServer.submit_retrying`` and
+    ``loadgen.HttpTarget``): backpressure (``QueueFull``) backs off and
+    re-offers with an effectively unbounded attempt budget, bounded by
+    the wall-clock ``give_up_after_s``; past it the next re-offer raises
+    ``TimeoutError('gave up re-offering ...')``, as it does at once when
+    a server's Retry-After hint outlasts the budget left. Permanent
+    errors raise immediately."""
+    from tpu_stencil_torch.resilience.deadline import Deadline
+
+    budget = Deadline.after(give_up_after_s) if give_up_after_s else None
+
+    def on_retry(_attempt: int, exc: BaseException) -> None:
+        if budget is None:
+            return
+        if budget.expired():
+            raise TimeoutError(
+                f"gave up re-offering after {give_up_after_s}s of "
+                f"backpressure"
+            ) from exc
+        hint = _hint_seconds(exc)
+        if hint is not None and hint > budget.remaining():
+            raise TimeoutError(
+                f"gave up re-offering: the server asked for "
+                f"{hint:g}s of backoff but only "
+                f"{max(0.0, budget.remaining()):.3g}s of the "
+                f"{give_up_after_s}s budget remains"
+            ) from exc
+
+    return retry_call(
+        fn,
+        policy=policy or RetryPolicy(
+            attempts=1_000_000, base_delay=base_delay, multiplier=1.0,
+            max_delay=max_delay, jitter=0.5,
+        ),
+        on_retry=on_retry,
+        label=label,
+    )
