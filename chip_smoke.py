@@ -220,7 +220,39 @@ one JSON line. The phases that pin launch counts name ``--backend pallas``
    allocated, one of each key timed; a ``submit_group`` of 4 as one
    batch; the witness (torch ops on the card) on six requests, no
    mismatch.
-18. ``times`` — ms per rep at 1920x2520 RGB gaussian x40, each the median
+18. ``net_path`` — the network tier (``NetFrontend``: the HTTP front end,
+   the router, the replica fleet) on the card through real sockets on
+   port 0, ``--backend pallas``, seeded 1920x2520 RGB frames x40
+   gaussian, every result byte-equal to torch ops on the card: (1) one
+   replica (one per visible card), a ``POST /v1/blur`` with an
+   ``X-Content-Crc32c`` claim, its ``X-Result-Crc32c`` stamp verified,
+   K1 launching 40 and ``padded_step`` never called; (2) the ten mixed
+   requests of ``serve_path`` one at a time, one batch each, K1 launching
+   their reps' sum; (3) with ``--result-cache-mb 256``, eight identical
+   requests to a parked replica answering one ``X-Cache: miss`` and seven
+   ``collapsed`` for one request's 40 launches, then a repeat ``hit``
+   with none; (4) two replicas on ``[cuda:0] * 2``, every result
+   witnessed, ``integrity.corrupt_result`` armed on replica 1 alone:
+   three corrupted results quarantine it and drop the cache entries it
+   produced (``/statusz``), replica 0 serves the same requests exactly,
+   and the prober (24x32 grey x2: two K1 launches a probe, held against
+   the NumPy golden) re-admits replica 1 after two clean probes, K1's
+   launches those of the served requests plus the probes'; (5) under
+   load, ``POST /debug/prof?seconds=0.5`` spooling a trace that names
+   ``stencil_fused_kernel`` (the device's idle share over it),
+   ``/debug/timeseries`` rates above 0, ``/metrics`` an exact round trip,
+   ``/debug/capacity`` naming the H100's host link, ``/admin/warmstate``
+   a 200 ``unsupported`` envelope; (6) ``python -m tpu_stencil_torch net
+   --port 0 --backend pallas`` in a fresh process: 64 closed-loop
+   requests of 1920x2520 RGB x40 from 8 clients through
+   ``loadgen.HttpTarget`` (``--verify crc``, golden on, and every result
+   held against torch ops), twice: a cold pass, then the same requests
+   warm, requests/s, p50 and p99 of each printed beside ``serve_path``'s
+   warm in-process pass, a profiled run (the idle share), then SIGTERM:
+   a clean drain and rc 0; (7) with the kernel
+   builds forced to fail, a typed 500 naming ``KernelBuildError``, no
+   launch, no torch-ops call.
+19. ``times`` — ms per rep at 1920x2520 RGB gaussian x40, each the median
    of 7 runs after a warm-up (CUDA events, L2 flushed before each run):
    the three job kernels (K3 alone on the one ext tile of a 1x1 mesh at
    fuse 8), L2's ``current`` body, one L1 launch (``add_i32``, chain of
@@ -247,7 +279,8 @@ and K2 add ``stream_launches``, those of the 16-frame stream and of the
 adds its window launches and ms per rep under each overlap mode, the
 ``auto`` verdict and its thin-window time, and ``shard_stream_launches``,
 those of the sharded streams in ``shard_stream_path``; K1 and K3 add
-``serve_launches``, those of the serving engine in ``serve_path``),
+``serve_launches``, those of the serving engine in ``serve_path``; K1
+adds ``net_launches``, those of the network tier in ``net_path``),
 the ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero before that line; without a CUDA device the script exits
 non-zero at once.
@@ -3619,6 +3652,536 @@ def phase_serve_path(dev) -> dict:
             "runs": out}
 
 
+# -- the network tier (phase net_path) ---------------------------------
+
+NET_WORK = WORK / "net"
+# The mixed requests' reps, one batch each when posted one at a time.
+NET_MIXED_REPS = sum(c[4] for c in SERVE_CASES)
+
+
+def http_post(url: str, img: np.ndarray, reps: int, filter_name=None,
+              headers=None, timeout: float = 300.0) -> tuple:
+    """One ``POST /v1/blur``: (status, body, response headers)."""
+    import urllib.error
+    import urllib.request
+
+    h, w = img.shape[:2]
+    c = img.shape[2] if img.ndim == 3 else 1
+    hdr = {"X-Width": str(w), "X-Height": str(h), "X-Reps": str(reps),
+           "X-Channels": str(c)}
+    if filter_name:
+        hdr["X-Filter"] = filter_name
+    hdr.update(headers or {})
+    req = urllib.request.Request(url + "/v1/blur", data=img.tobytes(),
+                                 headers=hdr, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read(), r.headers
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), e.headers
+
+
+def http_call(url: str, path: str, post: bool = False,
+              timeout: float = 120.0) -> tuple:
+    """One GET (or an empty POST) of ``path``: (status, body)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url + path, data=b"" if post else None,
+                                 method="POST" if post else "GET")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def http_json(url: str, path: str, post: bool = False,
+              timeout: float = 120.0) -> dict:
+    status, body = http_call(url, path, post, timeout)
+    require(status == 200, f"{path}: HTTP {status} {body[:300]!r}")
+    return json.loads(body)
+
+
+def net_frontend(devices=None, start_workers: bool = True, **kw):
+    """A started ``NetFrontend`` under ``--backend pallas`` on port 0, its
+    flight recorder and profiler spools under build/chip_smoke/net;
+    ``devices`` None: every visible card, as the CLI gives them."""
+    from tpu_stencil_torch.config import NetConfig
+    from tpu_stencil_torch.net import NetFrontend
+
+    cfg = dict(port=0, backend="pallas",
+               flightrec_dir=str(NET_WORK / "flightrec"),
+               prof_dir=str(NET_WORK / "profspool"))
+    cfg.update(kw)
+    return NetFrontend(NetConfig(**cfg), start_workers=start_workers,
+                       devices=devices).start()
+
+
+@contextlib.contextmanager
+def counted_padded_step():
+    """The torch-ops rep (``lowering.padded_step``) records its calls
+    inside the block; yields the list of calls."""
+    from tpu_stencil_torch.ops import lowering
+
+    orig, calls = lowering.padded_step, []
+
+    def step(*a, **k):
+        calls.append(a[0].shape)
+        return orig(*a, **k)
+
+    lowering.padded_step = step
+    try:
+        yield calls
+    finally:
+        lowering.padded_step = orig
+
+
+def wait_until(pred, timeout: float = 60.0, what: str = "") -> None:
+    deadline = time.perf_counter() + timeout
+    while not pred():
+        require(time.perf_counter() < deadline, f"timed out: {what}")
+        time.sleep(0.02)
+
+
+def net_counter(fe, name: str) -> float:
+    return fe.metrics_snapshot()["counters"].get(name, 0)
+
+
+def prof_capture(url: str, seconds: float, load_fn) -> dict:
+    """``POST /debug/prof?seconds=`` while ``load_fn`` keeps the tier busy
+    on a thread; the spooled trace fetched back over ``GET /debug/prof/``
+    into build/chip_smoke/net: its K1 event count and the device's idle
+    share over it (:func:`stream_concurrency`)."""
+    import threading
+
+    stop = threading.Event()
+    errors = []
+
+    def load():
+        try:
+            while not stop.is_set():
+                load_fn()
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    t = threading.Thread(target=load, daemon=True)
+    t.start()
+    time.sleep(0.3)  # the load is running when the capture starts
+    try:
+        # A process's first capture also starts the profiler, which has
+        # taken tens of seconds on the card: a long wait, not a failure.
+        run = http_json(url, f"/debug/prof?seconds={seconds}", post=True,
+                        timeout=400.0)
+    finally:
+        stop.set()
+        t.join(timeout=300)
+    require(not errors and not t.is_alive(), f"profiled load: {errors}")
+    paths = [f["path"] for f in run["files"]]
+    require(len(paths) == 1, f"profiler capture files {run['files']}")
+    status, data = http_call(url, f"/debug/prof/{paths[0]}")
+    require(status == 200, f"GET /debug/prof/{paths[0]}: {status}")
+    trace = NET_WORK / f"{run['run']}.json"
+    trace.write_bytes(data)
+    index = http_json(url, "/debug/prof")
+    require(any(r["run"] == run["run"] for r in index["runs"]),
+            f"/debug/prof does not list {run['run']}")
+    names = [e[1] for e in device_events(str(trace))]
+    k1 = sum("stencil_fused_kernel" in n for n in names)
+    return {"run": run["run"], "seconds": run["seconds"], "bytes": len(data),
+            "device_events": len(names), "k1_events": k1,
+            **stream_concurrency(str(trace))}
+
+
+def phase_net_path(dev, serve_warm: dict) -> dict:
+    """Phase ``net_path``: the network tier (``NetFrontend``: HTTP front
+    end, router, replica fleet) on the card, through real sockets on port
+    0 (see the module docstring)."""
+    import concurrent.futures
+    import signal
+    import threading
+
+    from tpu_stencil_torch import obs
+    from tpu_stencil_torch.integrity import checksum, witness
+    from tpu_stencil_torch.obs import exposition
+    from tpu_stencil_torch.ops import _build
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+    from tpu_stencil_torch.resilience import faults
+    from tpu_stencil_torch.runtime import roofline
+    from tpu_stencil_torch.serve import loadgen
+
+    t_phase = time.perf_counter()
+    NET_WORK.mkdir(parents=True, exist_ok=True)
+    out, laps, t_lap = {}, {}, [t_phase]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name], t_lap[0] = now - t_lap[0], now
+
+    img = np.random.default_rng(200).integers(
+        0, 256, (MAIN_H, MAIN_W, MAIN_C), np.uint8)
+    want = witness.device_witness(img, "gaussian", MAIN_REPS, device=dev)
+    mixed = serve_images(SERVE_CASES)
+    mixed_want = [witness.device_witness(m, c[3], c[4], device=dev)
+                  for m, c in zip(mixed, SERVE_CASES)]
+    lap("references")
+
+    # 1. One replica on the card (the default: one per device), one
+    # request with an X-Content-Crc32c claim: byte-equal to torch ops,
+    # the response's stamp verifies, K1 launches 40 (one batch), and the
+    # torch-ops rep is never called. 2. The ten mixed requests one at a
+    # time: one batch each, K1 launches their reps' sum.
+    fe = net_frontend(witness_rate=0.0, sample_interval_s=0.2)
+    try:
+        require(len(fe.fleet) == 1 and fe.fleet.devices == [dev],
+                f"net default fleet {fe.fleet.devices}")
+        claim = {checksum.CRC_HEADER: str(checksum.crc32c(img))}
+        with counted_padded_step() as steps:
+            cs.reset_launch_counts()
+            status, body, hdr = http_post(fe.url, img, MAIN_REPS,
+                                          headers=claim)
+            torch.cuda.synchronize()
+            counts = cs.launch_counts()
+        require(status == 200, f"net POST: {status} {body[:300]!r}")
+        require(body == want.tobytes(), "net POST: bytes differ from "
+                "torch ops on the card")
+        require(checksum.stamp_matches(hdr.get(checksum.RESULT_HEADER),
+                                       body), "net POST: stamp mismatch")
+        require(counts == launches(stencil_fused=MAIN_REPS) and not steps,
+                f"net POST: launches {counts}, padded_step {len(steps)}")
+        out["one_request"] = {"launches": counts,
+                              "stamp": hdr[checksum.RESULT_HEADER]}
+        lap("one_request")
+        b0 = net_counter(fe, "fleet_batches_total")
+        with counted_padded_step() as steps:
+            cs.reset_launch_counts()
+            for i, (m, c) in enumerate(zip(mixed, SERVE_CASES)):
+                status, body, _ = http_post(fe.url, m, c[4],
+                                            filter_name=c[3])
+                require(status == 200 and body == mixed_want[i].tobytes(),
+                        f"net mixed request {i} ({c}): {status}")
+            torch.cuda.synchronize()
+            counts = cs.launch_counts()
+        batches = net_counter(fe, "fleet_batches_total") - b0
+        require(counts == launches(stencil_fused=NET_MIXED_REPS)
+                and batches == len(SERVE_CASES) and not steps,
+                f"net mixed: launches {counts} over {batches} batches, "
+                f"padded_step {len(steps)}")
+        out["mixed_requests"] = {"launches": counts, "batches": batches}
+        lap("mixed")
+
+        # 5. Observability under load: a profiler capture naming K1, the
+        # time series' rates, the exposition's exact round trip, the
+        # capacity payload's link.
+        prof = prof_capture(fe.url, 0.5, lambda: http_post(
+            fe.url, img, MAIN_REPS))
+        require(prof["k1_events"] > 0, f"the capture names no "
+                f"stencil_fused_kernel: {prof}")
+        ts = http_json(fe.url, "/debug/timeseries?window=30")
+        rate = ts["counters"]["responses_2xx_total"]["rate_per_s"]
+        hrate = ts["histograms"]["request_latency_seconds"]["rate_per_s"]
+        require(rate > 0 and hrate > 0, f"timeseries rates {rate} {hrate}")
+        status, text = http_call(fe.url, "/metrics")
+        text = text.decode()
+        snap = exposition.parse_text(text, prefix="tpu_stencil_net")
+        require(status == 200 and exposition.render_text(
+            snap, prefix="tpu_stencil_net") == text
+            and snap["counters"]["fleet_completed_total"] >= 11,
+            "/metrics does not round-trip")
+        cap = http_json(fe.url, "/debug/capacity")
+        link = roofline.H100_PCIE_BYTES_PER_S / 1e9
+        require(cap["bandwidth"]["roofline_gbps"] == link,
+                f"/debug/capacity link {cap['bandwidth']}")
+        warm = http_json(fe.url, "/admin/warmstate")
+        require(warm["entries"] == [] and warm.get("unsupported"),
+                f"/admin/warmstate {warm}")
+        out["observability"] = {
+            "profile": prof, "timeseries_2xx_rate_per_s": rate,
+            "timeseries_latency_rate_per_s": hrate,
+            "metrics_lines": len(text.splitlines()),
+            "capacity_bandwidth": cap["bandwidth"]}
+        lap("observability")
+    finally:
+        fe.close()
+
+    # 3. The result cache: eight identical requests to a parked replica,
+    # one leader and seven collapsed, launching one request's K1; then a
+    # repeat answers from the cache with no launch.
+    img2 = np.random.default_rng(201).integers(
+        0, 256, (MAIN_H, MAIN_W, MAIN_C), np.uint8)
+    want2 = witness.device_witness(img2, "gaussian", MAIN_REPS, device=dev)
+    fe = net_frontend(result_cache_mb=256.0, start_workers=False)
+    try:
+        results = [None] * 8
+
+        def post(i):
+            results[i] = http_post(fe.url, img2, MAIN_REPS)
+
+        pool = concurrent.futures.ThreadPoolExecutor(8)
+        futs = [pool.submit(post, i) for i in range(8)]
+        wait_until(lambda: net_counter(fe, "singleflight_leaders_total") == 1
+                   and net_counter(fe, "singleflight_collapsed_total") == 7,
+                   what="eight identical requests joined one flight")
+        cs.reset_launch_counts()
+        fe.fleet.start_workers()
+        for f in futs:
+            f.result(timeout=300)
+        pool.shutdown()
+        torch.cuda.synchronize()
+        counts = cs.launch_counts()
+        xc = sorted(r[2].get("X-Cache") for r in results)
+        require(all(r[0] == 200 and r[1] == want2.tobytes()
+                    for r in results)
+                and xc == ["collapsed"] * 7 + ["miss"]
+                and counts == launches(stencil_fused=MAIN_REPS),
+                f"net collapse: X-Cache {xc}, launches {counts}")
+        cs.reset_launch_counts()
+        status, body, hdr = http_post(fe.url, img2, MAIN_REPS)
+        torch.cuda.synchronize()
+        hit_counts = cs.launch_counts()
+        require(status == 200 and hdr.get("X-Cache") == "hit"
+                and body == want2.tobytes() and hit_counts == NO_LAUNCHES
+                and checksum.stamp_matches(
+                    hdr.get(checksum.RESULT_HEADER), body),
+                f"net cache hit: {hdr.get('X-Cache')}, launches "
+                f"{hit_counts}")
+        out["cache"] = {"collapse_launches": counts, "x_cache": xc,
+                        "hit_launches": hit_counts,
+                        "stats": fe.cache.stats()}
+        lap("cache")
+    finally:
+        fe.close()
+
+    # 4. Two replicas on one card, every result witnessed, replica 1
+    # corrupting its results (integrity.corrupt_result armed on it alone,
+    # three times). Replica 0 is parked holding one request, so
+    # least-outstanding placement sends the next requests to replica 1:
+    # three witness mismatches quarantine it and drop the cache entries it
+    # produced; replica 0, started, then serves exact bytes (the cache
+    # misses); the prober (two K1 reps a probe against the NumPy golden)
+    # re-admits replica 1 after --readmit-after clean probes.
+    quarantine = {}
+    faults.configure("integrity.corrupt_result:times=3")
+    try:
+        fe = net_frontend(devices=[dev, dev], start_workers=False,
+                          witness_rate=1.0, warm_fleet=False,
+                          result_cache_mb=256.0, quarantine_after=3,
+                          readmit_after=2, probe_interval_s=1.0)
+    finally:
+        faults.clear()
+    try:
+        fe.fleet.replicas[0]._fault_corrupt_result = None
+        fe.fleet.replicas[1].start()
+        cs.reset_launch_counts()
+        holder = np.random.default_rng(210).integers(
+            0, 256, (MAIN_H, MAIN_W, MAIN_C), np.uint8)
+        pool = concurrent.futures.ThreadPoolExecutor(1)
+        held = pool.submit(http_post, fe.url, holder, MAIN_REPS)
+        wait_until(lambda: fe.router.outstanding() == {0: 1, 1: 0},
+                   what="the held request on replica 0")
+        bad = [np.random.default_rng(220 + i).integers(
+            0, 256, (MAIN_H, MAIN_W, MAIN_C), np.uint8) for i in range(3)]
+        bad_want = [witness.device_witness(b, "gaussian", MAIN_REPS,
+                                           device=dev) for b in bad]
+        for b, w in zip(bad, bad_want):
+            status, body, hdr = http_post(fe.url, b, MAIN_REPS)
+            require(status == 200 and hdr["X-Replica"] == "1"
+                    and hdr["X-Cache"] == "miss" and body != w.tobytes(),
+                    f"net quarantine: a corrupted request came back "
+                    f"{status} from replica {hdr.get('X-Replica')}")
+        wait_until(lambda: fe.quarantine.is_quarantined(1),
+                   what="replica 1 quarantined")
+        st = http_json(fe.url, "/statusz")
+        cstats = fe.cache.stats()
+        c = fe.metrics_snapshot()["counters"]
+        kept_out = (c["cache_invalidations_witness_mismatch_total"]
+                    + c["result_cache_admission_refused_total"])
+        require(list(st["quarantine"]["quarantined"]) == ["1"]
+                and 1 not in cstats["replicas_indexed"] and kept_out == 3
+                and c["fleet_integrity_witness_mismatch_total"] == 3,
+                f"net quarantine: {st['quarantine']}, cache {cstats}, "
+                f"{kept_out} entries dropped or refused")
+        quarantine["quarantined"] = st["quarantine"]
+        fe.fleet.replicas[0].start()
+        status, body, hdr = held.result(timeout=300)
+        pool.shutdown()
+        require(status == 200 and hdr["X-Replica"] == "0"
+                and body == witness.device_witness(
+                    holder, "gaussian", MAIN_REPS, device=dev).tobytes(),
+                "net quarantine: the held request")
+        for b, w in zip(bad, bad_want):
+            status, body, hdr = http_post(fe.url, b, MAIN_REPS)
+            require(status == 200 and hdr["X-Replica"] == "0"
+                    and hdr["X-Cache"] == "miss" and body == w.tobytes(),
+                    f"net quarantine: after the trip, replica "
+                    f"{hdr.get('X-Replica')} X-Cache {hdr.get('X-Cache')}")
+        wait_until(lambda: not fe.quarantine.is_quarantined(1),
+                   timeout=120, what="replica 1 re-admitted")
+        st = http_json(fe.url, "/statusz")
+        require(st["quarantine"]["quarantined"] == {},
+                f"net re-admission: {st['quarantine']}")
+        quarantine["readmitted"] = st["quarantine"]
+    finally:
+        fe.close()
+    torch.cuda.synchronize()
+    counts = cs.launch_counts()
+    c = fe.metrics_snapshot()["counters"]
+    probes = c["integrity_probes_total"]
+    served = 1 + 3 + 3  # the held request, three corrupted, three exact
+    require(c["integrity_readmits_total"] == 1
+            and c.get("integrity_probe_failures_total", 0) == 0 and probes >= 2
+            and counts == launches(stencil_fused=served * MAIN_REPS
+                                   + probes * 2),
+            f"net quarantine: launches {counts}, probes {probes}, {c}")
+    quarantine.update(launches=counts, probes=probes,
+                      probe_k1_launches=2 * probes,
+                      quarantines=c["integrity_quarantines_total"],
+                      readmits=c["integrity_readmits_total"])
+    out["quarantine"] = quarantine
+    lap("quarantine")
+
+    # 6. The CLI in a fresh process: 64 closed-loop requests from 8
+    # clients through loadgen.HttpTarget (its CRC check and the golden
+    # check on; the golden checks frames up to 4096 pixels, none here,
+    # so every result is also held against torch ops on the card), a
+    # profiled run, then SIGTERM: a clean drain and rc 0.
+    limages = loadgen.synth_requests(LOAD_REQUESTS, [(LOAD_H, LOAD_W)],
+                                     [MAIN_C], 0)
+    lwant = [witness.device_witness(m, "gaussian", MAIN_REPS, device=dev)
+             for m in limages]
+    index = {m[0, :16].tobytes(): i for i, m in enumerate(limages)}
+    lap("load_references")
+    err_log = NET_WORK / "cli_stderr.log"
+    with open(err_log, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "tpu_stencil_torch", "net", "--port",
+             "0", "--backend", "pallas", "--drain-timeout", "60",
+             "--flightrec-dir", str(NET_WORK / "cli_flightrec"),
+             "--prof-dir", str(NET_WORK / "cli_profspool")],
+            stdout=subprocess.PIPE, stderr=err, text=True, cwd=ROOT)
+    lines = []
+
+    def read_stdout():
+        for ln in proc.stdout:
+            lines.append(ln)
+
+    reader = threading.Thread(target=read_stdout, daemon=True)
+    reader.start()
+    try:
+        wait_until(lambda: lines or proc.poll() is not None, timeout=300,
+                   what="the net CLI's serving line")
+        require(lines and "net: serving on http://" in lines[0],
+                f"net CLI: {lines} {err_log.read_text()[-2000:]}")
+        url = lines[0].split()[3]
+        def http_pass(label):
+            """The 64 requests through loadgen.HttpTarget, every result
+            then held against torch ops on the card."""
+            target = Captured(loadgen.HttpTarget(url, verify="crc"))
+            try:
+                rep = loadgen.run(target, mode="closed",
+                                  requests=LOAD_REQUESTS, concurrency=8,
+                                  reps=MAIN_REPS, shapes=[(LOAD_H, LOAD_W)],
+                                  channels=[MAIN_C], seed=0,
+                                  verify="golden", per_request=True)
+            finally:
+                target.server.close()
+            require(rep["completed"] == LOAD_REQUESTS
+                    and rep["verify_failures_total"] == 0,
+                    f"net CLI {label}: {rep['completed']} completed, "
+                    f"{rep['verify_failures_total']} verify failures")
+            err = 0
+            for image, fut in target.taken:
+                got = fut.result(timeout=0)
+                i = index[image[0, :16].tobytes()]
+                if not np.array_equal(got, lwant[i]):
+                    err = max(err, int(np.abs(
+                        got.astype(int) - lwant[i].astype(int)).max()))
+            require(err == 0 and len(target.taken) == LOAD_REQUESTS,
+                    f"net CLI {label}: max abs err {err}")
+            lat = sorted(r["latency_s"] for r in rep["per_request"])
+            return {"throughput_rps": rep["throughput_rps"],
+                    "p50_s": nearest_rank(lat, 50),
+                    "p99_s": nearest_rank(lat, 99),
+                    "wall_seconds": rep["wall_seconds"],
+                    "verified": len(target.taken), "max_abs_err": err}
+
+        # A cold pass (a fresh server: programs built, pinned slots
+        # allocated), then the same requests warm: the pass held beside
+        # serve_path's warm in-process pass.
+        cold = http_pass("cold pass")
+        cli = dict(http_pass("warm pass"), cold=cold)
+        err = max(cold["max_abs_err"], cli["max_abs_err"])
+        lap("cli_load")
+        # The profiled run: 8 clients posting the load's first 8 images in
+        # a closed loop while the capture runs.
+        with concurrent.futures.ThreadPoolExecutor(8) as clients:
+            cli["profile"] = prof_capture(url, 1.0, lambda: list(
+                clients.map(lambda m: http_post(url, m, MAIN_REPS),
+                            limages[:8])))
+        lap("cli_profile")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        reader.join(timeout=30)
+        require(rc == 0 and any("drained 1 replica(s) cleanly" in ln
+                                for ln in lines),
+                f"net CLI drain: rc {rc}, {lines[-3:]}, "
+                f"{err_log.read_text()[-2000:]}")
+        cli["rc"], cli["drain"] = rc, [ln.strip() for ln in lines
+                                       if "drain" in ln]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    out["cli"] = cli
+    print(f"net load cold (HTTP, CLI process): throughput_rps="
+          f"{cold['throughput_rps']} p50_s={cold['p50_s']} p99_s="
+          f"{cold['p99_s']} verified={cold['verified']}", flush=True)
+    print(f"net load warm (HTTP, CLI process): throughput_rps="
+          f"{cli['throughput_rps']} p50_s={cli['p50_s']} p99_s="
+          f"{cli['p99_s']} idle_share={cli['profile']['idle_share']} "
+          f"verified={cli['verified']}", flush=True)
+    print(f"serve load warm (in process, serve_path): throughput_rps="
+          f"{serve_warm['throughput_rps']} p50_s={serve_warm['p50_s']} "
+          f"p99_s={serve_warm['p99_s']}", flush=True)
+    lap("cli_drain")
+
+    # 7. No fallback: with the kernel builds failing, a request answers a
+    # typed 500 naming KernelBuildError; nothing launches and neither
+    # torch-ops path is called.
+    with failing_builds() as called, counted_padded_step() as steps:
+        fe = net_frontend()
+        try:
+            cs.reset_launch_counts()
+            status, body, _ = http_post(fe.url, mixed[-1],
+                                        SERVE_CASES[-1][4])
+            torch.cuda.synchronize()
+            counts = cs.launch_counts()
+        finally:
+            fe.close()
+    require(status == 500 and b"KernelBuildError" in body
+            and counts == NO_LAUNCHES and not called and not steps,
+            f"net no-fallback: {status} {body[:300]!r}, launches {counts}, "
+            f"torch ops {len(called)} + {len(steps)}")
+    out["no_fallback"] = {"status": status,
+                          "body": body.decode(errors="replace").strip(),
+                          "launches": counts}
+    lap("no_fallback")
+    k1 = {k: out[k]["launches"]["stencil_fused"]
+          for k in ("one_request", "mixed_requests")}
+    k1.update(cache_collapse=out["cache"]["collapse_launches"][
+        "stencil_fused"], cache_hit=out["cache"]["hit_launches"][
+        "stencil_fused"], quarantine=quarantine["launches"][
+        "stencil_fused"], probes=quarantine["probe_k1_launches"])
+    return {"phase": "net_path", "ok": True,
+            "seconds": time.perf_counter() - t_phase, "laps": laps,
+            "k1_launches": k1, "max_abs_err": max(err, 0), "runs": out,
+            "http_vs_in_process": {
+                "http_rps": cli["throughput_rps"],
+                "in_process_warm_rps": serve_warm["throughput_rps"],
+                "http_p99_s": cli["p99_s"],
+                "in_process_warm_p99_s": serve_warm["p99_s"]}}
+
+
 def phase_times(dev) -> dict:
     from tpu_stencil_torch.ops import cuda_stencil as cs
     from tpu_stencil_torch.ops import lowering
@@ -3876,6 +4439,8 @@ def run(dev: torch.device) -> None:
     serve_path = phase_serve_path(dev)
     emit(serve_path)
     serve_runs = serve_path["runs"]
+    net_path = phase_net_path(dev, serve_runs["load"]["warm"])
+    emit(net_path)
     times = phase_times(dev)
     emit(times)
 
@@ -3893,7 +4458,9 @@ def run(dev: torch.device) -> None:
          "warmup_launches": runs["default_warm"]["warmup_launches"]["stencil_fused"],
          "max_abs_err": max(k1["max_abs_err"],
                             runs["default_warm"]["max_abs_err"],
-                            runs["default_cold"]["max_abs_err"]),
+                            runs["default_cold"]["max_abs_err"],
+                            serve_path["max_abs_err"],
+                            net_path["max_abs_err"]),
          "ms": times["stencil_fused_ms"], **common,
          "body": times["tile_ab"]["gaussian"]["body"],
          # The stream of 16 frames through the CLI (5 a frame + the
@@ -3912,7 +4479,11 @@ def run(dev: torch.device) -> None:
              "load_run": serve_runs["load"]["cli"]["launches"][
                  "stencil_fused"],
              "load_passes": serve_runs["load"]["launches"][
-                 "stencil_fused"]}},
+                 "stencil_fused"]},
+         # The network tier: one request, the ten mixed requests one at a
+         # time, the collapsed misses and a cache hit, the quarantine run
+         # (served requests and the prober's two reps a probe).
+         "net_launches": net_path["k1_launches"]},
         {"name": "stencil_resident",
          "source": "tpu_stencil_torch/ops/csrc/stencil_resident.cu",
          "replaces": "tpu_stencil/ops/pallas_stencil.py:1079",

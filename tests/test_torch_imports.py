@@ -92,7 +92,23 @@ def test_every_module_is_found():
               "tpu_stencil_torch.stream.frames",
               "tpu_stencil_torch.stream.engine",
               "tpu_stencil_torch.stream.cli",
-              "tpu_stencil_torch.utils.timing"):
+              "tpu_stencil_torch.utils.timing",
+              "tpu_stencil_torch.cache",
+              "tpu_stencil_torch.cache.digest",
+              "tpu_stencil_torch.cache.store",
+              "tpu_stencil_torch.cache.singleflight",
+              "tpu_stencil_torch.cache.affinity",
+              "tpu_stencil_torch.integrity.quarantine",
+              "tpu_stencil_torch.obs.timeseries",
+              "tpu_stencil_torch.obs.slo",
+              "tpu_stencil_torch.obs.prof",
+              "tpu_stencil_torch.net",
+              "tpu_stencil_torch.net.arena",
+              "tpu_stencil_torch.net.fleet",
+              "tpu_stencil_torch.net.router",
+              "tpu_stencil_torch.net.http",
+              "tpu_stencil_torch.net.cli",
+              "tpu_stencil_torch.tools.http_tax"):
         assert m in mods
 
 
@@ -247,6 +263,40 @@ def test_initialize_raises_when_the_rendezvous_is_unreachable(rank):
 def test_serve_and_perf_load_no_jax_module(tmp_path, code, module):
     code += "\nimport json, sys\nprint(json.dumps(sorted(sys.modules)))\n"
     env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=tmp_path, env=env, timeout=300)
+    assert r.returncode == 0, r.stderr
+    loaded = json.loads(r.stdout.strip().splitlines()[-1])
+    assert module in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+@pytest.mark.parametrize("code,module", [
+    ("import tpu_stencil_torch.net", "tpu_stencil_torch.net.http"),
+    ("import tpu_stencil_torch.cache, tpu_stencil_torch.obs.prof\n"
+     "import tpu_stencil_torch.integrity.quarantine",
+     "tpu_stencil_torch.cache.store"),
+    ("import json, urllib.request, numpy as np, torch\n"
+     "from tpu_stencil_torch.config import NetConfig\n"
+     "from tpu_stencil_torch.net import NetFrontend\n"
+     "fe = NetFrontend(NetConfig(port=0, replicas=2, result_cache_mb=1,\n"
+     "                           prof_dir=None, flightrec_dir=None),\n"
+     "                 devices=[torch.device('cpu')] * 2).start()\n"
+     "img = np.zeros((8, 8), np.uint8)\n"
+     "req = urllib.request.Request(fe.url + '/v1/blur?w=8&h=8&reps=2',\n"
+     "                             data=img.tobytes(), method='POST')\n"
+     "assert urllib.request.urlopen(req, timeout=60).status == 200\n"
+     "fe.close()",
+     "tpu_stencil_torch.net.router"),
+    ("from tpu_stencil_torch import cli\n"
+     "assert cli.main(['net', '--port', '0']) == 2",
+     "tpu_stencil_torch.net.cli"),
+], ids=["import", "planes", "serve_http", "net_cli_no_card"])
+def test_net_tier_loads_no_jax_module(tmp_path, code, module):
+    code += "\nimport json, sys\nprint(json.dumps(sorted(sys.modules)))\n"
+    # No card in the child, whatever the host has: the net CLI case must
+    # fail typed rather than serve.
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, cwd=tmp_path, env=env, timeout=300)
     assert r.returncode == 0, r.stderr

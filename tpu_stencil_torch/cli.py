@@ -17,7 +17,8 @@ and writes nothing.
 
 ``python -m tpu_stencil_torch serve ...`` is the serving engine
 (:mod:`tpu_stencil_torch.serve.cli`), ``stream ...`` the streaming engine
-(:mod:`tpu_stencil_torch.stream.cli`) and ``perf ...`` the perf sentry
+(:mod:`tpu_stencil_torch.stream.cli`), ``net ...`` the network serving
+tier (:mod:`tpu_stencil_torch.net.cli`) and ``perf ...`` the perf sentry
 (:mod:`tpu_stencil_torch.obs.sentry`), each dispatched ahead of the job's
 parser as in the JAX package.
 
@@ -58,6 +59,12 @@ def main(argv=None) -> int:
         from tpu_stencil_torch.stream import cli as stream_cli
 
         return stream_cli.main(argv[1:])
+    if argv and argv[0] == "net":
+        # The network serving tier (HTTP frontend, replica fleet, drain)
+        # owns its own flags, validated before any device is touched.
+        from tpu_stencil_torch.net import cli as net_cli
+
+        return net_cli.main(argv[1:])
     if argv and argv[0] == "perf":
         # The perf sentry (log/check/report) touches no device.
         from tpu_stencil_torch.obs import sentry

@@ -9,8 +9,9 @@ validation messages, so one command line runs on both packages:
 --frames --output --time --platform``, the hardening flags ``--faults
 --fallback-backend --dispatch-timeout --checkpoint-every --resume`` and
 the observability flags ``--trace --breakdown --hlo-dump --metrics-text
---profile``. :class:`StreamConfig` is the ``stream`` subcommand's
-configuration, field for field the JAX package's.
+--profile``. :class:`StreamConfig`, :class:`ServeConfig` and
+:class:`NetConfig` are the ``stream``, ``serve`` and ``net`` subcommands'
+configurations, field for field the JAX package's.
 """
 
 from __future__ import annotations
@@ -465,6 +466,254 @@ def _normalize_bucket_edges(edges) -> Tuple[int, ...]:
             f"got {edges!r}"
         )
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class NetConfig:
+    """Configuration of the network serving tier
+    (:mod:`tpu_stencil_torch.net`): the HTTP frontend, the replica fleet
+    and the router's admission knobs, field for field and check for check
+    the JAX package's. Torch-free, so ``python -m tpu_stencil_torch net``
+    validates its flags before any device is touched.
+
+    One :class:`ServeConfig` is derived per replica (:meth:`serve_config`),
+    so each replica keeps the in-process engine's backpressure and
+    deadline contracts; the net tier adds placement, admission and drain.
+    """
+
+    host: str = "127.0.0.1"
+    port: int = 8080           # 0 = ephemeral (the bound port is printed)
+    replicas: int = 0          # engines in the fleet; 0 = one per device
+    filter_name: str = "gaussian"
+    backend: str = "auto"      # same vocabulary as ServeConfig.backend
+    max_queue: int = 256       # per-replica bounded-queue depth
+    max_batch: int = 8         # per-replica micro-batch bound
+    # Shape-bucket ladder shared by every replica (None = the serve
+    # default), so a shape warmed on one replica has the same program key
+    # on the others.
+    bucket_edges: Optional[Tuple[int, ...]] = None
+    # Load-shedding watermark: a request that would push the router's
+    # tracked in-flight bytes (request + response buffers) past this is
+    # shed with 503 + Retry-After before it touches a replica queue.
+    # 0 disables the watermark (the bounded queues still answer 429).
+    max_inflight_mb: float = 256.0
+    # Default per-request deadline (seconds; 0 = none), forwarded to each
+    # replica; X-Request-Timeout overrides it. Expired requests map to
+    # HTTP 504 (DeadlineExceeded).
+    request_timeout_s: float = 0.0
+    # Graceful-drain budget (seconds): on SIGTERM every replica gets
+    # close(timeout=) within it; one whose worker does not join is
+    # reported abandoned instead of hanging the shutdown.
+    drain_timeout_s: float = 30.0
+    # Shared program-cache warming: the first time the router sees a new
+    # (filter, bucket, channels, reps) key it fires one discarded
+    # zero-frame warm request at every other replica.
+    warm_fleet: bool = True
+    # The integrity layer: X-Content-Crc32c claims validated (mismatch ->
+    # typed 400), every 200 stamped X-Result-Crc32c, witness_rate of the
+    # completed requests re-executed through torch ops per replica. Off
+    # turns all of it off (quarantine then trips only by the admin path).
+    integrity: bool = True
+    # Fraction of requests witnessed per replica (seeded per replica
+    # index). K mismatches within the window quarantine the replica; N
+    # consecutive clean background probes re-admit it.
+    witness_rate: float = 1.0 / 256.0
+    quarantine_after: int = 3
+    quarantine_window_s: float = 60.0
+    readmit_after: int = 3
+    # Background re-verify probe period for quarantined replicas (seconds;
+    # 0 disables the prober).
+    probe_interval_s: float = 1.0
+    # Flight recorder spool of anomaly dumps (TPU_STENCIL_TORCH_FLIGHTREC_DIR
+    # overrides); None disables the spool (the ring still records).
+    flightrec_dir: Optional[str] = "flightrec"
+    # Slow-request anomaly threshold (seconds; 0 disables): a 200 slower
+    # than this triggers a flight-recorder dump.
+    flight_latency_threshold_s: float = 0.0
+    # Router-level continuous batching: admitted requests sharing a
+    # (filter, shape bucket, channels, reps) key are held up to this many
+    # microseconds so concurrent arrivals stack onto one replica submit.
+    # A full group or a member whose deadline falls inside the window
+    # dispatches at once. 0 = off (the library default; the CLI's is 300).
+    coalesce_window_us: float = 0.0
+    # Zero-copy ingest: request bodies are read into pooled per-bucket
+    # staging buffers (readinto, CRC in place) and handed to the engine
+    # owned. Off = every body is buffered through fresh bytes objects.
+    ingest_arena: bool = True
+    # Content-addressed result cache of this many MB of true result bytes
+    # keyed by (body BLAKE2b-160, filter, reps, geometry, boundary), with
+    # single-flight collapse and synchronous invalidation on replica
+    # distrust. 0 = off (the default).
+    result_cache_mb: float = 0.0
+    # Live telemetry: a sampler thread snapshots the registry every
+    # sample_interval_s into a ring serving GET /debug/timeseries. 0
+    # disables the sampler and the SLO engine that runs on its ticks.
+    sample_interval_s: float = 1.0
+    # SLO burn-rate engine: the error budget of the stock error-ratio
+    # objective (0 disables the engine); a breach flips /healthz to
+    # "degraded" (200), emits slo.breach and triggers a flight dump.
+    slo_error_budget: float = 0.05
+    slo_fast_window_s: float = 60.0
+    slo_slow_window_s: float = 300.0
+    slo_fast_burn: float = 6.0
+    slo_slow_burn: float = 3.0
+    # Optional latency objective: requests slower than this burn a 1%
+    # budget (0 = objective off).
+    slo_latency_p99_s: float = 0.0
+    # On-demand profiler spool (POST /debug/prof?seconds=N); None disables
+    # the endpoint (404).
+    prof_dir: Optional[str] = "profspool"
+
+    def __post_init__(self) -> None:
+        if not self.host:
+            raise ValueError("host must be non-empty")
+        if not 0 <= self.port <= 65535:
+            raise ValueError(
+                f"port must be in [0, 65535] (0 = ephemeral), got {self.port}"
+            )
+        if self.replicas < 0:
+            raise ValueError(
+                f"replicas must be >= 0 (0 = one per local device), got "
+                f"{self.replicas}"
+            )
+        if self.backend not in BACKENDS:
+            raise ValueError(f"unknown backend {self.backend!r}")
+        if self.max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1, got {self.max_queue}")
+        if self.max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1, got {self.max_batch}")
+        if self.max_inflight_mb < 0:
+            raise ValueError(
+                f"max_inflight_mb must be >= 0 (0 = no shed watermark), "
+                f"got {self.max_inflight_mb}"
+            )
+        if self.request_timeout_s < 0:
+            raise ValueError(
+                f"request_timeout_s must be >= 0 (0 = none), got "
+                f"{self.request_timeout_s}"
+            )
+        if self.drain_timeout_s <= 0:
+            raise ValueError(
+                f"drain_timeout_s must be > 0, got {self.drain_timeout_s}"
+            )
+        if not 0.0 <= self.witness_rate <= 1.0:
+            raise ValueError(
+                f"witness_rate must be in [0, 1], got {self.witness_rate}"
+            )
+        if self.quarantine_after < 1:
+            raise ValueError(
+                f"quarantine_after must be >= 1, got {self.quarantine_after}"
+            )
+        if self.quarantine_window_s <= 0:
+            raise ValueError(
+                f"quarantine_window_s must be > 0, got "
+                f"{self.quarantine_window_s}"
+            )
+        if self.readmit_after < 1:
+            raise ValueError(
+                f"readmit_after must be >= 1, got {self.readmit_after}"
+            )
+        if self.probe_interval_s < 0:
+            raise ValueError(
+                f"probe_interval_s must be >= 0 (0 = no background "
+                f"prober), got {self.probe_interval_s}"
+            )
+        if self.flight_latency_threshold_s < 0:
+            raise ValueError(
+                f"flight_latency_threshold_s must be >= 0 (0 = no "
+                f"slow-request trigger), got "
+                f"{self.flight_latency_threshold_s}"
+            )
+        if self.coalesce_window_us < 0:
+            raise ValueError(
+                f"coalesce_window_us must be >= 0 (0 = no request "
+                f"coalescing), got {self.coalesce_window_us}"
+            )
+        if self.result_cache_mb < 0:
+            raise ValueError(
+                f"result_cache_mb must be >= 0 (0 = no result cache), "
+                f"got {self.result_cache_mb}"
+            )
+        _validate_telemetry(self)
+        # Torch-free (the filter bank is numpy): a typo'd --filter dies as
+        # a usage error, not as a tier that answers 500 to every request.
+        from tpu_stencil_torch import filters as _filters
+
+        try:
+            _filters.get_filter(self.filter_name)
+        except KeyError as e:
+            raise ValueError(str(e)) from None
+        if self.bucket_edges is not None:
+            object.__setattr__(
+                self, "bucket_edges", _normalize_bucket_edges(self.bucket_edges)
+            )
+
+    @property
+    def max_inflight_bytes(self) -> int:
+        return int(self.max_inflight_mb * (1 << 20))
+
+    @property
+    def coalesce_window_s(self) -> float:
+        return self.coalesce_window_us / 1e6
+
+    @property
+    def result_cache_bytes(self) -> int:
+        return int(self.result_cache_mb * (1 << 20))
+
+    def serve_config(self, device_index: int) -> ServeConfig:
+        """The per-replica engine config, forwarding exactly what the JAX
+        package's forwards: ``overlap`` is not forwarded, so every replica
+        keeps ``"off"`` and serves on the bucket route (K1). The
+        device-memory sampler stays off per replica (the fleet's merged
+        exposition is the scrape surface); witness sampling is seeded per
+        replica so replicas never sample in lockstep. The fleet replaces
+        ``device_index`` with its replica's device."""
+        return ServeConfig(
+            filter_name=self.filter_name,
+            backend=self.backend,
+            max_queue=self.max_queue,
+            max_batch=self.max_batch,
+            bucket_edges=self.bucket_edges,
+            request_timeout_s=self.request_timeout_s,
+            device_index=device_index,
+            mem_sample_interval_s=0.0,
+            witness_rate=self.witness_rate if self.integrity else 0.0,
+            witness_seed=device_index,
+        )
+
+
+def _validate_telemetry(cfg) -> None:
+    """The sampler and SLO knobs' validation (the JAX package's rule)."""
+    if cfg.sample_interval_s < 0:
+        raise ValueError(
+            f"sample_interval_s must be >= 0 (0 = sampler off), got "
+            f"{cfg.sample_interval_s}"
+        )
+    if not 0.0 <= cfg.slo_error_budget <= 1.0:
+        raise ValueError(
+            f"slo_error_budget must be in [0, 1] (0 = SLO engine off), "
+            f"got {cfg.slo_error_budget}"
+        )
+    if cfg.slo_fast_window_s <= 0 or cfg.slo_slow_window_s <= 0:
+        raise ValueError(
+            f"slo windows must be > 0, got fast={cfg.slo_fast_window_s} "
+            f"slow={cfg.slo_slow_window_s}"
+        )
+    if cfg.slo_slow_window_s < cfg.slo_fast_window_s:
+        raise ValueError(
+            f"slo_slow_window_s must be >= slo_fast_window_s "
+            f"({cfg.slo_fast_window_s}), got {cfg.slo_slow_window_s}"
+        )
+    if cfg.slo_fast_burn <= 0 or cfg.slo_slow_burn <= 0:
+        raise ValueError(
+            f"slo burn thresholds must be > 0, got "
+            f"fast={cfg.slo_fast_burn} slow={cfg.slo_slow_burn}"
+        )
+    if cfg.slo_latency_p99_s < 0:
+        raise ValueError(
+            f"slo_latency_p99_s must be >= 0 (0 = no latency "
+            f"objective), got {cfg.slo_latency_p99_s}"
+        )
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -1,2 +1,3 @@
-"""Integrity of the port: content checksums (its own copy of the CRC32C)
-and witness re-execution (:mod:`~tpu_stencil_torch.integrity.witness`)."""
+"""Integrity of the port: content checksums (its own copy of the CRC32C),
+witness re-execution (:mod:`~tpu_stencil_torch.integrity.witness`) and
+replica quarantine (:mod:`~tpu_stencil_torch.integrity.quarantine`)."""

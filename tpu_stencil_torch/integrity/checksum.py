@@ -8,9 +8,11 @@ frame of a stream (:mod:`tpu_stencil_torch.stream.engine` checksums each
 staging slot when the reader fills it and again before its copy to the
 card); :func:`verify`, :class:`ChecksumMismatch`, :class:`WitnessMismatch`
 the deterministic corruption of the chaos sites (:func:`fired`,
-:func:`corrupt_array`), and the wire stamps a client checks
-(:data:`CRC_HEADER`, :data:`RESULT_HEADER`, :func:`stamp_matches`). The same values as any standard CRC32C (poly
-0x1EDC6F41 reflected; ``crc32c(b"123456789") == 0xE3069283``).
+:func:`corrupt_array`, :func:`corrupt_bytes`), the wire stamps a client
+checks (:data:`CRC_HEADER`, :data:`RESULT_HEADER`, :func:`stamp_matches`)
+and the network tier's request-claim rule (:func:`claim_error`). The same
+values as any standard CRC32C (poly 0x1EDC6F41 reflected;
+``crc32c(b"123456789") == 0xE3069283``).
 
 Buffers of :data:`NATIVE_MIN_BYTES` or more go through the port's own C++
 library (``ops/csrc/crc32c.cpp``: the SSE4.2 ``crc32`` instruction over
@@ -177,6 +179,28 @@ def parse_crc(value: str, where: str) -> int:
     return n
 
 
+def claim_error(claim: str, body, computed: Optional[int] = None):
+    """Validate a client ``X-Content-Crc32c`` claim against ``body``: the
+    one request-validation rule of the HTTP edge. Returns None when the
+    claim matches, else ``(error_text, is_mismatch)`` for the 400:
+    ``is_mismatch`` tells a real corruption (counted) from a malformed
+    header (a client bug, not a detection). ``computed`` is a CRC the
+    caller already holds for these exact bytes (the cache's fused
+    digest and CRC scan), so the body is not read twice."""
+    try:
+        want = parse_crc(claim, CRC_HEADER)
+    except ValueError as e:
+        return f"bad request parameters: {e}", False
+    got = int(computed) if computed is not None else crc32c(body)
+    if got != want:
+        return (
+            f"ChecksumMismatch: request body crc32c {got} != declared "
+            f"{want} (body corrupted in flight or torn at the sender)",
+            True,
+        )
+    return None
+
+
 def stamp_matches(stamp: Optional[str], data: bytes) -> bool:
     """Whether a response's ``X-Result-Crc32c`` stamp verifies ``data``
     (the client-side check). A missing or malformed stamp is a failure:
@@ -192,10 +216,11 @@ def stamp_matches(stamp: Optional[str], data: bytes) -> bool:
 
 # -- deterministic corruption (the chaos side of the contract) ----------
 #
-# The integrity.corrupt_ingest / integrity.corrupt_result fault points do
-# not RAISE like other points: they flip bits, so every detection path is
-# exercised against genuinely wrong bytes. The flip is deterministic
-# (middle byte, low bit), so a detected corruption replays exactly.
+# The integrity.corrupt_ingest / integrity.corrupt_result / net.corrupt_body
+# fault points do not RAISE like other points: they flip bits, so every
+# detection path is exercised against genuinely wrong bytes. The flip is
+# deterministic (middle byte, low bit), so a detected corruption replays
+# exactly.
 
 def fired(site, index: Optional[int] = None) -> bool:
     """Fire an armed corruption rule at ``site``; True when it fired. The
@@ -210,11 +235,21 @@ def fired(site, index: Optional[int] = None) -> bool:
     return False
 
 
+def corrupt_bytes(data: bytes) -> bytes:
+    """``data`` with one deterministic bit flipped (the middle byte, bit
+    0). Empty payloads return empty: nothing to corrupt."""
+    if not data:
+        return data
+    out = bytearray(data)
+    out[len(data) // 2] ^= 0x01
+    return bytes(out)
+
+
 def corrupt_array(arr: np.ndarray) -> np.ndarray:
     """A uint8 array with one deterministic bit flipped (the middle byte,
-    bit 0, as the JAX package's). Writable arrays are corrupted IN PLACE
-    (a torn staging buffer must damage the real buffer); read-only views
-    are copied first."""
+    bit 0, as :func:`corrupt_bytes` and the JAX package's). Writable
+    arrays are corrupted IN PLACE (a torn staging buffer must damage the
+    real buffer); read-only views are copied first."""
     if arr.size == 0:
         return arr
     if not arr.flags.writeable:

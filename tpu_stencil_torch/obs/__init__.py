@@ -18,9 +18,15 @@ metric and span names, so one dashboard reads both packages:
 * :mod:`~tpu_stencil_torch.obs.breakdown`: the ``--breakdown`` tables.
 * :mod:`~tpu_stencil_torch.obs.introspect`: the kernel instances the
   warm-up launched, and the device-memory gauges.
+* :mod:`~tpu_stencil_torch.obs.timeseries`: the in-process time series,
+  a sampler thread over a registry snapshot (``/debug/timeseries``).
+* :mod:`~tpu_stencil_torch.obs.slo`: declarative objectives with fast and
+  slow burn-rate alerting; a breach flips ``/healthz`` to ``degraded``.
+* :mod:`~tpu_stencil_torch.obs.prof`: bounded on-demand
+  ``torch.profiler`` captures behind ``POST /debug/prof``.
 
-The perf sentry, the time-series ring, SLOs, the on-demand profiler and
-the resource ledger come with later slices.
+The request ledger (:mod:`~tpu_stencil_torch.obs.ledger`) and the perf
+sentry (:mod:`~tpu_stencil_torch.obs.sentry`) are imported by name.
 """
 
 from tpu_stencil_torch.obs.tracing import (
@@ -46,6 +52,9 @@ from tpu_stencil_torch.obs import (
     exposition,
     flight,
     introspect,
+    prof,
+    slo,
+    timeseries,
     tracing,
 )
 
@@ -77,10 +86,13 @@ __all__ = [
     "get_tracer",
     "introspect",
     "phase",
+    "prof",
     "registry",
     "reset",
     "scratch_registry",
+    "slo",
     "snapshot",
     "span",
+    "timeseries",
     "tracing",
 ]

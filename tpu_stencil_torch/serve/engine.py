@@ -888,6 +888,14 @@ class StencilServer:
         if not isinstance(payload, dict):
             fall("payload_unavailable")
             return summary
+        if payload.get("schema_version") != 1:
+            fall("schema_mismatch")
+            return summary
+        if payload.get("unsupported"):
+            # The exporter could not ship artifacts (the port's own
+            # export_warm_state envelope): a cold start, counted.
+            fall("exporter_unsupported")
+            return summary
         entries = payload.get("entries") or []
         if entries:
             fall("warmstart_unavailable", len(entries))

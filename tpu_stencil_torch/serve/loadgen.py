@@ -77,10 +77,9 @@ def _golden_for(image: np.ndarray, reps: int,
 
 class HttpTarget:
     """Duck-typed :class:`StencilServer` stand-in that drives the
-    network tier (``POST /v1/blur``; the port's own net tier comes with
-    a later slice) over ``POST /v1/blur``
-    — the same closed/open loops, ``--rate-fps`` arrival law, and
-    report schema measure a remote fleet instead of an in-process
+    network tier (:mod:`tpu_stencil_torch.net`, or the JAX package's)
+    over ``POST /v1/blur`` — the same closed/open loops, ``--rate-fps``
+    arrival law, and report schema measure a remote fleet instead of an in-process
     engine (``--http URL`` on the serve CLI).
 
     The status-code mapping inverts the frontend's: 429 (and a
