@@ -242,7 +242,8 @@ one JSON line. The phases that pin launch counts name ``--backend pallas``
    ``stencil_fused_kernel`` (the device's idle share over it),
    ``/debug/timeseries`` rates above 0, ``/metrics`` an exact round trip,
    ``/debug/capacity`` naming the H100's host link, ``/admin/warmstate``
-   a 200 ``unsupported`` envelope; (6) ``python -m tpu_stencil_torch net
+   answering the program-cache keys (never a binary); (6) ``python -m
+   tpu_stencil_torch net
    --port 0 --backend pallas`` in a fresh process: 64 closed-loop
    requests of 1920x2520 RGB x40 from 8 clients through
    ``loadgen.HttpTarget`` (``--verify crc``, golden on, and every result
@@ -252,7 +253,44 @@ one JSON line. The phases that pin launch counts name ``--backend pallas``
    a clean drain and rc 0; (7) with the kernel
    builds forced to fail, a typed 500 naming ``KernelBuildError``, no
    launch, no torch-ops call.
-19. ``times`` — ms per rep at 1920x2520 RGB gaussian x40, each the median
+19. ``fed_ctrl_path`` — the federation and the control plane, real sockets
+   on port 0, seeded 1920x2520 RGB frames x40 gaussian, every result
+   byte-equal to torch ops on the card: (1) a ``FedFrontend`` in this
+   process over two ``NetFrontend`` members on ``[cuda:0]`` each (hedging
+   off): one request with a CRC claim (stamp verified, K1 40,
+   ``padded_step`` never called), the ten mixed requests (K1 their reps'
+   sum), the first body again landing on the same member by digest
+   affinity and answering from its result cache with no launch; (2)
+   ``net.corrupt_body`` on a member 200 (``forward_bad_payload_total`` 1,
+   rerouted, exact bytes, K1 80), ``POST /admin/drain`` of one member
+   under 8 clients (16 requests, none dropped), hedging on with
+   ``net.accept`` stalling the first request's member 3 s (the hedge leg
+   answers exact bytes, K1 = 40 x the legs that completed on a member);
+   (3) ``python -m tpu_stencil_torch fed --port 0`` and ``python -m
+   tpu_stencil_torch ctrl --fed URL --min-hosts 2 --max-hosts 3`` in fresh
+   processes, the members on the card by default: the 64-request load of
+   ``net_path`` through the fed (``loadgen.HttpTarget``, CRC and golden
+   checks), cold then warm, requests/s, p50 and p99 printed beside
+   ``net_path``'s HTTP warm pass; the fed makes no CUDA context (the
+   card's memory in use grows under 256 MiB as it starts and serves its
+   endpoints; ``nvidia-smi --query-compute-apps`` does not give a
+   container's pids), every member has the CUDA driver mapped, and the
+   card's memory a member takes; kill -9 of a member under 8 clients
+   (every answer exact bytes or a typed 429/503/504), the ctrl reporting
+   the dead host, deciding REPLACE, the replacement registering and
+   serving; SIGTERM of the ctrl (every member drained, rc 0) and of the
+   fed (rc 0); (4) warm start: a
+   joiner launched ``--warm-from`` a warm member answers its first request
+   byte-equal with ``fleet_cache_misses_total`` 0 and
+   ``fleet_ctrl_warmstart_imported_total`` >= 1, its latency printed
+   beside a cold joiner's first request; an envelope with an altered
+   kernel fingerprint degrades every entry as ``version_skew`` and the
+   joiner still serves exact bytes; (5) with the kernel builds forced to
+   fail in the member, the member's typed 500 naming ``KernelBuildError``
+   reaches the client through the fed's verdict taxonomy (503
+   ``HostUnavailable`` naming ``http_500 (KernelBuildError)``), nothing
+   launched, no torch-ops call.
+20. ``times`` — ms per rep at 1920x2520 RGB gaussian x40, each the median
    of 7 runs after a warm-up (CUDA events, L2 flushed before each run):
    the three job kernels (K3 alone on the one ext tile of a 1x1 mesh at
    fuse 8), L2's ``current`` body, one L1 launch (``add_i32``, chain of
@@ -280,7 +318,8 @@ adds its window launches and ms per rep under each overlap mode, the
 ``auto`` verdict and its thin-window time, and ``shard_stream_launches``,
 those of the sharded streams in ``shard_stream_path``; K1 and K3 add
 ``serve_launches``, those of the serving engine in ``serve_path``; K1
-adds ``net_launches``, those of the network tier in ``net_path``),
+adds ``net_launches``, those of the network tier in ``net_path``, and
+``fed_launches``, those of the federation in ``fed_ctrl_path``),
 the ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero before that line; without a CUDA device the script exits
 non-zero at once.
@@ -3893,7 +3932,8 @@ def phase_net_path(dev, serve_warm: dict) -> dict:
         require(cap["bandwidth"]["roofline_gbps"] == link,
                 f"/debug/capacity link {cap['bandwidth']}")
         warm = http_json(fe.url, "/admin/warmstate")
-        require(warm["entries"] == [] and warm.get("unsupported"),
+        require(warm["entries"] and not warm.get("unsupported")
+                and all(set(e) == {"key"} for e in warm["entries"]),
                 f"/admin/warmstate {warm}")
         out["observability"] = {
             "profile": prof, "timeseries_2xx_rate_per_s": rate,
@@ -4182,6 +4222,619 @@ def phase_net_path(dev, serve_warm: dict) -> dict:
                 "in_process_warm_p99_s": serve_warm["p99_s"]}}
 
 
+# -- federation and the control plane (phase fed_ctrl_path) -------------
+
+FED_WORK = WORK / "fed"
+
+
+def fed_frontend(members, **kw):
+    """A started port ``FedFrontend`` on port 0 over ``members`` (URLs),
+    its flight-recorder spool under build/chip_smoke/fed."""
+    from tpu_stencil_torch.config import FedConfig
+    from tpu_stencil_torch.fed import FedFrontend
+
+    cfg = dict(port=0, members=tuple(members), heartbeat_interval_s=1.0,
+               flightrec_dir=str(FED_WORK / "flightrec"))
+    cfg.update(kw)
+    return FedFrontend(FedConfig(**cfg)).start()
+
+
+def compute_apps() -> str:
+    """``nvidia-smi --query-compute-apps=pid,used_memory`` as it prints
+    it. In a container its pids are not this namespace's, so it is kept
+    as an observation; the checks read the card's memory instead."""
+    r = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return r.stdout.strip() if r.returncode == 0 else r.stderr.strip()
+
+
+def card_memory_mib() -> int:
+    """The card's memory in use, MiB, all processes together."""
+    return int(nvidia_smi("memory.used").split()[0])
+
+
+def maps_libcuda(pid: int) -> bool:
+    """Whether process ``pid`` has the CUDA driver library mapped."""
+    with open(f"/proc/{pid}/maps") as f:
+        return "libcuda.so" in f.read()
+
+
+def child_pids(ppid: int) -> list:
+    """The pids whose parent is ``ppid`` (from /proc)."""
+    out = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        if int(stat.rsplit(")", 1)[1].split()[1]) == ppid:
+            out.append(int(d))
+    return sorted(out)
+
+
+def net_metric(url: str, name: str):
+    """One counter of a net tier's ``/metrics`` text (None when absent)."""
+    from tpu_stencil_torch.obs import exposition
+
+    status, text = http_call(url, "/metrics")
+    require(status == 200, f"{url}/metrics: {status}")
+    return exposition.parse_text(
+        text.decode(), prefix="tpu_stencil_net")["counters"].get(name)
+
+
+class Proc:
+    """A subprocess with its stdout lines collected on a thread (stderr to
+    a file under build/chip_smoke/fed)."""
+
+    def __init__(self, name: str, argv: list) -> None:
+        import threading
+
+        self.name = name
+        self.err_path = FED_WORK / f"{name}_stderr.log"
+        self.lines = []
+        with open(self.err_path, "w") as err:
+            self.proc = subprocess.Popen(argv, stdout=subprocess.PIPE,
+                                         stderr=err, text=True, cwd=ROOT)
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self) -> None:
+        for ln in self.proc.stdout:
+            self.lines.append(ln)
+
+    def wait_line(self, needle: str, timeout: float = 300.0) -> str:
+        wait_until(lambda: any(needle in ln for ln in self.lines)
+                   or self.proc.poll() is not None, timeout=timeout,
+                   what=f"{self.name}: {needle!r}")
+        hits = [ln for ln in self.lines if needle in ln]
+        require(hits, f"{self.name} exited rc {self.proc.poll()} before "
+                f"{needle!r}: {self.lines[-5:]} "
+                f"{self.err_path.read_text()[-2000:]}")
+        return hits[0]
+
+    def stop(self, sig, timeout: float = 180.0) -> int:
+        self.proc.send_signal(sig)
+        rc = self.proc.wait(timeout=timeout)
+        self._reader.join(timeout=30)
+        return rc
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+
+
+def phase_fed_ctrl_path(dev, net_cli: dict) -> dict:
+    """Phase ``fed_ctrl_path``: the federation (``fed``) and the control
+    plane (``ctrl``) over ``net`` members serving K1 on the card (see the
+    module docstring)."""
+    import concurrent.futures
+    import signal
+    import threading
+
+    from tpu_stencil_torch.ctrl.actuator import SubprocessProvider
+    from tpu_stencil_torch.fed import host_id_for
+    from tpu_stencil_torch.integrity import checksum, witness
+    from tpu_stencil_torch.net.http import STALL_ENV
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+    from tpu_stencil_torch.resilience import faults
+    from tpu_stencil_torch.serve import loadgen
+
+    t_phase = time.perf_counter()
+    FED_WORK.mkdir(parents=True, exist_ok=True)
+    out, laps, t_lap = {}, {}, [t_phase]
+    smi = nvidia_smi("name,power.limit")
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name], t_lap[0] = now - t_lap[0], now
+
+    def reset():
+        cs.reset_launch_counts()
+
+    def counted():
+        torch.cuda.synchronize()
+        return cs.launch_counts()
+
+    def frame(seed):
+        return np.random.default_rng(seed).integers(
+            0, 256, (MAIN_H, MAIN_W, MAIN_C), np.uint8)
+
+    def ref(img, name="gaussian", reps=MAIN_REPS):
+        return witness.device_witness(img, name, reps, device=dev).tobytes()
+
+    def members(n, **kw):
+        kw = dict(dict(witness_rate=0.0, probe_interval_s=0.0,
+                       result_cache_mb=256.0), **kw)
+        return [net_frontend(devices=[dev], **kw) for _ in range(n)]
+
+    def close_all(*fes):
+        for fe in fes:
+            fe.close()
+
+    img = frame(300)
+    want = ref(img)
+    mixed = serve_images(SERVE_CASES)
+    mixed_want = [ref(m, c[3], c[4]) for m, c in zip(mixed, SERVE_CASES)]
+    lap("references")
+
+    # 1. The fed in this process over two in-process members on [cuda:0]
+    # each, hedge off (a cold member's first forward would outlive the
+    # trigger and run K1 twice).
+    m1, m2 = members(2)
+    fed = fed_frontend([m1.url, m2.url], hedge=False)
+    try:
+        claim = {checksum.CRC_HEADER: str(checksum.crc32c(img))}
+        with counted_padded_step() as steps:
+            reset()
+            status, body, hdr = http_post(fed.url, img, MAIN_REPS,
+                                          headers=claim)
+            counts = counted()
+        require(status == 200 and body == want
+                and checksum.stamp_matches(
+                    hdr.get(checksum.RESULT_HEADER), body),
+                f"fed POST: {status} {body[:300]!r}, bytes or stamp differ")
+        require(counts == launches(stencil_fused=MAIN_REPS) and not steps,
+                f"fed POST: launches {counts}, padded_step {len(steps)}")
+        first_member = hdr["X-Fed-Member"]
+        out["one_request"] = {"launches": counts, "member": first_member,
+                              "stamp": hdr[checksum.RESULT_HEADER]}
+        with counted_padded_step() as steps:
+            reset()
+            for i, (m, c) in enumerate(zip(mixed, SERVE_CASES)):
+                status, body, _ = http_post(fed.url, m, c[4],
+                                            filter_name=c[3])
+                require(status == 200 and body == mixed_want[i],
+                        f"fed mixed request {i} ({c}): {status}")
+            counts = counted()
+        require(counts == launches(stencil_fused=NET_MIXED_REPS)
+                and not steps,
+                f"fed mixed: launches {counts}, padded_step {len(steps)}")
+        out["mixed_requests"] = {"launches": counts}
+        # The same body again: digest affinity lands it on the same
+        # member, whose result cache answers with no launch.
+        reset()
+        status, body, hdr = http_post(fed.url, img, MAIN_REPS)
+        counts = counted()
+        require(status == 200 and body == want
+                and hdr["X-Fed-Member"] == first_member
+                and hdr.get("X-Cache") == "hit" and counts == NO_LAUNCHES,
+                f"fed affinity: member {hdr.get('X-Fed-Member')} (first "
+                f"{first_member}), X-Cache {hdr.get('X-Cache')}, launches "
+                f"{counts}")
+        c = fed.registry.snapshot()["counters"]
+        require(c["member_cache_hit_total"] == 1
+                and c["affinity_routed_total"] >= 12,
+                f"fed affinity counters {c}")
+        out["affinity_hit"] = {"launches": counts,
+                               "member": hdr["X-Fed-Member"]}
+        lap("in_process")
+
+        # 2a. net.corrupt_body on one member 200: the fed catches the bad
+        # payload, reroutes, and the client gets exact bytes. Both legs
+        # ran K1 (the corruption is on the wire).
+        img2 = frame(301)
+        want2 = ref(img2)
+        faults.configure("net.corrupt_body:times=1")
+        try:
+            m1.fault_corrupt_body = faults.site("net.corrupt_body")
+            m2.fault_corrupt_body = faults.site("net.corrupt_body")
+            reset()
+            status, body, hdr = http_post(fed.url, img2, MAIN_REPS)
+            counts = counted()
+        finally:
+            faults.clear()
+            m1.fault_corrupt_body = m2.fault_corrupt_body = None
+        c = fed.registry.snapshot()["counters"]
+        require(status == 200 and body == want2
+                and c["forward_bad_payload_total"] == 1
+                and c["reroutes_total"] == 1
+                and counts == launches(stencil_fused=2 * MAIN_REPS),
+                f"fed corrupt body: {status}, {c}, launches {counts}")
+        out["corrupt_body"] = {"launches": counts,
+                               "bad_payload": c["forward_bad_payload_total"],
+                               "reroutes": c["reroutes_total"]}
+        lap("corrupt_body")
+
+        # 2b. A rolling drain of one member under 8 clients: no request
+        # dropped, every answer exact.
+        load = [frame(310 + i) for i in range(16)]
+        load_want = [ref(m) for m in load]
+        results = [None] * len(load)
+
+        def post(i):
+            results[i] = http_post(fed.url, load[i], MAIN_REPS)
+
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            futs = [pool.submit(post, i) for i in range(len(load))]
+            wait_until(lambda: sum(r is not None for r in results) >= 4,
+                       what="answers before the drain")
+            drain = http_json(fed.url, f"/admin/drain?host="
+                              f"{host_id_for(m1.url)}", post=True)
+            for f in futs:
+                f.result(timeout=300)
+        bad = [i for i, r in enumerate(results)
+               if r[0] != 200 or r[1] != load_want[i]]
+        require(not bad and drain["member_response"]["draining"] is True
+                and m1.admin_drain_requested.is_set(),
+                f"fed member drain: requests {bad} not exact "
+                f"({[results[i][0] for i in bad]}), {drain}")
+        out["member_drain"] = {
+            "requests": len(load), "dropped": 0,
+            "members": sorted({r[2]["X-Fed-Member"] for r in results}),
+            "draining_reroutes": fed.registry.counter(
+                "draining_reroutes_total").value}
+        lap("member_drain")
+    finally:
+        close_all(fed, m1, m2)
+
+    # 2c. Hedging on, net.accept stalling the first request's member for
+    # 3 s: the hedge leg on the other member answers exact bytes. The
+    # stalled leg reaches its member after the stall (and runs K1 if its
+    # body arrived whole): K1 = 40 x the legs that completed on a member.
+    os.environ[STALL_ENV] = "3"
+    faults.configure("net.accept:at=0:raise=TimeoutError")
+    try:
+        h1, h2 = members(2, result_cache_mb=0.0)
+    finally:
+        faults.clear()
+    fed = fed_frontend([h1.url, h2.url], hedge=True, hedge_min_s=0.5)
+    try:
+        img3 = frame(302)
+        want3 = ref(img3)
+        c0 = [net_counter(h, "fleet_completed_total") for h in (h1, h2)]
+        reset()
+        status, body, hdr = http_post(fed.url, img3, MAIN_REPS)
+        require(status == 200 and body == want3
+                and hdr["X-Fed-Hedged"] == "1",
+                f"fed hedge: {status}, hedged {hdr.get('X-Fed-Hedged')}")
+        # The stalled handler wakes and reads what reached it of its body
+        # (a whole one runs K1); then nothing is left in flight.
+        time.sleep(3 + 1.0)
+        wait_until(lambda: all(sum(h.router.outstanding().values()) == 0
+                               for h in (h1, h2)), timeout=120,
+                   what="both hedge legs settled on their members")
+        counts = counted()
+        legs = int(sum(net_counter(h, "fleet_completed_total") - c
+                       for h, c in zip((h1, h2), c0)))
+        c = fed.registry.snapshot()["counters"]
+        require(c["hedges_total"] == 1 and c["hedge_wins_total"] == 1
+                and legs in (1, 2)
+                and counts == launches(stencil_fused=legs * MAIN_REPS),
+                f"fed hedge: {c}, legs {legs}, launches {counts}")
+        out["hedge"] = {"launches": counts, "legs_on_members": legs,
+                        "hedges": c["hedges_total"],
+                        "hedge_wins": c["hedge_wins_total"],
+                        "hedge_cancelled": c["hedge_cancelled_total"]}
+    finally:
+        os.environ.pop(STALL_ENV, None)
+        close_all(fed, h1, h2)
+    lap("hedge")
+
+    # 3. Fresh processes: the fed CLI, then the ctrl CLI launching two
+    # members on the card (no --member-platform), the 64-request load
+    # through the fed, kill -9 of a member under load, the replacement,
+    # SIGTERM of the ctrl and of the fed.
+    limages = loadgen.synth_requests(LOAD_REQUESTS, [(LOAD_H, LOAD_W)],
+                                     [MAIN_C], 0)
+    lwant = [witness.device_witness(m, "gaussian", MAIN_REPS, device=dev)
+             for m in limages]
+    index = {m[0, :16].tobytes(): i for i, m in enumerate(limages)}
+    lap("load_references")
+    # A CUDA context costs hundreds of MiB of the card: the card's memory
+    # in use before and after the fed starts says whether it made one.
+    torch.cuda.synchronize()
+    mem0 = card_memory_mib()
+    fedp = Proc("fed_cli", [
+        sys.executable, "-m", "tpu_stencil_torch", "fed", "--port", "0",
+        "--flightrec-dir", str(FED_WORK / "cli_flightrec"),
+        "--heartbeat-interval", "0.5", "--drain-timeout", "120"])
+    ctrl = None
+    cli = {}
+    try:
+        url = fedp.wait_line("fed: serving on http://", 120).split()[3]
+        for path in ("/healthz", "/statusz", "/metrics", "/debug/capacity"):
+            require(http_call(url, path)[0] == 200, f"fed {path}")
+        mem1 = card_memory_mib()
+        cli["card_memory_mib"] = {"before_fed": mem0, "fed_up": mem1}
+        cli["fed_maps_libcuda"] = maps_libcuda(fedp.proc.pid)
+        require(mem1 - mem0 < 256, f"the fed process took {mem1 - mem0} "
+                f"MiB of the card: a CUDA context")
+        ctrl = Proc("ctrl_cli", [
+            sys.executable, "-m", "tpu_stencil_torch", "ctrl", "--fed", url,
+            "--min-hosts", "2", "--max-hosts", "3", "--poll-interval", "0.5",
+            "--launch-timeout", "300", "--drain-timeout", "120"])
+        wait_until(lambda: sum(
+            m["state"] == "healthy"
+            for m in http_json(url, "/statusz")["members"]) == 2,
+            timeout=300, what="the ctrl's two members registered")
+        lap("ctrl_up")
+
+        def fed_pass(label):
+            target = Captured(loadgen.HttpTarget(url, verify="crc"))
+            try:
+                rep = loadgen.run(target, mode="closed",
+                                  requests=LOAD_REQUESTS, concurrency=8,
+                                  reps=MAIN_REPS, shapes=[(LOAD_H, LOAD_W)],
+                                  channels=[MAIN_C], seed=0,
+                                  verify="golden", per_request=True)
+            finally:
+                target.server.close()
+            require(rep["completed"] == LOAD_REQUESTS
+                    and rep["verify_failures_total"] == 0,
+                    f"fed CLI {label}: {rep['completed']} completed, "
+                    f"{rep['verify_failures_total']} verify failures")
+            err = 0
+            for image, fut in target.taken:
+                got = fut.result(timeout=0)
+                i = index[image[0, :16].tobytes()]
+                if not np.array_equal(got, lwant[i]):
+                    err = max(err, int(np.abs(
+                        got.astype(int) - lwant[i].astype(int)).max()))
+            require(err == 0 and len(target.taken) == LOAD_REQUESTS,
+                    f"fed CLI {label}: max abs err {err}")
+            lat = sorted(r["latency_s"] for r in rep["per_request"])
+            return {"throughput_rps": rep["throughput_rps"],
+                    "p50_s": nearest_rank(lat, 50),
+                    "p99_s": nearest_rank(lat, 99),
+                    "wall_seconds": rep["wall_seconds"],
+                    "verified": len(target.taken), "max_abs_err": err}
+
+        cold = fed_pass("cold pass")
+        warm = fed_pass("warm pass")
+        fc = http_json(url, "/statusz")["net"]["counters"]
+        cli["load"] = {"cold": cold, "warm": warm,
+                       "hedges": fc.get("hedges_total", 0),
+                       "reroutes": fc.get("reroutes_total", 0),
+                       "breaker_opens": fc.get("breaker_open_total", 0)}
+        lap("fed_load")
+
+        # Each member holds a CUDA context (the planner may have scaled
+        # out to a third under the load); the fed still holds none.
+        member_pids = child_pids(ctrl.proc.pid)
+        require(len(member_pids) >= 2, f"ctrl children {member_pids}")
+        require(all(maps_libcuda(p) for p in member_pids),
+                f"members without the CUDA driver mapped: {member_pids}")
+        mem2 = card_memory_mib()
+        cli["card_memory_mib"].update(
+            members_up=mem2, members=len(member_pids),
+            per_member=(mem2 - mem1) / len(member_pids))
+        cli["compute_apps"] = compute_apps()
+
+        # kill -9 one member under load: every request exact or typed.
+        before = {m["host_id"] for m in http_json(url, "/statusz")["members"]
+                  if m["state"] == "healthy"}
+        answers = []
+        lock = threading.Lock()
+
+        def client(k):
+            for j in range(4):
+                i = (8 * j + k) % LOAD_REQUESTS
+                status, body, _h = http_post(url, limages[i], MAIN_REPS)
+                with lock:
+                    answers.append((i, status, body))
+
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            futs = [pool.submit(client, k) for k in range(8)]
+            wait_until(lambda: len(answers) >= 6, timeout=120,
+                       what="answers before the kill")
+            victim = member_pids[0]
+            os.kill(victim, signal.SIGKILL)
+            for f in futs:
+                f.result(timeout=300)
+        typed = {429, 503, 504}
+        wrong = [(i, s) for i, s, b in answers
+                 if not (s == 200 and b == lwant[i].tobytes()
+                         or s in typed and b"trace_id" in b)]
+        require(len(answers) == 32 and not wrong,
+                f"fed kill -9: {len(answers)} answers, wrong {wrong[:5]}")
+        ctrl.wait_line("died without a drain", 120)
+        ctrl.wait_line("ctrl: replace x1", 120)
+        wait_until(lambda: {
+            m["host_id"] for m in http_json(url, "/statusz")["members"]
+            if m["state"] == "healthy"} - before, timeout=300,
+            what="the replacement registered")
+        members_now = http_json(url, "/statusz")["members"]
+        new = {m["host_id"] for m in members_now
+               if m["state"] == "healthy"} - before
+        served = None
+        for seed in range(400, 440):
+            probe = frame(seed)
+            status, body, hdr = http_post(url, probe, MAIN_REPS)
+            require(status == 200 and body == ref(probe),
+                    f"fed after the replacement: {status}")
+            if hdr["X-Fed-Member"] in new:
+                served = hdr["X-Fed-Member"]
+                break
+        require(served is not None, f"the replacement {new} never served")
+        cli["kill9"] = {
+            "answers": len(answers),
+            "statuses": {str(s): sum(1 for _i, t, _b in answers if t == s)
+                         for s in sorted({t for _i, t, _b in answers})},
+            "evicted": [m["host_id"] for m in members_now
+                        if m["state"] == "evicted"],
+            "replacement": served,
+            "ctrl_lines": [ln.strip() for ln in ctrl.lines
+                           if "died" in ln or "replace" in ln]}
+        lap("kill9")
+
+        # SIGTERM the ctrl: every owned member drains, then exits rc 0.
+        owned = child_pids(ctrl.proc.pid)
+        rc = ctrl.stop(signal.SIGTERM, 300)
+        require(rc == 0 and any("owned host(s) cleanly" in ln
+                                for ln in ctrl.lines),
+                f"ctrl SIGTERM: rc {rc}, {ctrl.lines[-4:]}, "
+                f"{ctrl.err_path.read_text()[-2000:]}")
+        require(not any(os.path.exists(f"/proc/{p}") for p in owned),
+                f"members still running after the ctrl's drain: {owned}")
+        cli["ctrl_rc"] = rc
+        cli["ctrl_drain"] = [ln.strip() for ln in ctrl.lines
+                             if "drain" in ln]
+        rc = fedp.stop(signal.SIGTERM, 120)
+        require(rc == 0, f"fed SIGTERM: rc {rc}, {fedp.lines[-3:]}")
+        cli["fed_rc"] = rc
+        lap("sigterm")
+    finally:
+        if ctrl is not None:
+            for p in child_pids(ctrl.proc.pid):
+                try:
+                    os.kill(p, signal.SIGKILL)
+                except OSError:
+                    pass
+            ctrl.kill()
+        fedp.kill()
+    out["cli"] = cli
+    w = cli["load"]["warm"]
+    print(f"fed load warm (HTTP through the fed CLI, "
+          f"{cli['card_memory_mib']['members']} ctrl members on one "
+          f"card, {smi}): throughput_rps={w['throughput_rps']} "
+          f"p50_s={w['p50_s']} p99_s={w['p99_s']} hedges="
+          f"{cli['load']['hedges']}", flush=True)
+    print(f"net load warm (HTTP, net CLI, net_path, {smi}): throughput_rps="
+          f"{net_cli['throughput_rps']} p50_s={net_cli['p50_s']} "
+          f"p99_s={net_cli['p99_s']}", flush=True)
+
+    # 4. Warm start on the card: a warm in-process member serves the
+    # main frame; a joiner launched --warm-from it answers its first
+    # request from a warm program cache; a cold joiner does not.
+    warm = net_frontend(devices=[dev], witness_rate=0.0)
+    try:
+        status, warm_body, _h = http_post(warm.url, img, MAIN_REPS)
+        require(status == 200 and warm_body == want, "warm member")
+        env = http_json(warm.url, "/admin/warmstate")
+        require(env["platform"] == dev.type and env["entries"]
+                and all(set(e) == {"key"} for e in env["entries"]),
+                f"warm envelope {env}")
+        firsts = {}
+        for label, warm_from in (("warm", warm.url), ("cold", None)):
+            prov = SubprocessProvider(
+                warm_from=warm_from, launch_timeout_s=300,
+                drain_timeout_s=120, extra_args=("--backend", "pallas"))
+            handle = prov.launch()
+            try:
+                t0 = time.perf_counter()
+                status, body, _h = http_post(handle.url, img, MAIN_REPS)
+                first_s = time.perf_counter() - t0
+                require(status == 200 and body == warm_body,
+                        f"{label} joiner's first request: {status}")
+                firsts[label] = {
+                    "first_request_s": first_s,
+                    "imported": net_metric(
+                        handle.url, "fleet_ctrl_warmstart_imported_total"),
+                    "fallbacks": net_metric(
+                        handle.url, "fleet_ctrl_warmstart_fallbacks_total"),
+                    "cache_misses": net_metric(handle.url,
+                                           "fleet_cache_misses_total"),
+                    "cache_hits": net_metric(handle.url,
+                                         "fleet_cache_hits_total")}
+                require(prov.stop(handle, 120), f"{label} joiner drain")
+                handle = None
+            finally:
+                if handle is not None:
+                    prov.kill(handle)
+        f = firsts["warm"]
+        require(f["imported"] >= 1 and not f["fallbacks"]
+                and f["cache_misses"] == 0 and f["cache_hits"] >= 1,
+                f"warm joiner {f}")
+        require(firsts["cold"]["cache_misses"] == 1, f"cold {firsts}")
+        # An envelope whose kernel fingerprint was altered: every entry
+        # degrades as version_skew, and the joiner serves exact bytes.
+        n = len(env["entries"])
+        joiner = net_frontend(devices=[dev], witness_rate=0.0)
+        try:
+            summary = joiner.fleet.warmstate_import(
+                dict(env, kernels="0" * 12))
+            status, body, _h = http_post(joiner.url, img, MAIN_REPS)
+            c = joiner.metrics_snapshot()["counters"]
+            require(summary["imported"] == 0
+                    and summary["replicas"][0]["reasons"]
+                    == {"version_skew": n}
+                    and c["fleet_ctrl_warmstart_fallbacks_total"] == n
+                    and status == 200 and body == want
+                    and c["fleet_cache_misses_total"] == 1,
+                    f"skewed envelope: {summary}, {status}, {c}")
+        finally:
+            joiner.close()
+        out["warmstart"] = dict(firsts, skewed={
+            "entries": n, "reasons": summary["replicas"][0]["reasons"]})
+    finally:
+        warm.close()
+    print(f"warm start first request ({smi}): warm joiner "
+          f"first_request_s={firsts['warm']['first_request_s']} "
+          f"(imported {firsts['warm']['imported']}), cold joiner "
+          f"first_request_s={firsts['cold']['first_request_s']}",
+          flush=True)
+    lap("warmstart")
+
+    # 5. No fallback: the member's kernels cannot build, so it answers a
+    # typed 500 naming KernelBuildError; the fed carries it as the JAX
+    # fed carries a member 5xx (breaker charged, reroute, then 503
+    # HostUnavailable naming http_500 and the member's error). Nothing
+    # launches and neither torch-ops path runs.
+    with failing_builds() as called, counted_padded_step() as steps:
+        (m,) = members(1, result_cache_mb=0.0)
+        fed = fed_frontend([m.url], hedge=False, reoffer_s=0.0)
+        try:
+            reset()
+            status, body, _h = http_post(fed.url, mixed[-1],
+                                         SERVE_CASES[-1][4])
+            counts = counted()
+            member_500 = net_counter(m, "responses_5xx_total")
+            fed_5xx = fed.registry.counter("forward_http_5xx_total").value
+        finally:
+            close_all(fed, m)
+    require(status == 503 and b"HostUnavailable" in body
+            and b"http_500 (KernelBuildError)" in body
+            and member_500 == 1 and fed_5xx == 1
+            and counts == NO_LAUNCHES and not called and not steps,
+            f"fed no-fallback: {status} {body[:300]!r}, member 5xx "
+            f"{member_500}, launches {counts}, torch ops {len(called)} + "
+            f"{len(steps)}")
+    out["no_fallback"] = {"status": status, "member_status": 500,
+                          "body": body.decode(errors="replace").strip(),
+                          "launches": counts}
+    lap("no_fallback")
+    k1 = {k: out[k]["launches"]["stencil_fused"]
+          for k in ("one_request", "mixed_requests", "affinity_hit",
+                    "corrupt_body", "hedge", "no_fallback")}
+    return {"phase": "fed_ctrl_path", "ok": True, "card": smi,
+            "seconds": time.perf_counter() - t_phase, "laps": laps,
+            "k1_launches": k1, "runs": out,
+            "max_abs_err": max(cli["load"]["cold"]["max_abs_err"],
+                               cli["load"]["warm"]["max_abs_err"]),
+            "fed_vs_net_http": {
+                "fed_rps": w["throughput_rps"], "fed_p50_s": w["p50_s"],
+                "fed_p99_s": w["p99_s"],
+                "net_rps": net_cli["throughput_rps"],
+                "net_p50_s": net_cli["p50_s"],
+                "net_p99_s": net_cli["p99_s"]}}
+
+
 def phase_times(dev) -> dict:
     from tpu_stencil_torch.ops import cuda_stencil as cs
     from tpu_stencil_torch.ops import lowering
@@ -4441,6 +5094,8 @@ def run(dev: torch.device) -> None:
     serve_runs = serve_path["runs"]
     net_path = phase_net_path(dev, serve_runs["load"]["warm"])
     emit(net_path)
+    fed_ctrl = phase_fed_ctrl_path(dev, net_path["runs"]["cli"])
+    emit(fed_ctrl)
     times = phase_times(dev)
     emit(times)
 
@@ -4460,7 +5115,8 @@ def run(dev: torch.device) -> None:
                             runs["default_warm"]["max_abs_err"],
                             runs["default_cold"]["max_abs_err"],
                             serve_path["max_abs_err"],
-                            net_path["max_abs_err"]),
+                            net_path["max_abs_err"],
+                            fed_ctrl["max_abs_err"]),
          "ms": times["stencil_fused_ms"], **common,
          "body": times["tile_ab"]["gaussian"]["body"],
          # The stream of 16 frames through the CLI (5 a frame + the
@@ -4483,7 +5139,12 @@ def run(dev: torch.device) -> None:
          # The network tier: one request, the ten mixed requests one at a
          # time, the collapsed misses and a cache hit, the quarantine run
          # (served requests and the prober's two reps a probe).
-         "net_launches": net_path["k1_launches"]},
+         "net_launches": net_path["k1_launches"],
+         # The federation over two in-process members: one request, the
+         # ten mixed requests, an affinity cache hit, a corrupted body
+         # rerouted (two legs), a hedged request (40 a leg that ran on a
+         # member), the no-fallback request (none).
+         "fed_launches": fed_ctrl["k1_launches"]},
         {"name": "stencil_resident",
          "source": "tpu_stencil_torch/ops/csrc/stencil_resident.cu",
          "replaces": "tpu_stencil/ops/pallas_stencil.py:1079",

@@ -303,3 +303,57 @@ def test_net_tier_loads_no_jax_module(tmp_path, code, module):
     loaded = json.loads(r.stdout.strip().splitlines()[-1])
     assert module in loaded
     assert [m for m in loaded if _forbidden(m)] == []
+
+
+@pytest.mark.parametrize("code,module", [
+    ("import tpu_stencil_torch.fed, tpu_stencil_torch.fed.cli",
+     "tpu_stencil_torch.fed.router"),
+    ("import tpu_stencil_torch.ctrl, tpu_stencil_torch.ctrl.cli\n"
+     "import tpu_stencil_torch.ctrl.actuator\n"
+     "import tpu_stencil_torch.ctrl.warmstart",
+     "tpu_stencil_torch.ctrl.planner"),
+    # A round trip through a fed over a CPU member, with the warm-state
+    # envelope proxied and imported: nothing on that path initializes
+    # CUDA either.
+    ("import urllib.request, numpy as np, torch\n"
+     "from tpu_stencil_torch.config import FedConfig, NetConfig\n"
+     "from tpu_stencil_torch.fed import FedFrontend\n"
+     "from tpu_stencil_torch.net import NetFrontend\n"
+     "from tpu_stencil_torch.ctrl import warmstart\n"
+     "m = NetFrontend(NetConfig(port=0, replicas=1, prof_dir=None,\n"
+     "                          flightrec_dir=None),\n"
+     "                devices=[torch.device('cpu')]).start()\n"
+     "fe = FedFrontend(FedConfig(port=0, members=(m.url,),\n"
+     "                           flightrec_dir=None)).start()\n"
+     "req = urllib.request.Request(fe.url + '/v1/blur?w=8&h=8&reps=2',\n"
+     "                             data=bytes(64), method='POST')\n"
+     "assert urllib.request.urlopen(req, timeout=60).status == 200\n"
+     "env = warmstart.loads(urllib.request.urlopen(\n"
+     "    fe.url + '/admin/warmstate', timeout=60).read())\n"
+     "assert m.fleet.warmstate_import(env)['fallbacks'] == 0\n"
+     "fe.close(); m.close()\n"
+     "assert not torch.cuda.is_initialized()",
+     "tpu_stencil_torch.fed.http"),
+    # No card and no --member-platform cpu: the one launch fails
+    # (counted), nothing serves on the CPU, and the ctrl exits clean.
+    ("from tpu_stencil_torch import cli\n"
+     "assert cli.main(['ctrl', '--fed', 'http://127.0.0.1:9',\n"
+     "                 '--iterations', '1', '--cold',\n"
+     "                 '--stats-json', 's.json']) == 0\n"
+     "import json\n"
+     "c = json.load(open('s.json'))['counters']\n"
+     "assert c['ctrl_launch_failures_total'] == 1, c\n"
+     "assert c['ctrl_launches_total'] == 0, c",
+     "tpu_stencil_torch.ctrl.cli"),
+], ids=["fed_import", "ctrl_import", "fed_round_trip", "ctrl_cli_no_card"])
+def test_fed_and_ctrl_load_no_jax_module(tmp_path, code, module):
+    code += "\nimport json, sys\nprint(json.dumps(sorted(sys.modules)))\n"
+    # No card in the child (nor in the members it launches), whatever the
+    # host has.
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=tmp_path, env=env, timeout=300)
+    assert r.returncode == 0, r.stderr
+    loaded = json.loads(r.stdout.strip().splitlines()[-1])
+    assert module in loaded
+    assert [m for m in loaded if _forbidden(m)] == []

@@ -18,10 +18,11 @@ cases of ``tests/test_integrity.py``:
   rewritten while its request is still in flight;
 * the integrity layer: claims checked, results stamped, corruption
   caught, quarantine routes around a replica and probes bring it back;
-* the port's own contracts: ``GET /admin/warmstate`` answers 200 with an
-  ``unsupported`` envelope and ``--warm-from`` degrades every replica to
-  a cold start, counted; ``--register`` posts to a federation router (a
-  stub handler here); no card and no ``--platform cpu`` fails typed
+* the port's own contracts: ``GET /admin/warmstate`` answers 200 with the
+  program-cache keys (an ``unsupported`` envelope when the kernel sources
+  cannot be read) and ``--warm-from`` such an envelope degrades every
+  replica to a cold start, counted; ``--register`` posts to a federation
+  router (a stub handler here); no card and no ``--platform cpu`` fails typed
   (``NoDeviceError``); a kernel that cannot build answers a typed 500
   with no torch-ops fallback.
 
@@ -33,6 +34,7 @@ import http.client
 import http.server
 import json
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -968,18 +970,37 @@ def test_register_posts_the_advertised_url_to_the_fed(stub_fed):
     assert seen == [("/admin/register", ["http://10.0.0.7:8080"])]
 
 
-def test_admin_warmstate_answers_an_unsupported_envelope(fe):
+def test_admin_warmstate_answers_an_unsupported_envelope(fe, rng,
+                                                        monkeypatch):
+    from tpu_stencil_torch.ctrl import warmstart
+
+    # A warm host answers its program-cache keys: keys, never binaries.
+    assert _post(fe.url, _img(rng), REPS)[0] == 200
+    status, body = _get(fe.url, "/admin/warmstate")
+    assert status == 200
+    doc = json.loads(body)
+    assert doc["schema_version"] == 1 and doc["platform"] == "cpu"
+    assert doc["entries"] and "unsupported" not in doc
+    assert all(set(e) == {"key"} for e in doc["entries"])
+    # An exporter whose kernel sources cannot be read ships nothing and
+    # says why.
+    monkeypatch.setattr(warmstart, "_kernel_fingerprint", lambda: None)
     status, body = _get(fe.url, "/admin/warmstate")
     assert status == 200
     doc = json.loads(body)
     assert doc["schema_version"] == 1 and doc["entries"] == []
-    assert "ctrl.warmstart" in doc["unsupported"]
+    assert "kernel sources" in doc["unsupported"]
 
 
-def test_warm_from_degrades_every_replica_to_cold_counted(fe, capsys):
+def test_warm_from_degrades_every_replica_to_cold_counted(fe, capsys,
+                                                          monkeypatch):
+    from tpu_stencil_torch.ctrl import warmstart
     from tpu_stencil_torch.net import NetFrontend
     from tpu_stencil_torch.net import cli as net_cli
 
+    # The warm host cannot read its kernel sources: its envelope is the
+    # unsupported one, and every replica of the joiner starts cold.
+    monkeypatch.setattr(warmstart, "_kernel_fingerprint", lambda: None)
     joiner = NetFrontend(NetConfig(port=0, replicas=2, bucket_edges=EDGES,
                                    prof_dir=None), devices=[CPU] * 2)
     try:
@@ -1027,7 +1048,13 @@ def test_cli_sigterm_graceful_drain_subprocess(rng, fe, stub_fed, tmp_path):
         cwd=str(tmp_path), env=env)
     try:
         line = proc.stdout.readline()
-        assert "warm-start imported 0 artifact(s), 2 fallback(s)" in line
+        # Every key the module tier holds, rebuilt in each of 2 replicas.
+        imported = re.search(
+            r"warm-start imported (\d+) artifact\(s\), 0 fallback\(s\)",
+            line)
+        assert imported, line
+        n = int(imported.group(1))
+        assert n >= 2 and n % 2 == 0, line
         line = proc.stdout.readline()
         assert "net: serving on http://" in line, line
         assert "2 replica(s)" in line and "devices=cpu,cpu" in line

@@ -1178,12 +1178,19 @@ def test_warm_plane_cache_access_and_cold_import(rng):
         after = s.stats()["counters"]
         assert after["cache_hits_total"] == before["cache_hits_total"]
         assert after["cache_misses_total"] == before["cache_misses_total"]
-        # Import degrades every artifact to cold, typed and counted.
+        # An envelope naming no torch version degrades every entry to
+        # cold, typed and counted.
         got = s.import_warm_state({"schema_version": 1,
                                    "entries": [{}, {}, {}]})
         assert got["imported"] == 0 and got["fallbacks"] == 3
+        assert got["reasons"] == {"version_skew": 3}
         assert s.import_warm_state(None)["reasons"] == {
             "payload_unavailable": 1}
         assert s.stats()["counters"]["ctrl_warmstart_fallbacks_total"] == 4
-        with pytest.raises(NotImplementedError, match="ctrl.warmstart"):
-            s.export_warm_state()
+        # The export names the cache's keys, the seeded one too.
+        from tpu_stencil_torch.ctrl import warmstart
+
+        env = s.export_warm_state()
+        assert sorted(warmstart._key_from_wire(e["key"])
+                      for e in env["entries"]) == sorted(s.warm_keys())
+        assert len(env["entries"]) == 2

@@ -18,9 +18,11 @@ and writes nothing.
 ``python -m tpu_stencil_torch serve ...`` is the serving engine
 (:mod:`tpu_stencil_torch.serve.cli`), ``stream ...`` the streaming engine
 (:mod:`tpu_stencil_torch.stream.cli`), ``net ...`` the network serving
-tier (:mod:`tpu_stencil_torch.net.cli`) and ``perf ...`` the perf sentry
-(:mod:`tpu_stencil_torch.obs.sentry`), each dispatched ahead of the job's
-parser as in the JAX package.
+tier (:mod:`tpu_stencil_torch.net.cli`), ``fed ...`` the federation front
+router (:mod:`tpu_stencil_torch.fed.cli`), ``ctrl ...`` the elastic
+control plane (:mod:`tpu_stencil_torch.ctrl.cli`) and ``perf ...`` the
+perf sentry (:mod:`tpu_stencil_torch.obs.sentry`), each dispatched ahead
+of the job's parser as in the JAX package.
 
 Several processes (the reference's ``mpiexec -n P``)::
 
@@ -65,6 +67,19 @@ def main(argv=None) -> int:
         from tpu_stencil_torch.net import cli as net_cli
 
         return net_cli.main(argv[1:])
+    if argv and argv[0] == "fed":
+        # The federation front router: membership, breakers and hedged
+        # forwarding over many net hosts; it never touches a device.
+        from tpu_stencil_torch.fed import cli as fed_cli
+
+        return fed_cli.main(argv[1:])
+    if argv and argv[0] == "ctrl":
+        # The elastic control plane: hysteresis autoscaling,
+        # preemption-aware drain and warm-start member launches over a
+        # federation; its members run on the card unless told otherwise.
+        from tpu_stencil_torch.ctrl import cli as ctrl_cli
+
+        return ctrl_cli.main(argv[1:])
     if argv and argv[0] == "perf":
         # The perf sentry (log/check/report) touches no device.
         from tpu_stencil_torch.obs import sentry

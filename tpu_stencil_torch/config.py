@@ -10,7 +10,8 @@ validation messages, so one command line runs on both packages:
 --fallback-backend --dispatch-timeout --checkpoint-every --resume`` and
 the observability flags ``--trace --breakdown --hlo-dump --metrics-text
 --profile``. :class:`StreamConfig`, :class:`ServeConfig` and
-:class:`NetConfig` are the ``stream``, ``serve`` and ``net`` subcommands'
+:class:`NetConfig`, :class:`FedConfig` and :class:`CtrlConfig` are the
+``stream``, ``serve``, ``net``, ``fed`` and ``ctrl`` subcommands'
 configurations, field for field the JAX package's.
 """
 
@@ -714,6 +715,310 @@ def _validate_telemetry(cfg) -> None:
             f"slo_latency_p99_s must be >= 0 (0 = no latency "
             f"objective), got {cfg.slo_latency_p99_s}"
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class FedConfig:
+    """Configuration of the federation front-router tier
+    (:mod:`tpu_stencil_torch.fed`): health-checked membership, per-host
+    circuit breakers, hedged forwarding, and federation-scope admission
+    with per-tenant quotas, field for field and check for check the JAX
+    package's. The tier never touches a device: it moves routing metadata
+    plus the one forwarded body per request.
+
+    Membership timing is a *suspicion window*, not a single timeout:
+    ``suspect_after`` consecutive missed heartbeats demote a member to
+    suspect (routed only after every healthy host), ``evict_after``
+    misses evict it. A member whose ``/healthz`` answers 503 (draining)
+    is removed from routing immediately — before its requests would
+    start failing.
+    """
+
+    host: str = "127.0.0.1"
+    port: int = 8090           # 0 = ephemeral (the bound port is printed)
+    members: Tuple[str, ...] = ()  # seed member URLs; more register live
+    # Membership / heartbeats.
+    heartbeat_interval_s: float = 1.0
+    suspect_after: int = 2     # consecutive misses -> suspect
+    evict_after: int = 5       # consecutive misses -> evicted
+    # Per-host circuit breaker: this many consecutive transport-level
+    # forward failures open the breaker (typed HostUnavailable); after
+    # the cooldown one half-open probe request is let through — success
+    # closes it, failure re-opens for another cooldown.
+    breaker_threshold: int = 3
+    breaker_cooldown_s: float = 2.0
+    # Hedged requests: a forward still pending past the observed p99
+    # forward latency (floored by hedge_min_s) fires ONE hedge at the
+    # next least-outstanding member; first response wins, the loser is
+    # cancelled typed.
+    hedge: bool = True
+    hedge_min_s: float = 0.05
+    # Per-attempt member socket timeout (connect + response): past it
+    # the attempt classifies as a member timeout (breaker counts, the
+    # request reroutes). Matches the net handler's read-side guard.
+    forward_timeout_s: float = 120.0
+    # Re-offer window when EVERY routable member answers backpressure:
+    # transient all-busy blips re-offer (resilience.retry.reoffer_call)
+    # for up to this long before the typed 429/503 surfaces. 0 = off.
+    reoffer_s: float = 0.5
+    # Federation-scope load shed: past this many MB of tracked
+    # in-flight request+response bytes, standard-class requests are
+    # shed 503 + Retry-After before any forward; premium tenants get
+    # PREMIUM_HEADROOM more before shedding. 0 disables.
+    max_inflight_mb: float = 512.0
+    # Per-tenant quota (X-Tenant header; absent = tenant "anon"): max
+    # outstanding requests per standard tenant — the hot client
+    # degrades to ITS quota, never the fleet. Premium tenants (listed
+    # in premium_tenants) get quota * premium_quota_factor.
+    tenant_quota: int = 32
+    premium_tenants: Tuple[str, ...] = ()
+    premium_quota_factor: int = 4
+    # Graceful-drain budget (seconds): on SIGTERM, admission stops and
+    # every member gets this long for its outstanding forwarded
+    # requests to bleed to zero; a member still busy past it is
+    # reported abandoned (rc 1), mirroring the net CLI's discipline.
+    drain_timeout_s: float = 30.0
+    # Flight recorder, same contract as NetConfig: anomaly dumps (slow
+    # request / deadline / breaker open / eviction) spool here;
+    # TPU_STENCIL_TORCH_FLIGHTREC_DIR overrides; None disables the spool.
+    flightrec_dir: Optional[str] = "flightrec"
+    # Slow-request trigger threshold (seconds; 0 = off).
+    flight_latency_threshold_s: float = 0.0
+    # Digest-affinity placement (cache.affinity): healthy
+    # members are ranked by rendezvous hash of the request body's
+    # BLAKE2b-160 digest, so repeated content concentrates on the
+    # member whose result cache already holds it. Suspect members,
+    # breakers, drains and hedging behave exactly as before; off =
+    # pure least-outstanding placement.
+    digest_affinity: bool = True
+    # Live telemetry plane, same contract as NetConfig: local-registry
+    # sampler (0 = off, which also disables the SLO engine) feeding
+    # GET /debug/timeseries (the fed endpoint additionally fans the
+    # query to live members and merges), and the SLO error budget
+    # (0 = engine off) for the fed tier's own response mix.
+    sample_interval_s: float = 1.0
+    slo_error_budget: float = 0.05
+    slo_fast_window_s: float = 60.0
+    slo_slow_window_s: float = 300.0
+    slo_fast_burn: float = 6.0
+    slo_slow_burn: float = 3.0
+    slo_latency_p99_s: float = 0.0
+
+    def __post_init__(self) -> None:
+        if not self.host:
+            raise ValueError("host must be non-empty")
+        if not 0 <= self.port <= 65535:
+            raise ValueError(
+                f"port must be in [0, 65535] (0 = ephemeral), got {self.port}"
+            )
+        object.__setattr__(self, "members", tuple(self.members))
+        for url in self.members:
+            if not url.startswith(("http://", "https://")):
+                raise ValueError(
+                    f"member URL must start with http:// or https://, "
+                    f"got {url!r}"
+                )
+        if self.heartbeat_interval_s <= 0:
+            raise ValueError(
+                f"heartbeat_interval_s must be > 0, got "
+                f"{self.heartbeat_interval_s}"
+            )
+        if self.suspect_after < 1:
+            raise ValueError(
+                f"suspect_after must be >= 1, got {self.suspect_after}"
+            )
+        if self.evict_after < self.suspect_after:
+            raise ValueError(
+                f"evict_after must be >= suspect_after "
+                f"({self.suspect_after}), got {self.evict_after}"
+            )
+        if self.breaker_threshold < 1:
+            raise ValueError(
+                f"breaker_threshold must be >= 1, got "
+                f"{self.breaker_threshold}"
+            )
+        if self.breaker_cooldown_s <= 0:
+            raise ValueError(
+                f"breaker_cooldown_s must be > 0, got "
+                f"{self.breaker_cooldown_s}"
+            )
+        if self.hedge_min_s < 0:
+            raise ValueError(
+                f"hedge_min_s must be >= 0, got {self.hedge_min_s}"
+            )
+        if self.forward_timeout_s <= 0:
+            raise ValueError(
+                f"forward_timeout_s must be > 0, got "
+                f"{self.forward_timeout_s}"
+            )
+        if self.reoffer_s < 0:
+            raise ValueError(
+                f"reoffer_s must be >= 0 (0 = no re-offer window), got "
+                f"{self.reoffer_s}"
+            )
+        if self.max_inflight_mb < 0:
+            raise ValueError(
+                f"max_inflight_mb must be >= 0 (0 = no shed watermark), "
+                f"got {self.max_inflight_mb}"
+            )
+        if self.tenant_quota < 1:
+            raise ValueError(
+                f"tenant_quota must be >= 1, got {self.tenant_quota}"
+            )
+        object.__setattr__(
+            self, "premium_tenants", tuple(self.premium_tenants)
+        )
+        if self.premium_quota_factor < 1:
+            raise ValueError(
+                f"premium_quota_factor must be >= 1, got "
+                f"{self.premium_quota_factor}"
+            )
+        if self.drain_timeout_s <= 0:
+            raise ValueError(
+                f"drain_timeout_s must be > 0, got {self.drain_timeout_s}"
+            )
+        if self.flight_latency_threshold_s < 0:
+            raise ValueError(
+                f"flight_latency_threshold_s must be >= 0 (0 = no "
+                f"slow-request trigger), got "
+                f"{self.flight_latency_threshold_s}"
+            )
+        _validate_telemetry(self)
+
+    @property
+    def max_inflight_bytes(self) -> int:
+        return int(self.max_inflight_mb * (1 << 20))
+
+
+@dataclasses.dataclass(frozen=True)
+class CtrlConfig:
+    """Configuration of the elastic control plane
+    (:mod:`tpu_stencil_torch.ctrl`): the loop that polls the federation's
+    live capacity signals, runs them through the hysteresis planner, and
+    actuates scale-out / scale-in / replacement through a host provider,
+    field for field the JAX package's. The controller never touches a
+    device; it only reads scrapes and starts and stops member processes.
+
+    The planner mirrors the SLO engine's fast+slow enter/hold
+    discipline: scale-out requires EVERY sample in the fast window
+    and a majority of the slow window to show pressure (utilization
+    past ``scale_out_utilization`` or time-to-saturation under
+    ``saturation_horizon_s``); once entered, pressure holds until the
+    fast window's mean utilization falls below ``hold_utilization``.
+    Scale-in is the slow symmetric case: every slow-window sample
+    idle. A decision is never taken from one sample, and each
+    actuation arms a ``cooldown_samples``-poll cooldown so the fleet
+    resizes at most once per observed settling window. Replacement
+    (an owned host's process died, or a member was preempted) is a
+    discrete event and bypasses hysteresis entirely."""
+
+    fed_url: str = "http://127.0.0.1:8090"
+    poll_interval_s: float = 1.0
+    capacity_window_s: float = 10.0  # window= passed to /debug/capacity
+    # Fleet bounds (owned hosts, not counting hand-registered members).
+    min_hosts: int = 1
+    max_hosts: int = 4
+    # Hysteresis windows, in SAMPLES (polls), not wall seconds — the
+    # planner is deterministic under synthetic signal feeds.
+    fast_samples: int = 3
+    slow_samples: int = 9
+    scale_out_utilization: float = 0.85
+    hold_utilization: float = 0.70
+    scale_in_utilization: float = 0.30
+    saturation_horizon_s: float = 30.0
+    cooldown_samples: int = 5
+    # Actuation budgets.
+    launch_timeout_s: float = 120.0
+    drain_timeout_s: float = 60.0
+    # Subprocess provider knobs (the CI/bench provider; real fleets
+    # implement ctrl.actuator.HostProvider instead). member_platform None
+    # runs the members on the card (a member without one fails its
+    # launch, counted); "cpu" asks for the CPU.
+    member_platform: Optional[str] = None
+    replicas_per_host: int = 1
+    # Warm-start: launched members pull /admin/warmstate from this URL
+    # (default: the fed front itself) before flipping ready; None
+    # launches them cold.
+    warm_from: Optional[str] = None
+
+    def __post_init__(self) -> None:
+        if not self.fed_url.startswith(("http://", "https://")):
+            raise ValueError(
+                f"fed_url must start with http:// or https://, got "
+                f"{self.fed_url!r}"
+            )
+        if self.poll_interval_s <= 0:
+            raise ValueError(
+                f"poll_interval_s must be > 0, got {self.poll_interval_s}"
+            )
+        if self.capacity_window_s <= 0:
+            raise ValueError(
+                f"capacity_window_s must be > 0, got "
+                f"{self.capacity_window_s}"
+            )
+        if self.min_hosts < 0:
+            raise ValueError(
+                f"min_hosts must be >= 0, got {self.min_hosts}"
+            )
+        if self.max_hosts < max(1, self.min_hosts):
+            raise ValueError(
+                f"max_hosts must be >= max(1, min_hosts="
+                f"{self.min_hosts}), got {self.max_hosts}"
+            )
+        if self.fast_samples < 1:
+            raise ValueError(
+                f"fast_samples must be >= 1, got {self.fast_samples}"
+            )
+        if self.slow_samples < self.fast_samples:
+            raise ValueError(
+                f"slow_samples must be >= fast_samples "
+                f"({self.fast_samples}), got {self.slow_samples}"
+            )
+        if not (0.0 < self.scale_in_utilization
+                < self.hold_utilization
+                <= self.scale_out_utilization <= 1.0):
+            raise ValueError(
+                f"utilization thresholds must satisfy 0 < scale_in "
+                f"< hold <= scale_out <= 1, got "
+                f"scale_in={self.scale_in_utilization} "
+                f"hold={self.hold_utilization} "
+                f"scale_out={self.scale_out_utilization}"
+            )
+        if self.saturation_horizon_s < 0:
+            raise ValueError(
+                f"saturation_horizon_s must be >= 0 (0 = ignore "
+                f"time-to-saturation), got {self.saturation_horizon_s}"
+            )
+        if self.cooldown_samples < 0:
+            raise ValueError(
+                f"cooldown_samples must be >= 0, got "
+                f"{self.cooldown_samples}"
+            )
+        if self.launch_timeout_s <= 0:
+            raise ValueError(
+                f"launch_timeout_s must be > 0, got "
+                f"{self.launch_timeout_s}"
+            )
+        if self.drain_timeout_s <= 0:
+            raise ValueError(
+                f"drain_timeout_s must be > 0, got {self.drain_timeout_s}"
+            )
+        if self.member_platform not in (None, "cpu", "gpu"):
+            raise ValueError(
+                f"member_platform must be None (the card), 'cpu' or "
+                f"'gpu', got {self.member_platform!r}"
+            )
+        if self.replicas_per_host < 1:
+            raise ValueError(
+                f"replicas_per_host must be >= 1, got "
+                f"{self.replicas_per_host}"
+            )
+        if self.warm_from is not None and not self.warm_from.startswith(
+                ("http://", "https://")):
+            raise ValueError(
+                f"warm_from must start with http:// or https://, got "
+                f"{self.warm_from!r}"
+            )
 
 
 def build_parser() -> argparse.ArgumentParser:

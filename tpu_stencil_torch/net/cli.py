@@ -194,11 +194,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warm-from", dest="warm_from", default=None,
                    metavar="URL",
                    help="warm-start: GET URL/admin/warmstate (a fed "
-                        "front or a warm member) and import the "
-                        "envelope into every replica BEFORE the HTTP "
-                        "listener starts; an unusable artifact (every "
-                        "artifact, until the port has a warm-start) "
-                        "degrades to a cold start, typed and counted "
+                        "front or a warm member) and, BEFORE the HTTP "
+                        "listener starts, rebuild every program-cache "
+                        "key it names from this checkout's kernel "
+                        "sources and run it once on each replica's "
+                        "device; an unusable entry degrades to a cold "
+                        "start, typed and counted "
                         "(ctrl_warmstart_fallbacks_total), never fatal")
     p.add_argument("--metrics-text", default=None, metavar="PATH",
                    help="after the drain, write the fleet-wide metrics "
@@ -259,7 +260,7 @@ def _load_envelope(data: bytes):
 def _pull_warm_state(fe, url: str) -> None:
     """Warm-start pull: fetch the envelope from ``url`` and import it into
     every replica before the HTTP listener exists. Every failure (the
-    pull, or any artifact in it) degrades to a cold start, typed and
+    pull, or any entry in it) degrades to a cold start, typed and
     counted in ``ctrl_warmstart_fallbacks_total``, never fatal."""
     import urllib.request
 

@@ -24,12 +24,11 @@ abandoned; :meth:`restart` drains one replica, builds a fresh engine on
 the same device and swaps it in while the rest serve on (the router's
 recovery of a ``WorkerCrashed`` replica).
 
-**Warm state.** The port has no warm-start yet: every replica's
-``export_warm_state`` raises ``WarmStartUnavailable``, and
-:meth:`warmstate_export` answers the JAX package's envelope without
-artifacts, ``{"schema_version": 1, "entries": [], "unsupported":
-reason}``, so ``GET /admin/warmstate`` answers 200 and a joiner degrades
-to a cold start, counted.
+**Warm state.** :meth:`warmstate_export` is this host's warm-state
+envelope (:mod:`~tpu_stencil_torch.ctrl.warmstart`: program-cache keys,
+never binaries) and :meth:`warmstate_import` rebuilds and warm-runs an
+envelope's entries in every replica, each from this checkout's kernel
+sources.
 """
 
 from __future__ import annotations
@@ -49,7 +48,7 @@ from tpu_stencil_torch.devices import resolve_devices
 from tpu_stencil_torch.obs import ledger as _obs_ledger
 from tpu_stencil_torch.obs import span as _obs_span
 from tpu_stencil_torch.serve import bucketing
-from tpu_stencil_torch.serve.engine import StencilServer, WarmStartUnavailable
+from tpu_stencil_torch.serve.engine import StencilServer
 from tpu_stencil_torch.serve.metrics import Registry
 
 # Warm-key dedup bound: the key space is client-controlled, so past the
@@ -280,33 +279,28 @@ class ReplicaFleet:
 
     def warmstate_export(self) -> dict:
         """This host's warm-state envelope: replica 0's plus any keys only
-        later replicas hold (first writer wins). Without a warm-start in
-        the port it is the envelope without artifacts, ``unsupported``
-        naming why."""
+        later replicas hold (first writer wins)."""
         envelope = None
         seen = set()
-        try:
-            for rep in list(self.replicas):
-                doc = rep.export_warm_state()
-                if envelope is None:
-                    envelope = doc
-                    seen = {json.dumps(e["key"])
-                            for e in doc.get("entries", [])}
-                    continue
-                for e in doc.get("entries", []):
-                    k = json.dumps(e["key"])
-                    if k not in seen:
-                        seen.add(k)
-                        envelope["entries"].append(e)
-        except WarmStartUnavailable as e:
-            return {"schema_version": 1, "entries": [],
-                    "unsupported": str(e)}
+        for rep in list(self.replicas):
+            doc = rep.export_warm_state()
+            if envelope is None:
+                envelope = doc
+                seen = {json.dumps(e["key"])
+                        for e in doc.get("entries", [])}
+                continue
+            for e in doc.get("entries", []):
+                k = json.dumps(e["key"])
+                if k not in seen:
+                    seen.add(k)
+                    envelope["entries"].append(e)
         if envelope is None:
             envelope = {"schema_version": 1, "entries": []}
         return envelope
 
     def warmstate_import(self, payload) -> dict:
-        """Import one envelope into every replica. The summary is summed
+        """Import one envelope into every replica (each rebuilds and
+        warm-runs the entries on its own device). The summary is summed
         over the replicas; an unusable entry degrades to a cold build
         inside each replica, typed and counted, never raised."""
         out: dict = {"imported": 0, "fallbacks": 0, "replicas": []}

@@ -692,12 +692,10 @@ class _Handler(BaseHTTPRequestHandler):
             )
 
     def _admin_warmstate(self) -> None:
-        """``GET /admin/warmstate``: this host's warm-state envelope for a
-        joining host to import before it flips ready. Always 200: the
-        port has no warm-start yet, so it answers the envelope without
-        artifacts (``unsupported`` naming why,
-        :meth:`ReplicaFleet.warmstate_export`) and the joiner degrades to
-        a cold start, typed and counted."""
+        """``GET /admin/warmstate``: this host's warm-state envelope
+        (:meth:`ReplicaFleet.warmstate_export`: program-cache keys, never
+        binaries) for a joining host to rebuild and warm-run from its own
+        kernel sources before it flips ready."""
         payload = self.fe.fleet.warmstate_export()
         self._respond(200, json.dumps(payload).encode(),
                       content_type="application/json")

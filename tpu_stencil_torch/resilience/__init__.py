@@ -9,3 +9,27 @@ points armed by ``TPU_STENCIL_TORCH_FAULTS`` / ``--faults``), :mod:`retry`
 firing, demotion and timeout is counted in the driver registry under the
 JAX package's ``resilience_*`` names.
 """
+
+from tpu_stencil_torch.resilience.errors import (
+    CollectiveTimeout,
+    DeadlineExceeded,
+    DispatchTimeout,
+    FatalInjectedFault,
+    HostUnavailable,
+    InjectedFault,
+    InjectedOOM,
+    ResilienceError,
+    WorkerCrashed,
+)
+
+__all__ = [
+    "CollectiveTimeout",
+    "DeadlineExceeded",
+    "DispatchTimeout",
+    "FatalInjectedFault",
+    "HostUnavailable",
+    "InjectedFault",
+    "InjectedOOM",
+    "ResilienceError",
+    "WorkerCrashed",
+]

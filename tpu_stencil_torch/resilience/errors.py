@@ -2,8 +2,7 @@
 
 The port's counterpart of the JAX package's ``resilience/errors.py``:
 every error a layer raises on purpose is a class here, so callers can
-assert "failed typed" instead of matching messages. The classes of parts
-not ported yet (remote hosts) come with those parts.
+assert "failed typed" instead of matching messages.
 """
 
 from __future__ import annotations
@@ -26,6 +25,21 @@ class WorkerCrashed(ResilienceError):
     Every queued and in-flight future fails with this (they would
     otherwise wait forever), and later submits are rejected with it: a
     crashed server stays typed-dead until it is constructed anew."""
+
+
+class HostUnavailable(ResilienceError):
+    """A federation member host cannot take traffic right now: its circuit
+    breaker is open after consecutive transport failures, every routable
+    member's forward attempt failed, or no routable member remains at all
+    (:mod:`tpu_stencil_torch.fed`). Transient by classification: breakers
+    half-open after their cooldown and the membership heartbeat re-admits
+    recovering hosts, so a later attempt may land (the federation
+    frontend answers 503 + Retry-After). ``host`` names the member when
+    the failure is host-scoped (None when no member is routable)."""
+
+    def __init__(self, msg: str, host: Optional[str] = None) -> None:
+        super().__init__(msg)
+        self.host = host
 
 
 class InjectedFault(ResilienceError):

@@ -15,7 +15,9 @@ The port's counterpart of the JAX package's ``resilience/retry.py``;
   ``KernelLaunchError``: the same sources and the same arguments fail the
   same way), and a closed or draining server (``ServerClosed``,
   ``Draining``: it never reopens for this process).
-* **backpressure** (``QueueFull``) is transient: re-offer later.
+* **backpressure** (``QueueFull``) is transient: re-offer later, and so
+  is a federation's ``HostUnavailable`` (breakers half-open after their
+  cooldown, heartbeats re-admit recovering hosts).
   :func:`reoffer_call` is the closed-loop re-offer shape the serving
   clients share, and a ``retry_after_s`` hint on an error is the floor of
   the next backoff.
@@ -34,7 +36,10 @@ import random
 import time
 from typing import Callable, Optional
 
-from tpu_stencil_torch.resilience.errors import DeadlineExceeded
+from tpu_stencil_torch.resilience.errors import (
+    DeadlineExceeded,
+    HostUnavailable,
+)
 
 TRANSIENT = "transient"
 PERMANENT = "permanent"
@@ -77,6 +82,8 @@ def classify(exc: BaseException) -> str:
     cannot). See the module docstring for the taxonomy."""
     if isinstance(exc, DeadlineExceeded):
         return PERMANENT  # an expired request can only expire again
+    if isinstance(exc, HostUnavailable):
+        return TRANSIENT
     if type(exc).__name__ in _TRANSIENT_TYPE_NAMES:
         return TRANSIENT
     if type(exc).__name__ in _PERMANENT_TYPE_NAMES:

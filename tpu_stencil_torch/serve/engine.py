@@ -110,11 +110,6 @@ class ServerClosed(RuntimeError):
     """The server is shutting down (or closed); no new work is accepted."""
 
 
-class WarmStartUnavailable(NotImplementedError):
-    """The warm-state export needs the control plane's warm-start
-    (``ctrl.warmstart``), which the port does not have yet."""
-
-
 @dataclasses.dataclass
 class Request:
     """One queued inference request (internal)."""
@@ -535,6 +530,9 @@ class StencilServer:
         self._crashed: Optional[BaseException] = None
         self._inflight_batches: "collections.deque" = collections.deque()
         self._current_batch: List[Request] = []
+        # Work the worker thread runs between batches, on its streams
+        # (the warm-start plane's warm runs): (callable, future) pairs.
+        self._control: "collections.deque" = collections.deque()
         # The card's streams, made on the worker thread at its start.
         self._stream = self._copy_stream = self._d2h_stream = None
         # Fault-injection sites resolved once (with no fault armed, every
@@ -864,42 +862,64 @@ class StencilServer:
         """Seed one pre-built program (counter-silent)."""
         return self._cache.seed(key, entry)
 
+    def warm_run(self, key) -> BucketProgram:
+        """Build the program of ``key`` (a shippable program-cache key,
+        :func:`~tpu_stencil_torch.ctrl.warmstart._key_geometry`), take its
+        arena slot and run one batch of zeros through it on this server's
+        device, on the worker thread's streams when the worker runs; the
+        program-cache and request counters do not move. Returns the
+        program, for :meth:`warm_seed`. A kernel that cannot build raises
+        (``KernelBuildError``)."""
+        fname, bucket_hw, channels, _dtype, _backend, reps, nb = key
+
+        def run() -> BucketProgram:
+            prog = self._build_program(fname, tuple(bucket_hw), channels,
+                                       reps, nb)
+            slot = self._slot_for(prog)
+            slot.canvas_t.zero_()
+            slot.valid_t.zero_()
+            self._launch(prog, slot)
+            if slot.d2h_event is not None:
+                slot.d2h_event.synchronize()
+            return prog
+
+        return self._on_worker(run)
+
     def export_warm_state(self) -> dict:
-        """The warm-state envelope for a joining host: needs the control
-        plane's warm-start, which the port does not have yet."""
-        raise WarmStartUnavailable(
-            "export_warm_state needs the control plane's warm-start "
-            "(ctrl.warmstart), which tpu_stencil_torch does not have yet"
-        )
+        """This server's warm-state envelope for a joining host: its
+        program-cache keys (:mod:`tpu_stencil_torch.ctrl.warmstart`)."""
+        from tpu_stencil_torch.ctrl import warmstart as _warmstart
+
+        return _warmstart.export_server(self)
 
     def import_warm_state(self, payload) -> dict:
-        """Import a warm-state envelope. Without the control plane's
-        warm-start every artifact degrades to a cold build, typed and
-        counted (``ctrl_warmstart_fallbacks_total``); never raises.
-        Returns ``{"imported": 0, "fallbacks": n, "reasons": {...}}``."""
-        fallbacks = self.registry.counter("ctrl_warmstart_fallbacks_total")
-        summary: dict = {"imported": 0, "fallbacks": 0, "reasons": {}}
+        """Import a warm-state envelope: each entry is rebuilt from this
+        checkout's kernel sources and run once before it is seeded; every
+        unusable entry degrades to a cold build, typed and counted
+        (``ctrl_warmstart_fallbacks_total``), never an error."""
+        from tpu_stencil_torch.ctrl import warmstart as _warmstart
 
-        def fall(reason: str, n: int = 1) -> None:
-            fallbacks.inc(n)
-            summary["fallbacks"] += n
-            summary["reasons"][reason] = summary["reasons"].get(reason, 0) + n
+        return _warmstart.import_server(self, payload)
 
-        if not isinstance(payload, dict):
-            fall("payload_unavailable")
-            return summary
-        if payload.get("schema_version") != 1:
-            fall("schema_mismatch")
-            return summary
-        if payload.get("unsupported"):
-            # The exporter could not ship artifacts (the port's own
-            # export_warm_state envelope): a cold start, counted.
-            fall("exporter_unsupported")
-            return summary
-        entries = payload.get("entries") or []
-        if entries:
-            fall("warmstart_unavailable", len(entries))
-        return summary
+    def _on_worker(self, fn):
+        """``fn()`` run on the worker thread between batches (its device
+        streams), its result or exception returned here; run on this
+        thread when no worker runs."""
+        fut: "concurrent.futures.Future" = concurrent.futures.Future()
+        with self._cond:
+            worker = self._worker
+            queued = (worker is not None and worker.is_alive()
+                      and worker is not threading.current_thread())
+            if queued:
+                if self._crashed is not None or self._closing:
+                    raise ServerClosed("server is closed or crashed")
+                self._control.append((fn, fut))
+                self._cond.notify_all()
+        if not queued:
+            if self._cuda and self._stream is None:
+                self._setup_streams(make_current=False)
+            return fn()
+        return fut.result()
 
     # -- scheduler / worker --------------------------------------------
 
@@ -1056,31 +1076,81 @@ class StencilServer:
                 "backend": runner.backend, "n_devices": n_dev}
         return batch, outs, meta, t0
 
+    def _build_program(self, filter_name: str, bucket_hw: Tuple[int, int],
+                       channels: int, reps: int, nb: int) -> BucketProgram:
+        """The bucket program of one key, on the backend the filter's model
+        resolves for the bucket."""
+        model = self._model_for(filter_name)
+        backend, _sched = model.resolved_config(bucket_hw, channels)
+        return BucketProgram(model.plan, backend, reps, nb, bucket_hw,
+                             channels)
+
+    def _slot_for(self, prog: BucketProgram) -> _Slot:
+        """The next arena slot of a program's canvas geometry."""
+        (bh, bw), channels, nb = prog.bucket_hw, prog.channels, prog.nb
+        shape = (nb, prog.stride, bw) + ((channels,) if channels > 1 else ())
+        return self._arena.acquire((nb, bh, bw, channels, prog.stride),
+                                   shape)
+
+    def _launch(self, prog: BucketProgram, slot: _Slot) -> None:
+        """Copy the slot's canvas to the device, run the program over it
+        under the pad mask of the slot's true extents, and copy the result
+        into the slot's output (asynchronous on a card: the D2H lands at
+        ``slot.d2h_event``)."""
+        rows, wc = prog.rows, prog.wc
+        if self._cuda:
+            # H2D on the copy stream; the compute stream waits for it.
+            with torch.cuda.stream(self._copy_stream):
+                x2 = torch.empty((rows, wc), dtype=torch.uint8,
+                                 device=self.device)
+                x2.copy_(slot.canvas_t.view(rows, wc), non_blocking=True)
+                valid_dev = slot.valid_t.to(self.device, non_blocking=True)
+                slot.h2d_event.record(self._copy_stream)
+            with torch.cuda.stream(self._stream):
+                self._stream.wait_event(slot.h2d_event)
+                x2.record_stream(self._stream)
+                valid_dev.record_stream(self._stream)
+                out = prog.run(x2, pad_mask(valid_dev, prog.stride,
+                                            prog.bucket_hw[1],
+                                            prog.channels))
+                # D2H on its own stream after the compute; the caller
+                # reads the slot's output only after this copy's event.
+                done = torch.cuda.Event()
+                done.record(self._stream)
+            with torch.cuda.stream(self._d2h_stream):
+                self._d2h_stream.wait_event(done)
+                slot.out_t.copy_(out.view(-1), non_blocking=True)
+                slot.d2h_event.record(self._d2h_stream)
+            out.record_stream(self._d2h_stream)
+        else:
+            x2 = slot.canvas_t.view(rows, wc).clone()
+            valid_dev = slot.valid_t.clone()
+            out = prog.run(x2, pad_mask(valid_dev, prog.stride,
+                                        prog.bucket_hw[1], prog.channels))
+            slot.out_t.copy_(out.view(-1))
+
     def _dispatch_inner(self, batch: List[Request]):
         bh, bw = batch[0].bucket_hw
         channels = (
             batch[0].image.shape[2] if batch[0].image.ndim == 3 else 1
         )
         nb = bucketing.batch_bucket(len(batch), self.cfg.max_batch)
-        model = self._model_for(batch[0].filter_name)
-        backend, _sched = model.resolved_config((bh, bw), channels)
         reps = batch[0].reps
 
         def builder():
             if self._fault_compile is not None:
                 self._fault_compile()
-            return BucketProgram(model.plan, backend, reps, nb, (bh, bw),
-                                 channels)
+            return self._build_program(batch[0].filter_name, (bh, bw),
+                                       channels, reps, nb)
 
         exe_key = batch[0].key + (nb,)
         prog = self._cache.get(exe_key, builder)
-        stride = prog.stride
-        shape = (nb, stride, bw) + ((channels,) if channels > 1 else ())
+        backend = prog.backend
         # A reused slot is dirty: every real frame writes its pixels and
         # zeroes its own pad (the pad must be zero at rep 1; the mask
         # zeroes it from the first rep's end on). Unused batch-pad frames
         # only need valid 0 x 0. Gap rows are never written, so stay 0.
-        slot = self._arena.acquire((nb, bh, bw, channels, stride), shape)
+        slot = self._slot_for(prog)
         canvas, valid = slot.canvas, slot.valid
         for i, r in enumerate(batch):
             h, w = r.image.shape[:2]
@@ -1103,21 +1173,6 @@ class StencilServer:
             self._fault_h2d()
         if self._fault_compute is not None:
             self._fault_compute()
-        rows, wc = prog.rows, prog.wc
-        if self._cuda:
-            # H2D on the copy stream; the compute stream waits for it.
-            with torch.cuda.stream(self._copy_stream):
-                x2 = torch.empty((rows, wc), dtype=torch.uint8,
-                                 device=self.device)
-                x2.copy_(slot.canvas_t.view(rows, wc), non_blocking=True)
-                valid_dev = slot.valid_t.to(self.device, non_blocking=True)
-                slot.h2d_event.record(self._copy_stream)
-            self._stream.wait_event(slot.h2d_event)
-            x2.record_stream(self._stream)
-            valid_dev.record_stream(self._stream)
-        else:
-            x2 = slot.canvas_t.view(rows, wc).clone()
-            valid_dev = slot.valid_t.clone()
         if (_introspect.enabled() and exe_key not in self._introspected
                 and len(self._introspected) < _INTROSPECT_KEY_CAP):
             self._introspected.add(exe_key)
@@ -1131,19 +1186,7 @@ class StencilServer:
                       "backend": backend},
                 registry=self.registry,
             )
-        out = prog.run(x2, pad_mask(valid_dev, stride, bw, channels))
-        if self._cuda:
-            # D2H on its own stream after the compute; retire reads the
-            # slot's output only after this copy's event.
-            done = torch.cuda.Event()
-            done.record(self._stream)
-            with torch.cuda.stream(self._d2h_stream):
-                self._d2h_stream.wait_event(done)
-                slot.out_t.copy_(out.view(-1), non_blocking=True)
-                slot.d2h_event.record(self._d2h_stream)
-            out.record_stream(self._d2h_stream)
-        else:
-            slot.out_t.copy_(out.view(-1))
+        self._launch(prog, slot)
         for r in batch:
             self._m_qwait.observe(t0 - r.t_submit)
             if r.ledger is not None:
@@ -1315,6 +1358,8 @@ class StencilServer:
     def _on_worker_death(self, exc: BaseException) -> None:
         with self._cond:
             self._crashed = exc
+            control = list(self._control)
+            self._control.clear()
             victims = list(self._current_batch)
             self._current_batch = []
             victims.extend(self._pending)
@@ -1332,18 +1377,22 @@ class StencilServer:
         for r in victims:
             if not r.future.done() and _resolve(r.future, exc=err):
                 self._m_failed.inc()
+        for _fn, fut in control:
+            _resolve(fut, exc=err)
 
-    def _setup_streams(self) -> None:
+    def _setup_streams(self, make_current: bool = True) -> None:
         """On a card: the worker's compute stream (made current on this
         thread, so K1, K3 and the torch ops all issue on it) and the copy
         and D2H streams."""
         if not self._cuda:
             return
-        torch.cuda.set_device(self.device)
+        if make_current:
+            torch.cuda.set_device(self.device)
         self._stream = torch.cuda.Stream(self.device)
         self._copy_stream = torch.cuda.Stream(self.device)
         self._d2h_stream = torch.cuda.Stream(self.device)
-        torch.cuda.set_stream(self._stream)
+        if make_current:
+            torch.cuda.set_stream(self._stream)
 
     def _worker_loop_inner(self) -> None:
         self._setup_streams()
@@ -1355,10 +1404,17 @@ class StencilServer:
         while True:
             with self._cond:
                 while (not self._pending and not self._closing
-                       and not inflight):
+                       and not inflight and not self._control):
                     self._cond.wait()
+                control = list(self._control)
+                self._control.clear()
                 batch, expired = self._take_batch_locked()
                 closing = self._closing
+            for fn, fut in control:
+                try:
+                    fut.set_result(fn())
+                except Exception as e:  # the caller's, typed
+                    fut.set_exception(e)
             for r in expired:
                 # Typed, outside the lock.
                 self._m_deadline.inc()
