@@ -10,7 +10,12 @@ It builds every hand-written kernel and every lab variant from
 together, into ``build/kernels/``, with the stream's host ``crc32c``
 library beside them), points the autotune cache at
 ``build/chip_smoke/autotune.json``, then runs these phases, each printing
-one JSON line. The phases that pin launch counts name ``--backend pallas``
+one JSON line. The build's line holds each library's ``-Xptxas -v``
+registers and spills, and from ``cuobjdump -sass`` of L1: the
+``mxu_rows_*`` instances must hold ``HMMA`` (bf16) or ``IMMA`` (int8)
+and no ``FFMA`` or ``IDP4A``, and every chain held in registers must
+grow by at least an instruction an element and operation from 8 to 16
+(no chain folded). The phases that pin launch counts name ``--backend pallas``
 (K1 at its default geometry); ``autotune_path`` drives the default
 ``auto``/``autotune`` resolution.
 
@@ -80,9 +85,18 @@ one JSON line. The phases that pin launch counts name ``--backend pallas``
    of K2 with the image held in shared memory).
 9. ``l1`` — L1 ``op_chain``: every case at a chain of 3 (where no case's
    output is constant, which is checked) and at both timed chains, 8 and
-   16, against its plain version (byte-equal; float cases within 1),
-   through the op cost tool (``tpu_stencil_torch.tools.op_cost``), which
-   then gives us per op-pass per case.
+   16, against its plain version (byte-equal; ``mul_add_f32`` and
+   ``mxu_rows_bf16`` within 1), through the op cost tool
+   (``tpu_stencil_torch.tools.op_cost``), which then gives us per op-pass
+   per case beside its bound; then every case at every chain again at a
+   ragged width (318 lanes; ``vadd4_u8`` 316, whole words; ``shfl*``
+   288, whole warps), with input and output views offset by one byte,
+   and at a short tile that takes the row-neighbour cases to their
+   shared-memory forms and the lane rolls below a warp; the host's launch
+   model (form, blocks, threads, shared memory) against the library's at
+   each of those tiles; and each case's resident blocks per SM at the
+   tool's tile (the library's occupancy query), at least 2 wherever
+   shared memory is used.
 10. ``autotune_path`` — ``python -m tpu_stencil_torch IMG 1920 2520 40
    rgb --backend autotune --time`` in a fresh process with an empty cache
    file: it measures, writes the cache and reports the verdict, and its
@@ -294,7 +308,11 @@ one JSON line. The phases that pin launch counts name ``--backend pallas``
    of 7 runs after a warm-up (CUDA events, L2 flushed before each run):
    the three job kernels (K3 alone on the one ext tile of a 1x1 mesh at
    fuse 8), L2's ``current`` body, one L1 launch (``add_i32``, chain of
-   8), the whole 2x2 sharded runner under ``pallas`` and under ``auto``
+   8, beside ``runtime.roofline.op_chain_bound_ms``; the L2 flushed by a
+   read, which leaves no dirty line to write back, and by the write too),
+   one ``mxu_rows_bf16`` launch (chain of 8) beside one batched bf16
+   ``torch.matmul`` of the band matrix by the tiles' rows (timed only),
+   the whole 2x2 sharded runner under ``pallas`` and under ``auto``
    taking turns (``auto`` must not chunk shallower nor take 1.5x the
    time), their plain versions, the torch-ops path, and one depthwise
    float32 ``F.conv2d`` rep (TF32 off) as the library yardstick, which
@@ -319,8 +337,10 @@ adds its window launches and ms per rep under each overlap mode, the
 those of the sharded streams in ``shard_stream_path``; K1 and K3 add
 ``serve_launches``, those of the serving engine in ``serve_path``; K1
 adds ``net_launches``, those of the network tier in ``net_path``, and
-``fed_launches``, those of the federation in ``fed_ctrl_path``),
-the ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device": {...}}``. Any failure raises and
+``fed_launches``, those of the federation in ``fed_ctrl_path``; L2
+adds ``tile_ms``, its body ``tile`` (K1's shipped tile) from phase
+``l2``'s table beside ``current``, the baseline), the ``nvidia-smi``
+name/power-limit line, and last ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero before that line; without a CUDA device the script exits
 non-zero at once.
 """
@@ -1060,15 +1080,20 @@ def bound_ms_per_rep(plan, n_elems: int, reps: int, n_bytes: int = None):
     return roofline.bound_ms_per_rep(plan, n_elems, reps, n_bytes)
 
 
-def time_ms(fn, dev, runs: int = 7) -> float:
+def time_ms(fn, dev, runs: int = 7, flush: str = "write") -> float:
     """Median ms of ``fn`` over ``runs`` after a warm-up, CUDA events,
-    with the L2 flushed (a 256 MB write) before each run."""
-    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    with the L2 flushed before each run: by a 256 MB write, or with
+    ``flush="read"`` by a 256 MB read, which leaves the L2 holding no
+    dirty line for the timed run to write back."""
+    buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(runs):
-        flush.zero_()
+        if flush == "read":
+            buf.max()
+        else:
+            buf.zero_()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -1230,13 +1255,100 @@ def phase_l2(dev) -> dict:
             "current_over_shipped": table["current"] / table["shipped"]}
 
 
-def phase_l1(dev) -> dict:
-    """L1 against its plain version at the check chain (3: no case's
-    output is constant there) and at both timed chains, then the op cost
-    tool's table."""
+L1_GRID = 16  # tiles of each of phase l1's extra checks
+
+
+def l1_tiles(case: str) -> list:
+    """(label, in_block, block, wc) of phase l1's checks of ``case``: the
+    tool's tile (its launch model and occupancy; its values are the
+    tool's own checks), a ragged width (whole words for ``vadd4_u8``,
+    whole warps for ``shfl*``), the tool's tile behind views offset by one
+    byte, and a short tile (the row-neighbour cases' shared-memory forms,
+    lane rolls below a warp; the band products storing rows past 144)."""
     from tpu_stencil_torch.ops import lab
     from tpu_stencil_torch.tools import op_cost
 
+    ib, b, wc, _ = op_cost.tile_for(case)
+    ragged = {"vadd4_u8": 316, "shfl1_add_i32": 288,
+              "shfl3_add_i32": 288}.get(case, 318)
+    if case.startswith("mxu_rows"):
+        short = (160, 150, 72)
+    else:
+        short = (max(40, 24 + 16 * lab.ROW_SHRINK.get(case, 0)), 24,
+                 32 if case.startswith("shfl") else 20)
+    return [("tool", ib, b, wc), ("ragged", ib, b, ragged),
+            ("unaligned", ib, b, wc), ("short", *short)]
+
+
+def l1_checks(dev) -> dict:
+    """Every L1 case at every built chain on :func:`l1_tiles`' tiles
+    against its plain version; the host's launch model against the
+    library's; resident blocks per SM at the tool's tile."""
+    from tpu_stencil_torch.ops import lab
+    from tpu_stencil_torch.tools import op_cost
+
+    keys = ("form", "blocks", "threads", "smem_bytes")
+    worst, flat, n_checks, per_sm, forms = 0, [], 0, {}, {}
+    for ci, case in enumerate(lab.CASES):
+        tol = op_cost.TOLERANCE.get(case, 0)
+        for label, ib, b, wc in l1_tiles(case):
+            grid = op_cost.tile_for(case)[3] if label == "tool" else L1_GRID
+            for n in lab.BUILT_N_OPS:
+                model = lab.op_chain_shape(case, n, ib, b, wc, grid)
+                kern = lab.op_chain_kernel_shape(case, n, ib, b, wc, grid)
+                require({k: model[k] for k in keys}
+                        == {k: kern[k] for k in keys}
+                        and lab.op_chain_kernel_smem_bytes(case, n, ib, b, wc)
+                        == lab.op_chain_smem_bytes(case, n, ib, b, wc),
+                        f"{case} n={n} {label} {ib}x{wc}: the host's launch "
+                        f"model {model} disagrees with the library's {kern}")
+                if label == "tool":
+                    per_sm.setdefault(case, {})[n] = kern["blocks_per_sm"]
+                    forms[case] = kern["form"]
+                    require(not kern["smem_bytes"]
+                            or kern["blocks_per_sm"] >= 2,
+                            f"{case} n={n}: {kern['blocks_per_sm']} block(s) "
+                            f"per SM with {kern['smem_bytes']} B of shared "
+                            "memory")
+                    continue
+                x = seeded((grid * ib, wc), 100 + ci, dev)
+                out = None
+                if label == "unaligned":
+                    buf = torch.empty(x.numel() + 1, dtype=torch.uint8,
+                                      device=dev)
+                    x = buf[1:].view(x.shape).copy_(x)
+                    obuf = torch.empty(grid * b * wc + 1, dtype=torch.uint8,
+                                       device=dev)
+                    out = obuf[1:].view(grid * b, wc)
+                    require(x.data_ptr() % 2 == 1 and out.data_ptr() % 2 == 1,
+                            "the unaligned views are aligned")
+                got = lab.op_chain(x, case, n, ib, b, out=out)
+                want = lab.op_chain_plain(x, case, n, ib, b)
+                err = max_err(got, want)
+                require(err <= tol, f"L1 {case} n={n} {label} {ib}x{b}x{wc}: "
+                        f"max |kernel - plain| {err} > {tol}")
+                if n == lab.CHECK_N_OPS and bool(want.min() == want.max()):
+                    flat.append(f"{case} {label}")
+                worst = max(worst, err)
+                n_checks += 1
+    torch.cuda.synchronize()
+    require(not flat, f"L1: the check chain's output is constant for {flat}")
+    return {"checks": n_checks, "max_abs_err": worst, "forms": forms,
+            "blocks_per_sm": per_sm,
+            "tiles": {c: l1_tiles(c)[1:] for c in ("add_i32", "vadd4_u8",
+                                                   "shfl1_add_i32",
+                                                   "mis_slice_add_i32",
+                                                   "mxu_rows_bf16")}}
+
+
+def phase_l1(dev) -> dict:
+    """L1 against its plain version at the check chain (3: no case's
+    output is constant there) and at both timed chains through the op
+    cost tool, whose table it then prints; then :func:`l1_checks`."""
+    from tpu_stencil_torch.ops import lab
+    from tpu_stencil_torch.tools import op_cost
+
+    t0 = time.perf_counter()
     buf = io.StringIO()
     lab.reset_launch_counts()
     res = op_cost.run_cases([], dev, reps=100, rounds=3, out=buf)
@@ -1250,22 +1362,25 @@ def phase_l1(dev) -> dict:
     flat = [n for n, r in res.items() if not r["check_varies"]]
     require(not flat, f"L1: the check chain's output is constant for {flat}: "
             "the comparison there could not tell a wrong kernel")
-    for case in lab.CASES:
-        ib, _, wc, _ = op_cost.tile_for(case)
-        model = lab.op_chain_smem_bytes(case, ib, wc)
-        kern = lab.op_chain_kernel_smem_bytes(case, ib, wc)
-        require(model == kern, f"{case}: the host's shared-memory model "
-                f"says {model}, the library {kern}")
     require(tool_launches > 0, "op_cost launched op_chain no time")
+    tool_s = time.perf_counter() - t0
+    more = l1_checks(dev)
     return {"phase": "l1", "ok": True,
             "cases": len(lab.BUILT_N_OPS) * len(res),
             "chains": list(lab.BUILT_N_OPS),
-            "max_abs_err": max(r["max_abs_err"] for r in res.values()),
+            "max_abs_err": max(max(r["max_abs_err"] for r in res.values()),
+                               more["max_abs_err"]),
             "tolerance": "0; 1 for mul_add_f32 and mxu_rows_bf16 (float32 "
                          "products)",
+            "max_abs_err_by_case": {n: r["max_abs_err"]
+                                    for n, r in res.items()},
             "tool_launches": tool_launches,
             "us_per_op_pass": {n: r["us_per_op_pass"] for n, r in res.items()},
-            "chain_us": {n: r["chain_us"] for n, r in res.items()}}
+            "bound_us_per_op_pass": {n: r["bound_us_per_op_pass"]
+                                     for n, r in res.items()},
+            "chain_us": {n: r["chain_us"] for n, r in res.items()},
+            "more": more, "seconds": {"tool": tool_s,
+                                      "all": time.perf_counter() - t0}}
 
 
 def probe_split(img: np.ndarray, dev, repeats: int = 7) -> dict:
@@ -4903,23 +5018,46 @@ def phase_times(dev) -> dict:
         lambda: lab.lab_iterate(img, n, g, cur), dev) / n
     r["stencil_lab_plain_ms"] = time_ms(
         lambda: lab.stencil_lab_plain(x2, g, MAIN_C, n, cur), dev) / n
-    # L1: one launch of add_i32 with a chain of 8 on the tool's tiles. The
-    # case is elementwise, so the stored rows depend on as many input rows
-    # and no more. Its bound: those rows read once and written once,
-    # against one int32 add per stored element and operation.
+    # L1: one launch of add_i32 with a chain of 8 on the tool's tiles,
+    # beside its bound (the stored rows read once and written once,
+    # against one int32 add per stored element and operation).
     ib, b, wc, grid = op_cost.tile_for("add_i32")
     xt = seeded((grid * ib, wc), 9, dev)
     ot = torch.empty((grid * b, wc), dtype=torch.uint8, device=dev)
+    # The bound counts the launch's own bytes, so the L2 is flushed by a
+    # read; the other rows' write flush leaves dirty lines that the launch
+    # writes back (timed too, as ms_write_flush).
     r["op_chain_ms"] = time_ms(
+        lambda: lab.op_chain(xt, "add_i32", 8, ib, b, out=ot), dev,
+        flush="read")
+    r["op_chain_ms_write_flush"] = time_ms(
         lambda: lab.op_chain(xt, "add_i32", 8, ib, b, out=ot), dev)
     r["op_chain_plain_ms"] = time_ms(
-        lambda: lab.op_chain_plain(xt, "add_i32", 8, ib, b), dev)
-    t_bytes = 2 * ot.numel() / roofline.H100_HBM_BYTES_PER_S
-    t_ops = 8 * ot.numel() / roofline.H100_INT32_OPS_PER_S
-    r["op_chain_bound_ms"] = max(t_bytes, t_ops) * 1e3
-    r["op_chain_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        lambda: lab.op_chain_plain(xt, "add_i32", 8, ib, b), dev,
+        flush="read")
+    r["op_chain_bound_ms"], r["op_chain_bound_by"] = (
+        roofline.op_chain_bound_ms("add_i32", 8, ib, b, wc, grid))
     r["op_chain_unit"] = (f"ms per launch, add_i32 chain of 8, {grid} tiles "
-                          f"of {ib}x{wc}, {b} rows of each stored")
+                          f"of {ib}x{wc}, {b} rows of each stored, L2 "
+                          "flushed by a read")
+    # The band product on tensor cores: one launch of mxu_rows_bf16 (a
+    # chain of 8), and as its yardstick one batched bf16 torch.matmul of
+    # the band matrix by the tiles' first 144 rows (one operation; timed
+    # only, the port never calls it).
+    ib, b, wc, grid = op_cost.tile_for("mxu_rows_bf16")
+    xm = seeded((grid * ib, wc), 10, dev)
+    om = torch.empty((grid * b, wc), dtype=torch.uint8, device=dev)
+    r["mxu_rows_bf16_ms"] = time_ms(
+        lambda: lab.op_chain(xm, "mxu_rows_bf16", 8, ib, b, out=om), dev,
+        flush="read")
+    band = lab.band_matrix().to(dev, torch.bfloat16)
+    xb = xm.reshape(grid, ib, wc)[:, :lab.BAND].to(torch.bfloat16)
+    r["mxu_rows_bf16_library_ms"] = time_ms(lambda: torch.matmul(band, xb),
+                                            dev, flush="read")
+    r["mxu_rows_bf16_bound_ms"], _ = roofline.op_chain_bound_ms(
+        "mxu_rows_bf16", 8, ib, b, wc, grid)
+    r["mxu_rows_bf16_unit"] = (f"ms per launch, chain of 8, {grid} tiles of "
+                               f"{ib}x{wc}; library: one operation")
     r["resident_ab"] = resident_ab(img, dev)
     r["tile_ab"] = tile_ab(img, dev)
     r["clocks_power"] = nvidia_smi(
@@ -5009,6 +5147,75 @@ def tile_instances(log: str) -> dict:
             for (k, body), v in _build.ptxas_instances(log).items()}
 
 
+def op_chain_sass(lib: str) -> dict:
+    """Opcode counts of every ``op_chain_kernel<case, N>`` instance in the
+    SASS of the L1 library ``lib`` (``cuobjdump -sass``): (case id, N) ->
+    {opcode: count}, the opcode without its modifiers."""
+    import re
+    import shutil
+    from collections import Counter
+
+    from tpu_stencil_torch.ops import _build
+
+    exe = shutil.which("cuobjdump") or str(
+        Path(_build.nvcc_path()).with_name("cuobjdump"))
+    sass = subprocess.run([exe, "-sass", lib], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    inst, key = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            m = re.search(r"op_chain_kernelILi(\d+)ELi(\d+)E", ln)
+            key = (int(m.group(1)), int(m.group(2))) if m else None
+            if key:
+                inst[key] = Counter()
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+([^;]*);", ln)
+        if key and m:
+            toks = m.group(1).split()
+            if toks and toks[0].startswith("@"):
+                toks = toks[1:]
+            if toks:
+                inst[key][toks[0].split(".")[0]] += 1
+    return inst
+
+
+def check_op_chain_sass(inst: dict) -> dict:
+    """The band products run on tensor cores (``HMMA`` in every
+    ``mxu_rows_bf16`` instance, ``IMMA`` in every ``mxu_rows_i8`` one, and
+    no ``FFMA`` or ``IDP`` (dp4a) loop in either), and no chain held in
+    registers is folded: from a chain of 8 to 16 an instance grows by at
+    least one instruction per value a thread holds and operation."""
+    from tpu_stencil_torch.ops import lab
+    from tpu_stencil_torch.tools import op_cost
+
+    out = {}
+    for case, (cid, _) in lab.CASES.items():
+        counts = {n: inst.get((cid, n)) for n in lab.BUILT_N_OPS}
+        require(all(counts.values()),
+                f"op_chain SASS: an instance of {case} is missing")
+        total = {n: sum(c.values()) for n, c in counts.items()}
+        if case.startswith("mxu_rows"):
+            mma = "HMMA" if case == "mxu_rows_bf16" else "IMMA"
+            for n, c in counts.items():
+                require(c[mma] > 0 and not c["FFMA"] and not c["IDP"],
+                        f"{case}<{n}>: {mma} {c[mma]}, FFMA {c['FFMA']}, "
+                        f"IDP {c['IDP']} in its SASS")
+            out[case] = {"instructions": total, mma: counts[8][mma]}
+            continue
+        ib, b, _, _ = op_cost.tile_for(case)
+        form = lab.op_chain_form(case, ib, b)
+        held = {"flat": {"vadd4_u8": 4, "vadd2_i16": 8}.get(case, 16),
+                "cols": lab.OP_REG_BLOCK, "strips": lab.OP_STRIP,
+                "lanes": lab.OP_STRIP}.get(form)
+        if held:
+            require(total[16] - total[8] >= 8 * held
+                    and total[8] - total[3] >= 5 * held,
+                    f"{case}: {total} instructions at chains 3, 8, 16: a "
+                    "chain held in registers was folded")
+        out[case] = {"instructions": total}
+    return out
+
+
 def run(dev: torch.device) -> None:
     """Every phase on ``dev``; raises on any failure."""
     from tpu_stencil_torch.ops import _build
@@ -5059,8 +5266,10 @@ def run(dev: torch.device) -> None:
     spills = [ln for t in built for ln in log_of(t).splitlines()
               if "spill" in ln and " 0 bytes spill stores, 0 bytes spill "
               "loads" not in ln]
+    sass = check_op_chain_sass(op_chain_sass(libs["op_chain"]))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "libraries": libs, "ptxas": ptxas, "lines_with_spills": spills})
+          "libraries": libs, "ptxas": ptxas, "lines_with_spills": spills,
+          "op_chain_sass": sass})
 
     emit(phase_divide(dev))
     k1 = phase_k1(dev)
@@ -5206,7 +5415,12 @@ def run(dev: torch.device) -> None:
          "max_abs_err": l2["max_abs_err"],
          "ms": times["stencil_lab_ms"],
          **common, "plain_ms": times["stencil_lab_plain_ms"],
-         "unit": "ms per rep, 1920x2520 RGB gaussian x40, body `current`"},
+         # body `tile` (K1's shipped tile, the redesign) and K1 itself,
+         # from phase l2's interleaved table; `current` is the baseline
+         "tile_ms": l2["ms_per_rep_x40"]["tile"],
+         "shipped_ms": l2["ms_per_rep_x40"]["shipped"],
+         "unit": "ms per rep, 1920x2520 RGB gaussian x40, body `current` "
+                 "(tile_ms: body `tile`)"},
         {"name": "op_chain",
          "source": "tpu_stencil_torch/ops/csrc/op_chain.cu",
          "replaces": "tools/op_cost.py:31",
@@ -5216,7 +5430,18 @@ def run(dev: torch.device) -> None:
          "plain_ms": times["op_chain_plain_ms"],
          "bound_ms": times["op_chain_bound_ms"],
          "bound_by": times["op_chain_bound_by"],
-         "library_ms": None, "unit": times["op_chain_unit"]},
+         "library_ms": None, "unit": times["op_chain_unit"],
+         "ms_write_flush": times["op_chain_ms_write_flush"],
+         "blocks_per_sm": {c: v[8] for c, v in
+                           l1["more"]["blocks_per_sm"].items()},
+         "mxu_rows_bf16": {
+             "ms": times["mxu_rows_bf16_ms"],
+             "bound_ms": times["mxu_rows_bf16_bound_ms"],
+             "us_per_op_pass": l1["us_per_op_pass"]["mxu_rows_bf16"],
+             "bound_us_per_op_pass": l1["bound_us_per_op_pass"][
+                 "mxu_rows_bf16"],
+             "library_ms": times["mxu_rows_bf16_library_ms"],
+             "unit": times["mxu_rows_bf16_unit"]}},
     ]})
     print(nvidia_smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -195,7 +195,21 @@ def test_tile_checks():
         ib, b, wc, grid = op_cost.tile_for(case)
         for n in lab.BUILT_N_OPS:
             lab.check_op_tile(case, n, ib, b, wc)
-        assert lab.op_chain_smem_bytes(case, ib, wc) <= cs.SMEM_LIMIT, case
+            assert lab.op_chain_smem_bytes(case, n, ib, b,
+                                           wc) <= cs.SMEM_LIMIT, case
+    # the pinned values: the register forms take none, the shared forms
+    # what their rows need (al_slice_add_i16 at a chain of 16: 160 rows of
+    # int16), the band products A and a 64-lane strip
+    assert lab.op_chain_smem_bytes("add_i32", 16, 48, 32, 320) == 0
+    assert lab.op_chain_smem_bytes("subroll1_add_i32", 16, 48, 32, 320) == 0
+    assert lab.op_chain_smem_bytes("al_slice_add_i16", 16, 160, 32,
+                                   320) == 160 * 320 * 2
+    assert lab.op_chain_smem_bytes("roll3_add_i32", 8, 48, 32,
+                                   320) == 2 * 8 * 320 * 4
+    assert lab.op_chain_smem_bytes("mxu_rows_bf16", 8, 160, 32,
+                                   128) == (144 + 64) * 152 * 2
+    assert lab.op_chain_smem_bytes("mxu_rows_i8", 8, 160, 32,
+                                   128) == (144 + 64) * 176
 
 
 def test_tool_runs_on_the_cpu(capsys):
@@ -218,3 +232,236 @@ def test_tool_docstring_answers_every_jax_case():
         assert name in op_cost.__doc__, name
     for name in lab.CASES:
         assert name in op_cost.__doc__, name
+
+
+# ---------------------------------------------------------------------------
+# The kernel's decompositions (csrc/op_chain.cu), emulated in torch on the
+# CPU and held against the plain version, and through it the JAX tool.
+# ---------------------------------------------------------------------------
+
+def _wrap32(v):
+    return ((v + 2 ** 31) % 2 ** 32) - 2 ** 31
+
+
+def _lanes_emulated(x, case, n_ops, in_block, block):
+    """FORM_LANES: a thread per lane of a row (the row padded to whole
+    warps with lanes holding anything); within a warp a value comes by
+    __shfl_up_sync, a lane whose source is in another warp (or wraps
+    end-around) reads the shared buffer, written only by source lanes; two
+    buffers in turn, each holding whatever it held before."""
+    s, add = lab.LANE_ROLL[case], case != "roll3_i32"
+    wc = x.shape[1]
+    t = x.reshape(-1, in_block, wc)[:, :block].to(torch.int64)
+    lanes = -(-wc // 32) * 32
+    g = torch.Generator().manual_seed(11)
+
+    def junk():
+        return torch.randint(-2 ** 31, 2 ** 31, (t.shape[0], block, lanes),
+                             generator=g, dtype=torch.int64)
+
+    v = junk()
+    v[..., :wc] = t
+    c = torch.arange(lanes)
+    lane = c % 32
+    sm = s % wc
+    from_buf = (sm >= 32) | (lane < sm)
+    to_buf = (c < wc) & (sm > 0) & ((sm >= 32) | (lane >= 32 - sm)
+                                    | (c >= wc - sm))
+    src = torch.where(c - sm < 0, c - sm + wc, c - sm)
+    d = sm & 31
+    shfl = torch.where(lane >= d, c - d, c)
+    bufs = [junk(), junk()]
+    for i in range(n_ops):
+        b = bufs[i & 1]
+        b[..., to_buf] = v[..., to_buf]
+        got = torch.where(from_buf, b[..., src], v[..., shfl])
+        v = _wrap32(v + got) if add else got
+    return (v[..., :wc] & 0xFF).to(torch.uint8).reshape(-1, wc)
+
+
+@pytest.mark.parametrize("wc", [320, 64, 318, 20])
+@pytest.mark.parametrize("case", list(lab.LANE_ROLL))
+def test_lane_roll_as_shuffle_plus_boundary_exchange(case, wc):
+    x = torch.from_numpy(np.random.default_rng(wc).integers(
+        0, 256, size=(GRID * 40, wc), dtype=np.uint8))
+    for n in lab.BUILT_N_OPS:
+        want = lab.op_chain_plain(x, case, n, 40, BLOCK)
+        assert torch.equal(_lanes_emulated(x, case, n, 40, BLOCK), want), n
+
+
+def _band_emulated(x, case, n_ops, in_block, block):
+    """FORM_BAND: y = A @ x[:144] summed as the tensor cores do, in
+    m16 x n8 output tiles accumulated over k16 (bf16 -> float32) or k32
+    (int8 -> int32) tiles in order, K zero-padded to 160 for int8, lanes in
+    64-lane strips padded with zeros; the int32 result is the next
+    operation's operand (bf16 of float32 of it, or its low byte)."""
+    bf = case == "mxu_rows_bf16"
+    wc = x.shape[1]
+    grid = x.shape[0] // in_block
+    cols = -(-wc // lab.OP_MMA_COLS) * lab.OP_MMA_COLS
+    kdim, kt = (lab.BAND, 16) if bf else (lab.OP_I8_K, 32)
+    t = torch.zeros((grid, kdim, cols), dtype=torch.int64)
+    t[:, :lab.BAND, :wc] = x.reshape(grid, in_block, wc)[:, :lab.BAND]
+    a = torch.zeros((lab.BAND, kdim), dtype=torch.float32)
+    a[:, :lab.BAND] = lab.band_matrix()
+
+    def operand(y):
+        if bf:
+            return y.to(torch.float32).to(torch.bfloat16).to(torch.float32)
+        return (((y + 128) % 256) - 128).to(torch.float32)
+
+    op = operand(t)
+    a4 = a.reshape(lab.BAND // 16, 16, kdim // kt, kt)
+    for _ in range(n_ops):
+        b5 = op.reshape(grid, kdim // kt, kt, cols // 8, 8)
+        acc = torch.zeros((grid, lab.BAND // 16, 16, cols // 8, 8),
+                          dtype=torch.float32 if bf else torch.int64)
+        for k in range(kdim // kt):  # one mma per (m, n, k) tile, k in order
+            prod = torch.einsum("mik,gknj->gminj", a4[:, :, k], b5[:, k])
+            acc = acc + (prod if bf else prod.round().to(torch.int64))
+        y = acc.reshape(grid, lab.BAND, cols)
+        y = y.to(torch.int32).to(torch.int64) if bf else _wrap32(y)
+        op = torch.zeros((grid, kdim, cols), dtype=torch.float32)
+        op[:, :lab.BAND] = operand(y)
+    out = torch.zeros((grid, block, wc), dtype=torch.int64)
+    out[:, :min(block, lab.BAND)] = y[:, :block, :wc]
+    return (out & 0xFF).to(torch.uint8).reshape(-1, wc)
+
+
+@pytest.mark.parametrize("wc", [WC, 100])
+@pytest.mark.parametrize("case", ["mxu_rows_bf16", "mxu_rows_i8"])
+def test_band_product_in_tensor_core_tiles(case, wc):
+    x = torch.from_numpy(np.random.default_rng(wc).integers(
+        0, 256, size=(GRID * IN_BLOCK, wc), dtype=np.uint8))
+    for n in CHAINS[case]:
+        want = lab.op_chain_plain(x, case, n, IN_BLOCK, BLOCK)
+        got = _band_emulated(x, case, n, IN_BLOCK, BLOCK)
+        assert torch.equal(got, want), (case, n)
+        if n == CHECK:
+            assert len(want.unique()) > 2
+
+
+@pytest.mark.parametrize("case", list(lab.CASES))
+def test_reading_only_the_rows_read_is_sound(case):
+    """Rows of a tile past ``op_chain_rows_read`` never reach the stored
+    rows: scrambling them leaves the output as it was."""
+    wc = 64
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.integers(0, 256, size=(GRID * IN_BLOCK, wc),
+                                      dtype=np.uint8))
+    for n in lab.BUILT_N_OPS:
+        rows = lab.op_chain_rows_read(case, n, IN_BLOCK, BLOCK)
+        assert BLOCK <= rows <= IN_BLOCK, (case, n, rows)
+        y = x.clone().reshape(GRID, IN_BLOCK, wc)
+        y[:, rows:] = torch.from_numpy(rng.integers(
+            0, 256, size=(GRID, IN_BLOCK - rows, wc), dtype=np.uint8))
+        y = y.reshape(-1, wc)
+        assert not torch.equal(x, y) or rows == IN_BLOCK
+        assert torch.equal(lab.op_chain_plain(y, case, n, IN_BLOCK, BLOCK),
+                           lab.op_chain_plain(x, case, n, IN_BLOCK, BLOCK)), n
+
+
+def _stored_counts(case, n_ops, in_block, block, wc, grid):
+    """How many times each stored element (tile, row, lane) is written by
+    the launch ``lab.op_chain_shape`` gives, with each form's index math
+    as the kernel's."""
+    sh = lab.op_chain_shape(case, n_ops, in_block, block, wc, grid)
+    nb, nt = sh["blocks"], sh["threads"]
+    cnt = np.zeros((grid, block, wc), np.int64)
+    strips = -(-block // lab.OP_STRIP)
+    bx, by = sh["grid_xy"]
+    assert bx * by == nb
+    if sh["form"] == "flat":  # block (tile, y), thread x: 16 bytes
+        n = block * wc
+        assert bx == grid and (by - 1) * nt * 16 < n <= by * nt * 16
+        flat = cnt.reshape(grid, n)
+        for tile in range(bx):
+            for y in range(by):
+                for th in range(nt):
+                    e0 = (y * nt + th) * 16
+                    flat[tile, e0:e0 + 16] += 1
+    elif sh["form"] == "cols":  # block (tile, y), lane y * nt + x
+        rows = lab.OP_REG_ROWS if case in lab.ROW_ROLL else (
+            lab.OP_REG_BLOCK + n_ops)
+        assert rows >= block and bx == grid and by * nt >= wc
+        for tile in range(bx):
+            for c in range(wc):
+                cnt[tile, :block, c] += 1
+    elif sh["form"] == "strips":  # block (tile * strips + strip, y)
+        assert bx == grid * strips and by * nt >= wc and wc % 32 == 0
+        for x in range(bx):
+            tile, strip = divmod(x, strips)
+            r0 = strip * lab.OP_STRIP
+            for c in range(min(by * nt, wc)):
+                cnt[tile, r0:min(r0 + lab.OP_STRIP, block), c] += 1
+    elif sh["form"] == "lanes":  # block (tile * strips + strip), lane x
+        assert nt >= wc > nt - 32 and nt % 32 == 0
+        for b in range(nb):
+            tile, strip = divmod(b, strips)
+            r0 = strip * lab.OP_STRIP
+            cnt[tile, r0:min(r0 + lab.OP_STRIP, block), :wc] += 1
+    else:  # a column strip of `cols` lanes a block
+        cw = sh["cols"]
+        per = -(-wc // cw)
+        for b in range(nb):
+            tile, k = divmod(b, per)
+            cnt[tile, :block, k * cw:min(k * cw + cw, wc)] += 1
+    return cnt
+
+
+@pytest.mark.parametrize("layout", ["tool", "ragged"])
+@pytest.mark.parametrize("case", list(lab.CASES))
+def test_launch_shape_covers_every_element_once(case, layout):
+    ib, b, wc, _ = op_cost.tile_for(case)
+    if layout == "ragged":
+        wc = {"vadd4_u8": 316, "shfl1_add_i32": 288,
+              "shfl3_add_i32": 288}.get(case, 318)
+    for n in lab.BUILT_N_OPS:
+        lab.check_op_tile(case, n, ib, b, wc)
+        cnt = _stored_counts(case, n, ib, b, wc, 3)
+        assert (cnt == 1).all(), (case, n, int(cnt.min()), int(cnt.max()))
+
+
+@pytest.mark.parametrize("case", list(lab.CASES))
+def test_shared_memory_allows_two_blocks_per_sm(case):
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+
+    ib, b, wc, grid = op_cost.tile_for(case)
+    for n in lab.BUILT_N_OPS:
+        sh = lab.op_chain_shape(case, n, ib, b, wc, grid)
+        assert sh["smem_bytes"] <= cs.SMEM_LIMIT
+        assert sh["threads"] <= (lab.OP_LANES_MAX if case in lab.LANE_ROLL
+                                 else lab.OP_SMEM_THREADS)
+        if sh["smem_bytes"]:
+            assert 2 * (sh["smem_bytes"] + cs.SMEM_PER_BLOCK_RESERVED) \
+                <= cs.SM_SMEM, (case, n, sh)
+            assert 2 * sh["threads"] <= cs.SM_THREADS
+    # the forms the tool's tiles take
+    # the forms the tool's tiles take: all but the row roll's shared form
+    assert {lab.op_chain_form(c, *op_cost.tile_for(c)[:2])
+            for c in lab.CASES} == set(lab.OP_FORMS) - {"roll_smem"}
+
+
+def test_the_kernel_source_mirrors_the_host_model():
+    import re
+    from pathlib import Path
+
+    src = (Path(lab.__file__).parent / "csrc" / "op_chain.cu").read_text()
+    defines = dict(re.findall(r"^#define (OP_\w+) \(?([0-9 *]+)\)?", src,
+                              re.M))
+    for name in ("OP_FLAT_THREADS", "OP_COL_THREADS", "OP_SMEM_THREADS",
+                 "OP_LANES_MAX",
+                 "OP_REG_BLOCK", "OP_REG_ROWS", "OP_STRIP", "OP_SMEM_TARGET",
+                 "OP_MMA_COLS", "OP_MMA_THREADS", "OP_BF16_PITCH", "OP_I8_K",
+                 "OP_I8_PITCH"):
+        assert eval(defines[name]) == getattr(lab, name), name
+    assert eval(defines["OP_BAND"]) == lab.BAND
+
+    def enum(name):
+        body = re.search(r"enum %s \{(.*?)\};" % name, src, re.S).group(1)
+        return [w.split("=")[0].strip() for w in body.split(",")
+                if w.strip()]
+
+    assert [f[len("FORM_"):].lower() for f in enum("OpForm")] == list(
+        lab.OP_FORMS)
+    assert [c.lower() for c in enum("OpCase")][:-1] == list(lab.CASES)

@@ -123,3 +123,61 @@ def test_the_operations_bound():
     assert chip_smoke.bound_ms_per_rep(g, n, 40) == (ms, by)
     assert not re.search(r"^def plan_ops|INT32_OPS_PER_S\s*=",
                          open(chip_smoke.__file__).read(), re.M)
+
+
+def test_the_op_chain_bound():
+    from tpu_stencil_torch.ops import lab
+    from tpu_stencil_torch.tools import op_cost
+
+    # add_i32 at the tool's tile, a chain of 8: 32 rows read and 32 stored
+    # of 320 lanes on 1056 tiles, against 8 int32 adds a stored element
+    ib, b, wc, grid = op_cost.tile_for("add_i32")
+    assert (ib, b, wc, grid) == (48, 32, 320, 1056)
+    ms, by = roofline.op_chain_bound_ms("add_i32", 8, ib, b, wc, grid)
+    assert by == "bytes"
+    assert ms == pytest.approx(2 * 32 * 320 * 1056 / 3.35e12 * 1e3)
+    assert ms == pytest.approx(0.00646, abs=5e-6)
+    ms16, by16 = roofline.op_chain_bound_ms("add_i32", 16, ib, b, wc, grid)
+    assert by16 == "operations"
+    assert ms16 == pytest.approx(16 * 32 * 320 * 1056 / (67e12 / 4) * 1e3)
+    # the band products, by hand: 2 * 144 * 144 * 128 a tile and operation
+    # on 132 tiles of 160 x 128 at the dense tensor-core peaks, against
+    # 144 rows read and 32 stored
+    ib, b, wc, grid = op_cost.tile_for("mxu_rows_bf16")
+    assert (ib, b, wc, grid) == (160, 32, 128, 132)
+    flops = 8 * 2 * 144 * 144 * 128 * 132
+    assert roofline.op_chain_bound_ms("mxu_rows_bf16", 8, ib, b, wc,
+                                      grid) == (
+        pytest.approx(flops / 989e12 * 1e3), "operations")
+    assert roofline.op_chain_bound_ms("mxu_rows_i8", 8, ib, b, wc,
+                                      grid) == (
+        pytest.approx(flops / 1979e12 * 1e3), "operations")
+    assert roofline.op_chain_bound_ms("mxu_rows_i8", 3, ib, b, 8 * wc,
+                                      grid)[1] == "operations"
+    bytes_ = (144 + 32) * 128 * 132
+    assert roofline.op_chain_bound_ms("mxu_rows_bf16", 1, ib, b, wc,
+                                      grid) == (
+        pytest.approx(bytes_ / 3.35e12 * 1e3), "bytes")
+    # a shrinking add reads the rows its stored rows need, and computes
+    # them: block + 8 * n_ops rows read, n * block + 8 * n (n - 1) / 2 rows
+    # of adds
+    ib, b, wc, grid = op_cost.tile_for("al_slice_add_i16")
+    assert lab.op_chain_rows_read("al_slice_add_i16", 8, ib, b) == 32 + 64
+    assert roofline.op_chain_bound_ms("al_slice_add_i16", 16, ib, b, wc,
+                                      grid) == (
+        pytest.approx((16 * 32 + 8 * 16 * 15 // 2) * 320 * 1056
+                      / (67e12 / 4) * 1e3), "operations")
+    # float cases at the float32 rate, a bare roll moves and computes
+    # nothing
+    assert roofline.op_chain_bound_ms("mul_add_f32", 16, 48, 32, 320,
+                                      1056)[0] == pytest.approx(
+        2 * 16 * 32 * 320 * 1056 / (67e12 / 2) * 1e3)
+    assert roofline.op_chain_bound_ms("roll3_i32", 16, 48, 32, 320,
+                                      1056)[1] == "bytes"
+    # the tool's bound beside each us/op-pass is the same difference of
+    # its two chains as the measurement
+    assert op_cost.bound_us_per_op_pass("add_i32") == pytest.approx(
+        (ms16 - ms) / 8 * 1e3)
+    # the smoke reads this module's bound, not a copy of its own
+    src = open(chip_smoke.__file__).read()
+    assert "op_chain_bound_ms" in src and "H100_HBM_BYTES_PER_S" not in src

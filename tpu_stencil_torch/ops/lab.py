@@ -709,19 +709,125 @@ def band_matrix() -> torch.Tensor:
     return a
 
 
-def op_chain_smem_bytes(case: str, in_block: int, wc: int) -> int:
-    """Shared memory of one tile of ``case`` (``op_smem`` in
+# The launch forms of csrc/op_chain.cu (OpForm), and its constants.
+OP_FORMS = ("flat", "cols", "strips", "lanes", "shrink_smem", "roll_smem",
+            "band")
+OP_FLAT_THREADS = 128     # threads of a flat-form block
+OP_COL_THREADS = 64       # threads (lanes) of a column- or strip-form block
+OP_SMEM_THREADS = 512     # most threads of a shared-memory form block
+OP_LANES_MAX = 1024       # widest row a lane-roll block holds
+OP_REG_BLOCK = 32         # stored rows of the register shrink form
+OP_REG_ROWS = 48          # rows of the register row-roll form
+OP_STRIP = 8              # rows a thread holds in the lane forms
+OP_SMEM_TARGET = 112 * 1024  # a shared form's tile: 2 blocks per SM
+OP_MMA_COLS = 64          # lanes of a band block: 8 n-tiles of 8
+OP_MMA_THREADS = 288      # 9 warps, one per 16-row m-tile of the 144 rows
+OP_BF16_PITCH = 152       # bf16 a row of A and of the tile (144 + 8)
+OP_I8_K = 160             # int8 depth: 144 padded to 5 x 32
+OP_I8_PITCH = 176         # bytes a row of A and of the tile (160 + 16)
+# The lane rolls and their shift.
+LANE_ROLL = {"roll3_i32": 3, "roll3_add_i32": 3, "roll1_add_i32": 1,
+             "roll128_add_i32": 128}
+ROW_ROLL = ("subroll1_add_i32", "subroll1_add_u8")
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def op_chain_form(case: str, in_block: int, block: int) -> str:
+    """The form csrc/op_chain.cu runs ``case`` in on a tile (``op_form``):
+    the row-neighbour cases hold their rows in registers on the tool's
+    tiles (48 rows for the row roll, 32 stored for the offset-1 shrink) and
+    a column strip in shared memory otherwise; al_slice_add_i16 always in
+    shared memory."""
+    if case.startswith("mxu_rows"):
+        return "band"
+    if case in ROW_ROLL:
+        return "cols" if in_block == OP_REG_ROWS else "roll_smem"
+    if case in ("mis_slice_add_i32", "mis_slice_add_i16"):
+        return "cols" if block == OP_REG_BLOCK else "shrink_smem"
+    if case == "al_slice_add_i16":
+        return "shrink_smem"
+    if case.startswith("shfl"):
+        return "strips"
+    if case in LANE_ROLL:
+        return "lanes"
+    return "flat"
+
+
+def op_chain_rows_read(case: str, n_ops: int, in_block: int,
+                       block: int) -> int:
+    """Rows of each tile that ``case``'s stored rows depend on after
+    ``n_ops`` operations, which are the rows the kernel reads: the
+    ``block`` stored rows for the elementwise cases and the lane rolls;
+    ``block + shrink * n_ops`` for a shrinking add; every row for the
+    end-around row roll; the band products' 144 (the first operation
+    zeroes the rows below)."""
+    if case in ROW_SHRINK:
+        return block + ROW_SHRINK[case] * n_ops
+    if case in ROW_ROLL:
+        return in_block
+    if case.startswith("mxu_rows"):
+        return BAND
+    return block
+
+
+def _smem_elem(case: str) -> int:
+    return CASES[case][1].itemsize
+
+
+def _smem_cols(case: str, n_ops: int, in_block: int, block: int,
+               wc: int) -> int:
+    """Lanes of a shared-memory form's column strip (``op_smem_cols``)."""
+    rows = op_chain_rows_read(case, n_ops, in_block, block)
+    cw = OP_SMEM_TARGET // (rows * _smem_elem(case)) // 16 * 16
+    return min(max(cw, 16), wc)
+
+
+def op_chain_shape(case: str, n_ops: int, in_block: int, block: int,
+                   wc: int, grid: int) -> dict:
+    """The launch of ``case`` with a chain of ``n_ops`` on ``grid`` tiles
+    (``op_shape`` in csrc/op_chain.cu): {"form", "blocks", "threads",
+    "smem_bytes"}, with the blocks' grid ("grid_xy": the flat form (tile,
+    16-byte runs), the column forms (tile [and strip], lanes), the others
+    x alone) and the lanes of a block's column strip ("cols") for the
+    shared-memory and band forms."""
+    form = op_chain_form(case, in_block, block)
+    strips = _ceil(block, OP_STRIP)
+    threads, smem, cols, by = OP_COL_THREADS, 0, None, 1
+    if form == "flat":
+        threads = OP_FLAT_THREADS
+        blocks, by = grid, _ceil(_ceil(block * wc, 16), OP_FLAT_THREADS)
+    elif form == "cols":
+        blocks, by = grid, _ceil(wc, OP_COL_THREADS)
+    elif form == "strips":
+        blocks, by = grid * strips, _ceil(wc, OP_COL_THREADS)
+    elif form == "lanes":
+        threads = _ceil(wc, 32) * 32
+        blocks = grid * strips
+        smem = 2 * OP_STRIP * threads * 4
+    elif form in ("shrink_smem", "roll_smem"):
+        cols = _smem_cols(case, n_ops, in_block, block, wc)
+        threads = min(_ceil(cols, 32) * 32, OP_SMEM_THREADS)
+        blocks = grid * _ceil(wc, cols)
+        smem = (op_chain_rows_read(case, n_ops, in_block, block) * cols
+                * _smem_elem(case))
+    else:
+        cols = OP_MMA_COLS
+        threads = OP_MMA_THREADS
+        blocks = grid * _ceil(wc, OP_MMA_COLS)
+        smem = (BAND + OP_MMA_COLS) * (
+            OP_BF16_PITCH * 2 if case == "mxu_rows_bf16" else OP_I8_PITCH)
+    return {"form": form, "blocks": blocks * by, "threads": threads,
+            "smem_bytes": smem, "grid_xy": (blocks, by), "cols": cols}
+
+
+def op_chain_smem_bytes(case: str, n_ops: int, in_block: int, block: int,
+                        wc: int) -> int:
+    """Shared memory of one block of ``case`` (``op_chain_smem`` in
     csrc/op_chain.cu)."""
-    n = in_block * wc
-    if case == "mxu_rows_bf16":
-        return (n + BAND * wc) * 4
-    if case == "mxu_rows_i8":
-        return (n + (BAND // 4) * wc) * 4
-    if case in ("cvt_u8_i32_rt", "cvt_i16_i32_rt"):
-        return n * (4 + CASES[case][1].itemsize)
-    if case.startswith("roll"):
-        return n * 8
-    return n * CASES[case][1].itemsize
+    return op_chain_shape(case, n_ops, in_block, block, wc, 1)["smem_bytes"]
 
 
 def check_op_tile(case: str, n_ops: int, in_block: int, block: int,
@@ -837,8 +943,10 @@ def _op_lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.op_chain_launch.argtypes = [i, i, p, p, p, i, i, i, i, p]
     lib.op_chain_launch.restype = ctypes.c_int
-    lib.op_chain_smem.argtypes = [i, i, i]
+    lib.op_chain_smem.argtypes = [i, i, i, i, i]
     lib.op_chain_smem.restype = ctypes.c_longlong
+    lib.op_chain_shape.argtypes = [i, i, i, i, i, i, p]
+    lib.op_chain_shape.restype = ctypes.c_int
     lib.op_chain_n_cases.argtypes = []
     lib.op_chain_n_cases.restype = ctypes.c_int
     lib.op_chain_error_string.argtypes = [i]
@@ -851,10 +959,28 @@ def _op_lib() -> ctypes.CDLL:
     return lib
 
 
-def op_chain_kernel_smem_bytes(case: str, in_block: int, wc: int) -> int:
-    """What the built library itself says a tile of ``case`` takes
+def op_chain_kernel_smem_bytes(case: str, n_ops: int, in_block: int,
+                               block: int, wc: int) -> int:
+    """What the built library itself says a block of ``case`` takes
     (:func:`op_chain_smem_bytes` is the host model of it)."""
-    return int(_op_lib().op_chain_smem(CASES[case][0], in_block, wc))
+    return int(_op_lib().op_chain_smem(CASES[case][0], n_ops, in_block,
+                                       block, wc))
+
+
+def op_chain_kernel_shape(case: str, n_ops: int, in_block: int, block: int,
+                          wc: int, grid: int) -> dict:
+    """The launch as the built library makes it, with its resident blocks
+    per SM on the current card (cudaOccupancyMaxActiveBlocksPerMultiprocessor):
+    {"form", "blocks", "threads", "smem_bytes", "blocks_per_sm"}
+    (:func:`op_chain_shape` is the host model of the first four)."""
+    lib = _op_lib()
+    out = (ctypes.c_longlong * 5)()
+    rc = lib.op_chain_shape(CASES[case][0], n_ops, in_block, block, wc, grid,
+                            out)
+    cs._raise_on(rc, lib, "op_chain_error_string", f"op_chain[{case}] shape")
+    return {"form": OP_FORMS[out[0]], "blocks": int(out[1]),
+            "threads": int(out[2]), "smem_bytes": int(out[3]),
+            "blocks_per_sm": int(out[4])}
 
 
 _BAND_ON: Dict[tuple, torch.Tensor] = {}
@@ -863,10 +989,8 @@ _BAND_ON: Dict[tuple, torch.Tensor] = {}
 def _band_on(case: str, device: torch.device) -> torch.Tensor:
     key = (case, str(device))
     if key not in _BAND_ON:
-        a = band_matrix()
-        if case == "mxu_rows_i8":
-            a = a.to(torch.int8)
-        _BAND_ON[key] = a.contiguous().to(device)
+        dt = torch.bfloat16 if case == "mxu_rows_bf16" else torch.int8
+        _BAND_ON[key] = band_matrix().to(dt).contiguous().to(device)
     return _BAND_ON[key]
 
 
@@ -874,8 +998,10 @@ def op_chain(x: torch.Tensor, case: str, n_ops: int, in_block: int,
              block: int, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """L1: one launch of ``case`` with a chain of ``n_ops`` (one of
     :data:`BUILT_N_OPS`) over the tiles of ``x`` (grid * in_block, wc) uint8 into
-    ``out`` (grid * block, wc) uint8 (allocated when None). CPU tensors run
-    :func:`op_chain_plain`."""
+    ``out`` (grid * block, wc) uint8 (allocated when None), in the form
+    :func:`op_chain_form` names. CPU tensors run :func:`op_chain_plain`;
+    on the card the lane rolls take rows of at most :data:`OP_LANES_MAX`
+    lanes."""
     cs._check_input(x)
     wc = x.shape[1]
     check_op_tile(case, n_ops, in_block, block, wc)
@@ -889,7 +1015,11 @@ def op_chain(x: torch.Tensor, case: str, n_ops: int, in_block: int,
     if n_ops not in BUILT_N_OPS:
         raise ValueError(f"the op_chain library is built for n_ops in "
                          f"{BUILT_N_OPS}, got {n_ops}")
-    if op_chain_smem_bytes(case, in_block, wc) > cs.SMEM_LIMIT:
+    if case in LANE_ROLL and wc > OP_LANES_MAX:
+        raise ValueError(f"{case}: the kernel holds a row in one block, "
+                         f"wc <= {OP_LANES_MAX}, got {wc}")
+    if op_chain_smem_bytes(case, n_ops, in_block, block,
+                           wc) > cs.SMEM_LIMIT:
         raise ValueError(f"{case}: an ({in_block}, {wc}) tile does not fit "
                          "shared memory")
     lib = _op_lib()

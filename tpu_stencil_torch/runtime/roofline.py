@@ -51,6 +51,10 @@ H100_HBM_BYTES = 80 * 10 ** 9
 H100_F32_FLOPS = 67e12
 H100_INT32_OPS_PER_S = H100_F32_FLOPS / 4
 H100_F32_OPS_PER_S = H100_F32_FLOPS / 2
+# Its tensor cores, dense (data sheet): 989 TFLOP/s in bf16, 1,979 TOP/s in
+# int8.
+H100_BF16_TC_FLOPS = 989e12
+H100_INT8_TC_OPS = 1979e12
 # The H100 SXM's host link (data sheet): PCIe Gen5 x16, 64 GB/s in each
 # direction; a frame's copy to the card and its copy back use one
 # direction each.
@@ -201,6 +205,51 @@ def bound_ms_per_rep(plan, n_elems: int, reps: int,
     iops, fops = plan_ops(plan)
     t_ops = n_elems * (iops / H100_INT32_OPS_PER_S
                        + fops / H100_F32_OPS_PER_S)
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
+
+
+# Operations per computed element of an L1 case, where not 1: what the
+# case's function names (a clip is a max and a min, a convert round trip two
+# converts, a multiply-add in float32 a multiply and an add rounded apart, a
+# bare lane roll a move), a packed add one operation a word.
+OP_CHAIN_OPS = {"clip_i32": 2, "cvt_u8_i32_rt": 2, "cvt_i16_i32_rt": 2,
+                "mul_add_f32": 2, "roll3_i32": 0, "vadd4_u8": 1 / 4,
+                "vadd2_i16": 1 / 2}
+
+
+def op_chain_bound_ms(case: str, n_ops: int, in_block: int, block: int,
+                      wc: int, grid: int) -> Tuple[float, str]:
+    """The least time one launch of L1 (``ops/lab.py`` ``op_chain``) could
+    take on ``grid`` tiles: the larger of the bytes (the rows the stored
+    rows depend on, ``lab.op_chain_rows_read``, read once, and the stored
+    rows written once) over the device-memory rate, and the operations the
+    chain computes over their rate: ``n_ops`` times the elements each
+    operation computes (the stored rows; a shrinking add the rows the
+    stored ones still need; the row roll every row) at the int32 or
+    float32 rate, or for ``mxu_rows_*`` 2 * 144 * 144 * wc a tile and
+    operation at the dense bf16 or int8 tensor-core peak. Returns (ms,
+    'bytes'|'operations')."""
+    from tpu_stencil_torch.ops import lab
+
+    rows = lab.op_chain_rows_read(case, n_ops, in_block, block)
+    t_bytes = (rows + block) * wc * grid / H100_HBM_BYTES_PER_S
+    if case.startswith("mxu_rows"):
+        peak = H100_BF16_TC_FLOPS if case == "mxu_rows_bf16" \
+            else H100_INT8_TC_OPS
+        t_ops = n_ops * 2 * lab.BAND * lab.BAND * wc * grid / peak
+    else:
+        if case in lab.ROW_SHRINK:
+            per_lane = (n_ops * block
+                        + lab.ROW_SHRINK[case] * n_ops * (n_ops - 1) // 2)
+        elif case in lab.ROW_ROLL:
+            per_lane = n_ops * in_block
+        else:
+            per_lane = n_ops * block
+        rate = (H100_F32_OPS_PER_S if lab.CASES[case][1].is_floating_point
+                else H100_INT32_OPS_PER_S)
+        t_ops = per_lane * wc * grid * OP_CHAIN_OPS.get(case, 1) / rate
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"

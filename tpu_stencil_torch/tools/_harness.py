@@ -73,6 +73,42 @@ def timed(fn: Callable[[int], object], device: torch.device
     return run
 
 
+def device_timed(fn: Callable[[int], object], device: torch.device
+                 ) -> Callable[[int], float]:
+    """``run(n) -> seconds`` of ``fn(n)`` on the card's clock: CUDA events
+    around the ``n`` launches, issued behind a sleep kernel longer than
+    the host takes to issue them, so that the card runs them back to back
+    and never waits on the host (a launch shorter than its Python issue
+    time would otherwise read as the issue time). On the CPU, the host
+    clock (:func:`timed`)."""
+    if device.type != "cuda":
+        return timed(fn, device)
+    issue = {}
+
+    def run(n: int) -> float:
+        if n not in issue:  # the host's issue time, measured once
+            fence(device)
+            t0 = time.perf_counter()
+            fn(n)
+            issue[n] = time.perf_counter() - t0
+            fence(device)
+        with torch.cuda.device(device):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(int((2 * issue[n] + 2e-4) * SLEEP_CYCLES_PER_S))
+            a.record()
+            fn(n)
+            b.record()
+            b.synchronize()
+        return a.elapsed_time(b) / 1e3
+    return run
+
+
+# Cycles of torch.cuda._sleep per second: above any card's clock, so that
+# a sleep lasts at least as long as asked.
+SLEEP_CYCLES_PER_S = 2.0e9
+
+
 def interleaved_per_rep(runs: dict, rounds: int) -> dict:
     """Steady-state seconds per rep of every ``name -> (run(n), base
     reps)`` in ``runs``: ``rounds`` passes over all of them in turn (so
