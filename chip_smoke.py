@@ -308,8 +308,7 @@ grow by at least an instruction an element and operation from 8 to 16
    of 7 runs after a warm-up (CUDA events, L2 flushed before each run):
    the three job kernels (K3 alone on the one ext tile of a 1x1 mesh at
    fuse 8), L2's ``current`` body, one L1 launch (``add_i32``, chain of
-   8, beside ``runtime.roofline.op_chain_bound_ms``; the L2 flushed by a
-   read, which leaves no dirty line to write back, and by the write too),
+   8, beside ``runtime.roofline.op_chain_bound_ms``),
    one ``mxu_rows_bf16`` launch (chain of 8) beside one batched bf16
    ``torch.matmul`` of the band matrix by the tiles' rows (timed only),
    the whole 2x2 sharded runner under ``pallas`` and under ``auto``
@@ -1080,20 +1079,15 @@ def bound_ms_per_rep(plan, n_elems: int, reps: int, n_bytes: int = None):
     return roofline.bound_ms_per_rep(plan, n_elems, reps, n_bytes)
 
 
-def time_ms(fn, dev, runs: int = 7, flush: str = "write") -> float:
+def time_ms(fn, dev, runs: int = 7) -> float:
     """Median ms of ``fn`` over ``runs`` after a warm-up, CUDA events,
-    with the L2 flushed before each run: by a 256 MB write, or with
-    ``flush="read"`` by a 256 MB read, which leaves the L2 holding no
-    dirty line for the timed run to write back."""
-    buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    with the L2 flushed (a 256 MB write) before each run."""
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(runs):
-        if flush == "read":
-            buf.max()
-        else:
-            buf.zero_()
+        flush.zero_()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -1274,7 +1268,7 @@ def l1_tiles(case: str) -> list:
     if case.startswith("mxu_rows"):
         short = (160, 150, 72)
     else:
-        short = (max(40, 24 + 16 * lab.ROW_SHRINK.get(case, 0)), 24,
+        short = (max(40, 20 + 16 * lab.ROW_SHRINK.get(case, 0)), 20,
                  32 if case.startswith("shfl") else 20)
     return [("tool", ib, b, wc), ("ragged", ib, b, ragged),
             ("unaligned", ib, b, wc), ("short", *short)]
@@ -5024,22 +5018,14 @@ def phase_times(dev) -> dict:
     ib, b, wc, grid = op_cost.tile_for("add_i32")
     xt = seeded((grid * ib, wc), 9, dev)
     ot = torch.empty((grid * b, wc), dtype=torch.uint8, device=dev)
-    # The bound counts the launch's own bytes, so the L2 is flushed by a
-    # read; the other rows' write flush leaves dirty lines that the launch
-    # writes back (timed too, as ms_write_flush).
     r["op_chain_ms"] = time_ms(
-        lambda: lab.op_chain(xt, "add_i32", 8, ib, b, out=ot), dev,
-        flush="read")
-    r["op_chain_ms_write_flush"] = time_ms(
         lambda: lab.op_chain(xt, "add_i32", 8, ib, b, out=ot), dev)
     r["op_chain_plain_ms"] = time_ms(
-        lambda: lab.op_chain_plain(xt, "add_i32", 8, ib, b), dev,
-        flush="read")
+        lambda: lab.op_chain_plain(xt, "add_i32", 8, ib, b), dev)
     r["op_chain_bound_ms"], r["op_chain_bound_by"] = (
         roofline.op_chain_bound_ms("add_i32", 8, ib, b, wc, grid))
     r["op_chain_unit"] = (f"ms per launch, add_i32 chain of 8, {grid} tiles "
-                          f"of {ib}x{wc}, {b} rows of each stored, L2 "
-                          "flushed by a read")
+                          f"of {ib}x{wc}, {b} rows of each stored")
     # The band product on tensor cores: one launch of mxu_rows_bf16 (a
     # chain of 8), and as its yardstick one batched bf16 torch.matmul of
     # the band matrix by the tiles' first 144 rows (one operation; timed
@@ -5048,12 +5034,11 @@ def phase_times(dev) -> dict:
     xm = seeded((grid * ib, wc), 10, dev)
     om = torch.empty((grid * b, wc), dtype=torch.uint8, device=dev)
     r["mxu_rows_bf16_ms"] = time_ms(
-        lambda: lab.op_chain(xm, "mxu_rows_bf16", 8, ib, b, out=om), dev,
-        flush="read")
+        lambda: lab.op_chain(xm, "mxu_rows_bf16", 8, ib, b, out=om), dev)
     band = lab.band_matrix().to(dev, torch.bfloat16)
     xb = xm.reshape(grid, ib, wc)[:, :lab.BAND].to(torch.bfloat16)
     r["mxu_rows_bf16_library_ms"] = time_ms(lambda: torch.matmul(band, xb),
-                                            dev, flush="read")
+                                            dev)
     r["mxu_rows_bf16_bound_ms"], _ = roofline.op_chain_bound_ms(
         "mxu_rows_bf16", 8, ib, b, wc, grid)
     r["mxu_rows_bf16_unit"] = (f"ms per launch, chain of 8, {grid} tiles of "
@@ -5431,7 +5416,6 @@ def run(dev: torch.device) -> None:
          "bound_ms": times["op_chain_bound_ms"],
          "bound_by": times["op_chain_bound_by"],
          "library_ms": None, "unit": times["op_chain_unit"],
-         "ms_write_flush": times["op_chain_ms_write_flush"],
          "blocks_per_sm": {c: v[8] for c, v in
                            l1["more"]["blocks_per_sm"].items()},
          "mxu_rows_bf16": {

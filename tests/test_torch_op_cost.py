@@ -245,10 +245,11 @@ def _wrap32(v):
 
 def _lanes_emulated(x, case, n_ops, in_block, block):
     """FORM_LANES: a thread per lane of a row (the row padded to whole
-    warps with lanes holding anything); within a warp a value comes by
-    __shfl_up_sync, a lane whose source is in another warp (or wraps
-    end-around) reads the shared buffer, written only by source lanes; two
-    buffers in turn, each holding whatever it held before."""
+    warps with lanes holding anything); every valid lane writes its value
+    to the shared buffer and, after the barrier, reads its source lane's
+    there (warps exchange their boundary lanes, and the end-around, with
+    the rest); two buffers in turn, each holding whatever it held
+    before."""
     s, add = lab.LANE_ROLL[case], case != "roll3_i32"
     wc = x.shape[1]
     t = x.reshape(-1, in_block, wc)[:, :block].to(torch.int64)
@@ -262,19 +263,13 @@ def _lanes_emulated(x, case, n_ops, in_block, block):
     v = junk()
     v[..., :wc] = t
     c = torch.arange(lanes)
-    lane = c % 32
-    sm = s % wc
-    from_buf = (sm >= 32) | (lane < sm)
-    to_buf = (c < wc) & (sm > 0) & ((sm >= 32) | (lane >= 32 - sm)
-                                    | (c >= wc - sm))
-    src = torch.where(c - sm < 0, c - sm + wc, c - sm)
-    d = sm & 31
-    shfl = torch.where(lane >= d, c - d, c)
+    src = c - s % wc
+    src = torch.where(src < 0, src + wc, src)
     bufs = [junk(), junk()]
     for i in range(n_ops):
         b = bufs[i & 1]
-        b[..., to_buf] = v[..., to_buf]
-        got = torch.where(from_buf, b[..., src], v[..., shfl])
+        b[..., :wc] = v[..., :wc]
+        got = b[..., src]
         v = _wrap32(v + got) if add else got
     return (v[..., :wc] & 0xFF).to(torch.uint8).reshape(-1, wc)
 

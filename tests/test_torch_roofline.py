@@ -137,9 +137,22 @@ def test_the_op_chain_bound():
     assert by == "bytes"
     assert ms == pytest.approx(2 * 32 * 320 * 1056 / 3.35e12 * 1e3)
     assert ms == pytest.approx(0.00646, abs=5e-6)
-    ms16, by16 = roofline.op_chain_bound_ms("add_i32", 16, ib, b, wc, grid)
+    # an add or a multiply issues on the ALU and the FMA pipe (67e12 / 2):
+    # the bytes still bind a chain of 16, the adds a chain of 32
+    assert roofline.H100_INT32_ADD_MUL_OPS_PER_S == 67e12 / 2
+    for case in ("add_i32", "mul_i32", "mul_add_i32", "add_u8"):
+        assert roofline.op_chain_bound_ms(case, 16, ib, b, wc, grid) == (
+            pytest.approx(ms), "bytes")
+    assert roofline.op_chain_bound_ms("add_i32", 32, ib, b, wc, grid) == (
+        pytest.approx(32 * 32 * 320 * 1056 / (67e12 / 2) * 1e3),
+        "operations")
+    # a shift, a max, a clip or a convert has the ALU alone (67e12 / 4)
+    ms16, by16 = roofline.op_chain_bound_ms("clip_i32", 16, ib, b, wc, grid)
     assert by16 == "operations"
-    assert ms16 == pytest.approx(16 * 32 * 320 * 1056 / (67e12 / 4) * 1e3)
+    assert ms16 == pytest.approx(2 * 16 * 32 * 320 * 1056 / (67e12 / 4)
+                                 * 1e3)
+    assert roofline.op_chain_bound_ms("shift_i32", 16, ib, b, wc,
+                                      grid)[0] == pytest.approx(ms16 / 2)
     # the band products, by hand: 2 * 144 * 144 * 128 a tile and operation
     # on 132 tiles of 160 x 128 at the dense tensor-core peaks, against
     # 144 rows read and 32 stored
@@ -160,13 +173,17 @@ def test_the_op_chain_bound():
         pytest.approx(bytes_ / 3.35e12 * 1e3), "bytes")
     # a shrinking add reads the rows its stored rows need, and computes
     # them: block + 8 * n_ops rows read, n * block + 8 * n (n - 1) / 2 rows
-    # of adds
+    # of adds; at a chain of 16 the 160 rows read and 32 stored bind, at
+    # 32 the adds
     ib, b, wc, grid = op_cost.tile_for("al_slice_add_i16")
     assert lab.op_chain_rows_read("al_slice_add_i16", 8, ib, b) == 32 + 64
     assert roofline.op_chain_bound_ms("al_slice_add_i16", 16, ib, b, wc,
                                       grid) == (
-        pytest.approx((16 * 32 + 8 * 16 * 15 // 2) * 320 * 1056
-                      / (67e12 / 4) * 1e3), "operations")
+        pytest.approx((160 + 32) * 320 * 1056 / 3.35e12 * 1e3), "bytes")
+    assert roofline.op_chain_bound_ms("al_slice_add_i16", 32, 288, b, wc,
+                                      grid) == (
+        pytest.approx((32 * 32 + 8 * 32 * 31 // 2) * 320 * 1056
+                      / (67e12 / 2) * 1e3), "operations")
     # float cases at the float32 rate, a bare roll moves and computes
     # nothing
     assert roofline.op_chain_bound_ms("mul_add_f32", 16, 48, 32, 320,
@@ -176,8 +193,10 @@ def test_the_op_chain_bound():
                                       1056)[1] == "bytes"
     # the tool's bound beside each us/op-pass is the same difference of
     # its two chains as the measurement
-    assert op_cost.bound_us_per_op_pass("add_i32") == pytest.approx(
-        (ms16 - ms) / 8 * 1e3)
+    ms8 = roofline.op_chain_bound_ms("clip_i32", 8, 48, 32, 320, 1056)[0]
+    assert op_cost.bound_us_per_op_pass("clip_i32") == pytest.approx(
+        (ms16 - ms8) / 8 * 1e3)
+    assert op_cost.bound_us_per_op_pass("add_i32") == 0
     # the smoke reads this module's bound, not a copy of its own
     src = open(chip_smoke.__file__).read()
     assert "op_chain_bound_ms" in src and "H100_HBM_BYTES_PER_S" not in src

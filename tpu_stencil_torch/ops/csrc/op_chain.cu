@@ -44,27 +44,27 @@
 //                          a column strip of the tile in shared memory
 //                          (sized for 2 blocks per SM), loaded and stored
 //                          in 16-byte vectors; each thread walks its own
-//                          lanes, so no barrier between operations. Bound:
-//                          shared-memory instruction issue, two loads and a
-//                          store an element and operation.
-//   warp shuffle           the lane rolls roll1/roll3/roll3_add (and
-//     (FORM_LANES)         roll128): a thread owns one lane of 8 rows, a
-//                          block whole rows. Within a warp a value moves by
-//                          __shfl_up_sync; the lanes whose source lies in
-//                          another warp (or wraps end-around) read it from a
-//                          shared buffer that only the source lanes write,
-//                          one barrier an operation (two buffers in turn).
-//                          roll128 moves whole warps: every lane goes
-//                          through the buffer, a shared-memory pass, which
-//                          is its honest cost on this card. Bound: shuffle
-//                          and shared-memory instruction issue (a shuffle, a
-//                          store and a load issued per warp and row, where
-//                          any lane needs them) and the barrier; roll1
-//                          costs what roll128 does. Four lanes a thread
-//                          (fewer of those instructions a lane) was slower:
-//                          its registers held a block of 3 warps to 6 an
-//                          SM. shfl1/shfl3 (FORM_STRIPS) roll within
-//                          32-lane groups by __shfl_sync alone.
+//                          lanes, so no barrier between operations, and
+//                          loads each row's old value once, holding it in
+//                          a register for its own add (the offset-8 add
+//                          loads a group of 8 before it stores any).
+//                          Bound: shared-memory instruction issue, a load
+//                          and a store an element and operation.
+//   shared buffer          the lane rolls roll1/roll3/roll3_add/roll128:
+//     (FORM_LANES)         a thread owns one lane of 8 rows, a block whole
+//                          rows. Every lane writes its values to a shared
+//                          buffer and reads its source lane's after one
+//                          barrier an operation (two buffers in turn).
+//                          Bound: shared-memory instruction issue (a store
+//                          and a load an element) and the barrier. A
+//                          shuffle within the warp, the buffer only for the
+//                          lanes across warps and the end-around, was
+//                          slower on this card: the shuffle was issued for
+//                          every lane all the same. Four lanes a thread was
+//                          slower too: its registers held a block of 3
+//                          warps to 6 an SM.
+//   warp shuffle           shfl1/shfl3 roll within 32-lane groups by
+//     (FORM_STRIPS)        __shfl_sync alone.
 //   tensor cores           mxu_rows_bf16 / mxu_rows_i8: the 144x144 band
 //     (FORM_BAND)          matrix A in shared memory as bf16 or int8, the
 //                          tile's first 144 rows of a 64-lane strip in shared
@@ -546,16 +546,9 @@ __device__ void op_lanes(const uint8_t* src, uint8_t* dst, const OpTile& t,
   const int tile = blockIdx.x / strips;
   const int r0 = (blockIdx.x % strips) * OP_STRIP;
   const int nr = min(OP_STRIP, t.block - r0);
-  const int T = blockDim.x, c = threadIdx.x, l = c & 31;
+  const int T = blockDim.x, c = threadIdx.x;
   const bool valid = c < t.wc;
-  const int sm = S % t.wc;  // the shift, end-around
-  // Lanes whose source is in this warp take it by shuffle; the others from
-  // the buffer, which their source lanes (a warp's top sm, the row's last
-  // sm, or every lane once sm >= 32) write.
-  const bool from_buf = sm >= 32 || l < sm;
-  const bool to_buf =
-      valid && sm > 0 && (sm >= 32 || l >= 32 - sm || c >= t.wc - sm);
-  int from = c - sm;
+  int from = c - S % t.wc;  // the source lane, end-around
   if (from < 0) from += t.wc;
   const uint8_t* in = src + ((size_t)tile * t.in_block + r0) * t.wc + c;
   int x[OP_STRIP];
@@ -566,19 +559,18 @@ __device__ void op_lanes(const uint8_t* src, uint8_t* dst, const OpTile& t,
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     int* b = buf + (i & 1) * OP_STRIP * T;
-    if (to_buf) {
+    if (valid) {
 #pragma unroll
       for (int j = 0; j < OP_STRIP; ++j) b[j * T + c] = x[j];
     }
     __syncthreads();  // one barrier an operation: the buffers alternate
 #pragma unroll
     for (int j = 0; j < OP_STRIP; ++j) {
-      int s = __shfl_up_sync(0xffffffffu, x[j], sm & 31);
-      if (from_buf) s = b[j * T + from];
+      const int v = b[j * T + from];
       if constexpr (ADD) {
-        op_add<CASE>(x[j], s, t.on, i);
+        op_add<CASE>(x[j], v, t.on, i);
       } else {
-        x[j] = s;
+        x[j] = v;
       }
     }
   }
@@ -619,23 +611,51 @@ __device__ void op_smem_cols_run(const uint8_t* src, uint8_t* dst,
   }
   __syncthreads();
   for (int c = threadIdx.x; c < w; c += blockDim.x) {  // a thread's own lanes
+    // Each row's old value is loaded once, as the neighbour of the row
+    // before it in the walk, and kept in a register for its own add: a
+    // shared load and a store an element and operation. The shrinking add
+    // loads a group of OFF neighbours before it stores any of the group's
+    // rows, so that OFF loads are in flight at once (a load cannot pass a
+    // store to shared memory that may alias it), and tests a row's bound
+    // only past the last whole group (an asm statement is not predicated:
+    // a test inside the group is a branch a row).
 #pragma unroll 1
     for (int i = 0; i < N; ++i) {
       if constexpr (OFF > 0) {  // x[r] += x[r + OFF], stored rows' needs
         const int live = t.block + OFF * (N - 1 - i);
-        for (int r = 0; r < live; ++r) {
-          T a = (T)s[r * cw + c];
-          op_add<CASE>(a, (T)s[(r + OFF) * cw + c], t.on, i);
-          s[r * cw + c] = (S)a;
+        T win[OFF];  // old rows r .. r + OFF - 1
+#pragma unroll
+        for (int k = 0; k < OFF; ++k) win[k] = (T)s[k * cw + c];
+        int r = 0;
+        for (; r + OFF <= live; r += OFF) {
+          T nb[OFF];  // old rows r + OFF .. r + 2 * OFF - 1
+#pragma unroll
+          for (int k = 0; k < OFF; ++k) nb[k] = (T)s[(r + k + OFF) * cw + c];
+#pragma unroll
+          for (int k = 0; k < OFF; ++k) {
+            T a = win[k];
+            op_add<CASE>(a, nb[k], t.on, i);
+            s[(r + k) * cw + c] = (S)a;
+            win[k] = nb[k];
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < OFF; ++k) {  // the rows past the last group
+          if (r + k < live) {
+            T a = win[k];
+            op_add<CASE>(a, (T)s[(r + k + OFF) * cw + c], t.on, i);
+            s[(r + k) * cw + c] = (S)a;
+          }
         }
       } else {  // x[r] += x[r - 1], end-around
         const T last = (T)s[(rows - 1) * cw + c];
+        T a = last;
         for (int r = rows - 1; r > 0; --r) {
-          T a = (T)s[r * cw + c];
-          op_add<CASE>(a, (T)s[(r - 1) * cw + c], t.on, i);
+          const T nb = (T)s[(r - 1) * cw + c];
+          op_add<CASE>(a, nb, t.on, i);
           s[r * cw + c] = (S)a;
+          a = nb;
         }
-        T a = (T)s[c];
         op_add<CASE>(a, last, t.on, i);
         s[c] = (S)a;
       }

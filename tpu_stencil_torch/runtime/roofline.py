@@ -51,6 +51,10 @@ H100_HBM_BYTES = 80 * 10 ** 9
 H100_F32_FLOPS = 67e12
 H100_INT32_OPS_PER_S = H100_F32_FLOPS / 4
 H100_F32_OPS_PER_S = H100_F32_FLOPS / 2
+# An int32 add or multiply issues on two pipes: as IADD3 on the ALU and as
+# IMAD (IMAD.IADD for an add) on the FMA pipe, 64 lanes an SM each, so
+# 67e12 / 2; a compare, min/max, select, shift or convert has the ALU alone.
+H100_INT32_ADD_MUL_OPS_PER_S = H100_F32_FLOPS / 2
 # Its tensor cores, dense (data sheet): 989 TFLOP/s in bf16, 1,979 TOP/s in
 # int8.
 H100_BF16_TC_FLOPS = 989e12
@@ -217,6 +221,11 @@ def bound_ms_per_rep(plan, n_elems: int, reps: int,
 OP_CHAIN_OPS = {"clip_i32": 2, "cvt_u8_i32_rt": 2, "cvt_i16_i32_rt": 2,
                 "mul_add_f32": 2, "roll3_i32": 0, "vadd4_u8": 1 / 4,
                 "vadd2_i16": 1 / 2}
+# The integer cases whose operations have the ALU pipe alone (a shift, a
+# max, a max and a min, two converts); every other integer case adds or
+# multiplies.
+OP_CHAIN_ALU_ONLY = ("shift_i32", "where_i32", "clip_i32", "cvt_u8_i32_rt",
+                     "cvt_i16_i32_rt")
 
 
 def op_chain_bound_ms(case: str, n_ops: int, in_block: int, block: int,
@@ -227,8 +236,9 @@ def op_chain_bound_ms(case: str, n_ops: int, in_block: int, block: int,
     rows written once) over the device-memory rate, and the operations the
     chain computes over their rate: ``n_ops`` times the elements each
     operation computes (the stored rows; a shrinking add the rows the
-    stored ones still need; the row roll every row) at the int32 or
-    float32 rate, or for ``mxu_rows_*`` 2 * 144 * 144 * wc a tile and
+    stored ones still need; the row roll every row) at the float32 rate,
+    the int32 add and multiply rate, or for ``OP_CHAIN_ALU_ONLY`` the
+    int32 ALU rate; or for ``mxu_rows_*`` 2 * 144 * 144 * wc a tile and
     operation at the dense bf16 or int8 tensor-core peak. Returns (ms,
     'bytes'|'operations')."""
     from tpu_stencil_torch.ops import lab
@@ -247,8 +257,12 @@ def op_chain_bound_ms(case: str, n_ops: int, in_block: int, block: int,
             per_lane = n_ops * in_block
         else:
             per_lane = n_ops * block
-        rate = (H100_F32_OPS_PER_S if lab.CASES[case][1].is_floating_point
-                else H100_INT32_OPS_PER_S)
+        if lab.CASES[case][1].is_floating_point:
+            rate = H100_F32_OPS_PER_S
+        elif case in OP_CHAIN_ALU_ONLY:
+            rate = H100_INT32_OPS_PER_S
+        else:
+            rate = H100_INT32_ADD_MUL_OPS_PER_S
         t_ops = per_lane * wc * grid * OP_CHAIN_OPS.get(case, 1) / rate
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"

@@ -39,24 +39,24 @@ one or two predicated instructions the compiler cannot fold):
                       -> same names: the shrinking row add at offset 1, the
                          rows the 32 stored rows need in one thread's
                          registers (other tiles: shared memory)
-Through warp shuffles:
-  roll3_i32, roll3_add_i32, roll1_add_i32
-                      -> same names: the end-around lane roll; a value
-                         moves within a warp by __shfl_up_sync, and the
-                         lanes whose source is in another warp (or wraps)
-                         read it from a shared buffer only the source lanes
-                         write, one barrier an operation; and
-                         shfl1_add_i32 / shfl3_add_i32: a warp-shuffle
-                         neighbour, end-around within 32 lanes, no shared
-                         memory at all
+By warp shuffle:
+  shfl1_add_i32, shfl3_add_i32
+                      -> this card's own: a warp-shuffle neighbour,
+                         end-around within 32 lanes, no shared memory
 Through shared memory:
-  roll128_add_i32     -> same name: a roll by whole warps, so every lane
-                         goes through the shared buffer: one shared-memory
-                         pass an operation is its cost on this card
+  roll3_i32, roll3_add_i32, roll1_add_i32, roll128_add_i32
+                      -> same names: the end-around lane roll, a block
+                         whole rows; every lane writes its value to a
+                         shared buffer and reads its source lane's after
+                         one barrier an operation (two buffers in turn).
+                         A shuffle within the warp, the buffer only for
+                         the lanes across warps, was slower: the shuffle
+                         was issued for every lane all the same
   al_slice_add_i16    -> same name: the shrinking row add at offset 8, a
                          column strip of 32 + 8N rows in shared memory (at a
                          chain of 16 more rows than registers hold), each
-                         thread walking its own lanes
+                         thread walking its own lanes with each row's old
+                         value loaded once and held in a register
 On tensor cores:
   mxu_rows_bf16       -> mxu_rows_bf16: the 144x144 band product by
                          mma.sync m16n8k16 bf16 -> float32
