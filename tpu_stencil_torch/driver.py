@@ -26,6 +26,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
+import time
 from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
                     Tuple)
 
@@ -253,16 +254,20 @@ def _maybe_profile(profile_dir: Optional[str], devices):
 
 @contextlib.contextmanager
 def _profile_window(profile_dir: str, devices):
+    """The profiler around the window; its trace carries the program's
+    profiler-only spans of the window too."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if any(torch.device(d).type == "cuda" for d in devices):
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(profile_dir, exist_ok=True)
+    t0_ns = time.time_ns()
     with profile(activities=activities) as prof:
         yield prof
-    prof.export_chrome_trace(os.path.join(profile_dir,
-                                          f"trace_{os.getpid()}.json"))
+    path = os.path.join(profile_dir, f"trace_{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    obs.export.add_profiled_spans(path, t0_ns, time.time_ns())
 
 
 def _maybe_restore(cfg: JobConfig,

@@ -34,6 +34,7 @@ from tpu_stencil_torch import filters as _filters
 from tpu_stencil_torch.config import canonical_backend
 from tpu_stencil_torch.devices import resolve_device
 from tpu_stencil_torch.filters import Filter
+from tpu_stencil_torch.obs import tracing as _tracing
 from tpu_stencil_torch.ops import cuda_stencil
 from tpu_stencil_torch.ops import lowering as _lowering
 
@@ -196,9 +197,41 @@ class IteratedConv2D(torch.nn.Module):
             for d in depths]
 
     def _place(self, img) -> torch.Tensor:
+        """``img`` on the model's device, waited for: a profiler-only
+        ``model.place`` span (arg ``bytes``) while a profiler collects."""
+        if not _tracing.profiling():
+            return self._placed(img)
+        with _tracing.span("model.place", "model", profiler_only=True) as s:
+            x = self._placed(img)
+            if s.recording:
+                s.args["bytes"] = x.nbytes
+            return x
+
+    def _placed(self, img) -> torch.Tensor:
         if isinstance(img, torch.Tensor):
             return img.to(device=self.device, dtype=torch.uint8)
         return torch.from_numpy(np.array(img, np.uint8)).to(self.device)
+
+    def _issue(self, run, x: torch.Tensor, repetitions: int) -> torch.Tensor:
+        """``run(x, repetitions)`` inside a profiler-only ``model.issue``
+        span while a profiler collects: args ``reps``, ``launches`` (the
+        call's delta of :func:`cuda_stencil.launch_counts`, the process's
+        counters) and ``kernel`` (the kernels launched, else the
+        backend)."""
+        if not _tracing.profiling():
+            return run(x, repetitions)
+        with _tracing.span("model.issue", "model", profiler_only=True) as s:
+            if not s.recording:  # the profiler stopped in between
+                return run(x, repetitions)
+            before = cuda_stencil.launch_counts()
+            out = run(x, repetitions)
+            moved = {k: n - before[k]
+                     for k, n in cuda_stencil.launch_counts().items()
+                     if n != before[k]}
+            s.args.update(kernel="+".join(moved) or self.backend,
+                          reps=int(repetitions),
+                          launches=sum(moved.values()))
+            return out
 
     def forward(self, img_u8, repetitions: int) -> torch.Tensor:
         """``repetitions`` stencil applications of an (H, W[, C]) uint8
@@ -212,6 +245,9 @@ class IteratedConv2D(torch.nn.Module):
         batch-axis ``--frames`` run one model on several devices. The
         configuration resolves on the model's device (the devices of one
         job are alike)."""
+        return self._issue(self._run, x, repetitions)
+
+    def _run(self, x: torch.Tensor, repetitions: int) -> torch.Tensor:
         ch = x.shape[2] if x.dim() == 3 else 1
         shape2 = tuple(x.shape[:2])
         backend, schedule = self.resolved_config(shape2, ch)
@@ -238,6 +274,9 @@ class IteratedConv2D(torch.nn.Module):
 
     def batch_on(self, x: torch.Tensor, repetitions: int) -> torch.Tensor:
         """:meth:`batch` on the device ``x`` lies on (see :meth:`run_on`)."""
+        return self._issue(self._batch, x, repetitions)
+
+    def _batch(self, x: torch.Tensor, repetitions: int) -> torch.Tensor:
         ch = x.shape[3] if x.dim() == 4 else 1
         frame_shape = tuple(x.shape[1:3])
         backend, schedule = self.batch_config(frame_shape, ch)

@@ -6,13 +6,20 @@ metric and span names, so one dashboard reads both packages:
 * :mod:`~tpu_stencil_torch.obs.tracing`: the ``span``/``phase`` API,
   perf_counter spans with device fence points (``Span.fence``
   synchronizes the CUDA devices of a tensor or tile grid); a no-op unless
-  :func:`enable` has run. ``phase`` always feeds the driver registry's
-  ``phase_*_seconds`` histograms.
+  :func:`enable` has run, the flight recorder is installed or a
+  ``torch.profiler`` collects. ``phase`` always feeds the driver
+  registry's ``phase_*_seconds`` histograms. Its third sink, the
+  profiler sink, keeps every span closed while a profiler collects,
+  stamped with ``time.time_ns()`` (the profiler's own base, so a span
+  lies on the device timeline), and the profiler-only spans of the job
+  path (``model.place``, ``model.issue``) and of the runtime
+  (``host.gc``); ``tracing.profiled_spans`` reads a window of it.
 * :mod:`~tpu_stencil_torch.obs.context`, :mod:`~.events`,
   :mod:`~.flight`: request correlation ids, the structured event log and
   the flight recorder (ring, spool, dump triggers).
 * :mod:`~tpu_stencil_torch.obs.export`: Chrome trace-event JSON of one
-  process (``--trace out.json``, loadable in Perfetto).
+  process (``--trace out.json``, loadable in Perfetto), and the profiler
+  sink's spans added to the traces of ``--profile`` and ``/debug/prof``.
 * :mod:`~tpu_stencil_torch.obs.exposition`: Prometheus-style text of a
   registry snapshot (``--metrics-text``), with its exact parser.
 * :mod:`~tpu_stencil_torch.obs.breakdown`: the ``--breakdown`` tables.

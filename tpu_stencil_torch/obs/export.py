@@ -6,13 +6,18 @@ relative to the tracer's origin, one ``tid`` track per recording thread
 (metadata events name the process and each thread). With several
 processes every rank's events are gathered (:func:`merged_events`, its
 ``pid`` the rank) and rank 0 writes the one merged file.
+
+:func:`add_profiled_spans` puts the profiler sink's spans into a Chrome
+trace that ``torch.profiler`` wrote, on that trace's own timebase.
 """
 
 from __future__ import annotations
 
 import json
+import os
 from typing import List, Optional
 
+from tpu_stencil_torch.obs import tracing as _tracing
 from tpu_stencil_torch.obs.tracing import Tracer
 
 
@@ -89,3 +94,26 @@ def write_chrome_trace(path: str, tracer: Tracer,
         json.dump({"traceEvents": events, "displayTimeUnit": "ms"}, fh)
         fh.write("\n")
     return path
+
+
+def add_profiled_spans(path: str, start_ns: int, end_ns: int) -> int:
+    """Add the profiler sink's spans that overlap [start_ns, end_ns]
+    (``time.time_ns()`` stamps) to the ``torch.profiler`` Chrome trace at
+    ``path``, as complete events on this process's host tracks: ``ts`` is
+    microseconds past the trace's ``baseTimeNanoseconds`` (0 when it has
+    none), as the profiler's own events are. Returns how many were
+    added."""
+    with open(path) as fh:
+        trace = json.load(fh)
+    base = int(trace.get("baseTimeNanoseconds", 0))
+    pid = os.getpid()
+    added = [{
+        "ph": "X", "name": r.name, "cat": r.cat or "tpu_stencil_torch",
+        "pid": pid, "tid": r.tid, "ts": (r.start_ns - base) / 1e3,
+        "dur": (r.end_ns - r.start_ns) / 1e3,
+        "args": dict(r.args, depth=r.depth),
+    } for r in _tracing.profiled_spans(start_ns, end_ns)]
+    trace.setdefault("traceEvents", []).extend(added)
+    with open(path, "w") as fh:
+        json.dump(trace, fh, default=str)
+    return len(added)

@@ -7,7 +7,9 @@ of the live process and spools its trace for ``GET /debug/prof/<path>``.
 The capture records CPU activity, plus CUDA activity when a card is
 present (CUPTI sees every kernel of the process, so the replicas' worker
 threads' K1 launches show as ``stencil_fused_kernel``), and writes one
-Chrome trace (``trace.json``) per capture. The contract is the JAX
+Chrome trace (``trace.json``) per capture, with the program's own spans
+of the capture's window in it (:func:`~tpu_stencil_torch.obs.export.
+add_profiled_spans`). The contract is the JAX
 package's:
 
 * **404-clean when unavailable**: :func:`available` is import-only; the
@@ -97,17 +99,22 @@ def capture(seconds: float, spool_dir: str) -> dict:
         import torch
         from torch.profiler import ProfilerActivity, profile
 
+        from tpu_stencil_torch.obs import export
+
         activities = [ProfilerActivity.CPU]
         if torch.cuda.is_available():
             activities.append(ProfilerActivity.CUDA)
         run = f"prof-{int(time.time() * 1e3)}"
         run_dir = os.path.join(spool_dir, run)
         os.makedirs(run_dir, exist_ok=True)
+        t0_ns = time.time_ns()
         with profile(activities=activities) as prof:
             time.sleep(seconds)
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
-        prof.export_chrome_trace(os.path.join(run_dir, TRACE_FILE))
+        path = os.path.join(run_dir, TRACE_FILE)
+        prof.export_chrome_trace(path)
+        export.add_profiled_spans(path, t0_ns, time.time_ns())
         _prune_spool(spool_dir)
         return {
             "run": run,

@@ -3,10 +3,26 @@
 The port's counterpart of the JAX package's ``obs/tracing.py``, with the
 same names and semantics:
 
-* **off unless enabled**: :func:`span` / :class:`phase` read one global;
-  with no sink installed they return a shared no-op object (no
+* **off unless enabled**: :func:`span` / :class:`phase` read three
+  globals; with no sink active they return a shared no-op object (no
   allocation, no clock read, no lock). ``--trace``/``--breakdown`` (or
   :func:`enable`) install a :class:`Tracer`.
+* **three sinks**: the :class:`Tracer`, the flight recorder
+  (:mod:`~tpu_stencil_torch.obs.flight`), and the profiler sink, which is
+  active exactly while a ``torch.profiler`` collects (torch's own
+  ``_is_profiler_enabled`` flag). The first two stamp ``perf_counter``
+  seconds; the profiler sink stamps ``time.time_ns()``, Unix-epoch ns,
+  the base of the profiler's host events and of Kineto's device
+  operations, so a program span lies on the device timeline (up to that
+  timeline's own drift from the host's, which
+  ``benchmark/harness/program_spans.aligned`` takes out).
+  :func:`profiled_spans` reads it for a window, and the Chrome traces of
+  ``--profile`` and ``/debug/prof`` carry its records
+  (:func:`~tpu_stencil_torch.obs.export.add_profiled_spans`). A
+  ``profiler_only`` span (the job path's ``model.place`` and
+  ``model.issue``, and ``host.gc``, one span per garbage collection) goes
+  to the profiler sink alone, so the ``--trace`` span list stays the JAX
+  package's.
 * **fence points**: PyTorch returns before the card finishes, so a span
   that launches device work must drain it before closing, or the time
   lands in whoever waits next. ``Span.fence(x)`` synchronizes the CUDA
@@ -23,11 +39,17 @@ the text exposition has driver-side distributions even with tracing off.
 
 from __future__ import annotations
 
+import collections
 import contextlib as _contextlib
 import dataclasses
+import gc
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
+
+# Its module global _is_profiler_enabled is set while a torch.profiler
+# collects: the profiler sink is active exactly then.
+from torch.autograd import profiler as _torch_profiler
 
 from tpu_stencil_torch.obs.context import current as _ctx_current
 from tpu_stencil_torch.utils.timing import Timer, fence as _fence_devices
@@ -87,6 +109,65 @@ def _stack() -> list:
     return st
 
 
+def _profiled_depth() -> int:
+    """Spans of the profiler sink open on this thread."""
+    return getattr(_stack_tls, "profiled", 0)
+
+
+class ProfiledSpan(NamedTuple):
+    """One closed span of the profiler sink: a plain tuple, no dict of
+    its own. Stamps are ``time.time_ns()``, the profiler's base."""
+
+    name: str
+    cat: str
+    tid: int       # the thread's native id (the profiler's host tid)
+    depth: int     # profiler-sink spans open on the thread at open time
+    args: Dict
+    start_ns: int
+    end_ns: int
+
+
+#: Records the profiler sink keeps; past it the oldest go, counted.
+PROFILED_CAP = 1 << 17
+
+
+class ProfilerSink:
+    """The last :data:`PROFILED_CAP` closed spans recorded while a
+    ``torch.profiler`` collected, and how many older ones were dropped.
+
+    Appends from any thread; the lock is reentrant because a garbage
+    collection, which records ``host.gc``, may run inside a record."""
+
+    def __init__(self, cap: int = PROFILED_CAP) -> None:
+        self._lock = threading.RLock()
+        self._ring: collections.deque = collections.deque(maxlen=cap)
+        self.dropped = 0
+
+    def record(self, rec: ProfiledSpan) -> None:
+        with self._lock:
+            if len(self._ring) == self._ring.maxlen:
+                self.dropped += 1
+            self._ring.append(rec)
+
+    def spans(self, start_ns: int, end_ns: int) -> List[ProfiledSpan]:
+        """The kept records that overlap [start_ns, end_ns], by start."""
+        with self._lock:
+            recs = list(self._ring)
+        return sorted((r for r in recs
+                       if r.end_ns >= start_ns and r.start_ns <= end_ns),
+                      key=lambda r: r.start_ns)
+
+    def dropped_in(self, start_ns: int, end_ns: int) -> int:
+        """The dropped count when a dropped record may overlap
+        [start_ns, end_ns], else 0. Records are kept in the order they
+        close, so every dropped one closed before the oldest kept one."""
+        with self._lock:
+            if not self.dropped:
+                return 0
+            oldest_end = self._ring[0].end_ns if self._ring else end_ns
+        return self.dropped if oldest_end >= start_ns else 0
+
+
 class Tracer:
     """Thread-safe span sink. Construct via :func:`enable`."""
 
@@ -107,23 +188,32 @@ class Tracer:
 
 class Span:
     """Context manager recording one span on the active sinks (the
-    installed :class:`Tracer` and/or the flight recorder). Exceptions
-    propagate; the span still closes (a failed phase is still time
-    spent)."""
+    installed :class:`Tracer`, the flight recorder and the profiler
+    sink). Exceptions propagate; the span still closes (a failed phase is
+    still time spent). ``args`` may be added to until it closes."""
 
-    __slots__ = ("name", "cat", "args", "_tracer", "_flight",
-                 "_t0", "_depth")
+    __slots__ = ("name", "cat", "args", "_tracer", "_flight", "_profiled",
+                 "_t0", "_depth", "_t0_ns", "_profiled_depth")
 
-    def __init__(self, tracer, flight, name: str, cat: str, args: Dict):
+    recording = True
+
+    def __init__(self, tracer, flight, name: str, cat: str, args: Dict,
+                 profiled: bool = False):
         self._tracer = tracer
         self._flight = flight
+        self._profiled = profiled
         self.name, self.cat, self.args = name, cat, args
 
     def __enter__(self) -> "Span":
-        stack = _stack()
-        self._depth = len(stack)
-        stack.append(self.name)
+        if self._tracer is not None or self._flight is not None:
+            stack = _stack()
+            self._depth = len(stack)
+            stack.append(self.name)
         self._t0 = time.perf_counter()
+        if self._profiled:
+            self._profiled_depth = _profiled_depth()
+            _stack_tls.profiled = self._profiled_depth + 1
+            self._t0_ns = time.time_ns()
         return self
 
     def fence(self, x):
@@ -133,9 +223,17 @@ class Span:
         return fence(x)
 
     def __exit__(self, *exc) -> None:
+        t1_ns = time.time_ns() if self._profiled else 0
         t1 = time.perf_counter()
-        _stack().pop()
         th = threading.current_thread()
+        if self._profiled:
+            _stack_tls.profiled = self._profiled_depth
+            _profiled.record(ProfiledSpan(
+                self.name, self.cat, th.native_id or 0,
+                self._profiled_depth, self.args, self._t0_ns, t1_ns))
+        if self._tracer is None and self._flight is None:
+            return
+        _stack().pop()
         ctx = _ctx_current()
         rec = SpanRecord(
             name=self.name, cat=self.cat, t0=self._t0, t1=t1,
@@ -160,6 +258,8 @@ class _NullSpan:
 
     __slots__ = ()
 
+    recording = False
+
     def __enter__(self) -> "_NullSpan":
         return self
 
@@ -175,6 +275,54 @@ _tracer: Optional[Tracer] = None
 # The flight-recorder sink (obs.flight installs itself via _set_flight).
 _flight = None
 _registry = None
+# The profiler sink: always there, recorded into only while a
+# torch.profiler collects.
+_profiled = ProfilerSink()
+
+
+def profiling() -> bool:
+    """True while a ``torch.profiler`` collects (the profiler sink is
+    active): one module-global read, the guard for a hot path's
+    profiler-only spans."""
+    return _torch_profiler._is_profiler_enabled
+
+
+def profiled_spans(start_ns: int, end_ns: int) -> List[ProfiledSpan]:
+    """The profiler sink's records that overlap [start_ns, end_ns]
+    (``time.time_ns()`` stamps), by start."""
+    return _profiled.spans(start_ns, end_ns)
+
+
+def profiled_dropped(start_ns: int, end_ns: int) -> int:
+    """How many records the profiler sink dropped past its cap, when a
+    dropped one may overlap [start_ns, end_ns]; 0 when the window's
+    records are whole."""
+    return _profiled.dropped_in(start_ns, end_ns)
+
+
+# The open collection's start stamp (0: none, or not profiled). The
+# interpreter runs one collection at a time.
+_gc_t0_ns = 0
+
+
+def _on_gc(phase: str, info: dict) -> None:
+    """``gc.callbacks`` hook: one ``host.gc`` span a collection, while
+    profiling; returns at once otherwise."""
+    global _gc_t0_ns
+    if phase == "start":
+        if _torch_profiler._is_profiler_enabled:
+            _gc_t0_ns = time.time_ns()
+        return
+    t0, _gc_t0_ns = _gc_t0_ns, 0
+    if not t0:
+        return
+    _profiled.record(ProfiledSpan(
+        "host.gc", "runtime", threading.get_native_id(), _profiled_depth(),
+        {"generation": info.get("generation"),
+         "collected": info.get("collected")}, t0, time.time_ns()))
+
+
+gc.callbacks.append(_on_gc)
 
 
 def enable() -> Tracer:
@@ -248,10 +396,12 @@ def snapshot() -> dict:
 
 
 def reset() -> None:
-    """Drop the tracer AND the accumulated metrics (tests)."""
-    global _tracer, _registry
+    """Drop the tracer, the accumulated metrics and the profiler sink's
+    records (tests)."""
+    global _tracer, _registry, _profiled
     _tracer = None
     _registry = None
+    _profiled = ProfilerSink()
 
 
 @_contextlib.contextmanager
@@ -275,14 +425,18 @@ def scratch_registry():
         _flight = prev_flight
 
 
-def span(name: str, cat: str = "", **args):
-    """A recorded span when a sink is installed, a shared no-op
-    otherwise."""
+def span(name: str, cat: str = "", profiler_only: bool = False, **args):
+    """A recorded span when a sink is active, a shared no-op otherwise.
+    ``profiler_only``: recorded into the profiler sink alone (a no-op
+    unless a ``torch.profiler`` collects)."""
+    p = _torch_profiler._is_profiler_enabled
+    if profiler_only:
+        return Span(None, None, name, cat, args, True) if p else _NULL
     t = _tracer
     f = _flight
-    if t is None and f is None:
+    if t is None and f is None and not p:
         return _NULL
-    return Span(t, f, name, cat, args)
+    return Span(t, f, name, cat, args, p)
 
 
 class phase:
