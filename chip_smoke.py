@@ -31,9 +31,22 @@ grow by at least an instruction an element and operation from 8 to 16
    tile row and column), x9; gaussian RGB 1920x2520 also x{1,7,8,40};
    ``iterate_frames`` on 3 frames of 256x320 RGB x9 per body (the gap
    rows); after each launch the body the library ran must be the one
-   ``cuda_stencil.tile_body`` names. Plus small images against the NumPy
-   golden model, and the no-fallback check: with the libraries' builds
-   forced to fail, ``iterate`` raises ``KernelBuildError`` and launches
+   ``cuda_stencil.fused_body`` names (``regs`` for gaussian and
+   gaussian5), or the shared tile's where a launch forces a tile height
+   or is a single rep on a grid of fewer ``regs`` blocks than SMs
+   (``cuda_stencil.launch_body``).
+   K1's register body alone: gaussian and gaussian5, grey and RGB,
+   aligned and ragged widths, single launches at fuse 1, 7 and 8, x1, x9
+   and x100, the frames layout; serve-bucket canvases (a 64x64 and four
+   256x256 RGB frames, a 384x2048 grey one) at fuse 1 in the shared tile
+   and at fuse 8 in ``regs``; every launch counted under the body
+   ``launch_body`` names (``cuda_stencil.body_launch_counts``), no
+   instance using local memory;
+   then its ms a rep against ``swar`` at 1920x2520 RGB and 1920x5040 grey
+   x100 (taking turns, and the kernels' device time), with each launch's
+   registers, local memory and blocks per SM. Plus small images against
+   the NumPy golden model, and the no-fallback check: with the libraries'
+   builds forced to fail, ``iterate`` raises ``KernelBuildError`` and launches
    nothing under the default schedule and under ``deep``, and the
    torch-ops path is not called.
 4. ``k2`` — K2 ``stencil_resident`` through ``iterate``/``iterate_frames``
@@ -127,7 +140,7 @@ grow by at least an instruction an element and operation from 8 to 16
    ``--dispatch-timeout 60`` (an exact round-trip with the device-memory
    gauges, and its window held to the same job's without the watchdog as
    ``main_path`` holds cold to warm); ``--profile`` (the ``torch.profiler`` trace names
-   ``stencil_fused_kernel``).
+   a K1 kernel, ``stencil_fused_*``).
 12. ``overlap_path`` — the overlap schedules (``--overlap``) on 2x2 over
    ``[cuda:0] * 4`` at 1920x2520 RGB gaussian x40 (tile 1260x960, g = 8
    at fuse 8): ``auto`` on an empty cache file measures one probe bundle
@@ -253,7 +266,7 @@ grow by at least an instruction an element and operation from 8 to 16
    the NumPy golden) re-admits replica 1 after two clean probes, K1's
    launches those of the served requests plus the probes'; (5) under
    load, ``POST /debug/prof?seconds=0.5`` spooling a trace that names
-   ``stencil_fused_kernel`` (the device's idle share over it),
+   a K1 kernel (``stencil_fused_*``; the device's idle share over it),
    ``/debug/timeseries`` rates above 0, ``/metrics`` an exact round trip,
    ``/debug/capacity`` naming the H100's host link, ``/admin/warmstate``
    answering the program-cache keys (never a binary); (6) ``python -m
@@ -372,6 +385,9 @@ FRAMES_SHAPE = (3, 320, 256, 3)
 ODD_W, ODD_H = 1921, 2519  # indivisible by a 2x2 grid: the pad mask
 MESHES = ((1, 1), (2, 2), (1, 4), (4, 1))
 NO_LAUNCHES = {"stencil_fused": 0, "stencil_resident": 0, "stencil_valid": 0}
+# What every K1 kernel's name holds: stencil_fused_kernel<k, body> (the
+# shared tile's bodies) and stencil_fused_regs_kernel<k, C> (its own).
+K1_NAME = "stencil_fused"
 PALLAS = ["--backend", "pallas"]  # pins K1/K2/K3 at the default geometry
 LAB_EXACT = ("current", "pair", "acc16", "swar", "tile")
 # The filters that hold each tile body of K1 and K3.
@@ -440,13 +456,29 @@ def flat_plain(img: torch.Tensor, plan, reps: int) -> torch.Tensor:
     return cuda_stencil.stencil_fused_plain(x2, plan, c, reps).reshape(img.shape)
 
 
-def check_body(kernel: str, plan, name: str) -> None:
-    """The body ``kernel``'s library ran last must be the plan's."""
+def check_body(kernel: str, plan, name: str, want: str = None) -> str:
+    """The body ``kernel``'s library ran last must be the plan's (K1's
+    ``fused_body``, K2's and K3's ``tile_body``; ``want`` where a launch
+    forced another); returns it."""
     from tpu_stencil_torch.ops import cuda_stencil as cs
 
-    ran, want = cs.ran_body(kernel), cs.tile_body(plan)
-    require(ran == want, f"{kernel} {name}: ran body {ran}, tile_body "
-            f"names {want}")
+    if want is None:
+        want = (cs.fused_body(plan) if kernel == "stencil_fused"
+                else cs.tile_body(plan))
+    ran = cs.ran_body(kernel)
+    require(ran == want, f"{kernel} {name}: ran body {ran}, expected "
+            f"{want}")
+    return ran
+
+
+def last_body(plan, rows: int, wc: int, c: int, reps: int, dev) -> str:
+    """The body the last launch of a ``reps``-rep K1 loop on a flat
+    (rows, wc) image runs (``cuda_stencil.launch_body``)."""
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+
+    _, _, fz = cs.rep_loop_kernel(plan, rows, wc, c, None, None, None, dev)
+    return cs.launch_body(plan, c, cs.launch_schedule(reps, fz)[-1], rows,
+                          wc, None, cs.sm_count(dev))
 
 
 def phase_k1(dev) -> dict:
@@ -456,22 +488,26 @@ def phase_k1(dev) -> dict:
 
     worst, cases = 0, []
 
-    def case(label, got, want, plan, name):
+    def case(label, got, want, plan, name, body=None):
         nonlocal worst
-        check_body("stencil_fused", plan, name)
+        ran = check_body("stencil_fused", plan, name, body)
         err = max_err(got, want)
         worst = max(worst, err)
-        cases.append({"case": label, "body": cs.tile_body(plan), "err": err})
+        cases.append({"case": label, "body": ran, "err": err})
 
     rgb = seeded((MAIN_H, MAIN_W, 3), 1, dev)
     g = plan_of("gaussian")
-    # One launch of the wrapper at the main path's shapes, fused and single.
+    # One launch of the wrapper at the main path's shapes, fused and single,
+    # in K1's own body and at a forced tile height (the shared tile).
     x2 = rgb.reshape(MAIN_H, -1)
     bh, fz = cs.effective_geometry(g, MAIN_H, 3)
     for depth in (fz, 1):
-        out = cs.stencil_fused(x2, g, 3, depth, block_h=bh)
-        case(f"wrapper rgb gaussian fuse={depth}", out,
-             cs.stencil_fused_plain(x2, g, 3, depth), g, "gaussian")
+        want = cs.stencil_fused_plain(x2, g, 3, depth)
+        case(f"wrapper rgb gaussian fuse={depth}",
+             cs.stencil_fused(x2, g, 3, depth), want, g, "gaussian")
+        case(f"wrapper rgb gaussian fuse={depth} block_h={bh}",
+             cs.stencil_fused(x2, g, 3, depth, block_h=bh), want, g,
+             "gaussian", cs.tile_body(g))
     for reps in (1, 7, 8, 40):
         case(f"{tuple(rgb.shape)} gaussian x{reps}", cs.iterate(rgb, reps, g),
              flat_plain(rgb, g, reps), g, "gaussian")
@@ -490,9 +526,12 @@ def phase_k1(dev) -> dict:
         # The frames layout (gap rows re-zeroed every rep).
         frames = seeded(FRAMES_SHAPE, 3, dev)
         p = plan_of(names[0])
+        n, fh, fw, fc = FRAMES_SHAPE
         case(f"frames {FRAMES_SHAPE} {names[0]} x9",
              cs.iterate_frames(frames, 9, p),
-             torch.stack([flat_plain(f, p, 9) for f in frames]), p, names[0])
+             torch.stack([flat_plain(f, p, 9) for f in frames]), p, names[0],
+             last_body(p, cs.frames_rows(p, fh, n), fw * fc, fc, 9, dev))
+    regs = phase_k1_regs(dev, case)
     # Small images against the pure-NumPy golden model (K1 and K2).
     small = np.random.default_rng(4).integers(0, 256, (21, 17, 3), np.uint8)
     for name in ("gaussian", "box", "edge", "gaussian5"):
@@ -508,7 +547,128 @@ def phase_k1(dev) -> dict:
     bad = [c for c in cases if c["err"]]
     require(not bad, f"K1 disagrees with its plain version: {bad}")
     return {"phase": "k1", "ok": True, "cases": len(cases),
-            "max_abs_err": worst, "no_fallback": check_no_fallback(dev)}
+            "max_abs_err": worst, "regs": regs,
+            "no_fallback": check_no_fallback(dev)}
+
+
+def phase_k1_regs(dev, case) -> dict:
+    """K1's register body: gaussian and gaussian5, grey and RGB, aligned
+    and ragged widths, single launches at fuse 1, 7 and 8, the rep loop
+    x1, x9 and x100 and the frames layout x9, serve-bucket canvases at
+    fuse 1 (the shared tile) and 8 (``regs``), each through ``case``;
+    every launch counted under the body ``launch_body`` names; no instance
+    spilling; then its ms a rep and the shared tile's at the cells' two
+    shapes x100."""
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+
+    cs.reset_launch_counts()
+    swar_launches = 0
+    for name in ("gaussian", "gaussian5"):
+        p = plan_of(name)
+        for c in (1, 3):
+            for w in (MAIN_W, RAGGED_W[c]):
+                shape = (MAIN_H, w, c) if c > 1 else (MAIN_H, w)
+                img = seeded(shape, 20 + w + c, dev)
+                x = img.reshape(MAIN_H, -1)
+                for depth in (1, 7, 8):
+                    case(f"regs {shape} {name} fuse={depth}",
+                         cs.stencil_fused(x, p, c, depth),
+                         cs.stencil_fused_plain(x, p, c, depth), p, name)
+                for reps in (1, 9, 100):
+                    case(f"regs {shape} {name} x{reps}",
+                         cs.iterate(img, reps, p), flat_plain(img, p, reps),
+                         p, name)
+            fshape = FRAMES_SHAPE if c == 3 else FRAMES_SHAPE[:3]
+            frames = seeded(fshape, 23 + c, dev)
+            rows = cs.frames_rows(p, fshape[1], fshape[0])
+            body = last_body(p, rows, fshape[2] * c, c, 9, dev)
+            swar_launches += body == "swar"
+            case(f"regs frames {fshape} {name} x9",
+                 cs.iterate_frames(frames, 9, p),
+                 torch.stack([flat_plain(f, p, 9) for f in frames]), p, name,
+                 body)
+        # Serve's canvases in the frames layout: a single rep leaves most
+        # SMs idle in regs and runs the shared tile; 8 reps run regs.
+        for c, n, fh, fw in ((3, 1, 64, 64), (3, 4, 256, 256),
+                             (1, 1, 384, 2048)):
+            rows, wc = cs.frames_rows(p, fh, n), fw * c
+            x = seeded((rows, wc), 25 + rows + wc, dev)
+            frame = (cs.frames_stride(p, fh), fh)
+            for depth, body in ((1, "swar"), (8, "regs")):
+                require(cs.launch_body(p, c, depth, rows, wc, None,
+                                       cs.sm_count(dev)) == body,
+                        f"{name} {rows}x{wc} fuse={depth}: not {body}")
+                swar_launches += body == "swar"
+                case(f"canvas {n}x{fh}x{fw}x{c} {name} fuse={depth}",
+                     cs.stencil_fused(x, p, c, depth, rows - p.halo, frame),
+                     cs.stencil_fused_plain(x, p, c, depth, rows - p.halo,
+                                            frame), p, name, body)
+    launched = cs.launch_counts()["stencil_fused"]
+    bodies = cs.body_launch_counts()
+    require(launched > 0 and swar_launches > 0 and bodies == {
+        "regs": launched - swar_launches, "swar": swar_launches},
+            f"K1's launches by body {bodies}, of {launched} ({swar_launches} "
+            f"in the shared tile expected)")
+    # Every instance of the body spills nothing: no local memory.
+    from tpu_stencil_torch.ops import _build
+
+    inst = {k: v for k, v in _build.ptxas_instances(
+        _build.build_log("stencil_fused")).items() if len(k) == 3}
+    require(len(inst) == len(cs.REGS_KS) * len(cs.REGS_CHANNELS),
+            f"regs instances in the build log: {sorted(inst)}")
+    for k, v in inst.items():
+        require(v.get("spill", "").startswith("0 bytes stack frame, 0 bytes "
+                                              "spill stores, 0 bytes spill "
+                                              "loads"),
+                f"regs instance {k} uses local memory: {v}")
+    return {"launches": launched, "body_launches": bodies,
+            "instances": {f"k{k} C{c}": v for (k, _, c), v in inst.items()},
+            "ab": regs_ab(dev)}
+
+
+def regs_ab(dev) -> dict:
+    """K1 in its register body against the shared tile (``swar``, forced by
+    a tile height) at the cells' shapes (1920x2520 RGB, 1920x5040 grey),
+    gaussian x100: ms a rep taking turns (CUDA events, L2 flushed, median
+    of 7: host issue included), the kernels' ms a rep on the card's clock
+    (``tools._harness.device_timed``: the launches queued behind a sleep
+    kernel; median of 7) and their launches, and each launch's instance:
+    registers a thread, local memory, blocks per SM."""
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+    from tpu_stencil_torch.tools import _harness
+
+    g = plan_of("gaussian")
+    out = {}
+    for label, shape in (("rgb2520", (MAIN_H, MAIN_W, 3)),
+                         ("grey5040", (2 * MAIN_H, MAIN_W))):
+        img = seeded(shape, 31, dev)
+        c = shape[2] if len(shape) == 3 else 1
+        fns = {"regs": lambda: cs.iterate(img, 100, g),
+               "swar": lambda: cs.iterate(img, 100, g,
+                                          block_h=cs.DEFAULT_BLOCK_H)}
+        row = {f"{k}_ms_per_rep": v / 100
+               for k, v in interleaved_ms(fns, dev).items()}
+        for name, fn in fns.items():
+            run = _harness.device_timed(lambda n, fn=fn: fn(), dev)
+            row[f"{name}_device_ms_per_rep"] = statistics.median(
+                run(1) for _ in range(7)) * 1e3 / 100
+            cs.reset_launch_counts()
+            fn()
+            row[f"{name}_launches"] = cs.body_launch_counts()
+        for name, bh in (("regs", None), ("swar", cs.DEFAULT_BLOCK_H)):
+            for fz in (cs.DEFAULT_FUSE, 1):
+                rec = cs.describe_launch("stencil_fused", g, shape[0],
+                                         shape[1] * c, c, bh, fz, dev)
+                require(rec["body"] == name, f"{label}: {rec}")
+                row[f"{name}_f{fz}"] = {
+                    k: rec.get(k) for k in ("block_h", "tile_w", "grid",
+                                            "threads", "smem_bytes",
+                                            "registers", "spill",
+                                            "blocks_per_sm")}
+        row["regs_over_swar_device"] = (row["regs_device_ms_per_rep"]
+                                        / row["swar_device_ms_per_rep"])
+        out[label] = row
+    return out
 
 
 @contextlib.contextmanager
@@ -880,7 +1040,7 @@ def phase_main_path(dev) -> dict:
             stencil_fused=MAIN_REPS // fuse + MAIN_REPS % fuse),
          launches(stencil_fused=len(set(cs.launch_schedule(MAIN_REPS,
                                                            fuse)))),
-         cs.tile_body(g)),
+         cs.fused_body(g)),
         ("deep", ["--schedule", "deep"], launches(stencil_resident=1),
          launches(stencil_resident=1), cs.tile_body(g)),
     ):
@@ -1720,10 +1880,10 @@ def phase_job_hardened(dev) -> dict:
                  launches(stencil_fused=1))
     (ptrace,) = list(pdir.glob("trace_*.json"))
     pevs = json.loads(ptrace.read_text())["traceEvents"]
-    kern = [e for e in pevs if "stencil_fused_kernel" in str(e.get("name"))
+    kern = [e for e in pevs if K1_NAME in str(e.get("name"))
             and e.get("ph") == "X"]
-    require(len(kern) >= 1, f"--profile trace {ptrace} names no "
-            "stencil_fused_kernel")
+    require(len(kern) >= 1, f"--profile trace {ptrace} names no K1 "
+            "kernel")
     keep("profile", r, err, kernel_events=len(kern),
          kernel_us=sum(e.get("dur", 0) for e in kern),
          kernel_name=kern[0]["name"])
@@ -1743,8 +1903,9 @@ def verdict_launches(report: str, rows: int, reps: int) -> dict:
     fields = dict(kv.split("=", 1) for kv in report.split() if "=" in kv)
     if fields.get("schedule") == "deep" and "block_h" not in fields:
         return launches(stencil_resident=1)
-    fz = int(fields["fuse"]) if "fuse" in fields else cs.effective_geometry(
-        plan_of("gaussian"), rows, MAIN_C)[1]
+    fz = int(fields["fuse"]) if "fuse" in fields else cs.rep_loop_kernel(
+        plan_of("gaussian"), rows, MAIN_W * MAIN_C, MAIN_C, None, None, None,
+        None)[2]
     return launches(stencil_fused=len(cs.launch_schedule(reps, fz)))
 
 
@@ -2946,7 +3107,7 @@ def phase_stream_path(dev) -> dict:
         torch.cuda.synchronize()
     path = str(WORK / "stream_trace.json")
     prof.export_chrome_trace(path)
-    profiled = {**copy_kernel_overlap(path, "stencil_fused_kernel"),
+    profiled = {**copy_kernel_overlap(path, K1_NAME),
                 **{k: v for k, v in stream_concurrency(path).items()
                    if k in ("streams", "concurrent_us", "any_busy_us",
                             "span_us", "idle_share")}}
@@ -3935,7 +4096,7 @@ def prof_capture(url: str, seconds: float, load_fn) -> dict:
     require(any(r["run"] == run["run"] for r in index["runs"]),
             f"/debug/prof does not list {run['run']}")
     names = [e[1] for e in device_events(str(trace))]
-    k1 = sum("stencil_fused_kernel" in n for n in names)
+    k1 = sum(K1_NAME in n for n in names)
     return {"run": run["run"], "seconds": run["seconds"], "bytes": len(data),
             "device_events": len(names), "k1_events": k1,
             **stream_concurrency(str(trace))}
@@ -4023,8 +4184,8 @@ def phase_net_path(dev, serve_warm: dict) -> dict:
         # capacity payload's link.
         prof = prof_capture(fe.url, 0.5, lambda: http_post(
             fe.url, img, MAIN_REPS))
-        require(prof["k1_events"] > 0, f"the capture names no "
-                f"stencil_fused_kernel: {prof}")
+        require(prof["k1_events"] > 0, f"the capture names no K1 "
+                f"kernel: {prof}")
         ts = http_json(fe.url, "/debug/timeseries?window=30")
         rate = ts["counters"]["responses_2xx_total"]["rate_per_s"]
         hrate = ts["histograms"]["request_latency_seconds"]["rate_per_s"]
@@ -5092,7 +5253,8 @@ def tile_ab(img: torch.Tensor, dev) -> dict:
         row["library_conv2d"] = library_conv2d_ms(img, p, dev)
         row["bound"], row["bound_by"] = bound_ms_per_rep(
             p, MAIN_H * MAIN_W * MAIN_C, n)
-        out[name] = {"body": cs.tile_body(p), **row}
+        out[name] = {"body": cs.tile_body(p), "k1_body": cs.fused_body(p),
+                     **row}
     g = plan_of("gaussian")
     frames = seeded((4, MAIN_H, MAIN_W, MAIN_C), 14, dev)
     both = interleaved_ms({"one": lambda: cs.iterate(img, n, g),
@@ -5124,12 +5286,14 @@ def tile_ab(img: torch.Tensor, dev) -> dict:
 def tile_instances(log: str) -> dict:
     """Registers and spills of every (filter size, body) instance of a tile
     kernel, from its ``-Xptxas -v`` build log: ``"k3 swar" -> {...}``
-    (k0: the filter size read at run time)."""
+    (k0: the filter size read at run time), K1's register body by channel
+    count: ``"k3 regs C3"``."""
     from tpu_stencil_torch.ops import _build
     from tpu_stencil_torch.ops import cuda_stencil as cs
 
-    return {f"k{k} {cs.BODIES[body]}": v
-            for (k, body), v in _build.ptxas_instances(log).items()}
+    return {" ".join([f"k{key[0]}", cs.K1_BODIES[key[1]]]
+                     + [f"C{c}" for c in key[2:]]): v
+            for key, v in _build.ptxas_instances(log).items()}
 
 
 def op_chain_sass(lib: str) -> dict:
@@ -5312,7 +5476,8 @@ def run(dev: torch.device) -> None:
                             net_path["max_abs_err"],
                             fed_ctrl["max_abs_err"]),
          "ms": times["stencil_fused_ms"], **common,
-         "body": times["tile_ab"]["gaussian"]["body"],
+         "body": times["tile_ab"]["gaussian"]["k1_body"],
+         "regs_ab": k1["regs"]["ab"],
          # The stream of 16 frames through the CLI (5 a frame + the
          # warm-up's), the fan of 2 lanes on this card, the batch axis.
          "stream_launches": {

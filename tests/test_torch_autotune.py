@@ -230,7 +230,8 @@ def test_an_entry_tuned_under_another_grid_remeasures(plan, jplan, cache):
         "fuse": None, "geometry_grid": [[256, 8]]}})
     autotune.best_config(plan, (640, 640), 1, measure=fake, **CPU)
     assert calls, "an entry of another grid must re-measure"
-    assert any(c[2:] == (64, 16) for c in calls)  # this grid's candidates
+    # this grid's candidates (its depths: gaussian's K1 runs regs here)
+    assert any(c[2:] == (None, 16) for c in calls)
     calls.clear()
     got = autotune.best_config(plan, (640, 640), 1, measure=fake, **CPU)
     assert not calls and got[0] == "pallas"
@@ -323,7 +324,9 @@ def test_forced_geometry_keys_and_measures_at_the_effective_one(plan, jplan,
     assert legacy_calls
 
 
-def test_unforced_geometry_stage_tunes_and_caches(plan, jplan, cache):
+def test_unforced_geometry_stage_tunes_and_caches(jplan, cache):
+    # box: K1 runs the shared tile, whose tile height the grid varies
+    plan = lowering.plan_filter(filters.get_filter("box"))
     seen = []
 
     def geo(plan, shape, channels, backend, reps=0, schedule=None,
@@ -350,10 +353,11 @@ def test_unforced_geometry_stage_tunes_and_caches(plan, jplan, cache):
     assert jgot[0] == "pallas" and jgot[2:] == (256, 16)
 
 
-def test_a_geometry_inside_the_margin_keeps_the_default(plan, cache):
+def test_a_geometry_inside_the_margin_keeps_the_default(cache):
     """A candidate must beat the default geometry by more than the
     call-to-call spread: a verdict stays on disk, so a win inside the
     noise must not change what every later job launches."""
+    plan = lowering.plan_filter(filters.get_filter("box"))
     def geo(edge):
         def measure(plan, shape, channels, backend, reps=0, schedule=None,
                     block_h=None, fuse=None):
@@ -400,21 +404,24 @@ def test_the_grid_is_pruned_by_shared_memory_and_deduplicated(plan, cache):
             return 2e-6
         return 1e-6 if schedule == "fused" else 1.5e-6
 
-    autotune.best_full_config(plan, (2520, 1920), 3, measure=fake, **CPU)
+    # two channels: K1 runs gaussian in the shared tile (swar)
+    autotune.best_full_config(plan, (2520, 1920), 2, measure=fake, **CPU)
     assert seen, "the geometry stage must run"
     for bh, fz in seen:
-        assert cs.tile_smem_bytes(plan, bh, fz, 3) <= cs.SMEM_LIMIT, (bh, fz)
-    assert (128, 40) not in seen and (64, 32) not in seen  # past 227 KB
-    effs = [cs.effective_geometry(plan, 2520, 3, bh, fz) for bh, fz in seen]
+        assert cs.tile_smem_bytes(plan, bh, fz, 2) <= cs.SMEM_LIMIT, (bh, fz)
+    pruned = {g for g in autotune._GEOMETRY_GRID
+              if cs.tile_smem_bytes(plan, *g, 2) > cs.SMEM_LIMIT}
+    assert (128, 40) in pruned and not pruned & set(seen)  # past 227 KB
+    effs = [cs.effective_geometry(plan, 2520, 2, bh, fz) for bh, fz in seen]
     assert len(effs) == len(set(effs))
-    assert cs.effective_geometry(plan, 2520, 3) not in effs  # the default
+    assert cs.effective_geometry(plan, 2520, 2) not in effs  # the default
     # every divisor of 40 a tile can hold is in the grid
     fuses = {fz for _, fz in autotune._GEOMETRY_GRID}
     assert {4, 5, 8, 10, 20, 40} - {cs.DEFAULT_FUSE} <= fuses
     # a short image clamps tall candidates onto each other: measured once
     seen.clear()
-    autotune.best_full_config(plan, (16, 64), 1, measure=fake, **CPU)
-    effs = [cs.effective_geometry(plan, 16, 1, bh, fz) for bh, fz in seen]
+    autotune.best_full_config(plan, (16, 64), 2, measure=fake, **CPU)
+    effs = [cs.effective_geometry(plan, 16, 2, bh, fz) for bh, fz in seen]
     assert len(effs) == len(set(effs)) and len(effs) < len(
         autotune._GEOMETRY_GRID)
 
@@ -425,7 +432,7 @@ def test_a_deep_winner_that_runs_k2_skips_the_geometry_stage(plan, jplan,
 
     def fake(plan, shape, channels, backend, reps=0, schedule=None,
              block_h=None, fuse=None):
-        if block_h is not None:
+        if block_h is not None or fuse is not None:
             geo_calls.append((block_h, fuse))
         if backend == "xla":
             return 5e-6
@@ -441,6 +448,37 @@ def test_a_deep_winner_that_runs_k2_skips_the_geometry_stage(plan, jplan,
     got = autotune.best_full_config(plan, (4320, 7680), 3, measure=fake,
                                     **CPU)
     assert got[:2] == ("pallas", "deep") and geo_calls
+
+
+def test_where_k1_runs_regs_the_stage_varies_only_the_fuse(plan, cache):
+    # a tile height would force the shared tile, 2.6x slower a rep than
+    # regs at the cells' shapes: only the grid's depths are measured
+    seen = []
+
+    def fake(plan, shape, channels, backend, reps=0, schedule=None,
+             block_h=None, fuse=None):
+        if backend == "xla":
+            return 9e-6
+        if block_h is not None or fuse is not None:
+            seen.append((schedule, block_h, fuse))
+        if schedule == "deep":
+            return 4e-6
+        return 1e-6 if fuse == 16 else 3e-6
+
+    got = autotune.best_full_config(plan, (4320, 7680), 3, measure=fake,
+                                    **CPU)
+    assert got == ("pallas", "fused", None, 16)
+    assert seen and all(s == "fused" and bh is None for s, bh, _ in seen)
+    fuses = [fz for _, _, fz in seen]
+    assert len(fuses) == len(set(fuses)) and cs.DEFAULT_FUSE not in fuses
+    assert set(fuses) == {fz for _, fz in autotune._GEOMETRY_GRID} - {
+        cs.DEFAULT_FUSE}
+    entry = autotune.cached_entry(plan, (4320, 7680), 3, "cpu")
+    assert entry["geometry_us_per_rep"]["fuse16"] == 1.0
+    # the verdict runs K1 in regs at that depth
+    assert cs.k1_launch(plan, 4320, 7680 * 3, 3, None, 16, "fused",
+                        None) == ("regs", cs.regs_geometry(plan, 3, 16)[0],
+                                  16)
 
 
 def test_unreadable_cache_files_are_cold_misses_with_a_warning(plan, cache):
@@ -549,7 +587,8 @@ def test_model_memoizes_and_launches_the_verdict(plan, cache):
         calls.append((backend, schedule, block_h, fuse, str(device)))
         if backend == "xla":
             return 9e-6
-        return 1e-6 if (block_h, fuse) == (16, 4) else 3e-6
+        # gaussian's K1 runs regs: the tuner varies only its fuse
+        return 1e-6 if (block_h, fuse) == (None, 4) else 3e-6
 
     orig = autotune.measure_backend
     autotune.measure_backend = fake
@@ -560,7 +599,7 @@ def test_model_memoizes_and_launches_the_verdict(plan, cache):
         n = len(calls)
         assert n > 3 and all(c[4] == "cpu" for c in calls)
         assert m.resolved_config((40, 24), 3) == ("pallas", "fused")
-        assert m.resolved_geometry((40, 24), 3) == (16, 4)
+        assert m.resolved_geometry((40, 24), 3) == (None, 4)
         seen = {}
         real = cs.iterate
 
@@ -574,14 +613,14 @@ def test_model_memoizes_and_launches_the_verdict(plan, cache):
             out = m(img, 9)
         finally:
             cs.iterate = real
-        assert seen == dict(block_h=16, fuse=4, schedule="fused")
+        assert seen == dict(block_h=None, fuse=4, schedule="fused")
         assert len(calls) == n  # forward measured nothing more
         want = lowering.iterate(torch.from_numpy(img), 9, plan)
         assert torch.equal(out, want)
         # a second model finds the verdict on disk: zero probes
         m2 = IteratedConv2D("gaussian", backend="auto", device="cpu")
         assert m2.resolved_config((40, 24), 3) == ("pallas", "fused")
-        assert m2.resolved_geometry((40, 24), 3) == (16, 4)
+        assert m2.resolved_geometry((40, 24), 3) == (None, 4)
         assert len(calls) == n
     finally:
         autotune.measure_backend = orig

@@ -213,7 +213,9 @@ def test_deep_depth_and_feasibility_verdicts():
     assert not cs.resident_feasible(g, 4320, 7680 * 3, 3)
     assert not cs.resident_feasible(g, 2520, 1920 * 3, 3, l2_bytes=2 ** 20)
     assert cs.deep_geometry(g, 2520, 1920, 3) == (None, None)
-    assert cs.deep_geometry(g, 4320, 7680, 3) == (32, 8)
+    # K1 runs gaussian in regs, at that body's own tile and depth
+    assert cs.deep_geometry(g, 4320, 7680, 3) == (
+        cs.regs_geometry(g, 3, cs.DEFAULT_FUSE)[0], cs.DEFAULT_FUSE)
     assert cs.deep_geometry(g, 2520, 1920, 3, block_h=64) == (64, 16)
     f32 = tlowering.plan_filter(tfilters.from_numpy(np.full((3, 3), 0.1)))
     assert not cs.plan_supported(f32, 3)

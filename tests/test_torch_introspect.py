@@ -106,10 +106,18 @@ def test_driver_warmup_capture_records_the_warm_instances(tmp_path):
     assert rec["meta"]["warm_reps"] == [8, 1]
     assert [k["fuse"] for k in rec["kernels"]] == [8, 1]
     k8 = rec["kernels"][0]
-    assert k8["kernel"] == "stencil_fused" and k8["body"] == "swar"
-    assert k8["block_h"] == 32 and k8["grid"] == [-(-W * 3 // cs.TILE_W), 2]
-    assert k8["threads"] == cs.block_threads(GAUSS, 8, 3)
-    assert k8["smem_bytes"] == cs.tile_smem_bytes(GAUSS, 32, 8, 3)
+    # K1 runs gaussian in its register body, at that body's own tile.
+    assert k8["kernel"] == "stencil_fused" and k8["body"] == "regs"
+    th, tw, warps = cs.regs_geometry(GAUSS, 3, 8)
+    assert k8["block_h"] == th and k8["tile_w"] == tw
+    assert k8["grid"] == [-(-W * 3 // tw), -(-H // th)]
+    assert k8["threads"] == 32 * warps
+    assert k8["smem_bytes"] == cs.regs_smem_bytes()
+    # Its single-rep remainder on this 48x64 image would leave most SMs
+    # idle in regs: the shared tile runs it.
+    k1 = rec["kernels"][1]
+    assert (k1["body"], k1["block_h"], k1["tile_w"]) == ("swar", 32,
+                                                         cs.TILE_W)
     # Registers and occupancy are the card's; the compiler count does not
     # exist for a hand-written kernel.
     assert k8["registers"] is None and k8["blocks_per_sm"] is None
@@ -174,7 +182,7 @@ def test_cli_breakdown_shows_instances_and_hlo_dump_writes_nothing(
     out = capsys.readouterr().out
     assert "kernel instances (introspection)" in out
     # Traced, the window launches one rep at a time: that is the instance
-    # the warm-up launched.
+    # the warm-up launched, in the shared tile on this small image.
     assert "stencil_fused body=swar tile=32x256 fuse=1 " in out
     assert "compiler MB/rep" in out and "unavailable" in out
     assert "device memory: unavailable" in out
@@ -211,6 +219,8 @@ ptxas info    : Used 40 registers, used 1 barriers
 ptxas info    : Compiling entry function '_Z20stencil_fused_kernelILi0ELi0EEvPKhPh14StencilParams' for 'sm_90a'
 ptxas info    : Used 56 registers
     8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Compiling entry function '_Z25stencil_fused_regs_kernelILi3ELi3EEvPKhPh13StencilParams15StencilGeometryiii' for 'sm_90a'
+ptxas info    : Used 127 registers, used 1 barriers
 # build_seconds 12.500
 """
 
@@ -218,14 +228,20 @@ ptxas info    : Used 56 registers
 def test_ptxas_instances_and_build_seconds(tmp_path, monkeypatch):
     got = _build.ptxas_instances(PTXAS)
     assert got[(3, 2)] == {"registers": 40}
+    assert got[(3, cs.K1_BODIES.index("regs"), 3)] == {"registers": 127}
     assert got[(0, 0)]["registers"] == 56 and "spill" in got[(0, 0)]
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     path = _build.library_path("stencil_fused")
     path.with_name(path.name + ".log").write_text(PTXAS)
     assert _build.build_seconds("stencil_fused") == 12.5
-    assert cs._instance_registers("stencil_fused", GAUSS) == {"registers": 40}
+    assert cs._instance_registers("stencil_fused", GAUSS, "swar",
+                                  3) == {"registers": 40}
+    assert cs._instance_registers("stencil_fused", GAUSS, "regs", 3) == {
+        "registers": 127}
+    assert cs._instance_registers("stencil_fused", GAUSS, "regs", 1) is None
     edge = lowering.plan_filter(filters.get_filter("edge"))
     assert cs.tile_body(edge) == "int32"
-    assert cs._instance_registers("stencil_fused", edge)["registers"] == 56
+    assert cs._instance_registers("stencil_fused", edge, "int32",
+                                  3)["registers"] == 56
     assert _build.build_seconds("stencil_valid") is None
     assert os.path.exists(str(path) + ".log")

@@ -497,7 +497,8 @@ def test_autotune_on_a_mesh_runs_and_reports_the_tile_verdict(
             return 9e-6
         if schedule != "fused":
             return 5e-6
-        return 1e-6 if (block_h, fuse) == (32, 10) else 3e-6
+        # gaussian's K1 runs regs on the tile: the tuner varies only fuse
+        return 1e-6 if (block_h, fuse) == (None, 10) else 3e-6
 
     monkeypatch.setattr(autotune, "measure_backend", measure)
     src = _raw(tmp_path, 3, size=(40, 32))

@@ -321,8 +321,8 @@ def test_feasibility_line():
     assert cs.resident_feasible(g, rows, 5760, 3)
     assert not cs.resident_feasible(g, rows + 1, 5760, 3)
     assert cs.deep_geometry(g, rows, 1920, 3) == (None, None)
-    assert cs.deep_geometry(g, rows + 1, 1920, 3) == cs.effective_geometry(
-        g, rows + 1, 3, schedule="deep")
+    assert cs.deep_geometry(g, rows + 1, 1920, 3) == cs.k1_launch(
+        g, rows + 1, 5760, 3, None, None, "deep", None)[1:]
 
 
 RESIDENT_GEOMETRY = {  # (block_h, fuse) at 1920x2520, RGB and grey

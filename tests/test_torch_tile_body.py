@@ -1,5 +1,6 @@
-"""K1 and K3's tile body, chosen per plan: the gate, the shared-memory
+"""K1, K2 and K3's tile body, chosen per plan: the gate, the shared-memory
 model, the geometry it prunes, and the ``swar`` body's packed arithmetic.
+K1's own ``regs`` body is held in ``tests/test_torch_fused_regs.py``.
 
 ``cuda_stencil.tile_body`` picks ``swar`` (two rows per 32-bit word),
 ``acc16`` (int16 intermediate) or ``int32`` from the plan alone; the kernel
@@ -159,13 +160,18 @@ def test_swar_admits_taller_tiles_than_int32():
 
 def test_autotune_grid_admits_what_swar_admits():
     g = _plan("gaussian")
-    cands = [req for req, _ in autotune._geometry_candidates(g, 2520, 1,
-                                                             None)]
+    # two channels: K1 runs gaussian in swar (regs is built for 1 and 3)
+    cands = [req for req, _ in autotune._geometry_candidates(
+        g, 2520, 2, None, 3840, None)]
     admitted = [req for req in autotune._GEOMETRY_GRID
-                if cs.tile_smem_bytes(g, *req, 1) <= cs.SMEM_LIMIT]
+                if cs.tile_smem_bytes(g, *req, 2) <= cs.SMEM_LIMIT]
     assert (128, 20) in cands
     assert all(req in admitted for req in cands)
-    assert cs.tile_smem_bytes(g, 128, 20, 1, body="int32") > cs.SMEM_LIMIT
+    assert cs.tile_smem_bytes(g, 128, 20, 2, body="int32") > cs.SMEM_LIMIT
+    # grey: K1 runs regs, where the grid varies only the fuse
+    cands = autotune._geometry_candidates(g, 2520, 1, None, 1920, None)
+    assert cands and all(req[0] is None and eff[0] == "regs"
+                         for req, eff in cands)
 
 
 def test_bh_fuse_ab_admits_what_swar_admits():
@@ -268,6 +274,10 @@ class _FakeLib:
 
     stencil_valid_launch = stencil_fused_launch
 
+    def stencil_resident_launch(self, *args):
+        self.bodies.append(args[7])
+        return 0
+
 
 class _Stream:
     cuda_stream = 0
@@ -279,6 +289,7 @@ def _fake_card(monkeypatch):
     lib = _FakeLib()
     monkeypatch.setattr(cs, "_fused_lib", lambda: lib)
     monkeypatch.setattr(cs, "_valid_lib", lambda: lib)
+    monkeypatch.setattr(cs, "_resident_lib", lambda: lib)
     monkeypatch.setattr(cs, "_check_cuda", lambda *ts: None)
     monkeypatch.setattr(cs, "resident_feasible", lambda *a, **k: False)
     monkeypatch.setattr(torch.cuda, "device",
@@ -289,20 +300,42 @@ def _fake_card(monkeypatch):
     return lib
 
 
+@pytest.mark.parametrize("kernel", ["stencil_fused", "stencil_resident",
+                                    "stencil_valid"])
 @pytest.mark.parametrize("name", sorted(BODY_OF))
-def test_wrappers_pass_the_plans_body(name, monkeypatch):
+def test_wrappers_pass_the_plans_body(name, kernel, monkeypatch):
+    # K1 passes fused_body's (regs for gaussian and gaussian5), and the
+    # shared tile's where a forced tile height asks for it; K2 and K3 pass
+    # tile_body's.
     lib = _fake_card(monkeypatch)
     plan = _plan(name)
-    want = cs.BODIES.index(cs.tile_body(plan))
     meta = dict(dtype=torch.uint8, device="meta")
-    cs.iterate(torch.empty((37, 29, 3), **meta), 9, plan)
-    cs.iterate(torch.empty((64, 48), **meta), 1, plan, block_h=16, fuse=2)
-    cs.iterate(torch.empty((40, 32), **meta), 8, plan, schedule="deep")
-    cs.iterate_frames(torch.empty((3, 20, 16, 3), **meta), 7, plan)
-    g = 2 * plan.halo
-    cs.valid_fused(torch.empty((9 + 2 * g, (7 + 2 * g) * 3), **meta), plan,
-                   2, 3, 0, 0, (27, 63))
-    assert lib.bodies and set(lib.bodies) == {want}
+    if kernel == "stencil_fused":
+        cs.iterate(torch.empty((37, 29, 3), **meta), 16, plan, fuse=8)
+        cs.iterate(torch.empty((64, 48), **meta), 2, plan, fuse=2)
+        cs.iterate(torch.empty((40, 32), **meta), 8, plan, schedule="deep")
+        cs.iterate_frames(torch.empty((3, 20, 16, 3), **meta), 8, plan)
+        assert lib.bodies and set(lib.bodies) == {
+            cs.K1_BODIES.index(cs.fused_body(plan))}
+        lib.bodies.clear()
+        # a forced tile height, and single reps on these few-block grids
+        # (launch_body), run the shared tile's
+        cs.iterate(torch.empty((64, 48), **meta), 1, plan, block_h=16, fuse=2)
+        cs.iterate(torch.empty((37, 29, 3), **meta), 9, plan, block_h=16)
+        cs.iterate_frames(torch.empty((3, 20, 16, 3), **meta), 1, plan)
+        want = cs.tile_body(plan)
+    elif kernel == "stencil_resident":
+        monkeypatch.setattr(cs, "resident_feasible", lambda *a, **k: True)
+        cs.iterate(torch.empty((40, 32), **meta), 8, plan, schedule="deep")
+        cs.iterate_frames(torch.empty((3, 20, 16, 3), **meta), 7, plan,
+                          schedule="deep")
+        want = cs.tile_body(plan)
+    else:
+        g = 2 * plan.halo
+        cs.valid_fused(torch.empty((9 + 2 * g, (7 + 2 * g) * 3), **meta),
+                       plan, 2, 3, 0, 0, (27, 63))
+        want = cs.tile_body(plan)
+    assert lib.bodies and set(lib.bodies) == {cs.BODIES.index(want)}
 
 
 def test_failed_build_raises_and_nothing_falls_back(monkeypatch, tmp_path):

@@ -150,7 +150,7 @@ def main(argv=None) -> int:
             sched += f" overlap={result.overlap}"
         launches = ",".join(f"{k}:{v}" for k, v in result.launches.items())
         if result.body:
-            # The tile body the kernels ran (cuda_stencil.tile_body).
+            # The tile body the kernels ran (JobResult.body).
             launches += f" body={result.body}"
         if cfg.backend in ("auto", "autotune"):
             # Measurements the autotuner made before the compute window

@@ -370,8 +370,8 @@ class JobResult:
     # Measurements the autotuner made for this job, all before the compute
     # window (0: a warm cache, an explicit backend, or no card).
     tune_probes: int = 0
-    # The tile body the kernels ran (cuda_stencil.tile_body, for K1, K2 and
-    # K3 alike); None off the kernels.
+    # The tile body the kernels ran (K1's cuda_stencil.launch_body, K2's and
+    # K3's cuda_stencil.tile_body); None off the kernels.
     body: Optional[str] = None
     # Kernel launches of the warm-up before the window, by kernel name
     # (not the autotuner's probes nor a sharded run's tracing probes).
@@ -386,15 +386,17 @@ def _ran_geometry(model: IteratedConv2D, rows: int, w: int, channels: int,
                   schedule: Optional[str]):
     """The (block_h, fuse) to report for a ``rows``-tall kernel launch:
     a deep run reports what ran (None, None for the resident kernel);
-    otherwise the effective geometry when the user forced either knob or
-    the autotuner picked a non-default one for this shape."""
+    otherwise what K1 launches at (:func:`cuda_stencil.k1_launch`) when
+    the user forced either knob or the autotuner picked a non-default one
+    for this shape."""
     bh, fz = model.resolved_geometry((rows, w), channels)
     if schedule == cuda_stencil.DEEP:
         return cuda_stencil.deep_geometry(model.plan, rows, w, channels,
                                           bh, fz, model.device)
     if bh is None and fz is None:
         return None, None
-    return cuda_stencil.effective_geometry(model.plan, rows, channels, bh, fz)
+    return cuda_stencil.k1_launch(model.plan, rows, w * channels, channels,
+                                  bh, fz, schedule, model.device)[1:]
 
 
 def run_job(cfg: JobConfig, device: Optional[torch.device] = None,
@@ -517,7 +519,9 @@ def run_job(cfg: JobConfig, device: Optional[torch.device] = None,
         if backend == "pallas":
             bh, fz = _ran_geometry(model, geo_rows, cfg.width, cfg.channels,
                                    schedule)
-            body = cuda_stencil.tile_body(model.plan)
+            body = model.loop_body(shape2, cfg.channels,
+                                   share if cfg.frames > 1 else None,
+                                   cfg.repetitions)
         if obs.introspect.enabled():
             obs.introspect.capture(
                 "driver.warmup",
@@ -807,11 +811,11 @@ def _run_frames_multiprocess(cfg: JobConfig, model: IteratedConv2D,
     backend, schedule = model.batch_config((h, w), ch)
     bh, fz, body = None, None, None
     if backend == "pallas":
+        n_share = _share(n_local or per, len(run_devices))
         bh, fz = _ran_geometry(
-            model, cuda_stencil.frames_rows(
-                model.plan, h, _share(n_local or per, len(run_devices))),
+            model, cuda_stencil.frames_rows(model.plan, h, n_share),
             w, ch, schedule)
-        body = cuda_stencil.tile_body(model.plan)
+        body = model.loop_body((h, w), ch, n_share, cfg.repetitions)
     return JobResult(
         output_path=cfg.output_path,
         compute_seconds=compute_seconds,

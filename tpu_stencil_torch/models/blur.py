@@ -182,6 +182,21 @@ class IteratedConv2D(torch.nn.Module):
         return cuda_stencil.warm_depths(
             calls, None if loop is None else loop[4])
 
+    def loop_body(self, shape: Tuple[int, int], channels: int,
+                  n_frames: Optional[int] = None,
+                  reps: Optional[int] = None) -> Optional[str]:
+        """The tile body the first launch of a ``reps``-rep loop runs on
+        ``shape`` (``n_frames``: the frames' tall layout),
+        :func:`cuda_stencil.rep_loop_body`'s; None off the kernels."""
+        loop = self._loop_kernel(shape, channels, n_frames)
+        if loop is None:
+            return None
+        _, schedule = self.resolved_config(shape, channels)
+        bh, fz = self.resolved_geometry(shape, channels)
+        return cuda_stencil.rep_loop_body(self.plan, loop[1], loop[2],
+                                          channels, bh, fz, schedule,
+                                          self.device, reps)
+
     def describe_launches(self, shape: Tuple[int, int], channels: int,
                           depths: Iterable[int],
                           n_frames: Optional[int] = None) -> List[dict]:
@@ -191,9 +206,10 @@ class IteratedConv2D(torch.nn.Module):
         loop = self._loop_kernel(shape, channels, n_frames)
         if loop is None:
             return []
-        kernel, rows, wc, bh, _ = loop
+        kernel, rows, wc, _, _ = loop
+        forced_bh = self.resolved_geometry(shape, channels)[0]
         return [cuda_stencil.describe_launch(
-            kernel, self.plan, rows, wc, channels, bh, d, self.device)
+            kernel, self.plan, rows, wc, channels, forced_bh, d, self.device)
             for d in depths]
 
     def _place(self, img) -> torch.Tensor:

@@ -6,7 +6,7 @@ counterpart of the JAX package's ``obs/prof.py``, which wraps
 of the live process and spools its trace for ``GET /debug/prof/<path>``.
 The capture records CPU activity, plus CUDA activity when a card is
 present (CUPTI sees every kernel of the process, so the replicas' worker
-threads' K1 launches show as ``stencil_fused_kernel``), and writes one
+threads' K1 launches show as ``stencil_fused_*`` kernels), and writes one
 Chrome trace (``trace.json``) per capture, with the program's own spans
 of the capture's window in it (:func:`~tpu_stencil_torch.obs.export.
 add_profiled_spans`). The contract is the JAX

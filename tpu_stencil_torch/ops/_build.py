@@ -46,13 +46,17 @@ HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 
 # Library name -> its sources (the first is compiled; all are hashed).
 SOURCES: Dict[str, tuple] = {
-    "stencil_fused": ("stencil_fused.cu", "stencil_tile.cuh"),
+    "stencil_fused": ("stencil_fused.cu", "stencil_tile.cuh",
+                      "stencil_regs.cuh"),
     "stencil_resident": ("stencil_resident.cu", "stencil_tile.cuh"),
     "stencil_valid": ("stencil_valid.cu", "stencil_tile.cuh"),
     "stencil_lab": ("stencil_lab.cu", "stencil_tile.cuh"),
     "op_chain": ("op_chain.cu",),
     "crc32c": ("crc32c.cpp",),
 }
+
+# K1's register body's index (STENCIL_BODY_REGS in csrc/stencil_regs.cuh).
+REGS_BODY = 3
 
 # The libraries of host code, built with the host compiler.
 HOST_LIBS = ("crc32c",)
@@ -190,19 +194,22 @@ def build_seconds(name: str, defines: Iterable[str] = ()) -> Optional[float]:
     return float(m.group(1)) if m else None
 
 
-def ptxas_instances(log: str) -> Dict[Tuple[int, int], dict]:
+def ptxas_instances(log: str) -> Dict[tuple, dict]:
     """Registers and spills of every template instance of a tile kernel
     (``stencil_fused``, ``stencil_resident``, ``stencil_valid``), from its
     ``-Xptxas -v`` build log: ``(filter size, body index) -> {"registers":
-    N, "spill": "..."}``; filter size 0 is the instance that reads it at
-    run time."""
-    out: Dict[Tuple[int, int], dict] = {}
+    N, "spill": "..."}``, filter size 0 being the instance that reads it at
+    run time; K1's register body (``stencil_fused_regs_kernel<k, C>``) as
+    ``(filter size, REGS_BODY, channels)``."""
+    out: Dict[tuple, dict] = {}
     key = None
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '_Z\d+\w+?_kernelILi(\d+)"
+        m = re.search(r"Compiling entry function '_Z\d+(\w+?_kernel)ILi(\d+)"
                       r"ELi(\d+)E", ln)
         if m:
-            key = (int(m.group(1)), int(m.group(2)))
+            a, b = int(m.group(2)), int(m.group(3))
+            key = ((a, REGS_BODY, b) if m.group(1).endswith("_regs_kernel")
+                   else (a, b))
             out[key] = {}
         elif key and "registers" in ln:
             out[key]["registers"] = int(re.search(r"Used (\d+) registers",

@@ -19,15 +19,22 @@
 // halves the per-element work of both passes where the plan allows it, an
 // int16 intermediate (`acc16`) cuts shared memory where it does not, the
 // int32 body takes the rest; and the tile moves 16 lanes per thread with
-// 16-byte global loads and stores.
+// 16-byte global loads and stores. Those bodies still paid six shared-memory
+// accesses a packed word a rep and two block barriers, which set K1's pace;
+// so K1 has a fourth body of its own, `regs` (stencil_regs.cuh): the carry
+// and both passes in registers, neighbour lanes by warp shuffle, one
+// exchange of pair rows between warps and one barrier a rep. The host runs
+// it for the plans and launches it takes (cuda_stencil.launch_body), the
+// shared tile's body otherwise; K2 and K3 keep the shared tile.
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a -O3 into a shared
 // library with a plain C interface (loaded with ctypes); never with
 // --use_fast_math, and the divide is __fdiv_rn regardless. Every body and
-// every compile-time filter size is one instance; the launch picks it from
-// (body, k), so no branch on the body is left inside the kernel.
+// every compile-time filter size is one instance (under `regs`, every filter
+// size and channel count); the launch picks it from (body, k, channels), so
+// no branch on the body is left inside the kernel.
 
-#include "stencil_tile.cuh"
+#include "stencil_regs.cuh"
 
 template <int KT, int BODY>
 __global__ void __launch_bounds__(STENCIL_MAX_THREADS)
@@ -51,7 +58,18 @@ static const void* kernel_for_k(int k) {
   }
 }
 
-static const void* kernel_for(int k, int body) {
+template <int C>
+static const void* regs_kernel_for_k(int k) {
+  switch (k) {
+    case 3: return (const void*)stencil_fused_regs_kernel<3, C>;
+    case 5: return (const void*)stencil_fused_regs_kernel<5, C>;
+    default: return nullptr;
+  }
+}
+
+static const void* kernel_for(int k, int body, int channels) {
+  if (body == STENCIL_BODY_REGS)
+    return channels == 3 ? regs_kernel_for_k<3>(k) : regs_kernel_for_k<1>(k);
   switch (body) {
     case STENCIL_BODY_INT32: return kernel_for_k<STENCIL_BODY_INT32>(k);
     case STENCIL_BODY_ACC16: return kernel_for_k<STENCIL_BODY_ACC16>(k);
@@ -60,17 +78,28 @@ static const void* kernel_for(int k, int body) {
   }
 }
 
-// The instance for (p, g, body), with its shared memory set; nullptr when
-// the body does not run the plan or the arguments are out of range.
+// The instance for (p, g, body), with its shared memory set and its threads
+// per block; nullptr when the body does not run the launch or the arguments
+// are out of range.
 static const void* prepare(const StencilParams* p, const StencilGeometry* g,
-                           int fuse, int body, size_t* smem, int* err) {
+                           int fuse, int body, size_t* smem, int* threads,
+                           int* err) {
   *err = (int)cudaErrorInvalidValue;
   if (fuse < 1 || p->k < 1 || p->k > STENCIL_MAX_K || g->tile_h < 1 ||
-      g->tile_w < 1 || body < 0 || body >= STENCIL_N_BODIES ||
-      !stencil_body_runs(*p, *g, body))
+      g->tile_w < 1)
     return nullptr;
-  const void* fn = kernel_for(p->k, body);
-  *smem = stencil_tile_smem(*p, *g, fuse, body);
+  if (body == STENCIL_BODY_REGS) {
+    if (!stencil_regs_runs(*p, *g, fuse)) return nullptr;
+    *smem = stencil_regs_smem();
+    *threads = 32 * STENCIL_REGS_WARPS;
+  } else {
+    if (body < 0 || body >= STENCIL_N_BODIES ||
+        !stencil_body_runs(*p, *g, body))
+      return nullptr;
+    *smem = stencil_tile_smem(*p, *g, fuse, body);
+    *threads = stencil_block_threads(*p, *g, fuse);
+  }
+  const void* fn = kernel_for(p->k, body, g->channels);
   *err = (int)cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
   return *err == 0 ? fn : nullptr;
@@ -80,15 +109,16 @@ static int g_last_body = -1;
 
 extern "C" {
 
-// One launch: `fuse` reps from src to dst (distinct buffers) with the tile
-// body `body` (STENCIL_BODY_*). Returns the cudaError_t of the launch (0 =
-// launched); a body that does not run the plan is cudaErrorInvalidValue.
+// One launch: `fuse` reps from src to dst (distinct buffers) with the body
+// `body` (STENCIL_BODY_*, STENCIL_BODY_REGS). Returns the cudaError_t of the
+// launch (0 = launched); a body that does not run the launch is
+// cudaErrorInvalidValue.
 int stencil_fused_launch(const void* src, void* dst, const StencilParams* p,
                          const StencilGeometry* g, int fuse, int body,
                          void* stream) {
   size_t smem = 0;
-  int err = 0;
-  const void* fn = prepare(p, g, fuse, body, &smem, &err);
+  int err = 0, threads = 0;
+  const void* fn = prepare(p, g, fuse, body, &smem, &threads, &err);
   if (!fn) return err;
   StencilParams pv = *p;
   StencilGeometry gv = *g;
@@ -98,9 +128,8 @@ int stencil_fused_launch(const void* src, void* dst, const StencilParams* p,
   void* args[] = {&src, &dst, &pv, &gv, &fz, &load_vec, &store_vec};
   const dim3 grid(stencil_ceil_div(g->wc, g->tile_w),
                   stencil_ceil_div(g->rows, g->tile_h));
-  cudaError_t e = cudaLaunchKernel(fn, grid,
-                                   dim3(stencil_block_threads(*p, *g, fuse)),
-                                   args, smem, (cudaStream_t)stream);
+  cudaError_t e = cudaLaunchKernel(fn, grid, dim3(threads), args, smem,
+                                   (cudaStream_t)stream);
   if (e == cudaSuccess) e = cudaGetLastError();
   if (e == cudaSuccess) g_last_body = body;
   return (int)e;
@@ -112,6 +141,7 @@ int stencil_fused_last_body(void) { return g_last_body; }
 // Shared-memory bytes a launch with `body` asks for.
 long long stencil_fused_smem(const StencilParams* p, const StencilGeometry* g,
                              int fuse, int body) {
+  if (body == STENCIL_BODY_REGS) return (long long)stencil_regs_smem();
   return (long long)stencil_tile_smem(*p, *g, fuse, body);
 }
 
@@ -120,11 +150,11 @@ long long stencil_fused_smem(const StencilParams* p, const StencilGeometry* g,
 int stencil_fused_occupancy(const StencilParams* p, const StencilGeometry* g,
                             int fuse, int body, int* blocks) {
   size_t smem = 0;
-  int err = 0;
-  const void* fn = prepare(p, g, fuse, body, &smem, &err);
+  int err = 0, threads = 0;
+  const void* fn = prepare(p, g, fuse, body, &smem, &threads, &err);
   if (!fn) return err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, fn, stencil_block_threads(*p, *g, fuse), smem);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn,
+                                                            threads, smem);
 }
 
 const char* stencil_fused_error_string(int code) {

@@ -5,9 +5,11 @@ kernel of the JAX package's ``ops/pallas_stencil.py``:
 
 * **K1** :func:`stencil_fused` (``csrc/stencil_fused.cu``, replaces
   ``_sep_kernel``): ``fuse`` reps per trip through device memory, one tile
-  of ``block_h`` rows by :data:`TILE_W` flat lanes per block, ghost bands in
-  shared memory. :func:`iterate` runs ``reps // fuse`` fused launches, then
-  ``reps % fuse`` single-rep launches, ping-ponging two uint8 buffers.
+  per block with its ghost bands: in registers under K1's own ``regs``
+  body (:func:`regs_geometry`'s tile), else ``block_h`` rows by
+  :data:`TILE_W` flat lanes in shared memory. :func:`iterate` runs ``reps
+  // fuse`` fused launches, then ``reps % fuse`` single-rep launches,
+  ping-ponging two uint8 buffers.
 * **K2** :func:`stencil_resident` (``csrc/stencil_resident.cu``, replaces
   ``_resident_kernel``): the whole rep loop in one cooperative launch, a
   persistent grid striding over K1's tiles and running ``fuse`` reps of
@@ -31,7 +33,8 @@ same function) only for a tensor on the CPU. For a CUDA tensor it launches
 its kernel or raises; nothing falls back. ``stencil_fused.launches``,
 ``stencil_resident.launches`` and ``stencil_valid.launches`` count the
 launches and nothing else, under one lock (the stream engine launches from
-one thread per lane).
+one thread per lane); ``stencil_fused.body_launches`` counts K1's by the
+body they ran (:func:`body_launch_counts`).
 
 The image is viewed flat as ``(rows, W*C)``: a column-pass tap moves by
 ``C`` flat lanes, so channels never mix, and the column boundary is the
@@ -39,13 +42,18 @@ flat range ``[0, W*C)``. Every rep re-zeroes pixels outside the image —
 rows outside ``[0, rows_real)`` and, in the frames layout, the gap rows
 ``row % stride >= frame_h`` — as the TPU kernels' ``_row_keep`` does.
 
-K1 and K3 share one tile (``csrc/stencil_tile.cuh``) whose rep body is
-chosen per plan by :func:`tile_body`, the only place the choice is made:
-``swar`` (rows 2q and 2q+1 as two 16-bit fields of one 32-bit word, 4 bytes
-of shared memory per element), ``acc16`` (an int16 rows-pass intermediate,
-3 bytes) or ``int32`` (5 bytes, every plan). Each body is its own kernel
-instance in the library; the wrapper passes the body's index and nothing
-substitutes another body. K2 runs the same tile in the same body.
+K1, K2 and K3 share one tile (``csrc/stencil_tile.cuh``) whose rep body
+is chosen per plan by :func:`tile_body`: ``swar`` (rows 2q and 2q+1 as two
+16-bit fields of one 32-bit word, 4 bytes of shared memory per element),
+``acc16`` (an int16 rows-pass intermediate, 3 bytes) or ``int32`` (5
+bytes, every plan). K1 has a fourth body of its own, ``regs``
+(``csrc/stencil_regs.cuh``: ``swar``'s packing with the tile and both
+passes in registers, neighbour lanes by warp shuffle), which
+:func:`fused_body` picks from the plan alone and :func:`launch_body` runs
+wherever the launch's own arguments allow it (its geometry is
+:func:`regs_geometry`'s). Each body is its own kernel instance in the
+library; the wrapper passes the body's index and nothing substitutes
+another body.
 
 Geometry is re-derived for Hopper: the TPU's 16 MiB VMEM budget becomes
 the 227 KB of shared memory a block may use (the ghost band must fit the
@@ -57,6 +65,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import threading
 from typing import Dict, Iterable, List, Optional, Tuple
 
@@ -97,6 +106,21 @@ DEEP = "deep"
 # The tile bodies of K1, K2 and K3, by their index in
 # csrc/stencil_tile.cuh (STENCIL_BODY_*).
 BODIES = ("int32", "acc16", "swar")
+# K1's register body (csrc/stencil_regs.cuh, STENCIL_BODY_REGS), and K1's
+# bodies by index.
+REGS = "regs"
+K1_BODIES = BODIES + (REGS,)
+assert K1_BODIES.index(REGS) == _build.REGS_BODY
+# Its register tile (STENCIL_REGS_*, stencil_regs_q): flat lanes a thread
+# holds, row pairs a thread holds by filter size (the filter sizes it is
+# built for), the warps a block stacks, the lane alignment of a block's
+# origin and tile width, the channel counts it is built for.
+REGS_V = 8
+REGS_Q = {3: 8, 5: 6}
+REGS_KS = tuple(REGS_Q)
+REGS_WARPS = 8
+REGS_ALIGN = 8
+REGS_CHANNELS = (1, 3)
 
 class KernelLaunchError(RuntimeError):
     """A kernel launch was refused (the C entry returned a cudaError_t).
@@ -157,6 +181,91 @@ def tile_body(plan: StencilPlan) -> str:
     if acc16_ok(plan):
         return "acc16"
     return "int32"
+
+
+def _binomial(taps) -> bool:
+    """Whether ``taps`` are the binomial row of their size (1 2 1, ...)."""
+    k = len(taps)
+    return tuple(taps) == tuple(math.comb(k - 1, i) for i in range(k))
+
+
+@functools.lru_cache(maxsize=256)
+def fused_body(plan: StencilPlan) -> str:
+    """The body K1 runs ``plan`` with, from the plan alone: ``regs`` for a
+    :func:`swar_ok` plan with binomial taps of a size the body is built
+    for (:data:`REGS_KS`) in both passes, gaussian and gaussian5; else
+    :func:`tile_body`'s. K2 and K3 run :func:`tile_body`'s."""
+    if (swar_ok(plan) and plan.k in REGS_KS and _binomial(plan.row_taps)
+            and _binomial(plan.col_taps)):
+        return REGS
+    return tile_body(plan)
+
+
+def regs_left(plan: StencilPlan, channels: int, fuse: int) -> int:
+    """Lanes of a ``regs`` block's left ghost band (``stencil_regs_left``):
+    ``fuse * halo * C`` rounded up to :data:`REGS_ALIGN`."""
+    gc = fuse * plan.halo * channels
+    return -(-gc // REGS_ALIGN) * REGS_ALIGN
+
+
+@functools.lru_cache(maxsize=1024)
+def regs_geometry(plan: StencilPlan, channels: int,
+                  fuse: int) -> Optional[Tuple[int, int, int]]:
+    """(tile_h, tile_w, warps) of a ``regs`` launch at ``fuse`` reps: the
+    output tile that the ghost bands (``fuse * halo`` rows and ``fuse *
+    halo * C`` lanes per side, the left one :func:`regs_left`'s) leave of
+    the register extent (:data:`REGS_WARPS` warps of ``2 * REGS_Q[k]`` rows
+    by ``32 * REGS_V`` lanes), ``tile_w`` cut to whole :data:`REGS_ALIGN`
+    lanes (``stencil_regs_runs``). None where that leaves no tile, or for
+    a filter size the body is not built for."""
+    if plan.k not in REGS_Q:
+        return None
+    gr = fuse * plan.halo
+    tile_w = ((32 * REGS_V - regs_left(plan, channels, fuse) - gr * channels)
+              // REGS_ALIGN * REGS_ALIGN)
+    tile_h = REGS_WARPS * 2 * REGS_Q[plan.k] - 2 * gr
+    if fuse < 1 or tile_w < REGS_ALIGN or tile_h < 1:
+        return None
+    return tile_h, tile_w, REGS_WARPS
+
+
+def regs_smem_bytes() -> int:
+    """Shared memory of a ``regs`` block (``stencil_regs_smem``): two
+    buffers of each warp's first and last pair row."""
+    return 2 * REGS_WARPS * 2 * 32 * REGS_V * 4
+
+
+def regs_grid(plan: StencilPlan, channels: int, fuse: int, rows: int,
+              wc: int) -> int:
+    """Blocks of a ``regs`` launch at ``fuse`` reps on a flat (rows, wc)
+    image (:func:`regs_geometry`'s tiles)."""
+    tile_h, tile_w, _ = regs_geometry(plan, channels, fuse)
+    return -(-rows // tile_h) * -(-wc // tile_w)
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_body(plan: StencilPlan, channels: int, fuse: int, rows: int,
+                wc: int, block_h: Optional[int] = None,
+                sms: int = H100_SMS) -> str:
+    """The body one K1 launch of ``fuse`` reps on a flat (rows, wc) image
+    runs: :func:`fused_body`'s, except that a launch ``regs`` cannot take
+    or loses runs :func:`tile_body`'s. It cannot take a forced tile height
+    (``block_h``; the register extent sets ``regs``'s own), a channel
+    count it is not built for, or a ``fuse`` whose ghost bands leave no
+    tile (:func:`regs_geometry`). It loses a single-rep launch whose grid
+    has fewer blocks than the card (``sms``) has SMs: with no ghost rows
+    to recompute, the shared tile's 3-4x more threads a pixel fill the
+    card that ``regs`` leaves idle (5.4-5.9 against 6.1-8.1 us a launch
+    on an H100 at 1-48 blocks; from 196 blocks, and at fuse 8 at every
+    size, ``regs`` won)."""
+    body = fused_body(plan)
+    if body != REGS:
+        return body
+    if (block_h is not None or channels not in REGS_CHANNELS
+            or regs_geometry(plan, channels, fuse) is None
+            or (fuse == 1 and regs_grid(plan, channels, 1, rows, wc) < sms)):
+        return tile_body(plan)
+    return body
 
 
 def tile_smem_bytes(plan: StencilPlan, block_h: int, fuse: int,
@@ -318,6 +427,20 @@ def _card_caps(device: torch.device) -> Tuple[int, int, bool]:
             bool(coop))
 
 
+def sm_count(device: Optional[torch.device]) -> int:
+    """SMs of ``device``; an H100's where it is not a CUDA card (the CPU
+    path). Unlike :func:`device_caps`, loads no kernel library: K1's
+    launches ask it."""
+    if device is None or torch.device(device).type != "cuda":
+        return H100_SMS
+    return _card_sms(torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _card_sms(device: torch.device) -> int:
+    return int(torch.cuda.get_device_properties(device).multi_processor_count)
+
+
 @functools.lru_cache(maxsize=256)
 def resident_geometry(plan: StencilPlan, n_rows: int, wc: int,
                       channels: int, sms: int = H100_SMS) -> Tuple[int, int]:
@@ -377,14 +500,14 @@ def deep_geometry(plan: StencilPlan, n_rows: int, w: int, channels: int,
                   device: Optional[torch.device] = None
                   ) -> Tuple[Optional[int], Optional[int]]:
     """The (block_h, fuse) a 'deep' launch reports: (None, None) when the
-    resident kernel runs (no static geometry), else K1's effective
-    geometry at the deep depth. Forced geometry forces K1."""
+    resident kernel runs (no static geometry), else what K1 launches at
+    under 'deep' (:func:`k1_launch`). Forced geometry forces K1."""
     if (block_h is None and fuse is None
             and resident_feasible(plan, n_rows, w * channels, channels,
                                   device)):
         return None, None
-    return effective_geometry(plan, n_rows, channels, block_h, fuse,
-                              schedule=DEEP)
+    return k1_launch(plan, n_rows, w * channels, channels, block_h, fuse,
+                     DEEP, device)[1:]
 
 
 def frames_stride(plan: StencilPlan, frame_h: int) -> int:
@@ -530,10 +653,10 @@ def _params(plan: StencilPlan) -> _Params:
 
 
 def _geometry(x2: torch.Tensor, channels: int, rows_real: int, frame,
-              block_h: int) -> _Geometry:
+              block_h: int, tile_w: int = TILE_W) -> _Geometry:
     stride, frame_h = frame if frame is not None else (0, 0)
     return _Geometry(x2.shape[0], x2.shape[1], rows_real, channels, stride,
-                     frame_h, block_h, TILE_W)
+                     frame_h, block_h, tile_w)
 
 
 _P = ctypes.c_void_p
@@ -591,9 +714,13 @@ def _tile_query(kernel: str, fn: str, plan: StencilPlan, block_h: int,
                 fuse: int, channels: int, body: Optional[str], *extra):
     """(library, result) of the C query ``{kernel}_{fn}`` (kernel:
     stencil_fused or stencil_valid) for one tile of ``body`` (default
-    :func:`tile_body`) at (block_h, fuse)."""
+    :func:`tile_body`) at (block_h, fuse); a ``regs`` tile at
+    :func:`regs_geometry`'s (``block_h`` unused)."""
     body = tile_body(plan) if body is None else body
-    if kernel == "stencil_fused":
+    if kernel == "stencil_fused" and body == REGS:
+        th, tw, _ = regs_geometry(plan, channels, fuse)
+        geom = _Geometry(th, tw, th, channels, 0, 0, th, tw)
+    elif kernel == "stencil_fused":
         geom = _Geometry(block_h, TILE_W, block_h, channels, 0, 0, block_h,
                          TILE_W)
     else:
@@ -606,7 +733,7 @@ def _tile_query(kernel: str, fn: str, plan: StencilPlan, block_h: int,
     params = _params(plan)
     return lib, getattr(lib, f"{kernel}_{fn}")(
         ctypes.addressof(params), ctypes.addressof(geom), fuse,
-        BODIES.index(body), *extra)
+        K1_BODIES.index(body), *extra)
 
 
 def kernel_smem_bytes(kernel: str, plan: StencilPlan, block_h: int,
@@ -636,7 +763,7 @@ def ran_body(kernel: str) -> Optional[str]:
     lib = _resident_lib() if kernel == "stencil_resident" else _tile_lib(
         kernel)
     idx = getattr(lib, f"{kernel}_last_body")()
-    return BODIES[idx] if idx >= 0 else None
+    return K1_BODIES[idx] if idx >= 0 else None
 
 
 def _resident_query(fn: str, plan: StencilPlan, n_rows: int, wc: int,
@@ -680,13 +807,16 @@ def resident_launch_shape(plan: StencilPlan, n_rows: int, wc: int,
             "blocks_per_sm": out[0], "grid": out[1], "threads": out[2]}
 
 
-def _instance_registers(kernel: str, plan: StencilPlan) -> Optional[dict]:
+def _instance_registers(kernel: str, plan: StencilPlan, body: str,
+                        channels: int) -> Optional[dict]:
     """Registers (and spills) of the template instance ``kernel`` runs
-    ``plan`` with, from its build's ``-Xptxas -v`` lines; None when the
-    library was not built here."""
+    ``plan`` with in ``body``, from its build's ``-Xptxas -v`` lines; None
+    when the library was not built here."""
     inst = _build.ptxas_instances(_build.build_log(kernel))
-    body = BODIES.index(tile_body(plan))
-    return inst.get((plan.k, body)) or inst.get((0, body))
+    idx = K1_BODIES.index(body)
+    if body == REGS:
+        return inst.get((plan.k, idx, channels))
+    return inst.get((plan.k, idx)) or inst.get((0, idx))
 
 
 def describe_launch(kernel: str, plan: StencilPlan, rows: int, wc: int,
@@ -696,25 +826,32 @@ def describe_launch(kernel: str, plan: StencilPlan, rows: int, wc: int,
     """The instance one launch of ``kernel`` runs: K1 ``stencil_fused`` at
     ``fuse`` reps and K2 ``stencil_resident`` on a flat (rows, wc) image,
     K3 ``stencil_valid`` on one tile's (rows, wc) interior at ``fuse``
-    reps. Its tile body, tile, grid, threads per block and dynamic shared
-    memory (the host model's), and on a card its resident blocks per SM
-    (the library's occupancy query; K2's grid too) and registers (the
-    build's ``-Xptxas -v`` lines); None for those on the CPU."""
+    reps; ``block_h`` a forced tile height (None: the kernel's own). Its
+    body (K1's :func:`launch_body`), tile, grid, threads per block and
+    dynamic shared memory (the host model's), and on a card its resident
+    blocks per SM (the library's occupancy query; K2's grid too) and
+    registers (the build's ``-Xptxas -v`` lines); None for those on the
+    CPU."""
     on_card = device is not None and torch.device(device).type == "cuda"
+    body, tw = tile_body(plan), TILE_W
     if kernel == "stencil_resident":
         bh, fz = resident_geometry(plan, rows, wc, channels,
                                    device_caps(device)[1])
     elif kernel == "stencil_valid":
         bh, fz = valid_geometry(plan, rows, channels, fuse, block_h)
     else:
-        bh, fz = effective_geometry(plan, rows, channels, block_h, fuse)
+        body, bh, fz = k1_launch(plan, rows, wc, channels, block_h, fuse,
+                                 None, device)
+    threads = block_threads(plan, fz, channels)
+    smem = tile_smem_bytes(plan, bh, fz, channels)
+    if body == REGS:
+        tw = regs_geometry(plan, channels, fz)[1]
+        threads, smem = 32 * REGS_WARPS, regs_smem_bytes()
     # K2's grid is the co-resident blocks, which only the card knows.
     grid = (None if kernel == "stencil_resident"
-            else [-(-wc // TILE_W), -(-rows // bh)])
-    rec = {"kernel": kernel, "body": tile_body(plan), "block_h": bh,
-           "tile_w": TILE_W, "fuse": fz, "grid": grid,
-           "threads": block_threads(plan, fz, channels),
-           "smem_bytes": tile_smem_bytes(plan, bh, fz, channels),
+            else [-(-wc // tw), -(-rows // bh)])
+    rec = {"kernel": kernel, "body": body, "block_h": bh, "tile_w": tw,
+           "fuse": fz, "grid": grid, "threads": threads, "smem_bytes": smem,
            "blocks_per_sm": None, "registers": None}
     if on_card:
         if kernel == "stencil_resident":
@@ -724,8 +861,8 @@ def describe_launch(kernel: str, plan: StencilPlan, rows: int, wc: int,
         else:
             with torch.cuda.device(device):
                 rec["blocks_per_sm"] = blocks_per_sm(kernel, plan, bh, fz,
-                                                     channels)
-        regs = _instance_registers(kernel, plan)
+                                                     channels, body)
+        regs = _instance_registers(kernel, plan, body, channels)
         if regs:
             rec["registers"] = regs.get("registers")
             if regs.get("spill"):
@@ -785,13 +922,16 @@ def _raise_on(rc: int, lib, fn_name: str, what: str) -> None:
 
 def stencil_fused(x2: torch.Tensor, plan: StencilPlan, channels: int,
                   fuse: int, rows_real: Optional[int] = None, frame=None,
-                  block_h: int = DEFAULT_BLOCK_H,
+                  block_h: Optional[int] = None,
                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K1: ``fuse`` reps of the flat (rows, W*C) uint8 image ``x2`` into
-    ``out`` (allocated when None; must not alias ``x2``), in the tile body
-    :func:`tile_body` names for ``plan``. ``rows_real``: rows past it lie
-    outside the image; ``frame`` = (stride, frame_h) marks the frames
-    layout. CPU tensors run :func:`stencil_fused_plain`."""
+    ``out`` (allocated when None; must not alias ``x2``), in the body
+    :func:`launch_body` names: ``regs`` at :func:`regs_geometry`'s tile, or
+    the shared tile's body at ``block_h`` rows (None:
+    :func:`effective_block_h`'s; a forced height runs the shared tile).
+    ``rows_real``: rows past it lie outside the image; ``frame`` =
+    (stride, frame_h) marks the frames layout. CPU tensors run
+    :func:`stencil_fused_plain`."""
     _check_input(x2)
     rows_real = x2.shape[0] if rows_real is None else rows_real
     if x2.device.type == "cpu":
@@ -803,20 +943,30 @@ def stencil_fused(x2: torch.Tensor, plan: StencilPlan, channels: int,
     _check_input(out)
     if out.data_ptr() == x2.data_ptr() or out.shape != x2.shape:
         raise ValueError("out must be a distinct buffer of x2's shape")
+    body = launch_body(plan, channels, fuse, x2.shape[0], x2.shape[1],
+                       block_h, sm_count(x2.device))
     params = _params(plan)
-    geom = _geometry(x2, channels, rows_real, frame, block_h)
+    if body == REGS:
+        tile_h, tile_w, _ = regs_geometry(plan, channels, fuse)
+    else:
+        tile_h = (effective_block_h(plan, x2.shape[0], channels)
+                  if block_h is None else block_h)
+        tile_w = TILE_W
+    geom = _geometry(x2, channels, rows_real, frame, tile_h, tile_w)
     with torch.cuda.device(x2.device):
         rc = lib.stencil_fused_launch(
             x2.data_ptr(), out.data_ptr(), ctypes.addressof(params),
-            ctypes.addressof(geom), fuse, BODIES.index(tile_body(plan)),
+            ctypes.addressof(geom), fuse, K1_BODIES.index(body),
             torch.cuda.current_stream(x2.device).cuda_stream,
         )
     _raise_on(rc, lib, "stencil_fused_error_string", "stencil_fused")
-    _count(stencil_fused)
+    _count(stencil_fused, body)
     return out
 
 
 stencil_fused.launches = 0
+# K1's launches by the body they ran (launch_body), under the same lock.
+stencil_fused.body_launches = {}
 
 
 def stencil_resident(x2: torch.Tensor, plan: StencilPlan, channels: int,
@@ -921,11 +1071,15 @@ stencil_valid.launches = 0
 _COUNT_LOCK = threading.Lock()
 
 
-def _count(wrapper) -> None:
+def _count(wrapper, body: Optional[str] = None) -> None:
     """One launch of ``wrapper``'s kernel, counted under the lock (a
-    read-modify-write of the counter from several threads)."""
+    read-modify-write of the counter from several threads); K1's also by
+    the body it ran."""
     with _COUNT_LOCK:
         wrapper.launches += 1
+        if body is not None:
+            wrapper.body_launches[body] = (
+                wrapper.body_launches.get(body, 0) + 1)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -935,9 +1089,17 @@ def launch_counts() -> Dict[str, int]:
             "stencil_valid": stencil_valid.launches}
 
 
+def body_launch_counts() -> Dict[str, int]:
+    """K1's launches by the body they ran (``stencil_fused.body_launches``,
+    a copy)."""
+    with _COUNT_LOCK:
+        return dict(stencil_fused.body_launches)
+
+
 def reset_launch_counts() -> None:
     with _COUNT_LOCK:
         stencil_fused.launches = 0
+        stencil_fused.body_launches = {}
         stencil_resident.launches = 0
         stencil_valid.launches = 0
 
@@ -956,14 +1118,60 @@ def rep_loop_kernel(plan: StencilPlan, rows: int, wc: int, channels: int,
     (block_h, fuse) it launches at: ``("stencil_resident", None, None)``
     (K2, its geometry its own) for an unforced 'deep' run that
     :func:`resident_feasible` admits, else ``"stencil_fused"`` (K1) at
-    :func:`effective_geometry`."""
+    :func:`k1_launch`'s."""
     sched = check_schedule(schedule)
     if (sched == DEEP and block_h is None and fuse is None
             and resident_feasible(plan, rows, wc, channels, device)):
         return "stencil_resident", None, None
-    bh, fz = effective_geometry(plan, rows, channels, block_h, fuse,
-                                schedule=sched)
+    _, bh, fz = k1_launch(plan, rows, wc, channels, block_h, fuse, sched,
+                          device)
     return "stencil_fused", bh, fz
+
+
+def k1_launch(plan: StencilPlan, rows: int, wc: int, channels: int,
+              block_h: Optional[int], fuse: Optional[int],
+              schedule: Optional[str], device: Optional[torch.device]
+              ) -> Tuple[str, int, int]:
+    """(body, tile_h, fuse) of a rep loop's fused K1 launches on a flat
+    (rows, wc) image: ``regs`` at the forced ``fuse`` or
+    :data:`DEFAULT_FUSE`, whatever the schedule and the image's height, and
+    at :func:`regs_geometry`'s tile, where :func:`launch_body` runs it
+    there; else the shared tile at :func:`effective_geometry`. ('deep'
+    deepens the shared tile's launches to cut its trips through device
+    memory; a ``regs`` rep is cheapest at 8: 5.66 us at 1920x2520 RGB on an
+    H100, 6.49 at 12, 7.10 at 16.)"""
+    sms = sm_count(device)
+    if block_h is None:
+        fz = DEFAULT_FUSE if fuse is None else fuse
+        if launch_body(plan, channels, fz, rows, wc, None, sms) == REGS:
+            return REGS, regs_geometry(plan, channels, fz)[0], fz
+    bh, fz = effective_geometry(plan, rows, channels, block_h, fuse,
+                                schedule=schedule)
+    body = launch_body(plan, channels, fz, rows, wc, block_h, sms)
+    if body == REGS:
+        bh = regs_geometry(plan, channels, fz)[0]
+    return body, bh, fz
+
+
+def rep_loop_body(plan: StencilPlan, rows: int, wc: int, channels: int,
+                  block_h: Optional[int], fuse: Optional[int],
+                  schedule: Optional[str], device: Optional[torch.device],
+                  reps: Optional[int] = None) -> str:
+    """The body the first launch of a rep loop of ``reps`` reps runs
+    (:func:`rep_loop_kernel`; None: a launch of the loop's own depth):
+    K1's :func:`k1_launch` body, or :func:`launch_body`'s single rep where
+    ``reps`` is below the depth; K2's :func:`tile_body`."""
+    sched = check_schedule(schedule)
+    kernel, _, _ = rep_loop_kernel(plan, rows, wc, channels, block_h, fuse,
+                                   sched, device)
+    if kernel == "stencil_resident":
+        return tile_body(plan)
+    body, _, fz = k1_launch(plan, rows, wc, channels, block_h, fuse, sched,
+                            device)
+    if reps is not None and 0 < reps < fz:
+        return launch_body(plan, channels, 1, rows, wc, block_h,
+                           sm_count(device))
+    return body
 
 
 def warm_depths(calls: Iterable[int], fuse: Optional[int]) -> List[int]:
@@ -987,8 +1195,8 @@ def _run_rep_loop(x2: torch.Tensor, repetitions: int, plan: StencilPlan,
                   frame=None) -> torch.Tensor:
     """Run ``repetitions`` on the flat (rows, W*C) image: K2 for an
     unforced 'deep' run that :func:`resident_feasible` admits, else K1 as
-    fused launches plus single-rep remainders over two ping-pong
-    buffers."""
+    fused launches plus single-rep remainders over two ping-pong buffers,
+    each in :func:`launch_body`'s body."""
     rows, wc = x2.shape
     check_schedule(schedule)
     if repetitions == 0:
@@ -1000,6 +1208,9 @@ def _run_rep_loop(x2: torch.Tensor, repetitions: int, plan: StencilPlan,
                                 frame)
     depths = launch_schedule(repetitions, fz)
     bufs = [torch.empty_like(x2) for _ in range(min(2, len(depths)))]
+    # A forced tile height is K1's to honour (it runs the shared tile); an
+    # unforced one leaves the launch its own.
+    bh = None if block_h is None else bh
     cur = x2
     for i, depth in enumerate(depths):
         cur = stencil_fused(cur, plan, channels, depth, rows_real, frame,

@@ -221,23 +221,26 @@ def _scalar_rep(cur: torch.Tensor, plan: StencilPlan, channels: int,
 
 def _swar_rep(p64: torch.Tensor, plan: StencilPlan, channels: int,
               mask, no_rows: bool = False,
-              no_cols: bool = False) -> torch.Tensor:
-    """One rep of the ``swar`` body on packed words: ``p64`` (Q, wc) int64
-    holding 32-bit words of two 16-bit fields, rows 2q (low) and 2q+1
-    (high). Zero pairs stand above and below, zero lanes left and right.
-    ``mask`` ((Q, wc) or a scalar) holds 0x00FF per kept field: K1's rows
-    of the image and of its frames, K3's rows and lanes inside the global
-    extent (:func:`swar_mask`)."""
+              no_cols: bool = False, fill: int = 0) -> torch.Tensor:
+    """One rep of the ``swar`` body on packed words: ``p64`` (..., Q, wc)
+    int64 holding 32-bit words of two 16-bit fields, rows 2q (low) and 2q+1
+    (high). Pairs of ``fill`` stand above and below, lanes of ``fill`` left
+    and right (zero: the image's boundary). ``mask`` ((..., Q, wc) or a
+    scalar) holds 0x00FF per kept field: K1's rows of the image and of its
+    frames, K3's rows and lanes inside the global extent
+    (:func:`swar_mask`)."""
     h = plan.halo
     hc = h * channels
-    q, wc = p64.shape
+    q, wc = p64.shape[-2:]
+    lead = p64.shape[:-2]
     hp = (h + 1) // 2
     word = 0xFFFFFFFF
-    zrow = torch.zeros((hp, wc), dtype=torch.int64, device=p64.device)
-    pp = torch.cat([zrow, p64, zrow], 0)  # pair j of p64 at pp[j + hp]
+    zrow = torch.full(lead + (hp, wc), fill, dtype=torch.int64,
+                      device=p64.device)
+    pp = torch.cat([zrow, p64, zrow], -2)  # pair j of p64 at pp[j + hp]
     # Straddle j: (row 2j+1, row 2j+2) = high field of pair j under the low
     # field of pair j+1.
-    ss = (pp[:-1] >> 16) | ((pp[1:] & 0xFFFF) << 16)
+    ss = (pp[..., :-1, :] >> 16) | ((pp[..., 1:, :] & 0xFFFF) << 16)
     if no_rows:
         t = p64
     else:
@@ -246,15 +249,16 @@ def _swar_rep(p64: torch.Tensor, plan: StencilPlan, channels: int,
             r = i - h  # W[2q + r], floor-divided into the windows
             j = hp + (r // 2)
             src = pp if r % 2 == 0 else ss
-            t = (t + tap * src[j:j + q]) & word
+            t = (t + tap * src[..., j:j + q, :]) & word
     if no_cols:
         acc = t
     else:
-        zl = torch.zeros((q, hc), dtype=torch.int64, device=p64.device)
-        tt = torch.cat([zl, t, zl], 1)
+        zl = torch.full(lead + (q, hc), fill, dtype=torch.int64,
+                        device=p64.device)
+        tt = torch.cat([zl, t, zl], -1)
         acc = torch.zeros_like(t)
         for j, tap in enumerate(plan.col_taps):
-            acc = (acc + tap * tt[:, j * channels:j * channels + wc]) & word
+            acc = (acc + tap * tt[..., j * channels:j * channels + wc]) & word
     return (acc >> plan.shift) & mask
 
 
@@ -303,6 +307,58 @@ def swar_fused_plain(x2: torch.Tensor, plan: StencilPlan, channels: int,
     for _ in range(reps):
         p64 = _swar_rep(p64, plan, channels, mask)
     return unpack_pairs(p64, rows)
+
+
+def regs_fused_plain(x2: torch.Tensor, plan: StencilPlan, channels: int,
+                     fuse: int, rows_real: Optional[int] = None,
+                     frame=None) -> torch.Tensor:
+    """One K1 launch of ``fuse`` reps computed as the ``regs`` body
+    computes it: the image cut into :func:`cuda_stencil.regs_geometry`'s
+    tiles, each block's register extent (``warps * 2 * REGS_Q[k]`` rows by
+    ``32 * REGS_V`` lanes from ``fuse * halo`` rows above and the rounded
+    left ghost band left of its tile) loaded with the image's rows and
+    lanes (zero outside it, and on rows outside ``rows_real`` or in a
+    frame's gap) and packed in pairs, ``fuse`` reps of :func:`_swar_rep`
+    that read 255 in every field past the extent (the kernel reads wrong
+    values there, which only the ghost bands may absorb; zeros would pass
+    for the image's boundary) with the re-zero mask,
+    then only each tile unpacked and stored. Equals
+    :func:`cuda_stencil.stencil_fused_plain` wherever the body runs."""
+    geo = cs.regs_geometry(plan, channels, fuse)
+    if (cs.fused_body(plan) != cs.REGS or channels not in cs.REGS_CHANNELS
+            or geo is None):
+        raise ValueError("the regs body does not run this launch")
+    tile_h, tile_w, warps = geo
+    rows, wc = x2.shape
+    rows_real = rows if rows_real is None else rows_real
+    dev = x2.device
+    gr = fuse * plan.halo
+    left = cs.regs_left(plan, channels, fuse)
+    ext_h, ext_w = warps * 2 * cs.REGS_Q[plan.k], 32 * cs.REGS_V
+    gy, gx = -(-rows // tile_h), -(-wc // tile_w)
+    pad_h, pad_w = (gy - 1) * tile_h + ext_h, (gx - 1) * tile_w + ext_w
+    keep = cs._row_keep(rows, rows_real, frame, dev)
+    img = torch.zeros((pad_h, pad_w), dtype=torch.int64, device=dev)
+    img[gr:gr + rows, left:left + wc] = torch.where(
+        keep.reshape(-1, 1), x2, 0).to(torch.int64)
+    row_keep = torch.zeros(pad_h, dtype=torch.bool, device=dev)
+    row_keep[gr:gr + rows] = keep
+    lane_keep = torch.zeros(pad_w, dtype=torch.bool, device=dev)
+    lane_keep[left:left + wc] = True
+    # (gy, gx, ext_h, ext_w): block (i, j)'s extent.
+    ext = img.unfold(0, ext_h, tile_h).unfold(1, ext_w, tile_w)
+    p64 = ext[..., 0::2, :] | (ext[..., 1::2, :] << 16)
+    rk = row_keep.unfold(0, ext_h, tile_h).to(torch.int64) * 0xFF
+    rk = (rk[:, 0::2] | (rk[:, 1::2] << 16)).reshape(gy, 1, -1, 1)
+    lk = lane_keep.unfold(0, ext_w, tile_w).to(torch.int64)
+    mask = rk * lk.reshape(1, gx, 1, ext_w)
+    for _ in range(fuse):
+        p64 = _swar_rep(p64, plan, channels, mask, fill=0x00FF00FF)
+    out = torch.stack([p64 & 0xFF, (p64 >> 16) & 0xFF], -2)
+    out = out.reshape(gy, gx, ext_h, ext_w)
+    out = out[:, :, gr:gr + tile_h, left:left + tile_w]
+    out = out.permute(0, 2, 1, 3).reshape(gy * tile_h, gx * tile_w)
+    return out[:rows, :wc].to(torch.uint8).contiguous()
 
 
 def swar_valid_plain(ext2: torch.Tensor, plan: StencilPlan, channels: int,

@@ -9,7 +9,8 @@ The port's counterpart of the JAX package's ``runtime/autotune.py``
 ops) and ``pallas`` (the hand-written kernels); schedules ``fused`` (K1)
 and ``deep`` (K2 when the image fits the L2 budget, else K1 at the deep
 depth); then a geometry stage over :data:`_GEOMETRY_GRID` at the winning
-schedule, where a candidate must beat the default geometry by more
+schedule (only its depths where K1 runs its ``regs`` body), where a
+candidate must beat the default geometry by more
 than :data:`GEOMETRY_MARGIN`. ``--backend autotune`` (and the default ``auto``) measures the
 grid ONCE on a card, persists the verdict in a versioned JSON cache
 (``~/.cache/tpu_stencil_torch/autotune.json``, override with
@@ -297,10 +298,26 @@ def _measure_takes_geometry(measure) -> bool:
 
 
 def _geometry_candidates(plan: StencilPlan, n_rows: int, channels: int,
-                         schedule: Optional[str]):
+                         schedule: Optional[str], wc: int, device):
     """The grid's candidates worth a measurement, as (requested,
     effective) pairs: inside shared memory as requested, and launching
-    differently from the default and from each other."""
+    differently from the default and from each other. Where the default
+    launch runs K1's ``regs`` body, a tile height would force the shared
+    tile (2.6x slower a rep at the job cells' shapes), so the grid varies
+    only the fuse: ``(None, fuse)`` for each of its depths that ``regs``
+    runs (:func:`cuda_stencil.k1_launch`)."""
+    if cs.rep_loop_body(plan, n_rows, wc, channels, None, None, schedule,
+                        device) == cs.REGS:
+        seen = {cs.k1_launch(plan, n_rows, wc, channels, None, None,
+                             schedule, device)}
+        out = []
+        for gfz in sorted({gfz for _, gfz in _GEOMETRY_GRID}):
+            eff = cs.k1_launch(plan, n_rows, wc, channels, None, gfz,
+                               schedule, device)
+            if eff[0] == cs.REGS and eff not in seen:
+                seen.add(eff)
+                out.append(((None, gfz), eff))
+        return out
     seen = {cs.effective_geometry(plan, n_rows, channels, schedule=schedule)}
     out = []
     for gbh, gfz in _GEOMETRY_GRID:
@@ -399,7 +416,8 @@ def best_full_config(
             and _measure_takes_geometry(measure)):
         geo_timings = {(None, None): timings[(winner, win_sched)]}
         for (gbh, gfz), _eff in _geometry_candidates(
-                plan, shape[0], channels, win_sched):
+                plan, shape[0], channels, win_sched, shape[1] * channels,
+                device):
             geo_timings[(gbh, gfz)] = probe(
                 winner, schedule=win_sched, block_h=gbh, fuse=gfz)
         best = min(geo_timings, key=geo_timings.get)
@@ -407,7 +425,8 @@ def best_full_config(
                 < (1.0 - GEOMETRY_MARGIN) * geo_timings[(None, None)]):
             win_bh, win_fuse = best
         geo_us = {
-            ("default" if g == (None, None) else f"{g[0]}x{g[1]}"):
+            ("default" if g == (None, None) else
+             f"fuse{g[1]}" if g[0] is None else f"{g[0]}x{g[1]}"):
                 round(t * 1e6, 2)
             for g, t in geo_timings.items()
         }

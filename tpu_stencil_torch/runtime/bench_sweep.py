@@ -208,8 +208,10 @@ def _label(backend: str, resolved: str, sched, bh, fz) -> str:
         name = resolved
     else:
         name = f"pallas[{sched}]"
-        if bh is not None or fz is not None:
+        if bh is not None:
             name += f"@{bh}x{fz}"
+        elif fz is not None:
+            name += f"@fuse{fz}"
     return f"auto:{name}" if backend in ("auto", "autotune") else name
 
 

@@ -202,8 +202,6 @@ class BucketProgram:
         # The tail gap doubles as bottom pad, as in iterate_frames.
         self.rows_real = self.rows - plan.halo
         self.frame = (self.stride, bh) if plan.halo else None
-        self.block_h = (_cs.effective_block_h(plan, self.rows, channels)
-                        if backend == "pallas" else None)
 
     def run(self, x2: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if self.reps == 0:
@@ -214,7 +212,6 @@ class BucketProgram:
             for i in range(self.reps):
                 cur = _cs.stencil_fused(cur, self.plan, self.channels, 1,
                                         self.rows_real, self.frame,
-                                        block_h=self.block_h,
                                         out=bufs[i % 2])
                 cur.mul_(mask)
             return cur
@@ -242,7 +239,7 @@ class BucketProgram:
         if self.backend == "pallas" and self.reps:
             kernels = [_cs.describe_launch(
                 "stencil_fused", self.plan, self.rows, self.wc,
-                self.channels, block_h=self.block_h, fuse=1, device=device)]
+                self.channels, fuse=1, device=device)]
             build_s = _build.build_seconds("stencil_fused")
         iops, fops = roofline.plan_ops(self.plan)
         return {
