@@ -39,6 +39,12 @@ from tpu_stencil_torch.ops import cuda_stencil
 from tpu_stencil_torch.ops import lowering as _lowering
 
 
+def _delta(before: dict, after: dict) -> dict:
+    """The counters of ``after`` that moved since ``before``, by how much."""
+    return {k: n - before.get(k, 0) for k, n in after.items()
+            if n != before.get(k, 0)}
+
+
 class IteratedConv2D(torch.nn.Module):
     """Iterated stencil model: a filter plus an iteration schedule.
 
@@ -232,21 +238,27 @@ class IteratedConv2D(torch.nn.Module):
         """``run(x, repetitions)`` inside a profiler-only ``model.issue``
         span while a profiler collects: args ``reps``, ``launches`` (the
         call's delta of :func:`cuda_stencil.launch_counts`, the process's
-        counters) and ``kernel`` (the kernels launched, else the
-        backend)."""
+        counters), ``kernel`` (the kernels launched, else the backend),
+        ``plan`` (the plan's kind), and ``bodies`` and ``body_reps`` (the
+        call's deltas of :func:`cuda_stencil.body_launch_counts` and
+        :func:`cuda_stencil.body_rep_counts`: K1's launches and reps by
+        body)."""
         if not _tracing.profiling():
             return run(x, repetitions)
         with _tracing.span("model.issue", "model", profiler_only=True) as s:
             if not s.recording:  # the profiler stopped in between
                 return run(x, repetitions)
             before = cuda_stencil.launch_counts()
+            bodies = cuda_stencil.body_launch_counts()
+            body_reps = cuda_stencil.body_rep_counts()
             out = run(x, repetitions)
-            moved = {k: n - before[k]
-                     for k, n in cuda_stencil.launch_counts().items()
-                     if n != before[k]}
-            s.args.update(kernel="+".join(moved) or self.backend,
-                          reps=int(repetitions),
-                          launches=sum(moved.values()))
+            moved = _delta(before, cuda_stencil.launch_counts())
+            s.args.update(
+                kernel="+".join(moved) or self.backend,
+                reps=int(repetitions), launches=sum(moved.values()),
+                plan=self.plan.kind,
+                bodies=_delta(bodies, cuda_stencil.body_launch_counts()),
+                body_reps=_delta(body_reps, cuda_stencil.body_rep_counts()))
             return out
 
     def forward(self, img_u8, repetitions: int) -> torch.Tensor:

@@ -34,7 +34,8 @@ its kernel or raises; nothing falls back. ``stencil_fused.launches``,
 ``stencil_resident.launches`` and ``stencil_valid.launches`` count the
 launches and nothing else, under one lock (the stream engine launches from
 one thread per lane); ``stencil_fused.body_launches`` counts K1's by the
-body they ran (:func:`body_launch_counts`).
+body they ran (:func:`body_launch_counts`), and ``stencil_fused.body_reps``
+the reps those launches ran (:func:`body_rep_counts`).
 
 The image is viewed flat as ``(rows, W*C)``: a column-pass tap moves by
 ``C`` flat lanes, so channels never mix, and the column boundary is the
@@ -960,13 +961,15 @@ def stencil_fused(x2: torch.Tensor, plan: StencilPlan, channels: int,
             torch.cuda.current_stream(x2.device).cuda_stream,
         )
     _raise_on(rc, lib, "stencil_fused_error_string", "stencil_fused")
-    _count(stencil_fused, body)
+    _count(stencil_fused, body, fuse)
     return out
 
 
 stencil_fused.launches = 0
-# K1's launches by the body they ran (launch_body), under the same lock.
+# K1's launches, and the reps they ran, by the body they ran (launch_body),
+# under the same lock.
 stencil_fused.body_launches = {}
+stencil_fused.body_reps = {}
 
 
 def stencil_resident(x2: torch.Tensor, plan: StencilPlan, channels: int,
@@ -1071,15 +1074,16 @@ stencil_valid.launches = 0
 _COUNT_LOCK = threading.Lock()
 
 
-def _count(wrapper, body: Optional[str] = None) -> None:
+def _count(wrapper, body: Optional[str] = None, reps: int = 0) -> None:
     """One launch of ``wrapper``'s kernel, counted under the lock (a
     read-modify-write of the counter from several threads); K1's also by
-    the body it ran."""
+    the body it ran, with its ``reps``."""
     with _COUNT_LOCK:
         wrapper.launches += 1
         if body is not None:
             wrapper.body_launches[body] = (
                 wrapper.body_launches.get(body, 0) + 1)
+            wrapper.body_reps[body] = wrapper.body_reps.get(body, 0) + reps
 
 
 def launch_counts() -> Dict[str, int]:
@@ -1096,10 +1100,18 @@ def body_launch_counts() -> Dict[str, int]:
         return dict(stencil_fused.body_launches)
 
 
+def body_rep_counts() -> Dict[str, int]:
+    """K1's reps by the body whose launches ran them
+    (``stencil_fused.body_reps``, a copy)."""
+    with _COUNT_LOCK:
+        return dict(stencil_fused.body_reps)
+
+
 def reset_launch_counts() -> None:
     with _COUNT_LOCK:
         stencil_fused.launches = 0
         stencil_fused.body_launches = {}
+        stencil_fused.body_reps = {}
         stencil_resident.launches = 0
         stencil_valid.launches = 0
 
