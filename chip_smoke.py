@@ -44,7 +44,18 @@ grow by at least an instruction an element and operation from 8 to 16
    instance using local memory;
    then its ms a rep against ``swar`` at 1920x2520 RGB and 1920x5040 grey
    x100 (taking turns, and the kernels' device time), with each launch's
-   registers, local memory and blocks per SM. Plus small images against
+   registers, local memory and blocks per SM. K1's direct body
+   ``regs_direct`` alone: a direct 3x3 plan for each of its instances
+   (edge and three built ones: asymmetric on the divide path and dyadic,
+   and one whose divisor no multiply-high passes), grey and RGB, aligned
+   and ragged widths, fuse 1, 7 and 8 and x9; edge x100 at 1920x5040 RGB
+   (the edge cell) and 1920x2520 grey; serve's canvases at fuse 1 and 8,
+   and at fuse 1 under a forced tile height (``int32``); every launch
+   counted by body; each register
+   instance's registers and local memory from ``cudaFuncGetAttributes``
+   (none, at most 128 registers, 2 blocks an SM); edge at fuse 1 on
+   serve's canvases and larger frames in ``regs_direct`` against
+   ``int32``, device us a launch. Plus small images against
    the NumPy golden model, and the no-fallback check: with the libraries'
    builds forced to fail, ``iterate`` raises ``KernelBuildError`` and launches
    nothing under the default schedule and under ``deep``, and the
@@ -335,8 +346,10 @@ grow by at least an instruction an element and operation from 8 to 16
    redesign's A/B, every set taking turns: K1 and K3's ext tile against
    the lab's ``current`` (the baseline) and ``swar`` on gaussian; K1 and K2
    against ``current`` on gaussian5, gaussian7 and box, K1 and K2 on
-   edge; each with the plain version, and beside each filter its library
-   call (depthwise ``F.conv2d``, ``padding=k//2``) and its bound; 4 frames
+   edge, with K1's direct body ``regs_direct`` against the shared tile's
+   ``int32`` (a forced tile height); each with the plain version, and
+   beside each filter its library call (depthwise ``F.conv2d``,
+   ``padding=k//2``) and its bound; 4 frames
    as one tall launch against 1 frame; and each body's resident blocks per
    SM at 32x8 (the library's occupancy query).
 
@@ -532,6 +545,7 @@ def phase_k1(dev) -> dict:
              torch.stack([flat_plain(f, p, 9) for f in frames]), p, names[0],
              last_body(p, cs.frames_rows(p, fh, n), fw * fc, fc, 9, dev))
     regs = phase_k1_regs(dev, case)
+    direct = phase_k1_direct(dev, case)
     # Small images against the pure-NumPy golden model (K1 and K2).
     small = np.random.default_rng(4).integers(0, 256, (21, 17, 3), np.uint8)
     for name in ("gaussian", "box", "edge", "gaussian5"):
@@ -547,7 +561,7 @@ def phase_k1(dev) -> dict:
     bad = [c for c in cases if c["err"]]
     require(not bad, f"K1 disagrees with its plain version: {bad}")
     return {"phase": "k1", "ok": True, "cases": len(cases),
-            "max_abs_err": worst, "regs": regs,
+            "max_abs_err": worst, "regs": regs, "regs_direct": direct,
             "no_fallback": check_no_fallback(dev)}
 
 
@@ -624,6 +638,158 @@ def phase_k1_regs(dev, case) -> dict:
     return {"launches": launched, "body_launches": bodies,
             "instances": {f"k{k} C{c}": v for (k, _, c), v in inst.items()},
             "ab": regs_ab(dev)}
+
+
+# Direct 3x3 plans that cover every instance of K1's direct body (channels x
+# finish) and a dyadic plan: name -> (taps, divisor).
+DIRECT_PLANS = {
+    "edge": ([[1, 4, 1], [4, 8, 4], [1, 4, 1]], 28),
+    "asym17": ([[1, 2, 0], [3, 4, 1], [0, 3, 2]], 17),
+    "asym16": ([[1, 2, 0], [3, 4, 1], [0, 3, 2]], 16),           # dyadic
+    # 253 / this divisor rounds up to 9.0 in float32: no multiply-high
+    # passes, so the body divides per field with __fdiv_rn
+    "fdiv": ([[1, 4, 1], [4, 8, 4], [1, 4, 1]], 28.111112594604492),
+}
+
+
+def direct_plan(name: str):
+    from tpu_stencil_torch import filters
+    from tpu_stencil_torch.ops import lowering
+
+    taps, d = DIRECT_PLANS[name]
+    return lowering.plan_filter(filters.from_numpy(np.array(taps), d))
+
+
+def phase_k1_direct(dev, case) -> dict:
+    """K1's direct body ``regs_direct``: every instance's plan
+    (``DIRECT_PLANS``), grey and RGB, aligned and ragged widths, single
+    launches at fuse 1, 7 and 8 and the rep loop x9; edge x100 at the edge
+    cell's 1920x5040 RGB and at 1920x2520 grey; serve's canvases at fuse 1
+    and 8 (``regs_direct``: the SM rule is ``regs``' alone) and at fuse 1
+    under a forced tile height (the shared tile's ``int32``); each through
+    ``case``, every launch counted under the body ``launch_body`` names;
+    then each register instance's registers and local memory from the card
+    (``cudaFuncGetAttributes``) and its blocks per SM: no local memory, 2
+    blocks an SM; and :func:`direct_canvas_ab`'s times."""
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+
+    cs.reset_launch_counts()
+    int32_launches = 0
+    for name in DIRECT_PLANS:
+        p = direct_plan(name)
+        require(cs.fused_body(p) == "regs_direct",
+                f"{name} runs {cs.fused_body(p)}, not regs_direct")
+        for c in (1, 3):
+            for w in (MAIN_W, RAGGED_W[c]):
+                shape = (MAIN_H, w, c) if c > 1 else (MAIN_H, w)
+                img = seeded(shape, 40 + w + c, dev)
+                x = img.reshape(MAIN_H, -1)
+                for depth in (1, 7, 8):
+                    case(f"direct {shape} {name} fuse={depth}",
+                         cs.stencil_fused(x, p, c, depth),
+                         cs.stencil_fused_plain(x, p, c, depth), p, name)
+                case(f"direct {shape} {name} x9", cs.iterate(img, 9, p),
+                     flat_plain(img, p, 9), p, name)
+    e = direct_plan("edge")
+    for shape in ((2 * MAIN_H, MAIN_W, 3), (MAIN_H, MAIN_W)):
+        img = seeded(shape, 45, dev)
+        case(f"direct {shape} edge x100", cs.iterate(img, 100, e),
+             flat_plain(img, e, 100), e, "edge")
+    for c, n, fh, fw in ((3, 1, 64, 64), (3, 4, 256, 256),
+                         (1, 1, 384, 2048)):
+        rows, wc = cs.frames_rows(e, fh, n), fw * c
+        x = seeded((rows, wc), 46 + rows + wc, dev)
+        frame = (cs.frames_stride(e, fh), fh)
+        for depth, bh in ((1, None), (8, None), (1, cs.DEFAULT_BLOCK_H)):
+            body = "regs_direct" if bh is None else "int32"
+            require(cs.launch_body(e, c, depth, rows, wc, bh,
+                                   cs.sm_count(dev)) == body,
+                    f"edge {rows}x{wc} fuse={depth}: not {body}")
+            int32_launches += body == "int32"
+            case(f"canvas {n}x{fh}x{fw}x{c} edge fuse={depth} block_h={bh}",
+                 cs.stencil_fused(x, e, c, depth, rows - e.halo, frame, bh),
+                 cs.stencil_fused_plain(x, e, c, depth, rows - e.halo,
+                                        frame), e, "edge", body)
+    launched = cs.launch_counts()["stencil_fused"]
+    bodies = cs.body_launch_counts()
+    require(bodies == {"regs_direct": launched - int32_launches,
+                       "int32": int32_launches},
+            f"K1's launches by body {bodies}, of {launched} "
+            f"({int32_launches} in int32 expected)")
+    # Every register instance from the card: no local memory, at most 128
+    # registers (2 blocks of 256 threads an SM).
+    instances = {}
+    plans = [(f"regs {n}", plan_of(n)) for n in ("gaussian", "gaussian5")]
+    plans += [(f"regs_direct {n}", direct_plan(n)) for n in DIRECT_PLANS]
+    for label, p in plans:
+        for c in (1, 3):
+            a = cs.instance_attributes(p, c, cs.DEFAULT_FUSE)
+            a["blocks_per_sm"] = cs.blocks_per_sm(
+                "stencil_fused", p, 0, cs.DEFAULT_FUSE, c, cs.fused_body(p))
+            require(a["local_bytes"] == 0 and a["registers"] <= 128
+                    and a["blocks_per_sm"] == 2,
+                    f"{label} C{c}: {a}")
+            instances[f"{label} C{c}"] = a
+    return {"launches": launched, "body_launches": bodies,
+            "instances": instances, "canvas_ab": direct_canvas_ab(dev)}
+
+
+@contextlib.contextmanager
+def k1_body_forced(body: str):
+    """Every K1 launch inside the block runs ``body``, whatever
+    ``launch_body`` would pick (the launch must fit it)."""
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+
+    keep = cs.launch_body
+    cs.launch_body = lambda *a, **k: body
+    try:
+        yield
+    finally:
+        cs.launch_body = keep
+
+
+def direct_canvas_ab(dev, launches: int = 20) -> dict:
+    """Edge at fuse 1, one launch on the frames canvas of each of serve's
+    canvases (a 64^2 RGB frame, four 256^2 RGB frames, a 384x2048 grey
+    frame) and of larger frames on both sides of the SM rule (1024^2,
+    1536^2, 2048^2 RGB): device us a launch (``launches`` back to back on
+    the card's clock, median of 7) in ``regs_direct`` and in the shared
+    tile's ``int32``, each held to the plain version, the regs grid's
+    blocks, and the body ``launch_body`` picks."""
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+    from tpu_stencil_torch.tools import _harness
+
+    e = direct_plan("edge")
+    sms = cs.sm_count(dev)
+    out = {}
+    for c, n, fh, fw in ((3, 1, 64, 64), (3, 4, 256, 256), (1, 1, 384, 2048),
+                         (3, 1, 1024, 1024), (3, 1, 1536, 1536),
+                         (3, 1, 2048, 2048)):
+        rows, wc = cs.frames_rows(e, fh, n), fw * c
+        x = seeded((rows, wc), 47 + rows + wc, dev)
+        y = torch.empty_like(x)
+        frame = (cs.frames_stride(e, fh), fh)
+        want = cs.stencil_fused_plain(x, e, c, 1, rows - e.halo, frame)
+        row = {"blocks": cs.regs_grid(e, c, 1, rows, wc),
+               "picked": cs.launch_body(e, c, 1, rows, wc, None, sms)}
+        for body in ("regs_direct", "int32"):
+            def go(_, body=body):
+                with k1_body_forced(body):
+                    for _ in range(launches):
+                        cs.stencil_fused(x, e, c, 1, rows - e.halo, frame,
+                                         out=y)
+            run = _harness.device_timed(go, dev)
+            row[f"{body}_us"] = statistics.median(
+                run(1) for _ in range(7)) * 1e6 / launches
+            cs.reset_launch_counts()
+            go(1)
+            require(cs.body_launch_counts() == {body: launches}
+                    and torch.equal(y, want),
+                    f"canvas {n}x{fh}x{fw}x{c} in {body}: "
+                    f"{cs.body_launch_counts()}, {max_err(y, want)}")
+        row["regs_direct_over_int32"] = row["regs_direct_us"] / row["int32_us"]
+        out[f"{n}x{fh}x{fw}x{c}"] = row
+    return out
 
 
 def regs_ab(dev) -> dict:
@@ -5217,7 +5383,8 @@ def tile_ab(img: torch.Tensor, dev) -> dict:
     """The tile redesign's A/B in this call, every set taking turns (ms per
     rep x40, median of 7, L2 flushed): K1 and K3's ext tile (fuse 8)
     against the lab's ``current`` (K1 before the redesign) and ``swar``
-    on gaussian; K1 against ``current`` per body filter; 4 frames as one
+    on gaussian; K1 against ``current`` per body filter, and on edge K1's
+    direct body against the shared tile's int32 body; 4 frames as one
     tall launch against 1 frame (per frame and rep); and each body's
     resident blocks per SM at 32x8."""
     from tpu_stencil_torch.ops import cuda_stencil as cs
@@ -5240,12 +5407,19 @@ def tile_ab(img: torch.Tensor, dev) -> dict:
             fns["k3_ext"] = lambda: [cs.valid_fused(ext, p, fz, MAIN_C, 0, 0,
                                                     glob)
                                      for _ in range(n // fz)]
+        if name == "edge":
+            # K1's direct body against the shared tile's int32 body, which
+            # a forced tile height runs
+            fns["k1_int32"] = lambda p=p: cs.iterate(
+                img, n, p, block_h=cs.DEFAULT_BLOCK_H)
         if lab.variant_supported(cur, p):
             fns["lab_current"] = lambda p=p: lab.lab_iterate(img, n, p, cur)
         if lab.variant_supported(swar, p):
             fns["lab_swar"] = lambda p=p: lab.lab_iterate(img, n, p, swar)
         row = {k: v / n for k, v in interleaved_ms(fns, dev).items()}
         row["k2_over_k1"] = row["k2"] / row["k1"]
+        if "k1_int32" in row:
+            row["k1_over_int32"] = row["k1"] / row["k1_int32"]
         if "lab_current" in row:
             row["k1_over_current"] = row["k1"] / row["lab_current"]
         if "k3_ext" in row:

@@ -248,15 +248,19 @@ def test_schedule_names():
 
 
 def test_ctypes_structs_mirror_the_c_layout():
-    assert ctypes.sizeof(cs._Params) == 4 * (5 + 2 * cs.MAX_K + cs.MAX_K ** 2)
+    assert ctypes.sizeof(cs._Params) == 4 * (9 + 2 * cs.MAX_K + cs.MAX_K ** 2)
+    assert ctypes.sizeof(cs._Params) % 16 == 0
+    assert cs._Params.div_mul.offset == 4 * (5 + 2 * cs.MAX_K + cs.MAX_K ** 2)
     assert ctypes.sizeof(cs._Geometry) == 4 * 8
     _, edge = _plans("edge")
     p = cs._params(edge)
     assert (p.kind, p.k, p.shift, p.clip, p.divisor) == (1, 3, -1, 1, 28.0)
     assert list(p.taps[:9]) == [1, 4, 1, 4, 8, 4, 1, 4, 1]  # stride k
+    # the proven multiply-high of /28, as __umulhi's multiplier
+    assert p.div_mul == 9363 << (32 - 18)
     _, g = _plans("gaussian")
     p = cs._params(g)
-    assert (p.kind, p.shift, p.clip) == (0, 4, 0)
+    assert (p.kind, p.shift, p.clip, p.div_mul) == (0, 4, 0, 0)
     assert list(p.row_taps[:3]) == [1, 2, 1] == list(p.col_taps[:3])
 
 

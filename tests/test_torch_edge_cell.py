@@ -12,7 +12,8 @@ RGB image, through the job path, and what traces it.
 * The cell on the CPU at a small size: correct, and its float16 control
   not correct.
 * K1's body choice for every registered filter, pinned: the cell
-  measures the ``int32`` body as it stands.
+  measures the direct plan's register body ``regs_direct``; the shared
+  tile's choice (``int32`` for the direct plans) is unchanged.
 * K1's reps by body (``cuda_stencil.body_rep_counts``), the
   ``model.issue`` span's ``plan``, ``bodies`` and ``body_reps``, and
   the reader ``benchmark/metrics/direct_rep_us.mpx.py`` on a synthetic
@@ -121,18 +122,36 @@ def test_the_float32_divide_by_28_is_exact():
     assert f["divisor"] == 28
 
 
-def test_the_job_runs_k1s_int32_body_at_the_cells_shape():
+def test_the_job_runs_k1s_direct_register_body_at_the_cells_shape():
     cfg = spec.config(BENCH, CONFIG)
     model = IteratedConv2D(cfg["filter"]["name"], backend="pallas",
                            boundary=cfg["boundary"], device=CPU)
     shape = (cfg["height"], cfg["width"])
     assert model.resolved_config(shape, 3) == ("pallas", "fused")
-    assert model.loop_body(shape, 3, reps=100) == "int32"
+    assert model.loop_body(shape, 3, reps=100) == "regs_direct"
     kernel, rows, wc, _, fuse = model._loop_kernel(shape, 3, None)
     assert (kernel, rows, wc) == ("stencil_fused", 5040, 5760)
     assert cs.launch_schedule(100, fuse) == [8] * 12 + [1] * 4
+    # the single-rep tail too: 960 blocks at fuse 1, more than the SMs
     assert {cs.launch_body(model.plan, 3, d, rows, wc)
-            for d in (8, 1)} == {"int32"}
+            for d in (8, 1)} == {"regs_direct"}
+
+
+def test_the_job_runs_k1s_int32_body_at_the_cells_shape():
+    # where the job forces a tile height: the shared tile's int32 body,
+    # fused and in the single-rep tail
+    cfg = spec.config(BENCH, CONFIG)
+    model = IteratedConv2D(cfg["filter"]["name"], backend="pallas",
+                           boundary=cfg["boundary"],
+                           block_h=cs.DEFAULT_BLOCK_H, device=CPU)
+    shape = (cfg["height"], cfg["width"])
+    assert model.resolved_config(shape, 3) == ("pallas", "fused")
+    assert model.loop_body(shape, 3, reps=100) == "int32"
+    kernel, rows, wc, bh, fuse = model._loop_kernel(shape, 3, None)
+    assert (kernel, rows, wc, bh) == ("stencil_fused", 5040, 5760,
+                                      cs.DEFAULT_BLOCK_H)
+    assert {cs.launch_body(model.plan, 3, d, rows, wc, bh)
+            for d in (fuse, 1)} == {"int32"}
 
 
 # ---------------------------------------------------------------------------
@@ -174,7 +193,7 @@ def test_the_spec_gives_each_job_cell_its_metrics():
 
 
 # ---------------------------------------------------------------------------
-# K1's body per filter, as the parent chose it
+# K1's body per filter
 # ---------------------------------------------------------------------------
 
 # (rows, W*C, channels): the three job cells and a small RGB canvas.
@@ -183,13 +202,13 @@ LAUNCHES = [(2520, 5760, 3), (5040, 1920, 1), (5040, 5760, 3), (37, 87, 3)]
 # then at fuse 8 with a forced tile height of 16 on the edge cell's).
 BODIES = {
     "box": ("acc16", ["acc16"] * 8 + ["acc16"]),
-    "edge": ("int32", ["int32"] * 8 + ["int32"]),
+    "edge": ("regs_direct", ["regs_direct"] * 8 + ["int32"]),
     "gaussian": ("regs", ["regs"] * 7 + ["swar"] + ["swar"]),
     "gaussian5": ("regs", ["regs"] * 7 + ["swar"] + ["swar"]),
     "gaussian7": ("acc16", ["acc16"] * 8 + ["acc16"]),
     "gaussian9": ("int32", ["int32"] * 8 + ["int32"]),
     "identity": ("swar", ["swar"] * 8 + ["swar"]),
-    "soft_blur": ("int32", ["int32"] * 8 + ["int32"]),
+    "soft_blur": ("regs_direct", ["regs_direct"] * 8 + ["int32"]),
 }
 
 
@@ -198,7 +217,7 @@ def test_every_registered_filter_is_pinned():
 
 
 @pytest.mark.parametrize("name", sorted(BODIES))
-def test_k1s_body_choice_is_unchanged(name):
+def test_k1s_body_choice_per_filter(name):
     plan = _plan(name)
     fused, launches = BODIES[name]
     assert cs.fused_body(plan) == fused
@@ -206,6 +225,25 @@ def test_k1s_body_choice_is_unchanged(name):
            for rows, wc, ch in LAUNCHES for fz in (8, 1)]
     got.append(cs.launch_body(plan, 3, 8, 5040, 5760, 16))
     assert got == launches
+
+
+# filter: the shared tile's body, which K2, K3 and every K1 launch that a
+# register body cannot take (or, under regs, loses) run.
+TILE_BODIES = {"box": "acc16", "edge": "int32", "gaussian": "swar",
+               "gaussian5": "swar", "gaussian7": "acc16",
+               "gaussian9": "int32", "identity": "swar",
+               "soft_blur": "int32"}
+
+
+@pytest.mark.parametrize("name", sorted(BODIES))
+def test_k1s_body_choice_is_unchanged(name):
+    # the shared tile's choice for every filter, the direct plans' too
+    plan = _plan(name)
+    assert cs.tile_body(plan) == TILE_BODIES[name]
+    assert cs.launch_body(plan, 3, 8, 5040, 5760, 16) == TILE_BODIES[name]
+    for kernel, rows in (("stencil_resident", 64), ("stencil_valid", 16)):
+        rec = cs.describe_launch(kernel, plan, rows, 96, 3, fuse=2)
+        assert rec["body"] == TILE_BODIES[name]
 
 
 # ---------------------------------------------------------------------------
@@ -239,17 +277,20 @@ META = dict(dtype=torch.uint8, device="meta")
 
 def test_body_rep_counts_move_by_a_calls_reps_and_reset(stub_launch):
     assert cs.body_rep_counts() == {}
+    # edge at the cell's shape: all 16 launches in regs_direct
+    cs.iterate(torch.empty((5040, 1920, 3), **META), 100, _plan("edge"))
+    assert cs.body_rep_counts() == {"regs_direct": 100}
+    assert cs.body_launch_counts() == {"regs_direct": 16}
+    # on a small image: edge's 16 launches in regs_direct, gaussian's 12
+    # fused launches in regs and 4 single reps on a one-block grid in the
+    # shared tile
     cs.iterate(torch.empty((64, 48, 3), **META), 100, _plan("edge"))
-    assert cs.body_rep_counts() == {"int32": 100}
-    assert cs.body_launch_counts() == {"int32": 16}
-    # gaussian: 12 fused launches in regs, 4 single reps on a one-block
-    # grid in the shared tile
     cs.iterate(torch.empty((64, 48, 3), **META), 100, _plan("gaussian"))
     cs.iterate(torch.empty((64, 48), **META), 9, _plan("box"), fuse=4)
-    assert cs.body_rep_counts() == {"int32": 100, "regs": 96, "swar": 4,
-                                    "acc16": 9}
-    assert cs.body_launch_counts() == {"int32": 16, "regs": 12, "swar": 4,
-                                       "acc16": 3}
+    assert cs.body_rep_counts() == {"regs_direct": 200, "regs": 96,
+                                    "swar": 4, "acc16": 9}
+    assert cs.body_launch_counts() == {"regs_direct": 32, "regs": 12,
+                                       "swar": 4, "acc16": 3}
     assert sum(cs.body_launch_counts().values()) == (
         cs.launch_counts()["stencil_fused"])
     cs.reset_launch_counts()
@@ -281,7 +322,7 @@ def _issue_spans():
 
 
 @pytest.mark.parametrize("name,plan,bodies,body_reps", [
-    ("edge", "direct_int", {"int32": 16}, {"int32": 100}),
+    ("edge", "direct_int", {"regs_direct": 16}, {"regs_direct": 100}),
     ("gaussian", "sep_int", {"regs": 12, "swar": 4},
      {"regs": 96, "swar": 4}),
 ])

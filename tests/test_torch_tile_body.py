@@ -318,11 +318,17 @@ def test_wrappers_pass_the_plans_body(name, kernel, monkeypatch):
         assert lib.bodies and set(lib.bodies) == {
             cs.K1_BODIES.index(cs.fused_body(plan))}
         lib.bodies.clear()
-        # a forced tile height, and single reps on these few-block grids
-        # (launch_body), run the shared tile's
+        # a single rep on these few-block frames: regs loses it to the
+        # shared tile (launch_body), regs_direct keeps it
+        cs.iterate_frames(torch.empty((3, 20, 16, 3), **meta), 1, plan)
+        single = (cs.tile_body(plan) if cs.fused_body(plan) == cs.REGS
+                  else cs.fused_body(plan))
+        assert lib.bodies and set(lib.bodies) == {
+            cs.K1_BODIES.index(single)}
+        lib.bodies.clear()
+        # a forced tile height runs the shared tile's
         cs.iterate(torch.empty((64, 48), **meta), 1, plan, block_h=16, fuse=2)
         cs.iterate(torch.empty((37, 29, 3), **meta), 9, plan, block_h=16)
-        cs.iterate_frames(torch.empty((3, 20, 16, 3), **meta), 1, plan)
         want = cs.tile_body(plan)
     elif kernel == "stencil_resident":
         monkeypatch.setattr(cs, "resident_feasible", lambda *a, **k: True)

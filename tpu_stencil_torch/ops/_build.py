@@ -200,17 +200,22 @@ def ptxas_instances(log: str) -> Dict[tuple, dict]:
     ``-Xptxas -v`` build log: ``(filter size, body index) -> {"registers":
     N, "spill": "..."}``, filter size 0 being the instance that reads it at
     run time; K1's register body (``stencil_fused_regs_kernel<k, C>``) as
-    ``(filter size, REGS_BODY, channels)``."""
+    ``(filter size, REGS_BODY, channels)``. Other kernels' lines are
+    skipped: K1's direct body (``stencil_fused_regs_direct_kernel<C,
+    MIRRORED, MULHI>``), whose instance the library picks
+    (:func:`cuda_stencil.instance_attributes` reads it from the card), and
+    kernels of one template argument."""
     out: Dict[tuple, dict] = {}
     key = None
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '_Z\d+(\w+?_kernel)ILi(\d+)"
-                      r"ELi(\d+)E", ln)
-        if m:
-            a, b = int(m.group(2)), int(m.group(3))
-            key = ((a, REGS_BODY, b) if m.group(1).endswith("_regs_kernel")
-                   else (a, b))
-            out[key] = {}
+        if "Compiling entry function" in ln:
+            m = re.search(r"'_Z\d+(\w+?_kernel)ILi(\d+)ELi(\d+)E", ln)
+            key = None
+            if m:
+                a, b = int(m.group(2)), int(m.group(3))
+                key = ((a, REGS_BODY, b)
+                       if m.group(1).endswith("_regs_kernel") else (a, b))
+                out[key] = {}
         elif key and "registers" in ln:
             out[key]["registers"] = int(re.search(r"Used (\d+) registers",
                                                   ln).group(1))

@@ -23,16 +23,19 @@
 // accesses a packed word a rep and two block barriers, which set K1's pace;
 // so K1 has a fourth body of its own, `regs` (stencil_regs.cuh): the carry
 // and both passes in registers, neighbour lanes by warp shuffle, one
-// exchange of pair rows between warps and one barrier a rep. The host runs
-// it for the plans and launches it takes (cuda_stencil.launch_body), the
-// shared tile's body otherwise; K2 and K3 keep the shared tile.
+// exchange of pair rows between warps and one barrier a rep; and a fifth,
+// `regs_direct`, the same layout for non-negative 3x3 direct plans (edge).
+// The host runs them for the plans and launches they take
+// (cuda_stencil.launch_body), the shared tile's body otherwise; K2 and K3
+// keep the shared tile.
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a -O3 into a shared
 // library with a plain C interface (loaded with ctypes); never with
 // --use_fast_math, and the divide is __fdiv_rn regardless. Every body and
 // every compile-time filter size is one instance (under `regs`, every filter
-// size and channel count); the launch picks it from (body, k, channels), so
-// no branch on the body is left inside the kernel.
+// size and channel count; under `regs_direct`, every channel count, finish
+// and mirror); the launch picks it from the body and the plan's
+// parameters, so no branch on the body is left inside the kernel.
 
 #include "stencil_regs.cuh"
 
@@ -67,9 +70,25 @@ static const void* regs_kernel_for_k(int k) {
   }
 }
 
-static const void* kernel_for(int k, int body, int channels) {
+// The direct body's instance for a plan of `C` channels: the proven
+// multiply-high where the host passed a multiplier, for mirrored taps or
+// any, else the divide.
+template <int C>
+static const void* direct_kernel_for(const StencilParams& p) {
+  if (!p.div_mul)
+    return (const void*)stencil_fused_regs_direct_kernel<C, false, false>;
+  if (stencil_direct_mirrored(p))
+    return (const void*)stencil_fused_regs_direct_kernel<C, true, true>;
+  return (const void*)stencil_fused_regs_direct_kernel<C, false, true>;
+}
+
+static const void* kernel_for(const StencilParams& p, int body,
+                              int channels) {
+  const int k = p.k;
   if (body == STENCIL_BODY_REGS)
     return channels == 3 ? regs_kernel_for_k<3>(k) : regs_kernel_for_k<1>(k);
+  if (body == STENCIL_BODY_REGS_DIRECT)
+    return channels == 3 ? direct_kernel_for<3>(p) : direct_kernel_for<1>(p);
   switch (body) {
     case STENCIL_BODY_INT32: return kernel_for_k<STENCIL_BODY_INT32>(k);
     case STENCIL_BODY_ACC16: return kernel_for_k<STENCIL_BODY_ACC16>(k);
@@ -88,8 +107,10 @@ static const void* prepare(const StencilParams* p, const StencilGeometry* g,
   if (fuse < 1 || p->k < 1 || p->k > STENCIL_MAX_K || g->tile_h < 1 ||
       g->tile_w < 1)
     return nullptr;
-  if (body == STENCIL_BODY_REGS) {
-    if (!stencil_regs_runs(*p, *g, fuse)) return nullptr;
+  if (body == STENCIL_BODY_REGS || body == STENCIL_BODY_REGS_DIRECT) {
+    if (body == STENCIL_BODY_REGS ? !stencil_regs_runs(*p, *g, fuse)
+                                  : !stencil_regs_direct_runs(*p, *g, fuse))
+      return nullptr;
     *smem = stencil_regs_smem();
     *threads = 32 * STENCIL_REGS_WARPS;
   } else {
@@ -99,7 +120,7 @@ static const void* prepare(const StencilParams* p, const StencilGeometry* g,
     *smem = stencil_tile_smem(*p, *g, fuse, body);
     *threads = stencil_block_threads(*p, *g, fuse);
   }
-  const void* fn = kernel_for(p->k, body, g->channels);
+  const void* fn = kernel_for(*p, body, g->channels);
   *err = (int)cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
   return *err == 0 ? fn : nullptr;
@@ -110,9 +131,9 @@ static int g_last_body = -1;
 extern "C" {
 
 // One launch: `fuse` reps from src to dst (distinct buffers) with the body
-// `body` (STENCIL_BODY_*, STENCIL_BODY_REGS). Returns the cudaError_t of the
-// launch (0 = launched); a body that does not run the launch is
-// cudaErrorInvalidValue.
+// `body` (STENCIL_BODY_*, STENCIL_BODY_REGS, STENCIL_BODY_REGS_DIRECT).
+// Returns the cudaError_t of the launch (0 = launched); a body that does
+// not run the launch is cudaErrorInvalidValue.
 int stencil_fused_launch(const void* src, void* dst, const StencilParams* p,
                          const StencilGeometry* g, int fuse, int body,
                          void* stream) {
@@ -141,7 +162,8 @@ int stencil_fused_last_body(void) { return g_last_body; }
 // Shared-memory bytes a launch with `body` asks for.
 long long stencil_fused_smem(const StencilParams* p, const StencilGeometry* g,
                              int fuse, int body) {
-  if (body == STENCIL_BODY_REGS) return (long long)stencil_regs_smem();
+  if (body == STENCIL_BODY_REGS || body == STENCIL_BODY_REGS_DIRECT)
+    return (long long)stencil_regs_smem();
   return (long long)stencil_tile_smem(*p, *g, fuse, body);
 }
 
@@ -155,6 +177,24 @@ int stencil_fused_occupancy(const StencilParams* p, const StencilGeometry* g,
   if (!fn) return err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn,
                                                             threads, smem);
+}
+
+// The registers a thread (out[0]) and local-memory bytes a thread (out[1])
+// of the instance a launch would use (cudaFuncGetAttributes): a spill
+// shows as local memory. Returns the cudaError_t of the query.
+int stencil_fused_attributes(const StencilParams* p, const StencilGeometry* g,
+                             int fuse, int body, int* out) {
+  size_t smem = 0;
+  int err = 0, threads = 0;
+  const void* fn = prepare(p, g, fuse, body, &smem, &threads, &err);
+  if (!fn) return err;
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, fn);
+  if (e == cudaSuccess) {
+    out[0] = a.numRegs;
+    out[1] = (int)a.localSizeBytes;
+  }
+  return (int)e;
 }
 
 const char* stencil_fused_error_string(int code) {

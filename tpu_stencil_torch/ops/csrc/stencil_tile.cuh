@@ -89,6 +89,14 @@ struct StencilParams {
   int row_taps[STENCIL_MAX_K];               // sep_int: pass along rows
   int col_taps[STENCIL_MAX_K];               // sep_int: pass along lanes
   int taps[STENCIL_MAX_K * STENCIL_MAX_K];   // direct_int, row-major
+  // K1's register body for direct plans (stencil_regs.cuh) on the divide
+  // path: a field's quotient is __umulhi(field, div_mul), which the host
+  // proved equal to the float32 divide for every reachable field
+  // (cuda_stencil.direct_divide); 0 where no multiplier passed.
+  unsigned int div_mul;
+  // Keeps the struct a multiple of 16 bytes, so that the kernel parameters
+  // after it keep their alignment (and the kernels their code).
+  unsigned int pad[3];
 };
 
 struct StencilGeometry {

@@ -6,7 +6,8 @@ kernel of the JAX package's ``ops/pallas_stencil.py``:
 * **K1** :func:`stencil_fused` (``csrc/stencil_fused.cu``, replaces
   ``_sep_kernel``): ``fuse`` reps per trip through device memory, one tile
   per block with its ghost bands: in registers under K1's own ``regs``
-  body (:func:`regs_geometry`'s tile), else ``block_h`` rows by
+  and ``regs_direct`` bodies (:func:`regs_geometry`'s tile), else
+  ``block_h`` rows by
   :data:`TILE_W` flat lanes in shared memory. :func:`iterate` runs ``reps
   // fuse`` fused launches, then ``reps % fuse`` single-rep launches,
   ping-ponging two uint8 buffers.
@@ -47,14 +48,16 @@ K1, K2 and K3 share one tile (``csrc/stencil_tile.cuh``) whose rep body
 is chosen per plan by :func:`tile_body`: ``swar`` (rows 2q and 2q+1 as two
 16-bit fields of one 32-bit word, 4 bytes of shared memory per element),
 ``acc16`` (an int16 rows-pass intermediate, 3 bytes) or ``int32`` (5
-bytes, every plan). K1 has a fourth body of its own, ``regs``
-(``csrc/stencil_regs.cuh``: ``swar``'s packing with the tile and both
-passes in registers, neighbour lanes by warp shuffle), which
-:func:`fused_body` picks from the plan alone and :func:`launch_body` runs
-wherever the launch's own arguments allow it (its geometry is
-:func:`regs_geometry`'s). Each body is its own kernel instance in the
-library; the wrapper passes the body's index and nothing substitutes
-another body.
+bytes, every plan). K1 has two register bodies of its own
+(``csrc/stencil_regs.cuh``): ``regs`` (``swar``'s packing with the tile
+and both passes in registers, neighbour lanes by warp shuffle) for the
+binomial plans, and ``regs_direct`` (the same layout, 3x3 taps on packed
+words, an exact finish per field) for the non-negative 3x3 direct plans
+(:func:`regs_direct_ok`), which :func:`fused_body` picks from the plan
+alone and :func:`launch_body` runs wherever the launch's own arguments
+allow it (their geometry is :func:`regs_geometry`'s). Each body is its
+own kernel instance in the library; the wrapper passes the body's index
+and nothing substitutes another body.
 
 Geometry is re-derived for Hopper: the TPU's 16 MiB VMEM budget becomes
 the 227 KB of shared memory a block may use (the ghost band must fit the
@@ -107,10 +110,13 @@ DEEP = "deep"
 # The tile bodies of K1, K2 and K3, by their index in
 # csrc/stencil_tile.cuh (STENCIL_BODY_*).
 BODIES = ("int32", "acc16", "swar")
-# K1's register body (csrc/stencil_regs.cuh, STENCIL_BODY_REGS), and K1's
-# bodies by index.
+# K1's register bodies (csrc/stencil_regs.cuh): ``regs`` for binomial
+# separable plans (STENCIL_BODY_REGS) and ``regs_direct`` for non-negative
+# 3x3 direct plans (STENCIL_BODY_REGS_DIRECT); K1's bodies by index.
 REGS = "regs"
-K1_BODIES = BODIES + (REGS,)
+REGS_DIRECT = "regs_direct"
+REGS_BODIES = (REGS, REGS_DIRECT)
+K1_BODIES = BODIES + REGS_BODIES
 assert K1_BODIES.index(REGS) == _build.REGS_BODY
 # Its register tile (STENCIL_REGS_*, stencil_regs_q): flat lanes a thread
 # holds, row pairs a thread holds by filter size (the filter sizes it is
@@ -122,6 +128,10 @@ REGS_KS = tuple(REGS_Q)
 REGS_WARPS = 8
 REGS_ALIGN = 8
 REGS_CHANNELS = (1, 3)
+# Row pairs a thread holds in ``regs_direct`` (STENCIL_REGS_DIRECT_Q).
+REGS_DIRECT_Q = 8
+# A packed word's field: the direct body's sums stay below it.
+FIELD = 2 ** 16
 
 class KernelLaunchError(RuntimeError):
     """A kernel launch was refused (the C entry returned a cudaError_t).
@@ -190,16 +200,71 @@ def _binomial(taps) -> bool:
     return tuple(taps) == tuple(math.comb(k - 1, i) for i in range(k))
 
 
+def _direct_taps(plan: StencilPlan) -> Tuple[int, ...]:
+    """A direct plan's taps, row-major, as integers."""
+    return tuple(int(t) for row in plan.taps for t in row)
+
+
+def regs_direct_ok(plan: StencilPlan) -> bool:
+    """``regs_direct`` computes ``plan`` exactly: a 3x3 ``direct_int`` plan
+    whose taps are all >= 0 with ``255 * sum(taps) < 2^16`` (no packed
+    field carries into the next) and that needs no clip, ``255 *
+    sum(taps) / divisor < 256`` (the float32 divisor; a power of two on a
+    dyadic plan) (``stencil_regs_direct_runs``)."""
+    if plan.kind != "direct_int" or plan.k != 3:
+        return False
+    taps = _direct_taps(plan)
+    total = sum(taps)
+    return (min(taps) >= 0 and 255 * total < FIELD
+            and 255.0 * total < 256.0 * ctypes.c_float(plan.divisor).value)
+
+
+@functools.lru_cache(maxsize=256)
+def direct_divide(plan: StencilPlan) -> Optional[Tuple[int, int]]:
+    """(M, S) such that ``(s * M) >> S`` equals ``min(255, trunc(
+    float32(s) / float32(divisor)))`` for every sum ``s`` the plan can
+    make, ``[0, 255 * sum(taps)]``: the smallest S in 1..32 whose ``M =
+    ceil(2^S / divisor)`` passes that exhaustive check, with ``M < 2^S``
+    so that the kernel's ``__umulhi(s, M << (32 - S))`` computes it (on a
+    dyadic plan, ``M = 1`` and ``S`` its shift). None for a plan
+    ``regs_direct`` does not run, or where no (M, S) passes (the body then
+    divides per field with ``__fdiv_rn``). Proven once per plan on the
+    host."""
+    if not regs_direct_ok(plan):
+        return None
+    s = torch.arange(255 * sum(_direct_taps(plan)) + 1, dtype=torch.int64)
+    want = torch.clamp(torch.trunc(_lowering.divide_f32(
+        s.to(torch.float32), plan.divisor)), 0, 255).to(torch.int64)
+    for shift in range(1, 33):
+        mul = math.ceil(2 ** shift / plan.divisor)
+        if mul < 2 ** shift and torch.equal((s * mul) >> shift, want):
+            return mul, shift
+    return None
+
+
 @functools.lru_cache(maxsize=256)
 def fused_body(plan: StencilPlan) -> str:
     """The body K1 runs ``plan`` with, from the plan alone: ``regs`` for a
     :func:`swar_ok` plan with binomial taps of a size the body is built
-    for (:data:`REGS_KS`) in both passes, gaussian and gaussian5; else
+    for (:data:`REGS_KS`) in both passes, gaussian and gaussian5;
+    ``regs_direct`` where :func:`regs_direct_ok` holds (edge); else
     :func:`tile_body`'s. K2 and K3 run :func:`tile_body`'s."""
     if (swar_ok(plan) and plan.k in REGS_KS and _binomial(plan.row_taps)
             and _binomial(plan.col_taps)):
         return REGS
+    if regs_direct_ok(plan):
+        return REGS_DIRECT
     return tile_body(plan)
+
+
+def regs_q(plan: StencilPlan) -> Optional[int]:
+    """Row pairs a thread holds in the register body :func:`fused_body`
+    names (``regs``: by filter size; ``regs_direct``:
+    :data:`REGS_DIRECT_Q`); None for a plan neither runs."""
+    body = fused_body(plan)
+    if body == REGS_DIRECT:
+        return REGS_DIRECT_Q
+    return REGS_Q[plan.k] if body == REGS else None
 
 
 def regs_left(plan: StencilPlan, channels: int, fuse: int) -> int:
@@ -212,19 +277,21 @@ def regs_left(plan: StencilPlan, channels: int, fuse: int) -> int:
 @functools.lru_cache(maxsize=1024)
 def regs_geometry(plan: StencilPlan, channels: int,
                   fuse: int) -> Optional[Tuple[int, int, int]]:
-    """(tile_h, tile_w, warps) of a ``regs`` launch at ``fuse`` reps: the
-    output tile that the ghost bands (``fuse * halo`` rows and ``fuse *
-    halo * C`` lanes per side, the left one :func:`regs_left`'s) leave of
-    the register extent (:data:`REGS_WARPS` warps of ``2 * REGS_Q[k]`` rows
-    by ``32 * REGS_V`` lanes), ``tile_w`` cut to whole :data:`REGS_ALIGN`
-    lanes (``stencil_regs_runs``). None where that leaves no tile, or for
-    a filter size the body is not built for."""
-    if plan.k not in REGS_Q:
+    """(tile_h, tile_w, warps) of a ``regs`` or ``regs_direct`` launch at
+    ``fuse`` reps: the output tile that the ghost bands (``fuse * halo``
+    rows and ``fuse * halo * C`` lanes per side, the left one
+    :func:`regs_left`'s) leave of the register extent (:data:`REGS_WARPS`
+    warps of ``2 * regs_q(plan)`` rows by ``32 * REGS_V`` lanes),
+    ``tile_w`` cut to whole :data:`REGS_ALIGN` lanes
+    (``stencil_regs_tile_fits``). None where that leaves no tile, or for a
+    plan neither body is built for."""
+    q = regs_q(plan)
+    if q is None:
         return None
     gr = fuse * plan.halo
     tile_w = ((32 * REGS_V - regs_left(plan, channels, fuse) - gr * channels)
               // REGS_ALIGN * REGS_ALIGN)
-    tile_h = REGS_WARPS * 2 * REGS_Q[plan.k] - 2 * gr
+    tile_h = REGS_WARPS * 2 * q - 2 * gr
     if fuse < 1 or tile_w < REGS_ALIGN or tile_h < 1:
         return None
     return tile_h, tile_w, REGS_WARPS
@@ -238,8 +305,8 @@ def regs_smem_bytes() -> int:
 
 def regs_grid(plan: StencilPlan, channels: int, fuse: int, rows: int,
               wc: int) -> int:
-    """Blocks of a ``regs`` launch at ``fuse`` reps on a flat (rows, wc)
-    image (:func:`regs_geometry`'s tiles)."""
+    """Blocks of a ``regs`` or ``regs_direct`` launch at ``fuse`` reps on a
+    flat (rows, wc) image (:func:`regs_geometry`'s tiles)."""
     tile_h, tile_w, _ = regs_geometry(plan, channels, fuse)
     return -(-rows // tile_h) * -(-wc // tile_w)
 
@@ -249,22 +316,26 @@ def launch_body(plan: StencilPlan, channels: int, fuse: int, rows: int,
                 wc: int, block_h: Optional[int] = None,
                 sms: int = H100_SMS) -> str:
     """The body one K1 launch of ``fuse`` reps on a flat (rows, wc) image
-    runs: :func:`fused_body`'s, except that a launch ``regs`` cannot take
-    or loses runs :func:`tile_body`'s. It cannot take a forced tile height
-    (``block_h``; the register extent sets ``regs``'s own), a channel
-    count it is not built for, or a ``fuse`` whose ghost bands leave no
-    tile (:func:`regs_geometry`). It loses a single-rep launch whose grid
+    runs: :func:`fused_body`'s, except that a launch a register body
+    (``regs``, ``regs_direct``) cannot take, or that ``regs`` loses, runs
+    :func:`tile_body`'s. A register body cannot take a forced tile height
+    (``block_h``; the register extent sets its own), a channel count it is
+    not built for, or a ``fuse`` whose ghost bands leave no tile
+    (:func:`regs_geometry`). ``regs`` loses a single-rep launch whose grid
     has fewer blocks than the card (``sms``) has SMs: with no ghost rows
-    to recompute, the shared tile's 3-4x more threads a pixel fill the
-    card that ``regs`` leaves idle (5.4-5.9 against 6.1-8.1 us a launch
-    on an H100 at 1-48 blocks; from 196 blocks, and at fuse 8 at every
-    size, ``regs`` won)."""
+    to recompute, ``swar``'s 3-4x more threads a pixel fill the card that
+    ``regs`` leaves idle (5.4-5.9 against 6.1-8.1 us a launch on an H100 at
+    1-48 blocks; from 196 blocks, and at fuse 8 at every size, ``regs``
+    won). ``regs_direct`` keeps such launches: against ``int32`` it read
+    9.6-13.6 against 10.3-30.9 us a launch at 1-260 blocks, but for 11.6
+    against 10.6 on four 256x256 RGB frames (36 blocks)."""
     body = fused_body(plan)
-    if body != REGS:
+    if body not in REGS_BODIES:
         return body
     if (block_h is not None or channels not in REGS_CHANNELS
             or regs_geometry(plan, channels, fuse) is None
-            or (fuse == 1 and regs_grid(plan, channels, 1, rows, wc) < sms)):
+            or (body == REGS and fuse == 1
+                and regs_grid(plan, channels, 1, rows, wc) < sms)):
         return tile_body(plan)
     return body
 
@@ -605,7 +676,8 @@ class _Params(ctypes.Structure):
         ("kind", ctypes.c_int), ("k", ctypes.c_int), ("shift", ctypes.c_int),
         ("clip", ctypes.c_int), ("divisor", ctypes.c_float),
         ("row_taps", ctypes.c_int * MAX_K), ("col_taps", ctypes.c_int * MAX_K),
-        ("taps", ctypes.c_int * (MAX_K * MAX_K)),
+        ("taps", ctypes.c_int * (MAX_K * MAX_K)), ("div_mul", ctypes.c_uint),
+        ("pad", ctypes.c_uint * 3),
     ]
 
 
@@ -650,6 +722,10 @@ def _params(plan: StencilPlan) -> _Params:
         for i, row in enumerate(plan.taps):
             for j, t in enumerate(row):
                 p.taps[i * plan.k + j] = int(t)  # packed with stride k
+        divide = direct_divide(plan)
+        if divide is not None:
+            mul, shift = divide
+            p.div_mul = mul << (32 - shift)  # __umulhi(s, .) = s * M >> S
     return p
 
 
@@ -718,7 +794,7 @@ def _tile_query(kernel: str, fn: str, plan: StencilPlan, block_h: int,
     :func:`tile_body`) at (block_h, fuse); a ``regs`` tile at
     :func:`regs_geometry`'s (``block_h`` unused)."""
     body = tile_body(plan) if body is None else body
-    if kernel == "stencil_fused" and body == REGS:
+    if kernel == "stencil_fused" and body in REGS_BODIES:
         th, tw, _ = regs_geometry(plan, channels, fuse)
         geom = _Geometry(th, tw, th, channels, 0, 0, th, tw)
     elif kernel == "stencil_fused":
@@ -755,6 +831,26 @@ def blocks_per_sm(kernel: str, plan: StencilPlan, block_h: int, fuse: int,
                           channels, body, ctypes.addressof(blocks))
     _raise_on(rc, lib, f"{kernel}_error_string", f"{kernel} occupancy")
     return blocks.value
+
+
+def instance_attributes(plan: StencilPlan, channels: int, fuse: int,
+                        body: Optional[str] = None) -> Dict[str, int]:
+    """Registers a thread and local-memory bytes a thread of the K1
+    instance that runs ``plan`` in ``body`` (default :func:`fused_body`'s)
+    at ``fuse`` reps, as the card reports them (cudaFuncGetAttributes): a
+    spill shows as local memory."""
+    out = (ctypes.c_int * 2)()
+    body = fused_body(plan) if body is None else body
+    # declared here, not in _fused_lib: every K1 launch loads the library
+    fn = _fused_lib().stencil_fused_attributes
+    fn.argtypes = [_P, _P, ctypes.c_int, ctypes.c_int, _P]
+    fn.restype = ctypes.c_int
+    lib, rc = _tile_query("stencil_fused", "attributes", plan,
+                          DEFAULT_BLOCK_H, fuse, channels, body,
+                          ctypes.addressof(out))
+    _raise_on(rc, lib, "stencil_fused_error_string",
+              "stencil_fused attributes")
+    return {"registers": out[0], "local_bytes": out[1]}
 
 
 def ran_body(kernel: str) -> Optional[str]:
@@ -831,7 +927,8 @@ def describe_launch(kernel: str, plan: StencilPlan, rows: int, wc: int,
     body (K1's :func:`launch_body`), tile, grid, threads per block and
     dynamic shared memory (the host model's), and on a card its resident
     blocks per SM (the library's occupancy query; K2's grid too) and
-    registers (the build's ``-Xptxas -v`` lines); None for those on the
+    registers (the build's ``-Xptxas -v`` lines; under ``regs_direct``,
+    :func:`instance_attributes`'); None for those on the
     CPU."""
     on_card = device is not None and torch.device(device).type == "cuda"
     body, tw = tile_body(plan), TILE_W
@@ -845,7 +942,7 @@ def describe_launch(kernel: str, plan: StencilPlan, rows: int, wc: int,
                                  None, device)
     threads = block_threads(plan, fz, channels)
     smem = tile_smem_bytes(plan, bh, fz, channels)
-    if body == REGS:
+    if body in REGS_BODIES:
         tw = regs_geometry(plan, channels, fz)[1]
         threads, smem = 32 * REGS_WARPS, regs_smem_bytes()
     # K2's grid is the co-resident blocks, which only the card knows.
@@ -863,7 +960,13 @@ def describe_launch(kernel: str, plan: StencilPlan, rows: int, wc: int,
             with torch.cuda.device(device):
                 rec["blocks_per_sm"] = blocks_per_sm(kernel, plan, bh, fz,
                                                      channels, body)
-        regs = _instance_registers(kernel, plan, body, channels)
+        if body == REGS_DIRECT:  # its instance is the library's choice
+            with torch.cuda.device(device):
+                a = instance_attributes(plan, channels, fz, body)
+            regs = {"registers": a["registers"],
+                    "spill": f"{a['local_bytes']} bytes local memory"}
+        else:
+            regs = _instance_registers(kernel, plan, body, channels)
         if regs:
             rec["registers"] = regs.get("registers")
             if regs.get("spill"):
@@ -927,8 +1030,8 @@ def stencil_fused(x2: torch.Tensor, plan: StencilPlan, channels: int,
                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K1: ``fuse`` reps of the flat (rows, W*C) uint8 image ``x2`` into
     ``out`` (allocated when None; must not alias ``x2``), in the body
-    :func:`launch_body` names: ``regs`` at :func:`regs_geometry`'s tile, or
-    the shared tile's body at ``block_h`` rows (None:
+    :func:`launch_body` names: a register body at :func:`regs_geometry`'s
+    tile, or the shared tile's body at ``block_h`` rows (None:
     :func:`effective_block_h`'s; a forced height runs the shared tile).
     ``rows_real``: rows past it lie outside the image; ``frame`` =
     (stride, frame_h) marks the frames layout. CPU tensors run
@@ -947,7 +1050,7 @@ def stencil_fused(x2: torch.Tensor, plan: StencilPlan, channels: int,
     body = launch_body(plan, channels, fuse, x2.shape[0], x2.shape[1],
                        block_h, sm_count(x2.device))
     params = _params(plan)
-    if body == REGS:
+    if body in REGS_BODIES:
         tile_h, tile_w, _ = regs_geometry(plan, channels, fuse)
     else:
         tile_h = (effective_block_h(plan, x2.shape[0], channels)
@@ -1145,22 +1248,23 @@ def k1_launch(plan: StencilPlan, rows: int, wc: int, channels: int,
               schedule: Optional[str], device: Optional[torch.device]
               ) -> Tuple[str, int, int]:
     """(body, tile_h, fuse) of a rep loop's fused K1 launches on a flat
-    (rows, wc) image: ``regs`` at the forced ``fuse`` or
-    :data:`DEFAULT_FUSE`, whatever the schedule and the image's height, and
-    at :func:`regs_geometry`'s tile, where :func:`launch_body` runs it
-    there; else the shared tile at :func:`effective_geometry`. ('deep'
-    deepens the shared tile's launches to cut its trips through device
-    memory; a ``regs`` rep is cheapest at 8: 5.66 us at 1920x2520 RGB on an
-    H100, 6.49 at 12, 7.10 at 16.)"""
+    (rows, wc) image: a register body (``regs``, ``regs_direct``) at the
+    forced ``fuse`` or :data:`DEFAULT_FUSE`, whatever the schedule and the
+    image's height, and at :func:`regs_geometry`'s tile, where
+    :func:`launch_body` runs it there; else the shared tile at
+    :func:`effective_geometry`. ('deep' deepens the shared tile's launches
+    to cut its trips through device memory; a ``regs`` rep is cheapest at
+    8: 5.66 us at 1920x2520 RGB on an H100, 6.49 at 12, 7.10 at 16.)"""
     sms = sm_count(device)
     if block_h is None:
         fz = DEFAULT_FUSE if fuse is None else fuse
-        if launch_body(plan, channels, fz, rows, wc, None, sms) == REGS:
-            return REGS, regs_geometry(plan, channels, fz)[0], fz
+        body = launch_body(plan, channels, fz, rows, wc, None, sms)
+        if body in REGS_BODIES:
+            return body, regs_geometry(plan, channels, fz)[0], fz
     bh, fz = effective_geometry(plan, rows, channels, block_h, fuse,
                                 schedule=schedule)
     body = launch_body(plan, channels, fz, rows, wc, block_h, sms)
-    if body == REGS:
+    if body in REGS_BODIES:
         bh = regs_geometry(plan, channels, fz)[0]
     return body, bh, fz
 

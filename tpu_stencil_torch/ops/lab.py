@@ -262,6 +262,44 @@ def _swar_rep(p64: torch.Tensor, plan: StencilPlan, channels: int,
     return (acc >> plan.shift) & mask
 
 
+def _regs_direct_rep(p64: torch.Tensor, plan: StencilPlan, channels: int,
+                     mask, fill: int = 0) -> torch.Tensor:
+    """One rep of the ``regs_direct`` body on packed words ``p64`` (..., Q,
+    wc), as :func:`_swar_rep` for ``swar``: a pair of ``fill`` above and
+    below and ``channels`` lanes of ``fill`` left and right; for pair row q
+    the vertical words W(2q-1), W(2q), W(2q+1) (straddle, pair, straddle),
+    ``y_j = sum_i taps[i][j] * W(2q-1+i)`` on whole words, ``y_0[v-C] +
+    y_1[v] + y_2[v+C]``, then the plan's finish per 16-bit field
+    (``(field * M) >> S`` with :func:`cuda_stencil.direct_divide`'s (M,
+    S), else the float32 divide) and ``mask``."""
+    c = channels
+    q, wc = p64.shape[-2:]
+    lead = p64.shape[:-2]
+    word = 0xFFFFFFFF
+    kw = dict(dtype=torch.int64, device=p64.device)
+    x = torch.cat([torch.full(lead + (q, c), fill, **kw), p64,
+                   torch.full(lead + (q, c), fill, **kw)], -1)
+    pad = torch.full(lead + (1, wc + 2 * c), fill, **kw)
+    pp = torch.cat([pad, x, pad], -2)  # pair j of p64 at pp[j + 1]
+    # ss[j] = W(2j - 1): the high field of pp[j] under the low of pp[j + 1]
+    ss = (pp[..., :-1, :] >> 16) | ((pp[..., 1:, :] & 0xFFFF) << 16)
+    w = (ss[..., :q, :], pp[..., 1:q + 1, :], ss[..., 1:q + 1, :])
+    taps = [[int(t) for t in row] for row in plan.taps]
+    y = [(taps[0][j] * w[0] + taps[1][j] * w[1] + taps[2][j] * w[2]) & word
+         for j in range(3)]
+    acc = (y[0][..., :wc] + y[1][..., c:c + wc] + y[2][..., 2 * c:]) & word
+    lo, hi = acc & 0xFFFF, acc >> 16
+    divide = cs.direct_divide(plan)
+    if divide is not None:
+        mul, shift = divide
+        lo, hi = (lo * mul) >> shift, (hi * mul) >> shift
+    else:
+        lo, hi = (torch.clamp(torch.trunc(_lowering.divide_f32(
+            f.to(torch.float32), plan.divisor)), 0, 255).to(torch.int64)
+            for f in (lo, hi))
+    return (lo | (hi << 16)) & mask
+
+
 def pack_pairs(x2: torch.Tensor) -> torch.Tensor:
     """(rows, wc) bytes -> (ceil(rows / 2), wc) int64 words of the row
     pairs (2q low, 2q+1 high); an odd row count gains one zero row."""
@@ -312,29 +350,33 @@ def swar_fused_plain(x2: torch.Tensor, plan: StencilPlan, channels: int,
 def regs_fused_plain(x2: torch.Tensor, plan: StencilPlan, channels: int,
                      fuse: int, rows_real: Optional[int] = None,
                      frame=None) -> torch.Tensor:
-    """One K1 launch of ``fuse`` reps computed as the ``regs`` body
+    """One K1 launch of ``fuse`` reps computed as the register body
+    :func:`cuda_stencil.fused_body` names (``regs``, ``regs_direct``)
     computes it: the image cut into :func:`cuda_stencil.regs_geometry`'s
-    tiles, each block's register extent (``warps * 2 * REGS_Q[k]`` rows by
-    ``32 * REGS_V`` lanes from ``fuse * halo`` rows above and the rounded
-    left ghost band left of its tile) loaded with the image's rows and
-    lanes (zero outside it, and on rows outside ``rows_real`` or in a
+    tiles, each block's register extent (``warps * 2 * regs_q(plan)`` rows
+    by ``32 * REGS_V`` lanes from ``fuse * halo`` rows above and the
+    rounded left ghost band left of its tile) loaded with the image's rows
+    and lanes (zero outside it, and on rows outside ``rows_real`` or in a
     frame's gap) and packed in pairs, ``fuse`` reps of :func:`_swar_rep`
-    that read 255 in every field past the extent (the kernel reads wrong
-    values there, which only the ghost bands may absorb; zeros would pass
-    for the image's boundary) with the re-zero mask,
-    then only each tile unpacked and stored. Equals
-    :func:`cuda_stencil.stencil_fused_plain` wherever the body runs."""
+    (``regs``) or :func:`_regs_direct_rep` (``regs_direct``) that read 255
+    in every field past the extent (the kernel reads wrong values there,
+    which only the ghost bands may absorb; zeros would pass for the
+    image's boundary) with the re-zero mask, then only each tile unpacked
+    and stored. Equals :func:`cuda_stencil.stencil_fused_plain` wherever
+    the body runs."""
     geo = cs.regs_geometry(plan, channels, fuse)
-    if (cs.fused_body(plan) != cs.REGS or channels not in cs.REGS_CHANNELS
+    body = cs.fused_body(plan)
+    if (body not in cs.REGS_BODIES or channels not in cs.REGS_CHANNELS
             or geo is None):
-        raise ValueError("the regs body does not run this launch")
+        raise ValueError("the regs bodies do not run this launch")
+    step = _swar_rep if body == cs.REGS else _regs_direct_rep
     tile_h, tile_w, warps = geo
     rows, wc = x2.shape
     rows_real = rows if rows_real is None else rows_real
     dev = x2.device
     gr = fuse * plan.halo
     left = cs.regs_left(plan, channels, fuse)
-    ext_h, ext_w = warps * 2 * cs.REGS_Q[plan.k], 32 * cs.REGS_V
+    ext_h, ext_w = warps * 2 * cs.regs_q(plan), 32 * cs.REGS_V
     gy, gx = -(-rows // tile_h), -(-wc // tile_w)
     pad_h, pad_w = (gy - 1) * tile_h + ext_h, (gx - 1) * tile_w + ext_w
     keep = cs._row_keep(rows, rows_real, frame, dev)
@@ -353,7 +395,7 @@ def regs_fused_plain(x2: torch.Tensor, plan: StencilPlan, channels: int,
     lk = lane_keep.unfold(0, ext_w, tile_w).to(torch.int64)
     mask = rk * lk.reshape(1, gx, 1, ext_w)
     for _ in range(fuse):
-        p64 = _swar_rep(p64, plan, channels, mask, fill=0x00FF00FF)
+        p64 = step(p64, plan, channels, mask, fill=0x00FF00FF)
     out = torch.stack([p64 & 0xFF, (p64 >> 16) & 0xFF], -2)
     out = out.reshape(gy, gx, ext_h, ext_w)
     out = out[:, :, gr:gr + tile_h, left:left + tile_w]

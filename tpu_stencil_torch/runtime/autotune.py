@@ -302,19 +302,21 @@ def _geometry_candidates(plan: StencilPlan, n_rows: int, channels: int,
     """The grid's candidates worth a measurement, as (requested,
     effective) pairs: inside shared memory as requested, and launching
     differently from the default and from each other. Where the default
-    launch runs K1's ``regs`` body, a tile height would force the shared
-    tile (2.6x slower a rep at the job cells' shapes), so the grid varies
-    only the fuse: ``(None, fuse)`` for each of its depths that ``regs``
-    runs (:func:`cuda_stencil.k1_launch`)."""
-    if cs.rep_loop_body(plan, n_rows, wc, channels, None, None, schedule,
-                        device) == cs.REGS:
+    launch runs one of K1's register bodies (``regs``, ``regs_direct``), a
+    tile height would force the shared tile (2.6x slower a rep at the job
+    cells' shapes under ``regs``), so the grid varies only the fuse:
+    ``(None, fuse)`` for each of its depths that the body runs
+    (:func:`cuda_stencil.k1_launch`)."""
+    body = cs.rep_loop_body(plan, n_rows, wc, channels, None, None, schedule,
+                            device)
+    if body in cs.REGS_BODIES:
         seen = {cs.k1_launch(plan, n_rows, wc, channels, None, None,
                              schedule, device)}
         out = []
         for gfz in sorted({gfz for _, gfz in _GEOMETRY_GRID}):
             eff = cs.k1_launch(plan, n_rows, wc, channels, None, gfz,
                                schedule, device)
-            if eff[0] == cs.REGS and eff not in seen:
+            if eff[0] == body and eff not in seen:
                 seen.add(eff)
                 out.append(((None, gfz), eff))
         return out
