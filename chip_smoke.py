@@ -34,13 +34,13 @@ grow by at least an instruction an element and operation from 8 to 16
    ``cuda_stencil.fused_body`` names (``regs`` for gaussian and
    gaussian5), or the shared tile's where a launch forces a tile height
    or is a single rep on a grid of fewer ``regs`` blocks than SMs
-   (``cuda_stencil.launch_body``).
+   (the launch's ``cuda_stencil.K1Launch``).
    K1's register body alone: gaussian and gaussian5, grey and RGB,
    aligned and ragged widths, single launches at fuse 1, 7 and 8, x1, x9
    and x100, the frames layout; serve-bucket canvases (a 64x64 and four
    256x256 RGB frames, a 384x2048 grey one) at fuse 1 in the shared tile
-   and at fuse 8 in ``regs``; every launch counted under the body
-   ``launch_body`` names (``cuda_stencil.body_launch_counts``), no
+   and at fuse 8 in ``regs``; every launch counted under the body its
+   ``K1Launch`` names (``cuda_stencil.body_launch_counts``), no
    instance using local memory;
    then its ms a rep against ``swar`` at 1920x2520 RGB and 1920x5040 grey
    x100 (taking turns, and the kernels' device time), with each launch's
@@ -486,12 +486,19 @@ def check_body(kernel: str, plan, name: str, want: str = None) -> str:
 
 def last_body(plan, rows: int, wc: int, c: int, reps: int, dev) -> str:
     """The body the last launch of a ``reps``-rep K1 loop on a flat
-    (rows, wc) image runs (``cuda_stencil.launch_body``)."""
+    (rows, wc) image runs (its ``cuda_stencil.K1Launch``)."""
     from tpu_stencil_torch.ops import cuda_stencil as cs
 
-    _, _, fz = cs.rep_loop_kernel(plan, rows, wc, c, None, None, None, dev)
-    return cs.launch_body(plan, c, cs.launch_schedule(reps, fz)[-1], rows,
-                          wc, None, cs.sm_count(dev))
+    return cs.rep_loop(plan, rows, wc, c, None, None, None,
+                       dev).launches(reps)[-1].body
+
+
+def main_fuse(plan, dev) -> int:
+    """K1's fused depth on the main path's 1920x2520 RGB image."""
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+
+    return cs.rep_loop(plan, MAIN_H, MAIN_W * MAIN_C, MAIN_C, None, None,
+                       None, dev).fuse
 
 
 def phase_k1(dev) -> dict:
@@ -513,8 +520,8 @@ def phase_k1(dev) -> dict:
     # One launch of the wrapper at the main path's shapes, fused and single,
     # in K1's own body and at a forced tile height (the shared tile).
     x2 = rgb.reshape(MAIN_H, -1)
-    bh, fz = cs.effective_geometry(g, MAIN_H, 3)
-    for depth in (fz, 1):
+    bh = cs.DEFAULT_BLOCK_H
+    for depth in (main_fuse(g, dev), 1):
         want = cs.stencil_fused_plain(x2, g, 3, depth)
         case(f"wrapper rgb gaussian fuse={depth}",
              cs.stencil_fused(x2, g, 3, depth), want, g, "gaussian")
@@ -570,7 +577,7 @@ def phase_k1_regs(dev, case) -> dict:
     and ragged widths, single launches at fuse 1, 7 and 8, the rep loop
     x1, x9 and x100 and the frames layout x9, serve-bucket canvases at
     fuse 1 (the shared tile) and 8 (``regs``), each through ``case``;
-    every launch counted under the body ``launch_body`` names; no instance
+    every launch counted under the body its ``K1Launch`` names; no instance
     spilling; then its ms a rep and the shared tile's at the cells' two
     shapes x100."""
     from tpu_stencil_torch.ops import cuda_stencil as cs
@@ -609,8 +616,8 @@ def phase_k1_regs(dev, case) -> dict:
             x = seeded((rows, wc), 25 + rows + wc, dev)
             frame = (cs.frames_stride(p, fh), fh)
             for depth, body in ((1, "swar"), (8, "regs")):
-                require(cs.launch_body(p, c, depth, rows, wc, None,
-                                       cs.sm_count(dev)) == body,
+                require(cs.k1_launch(p, rows, wc, c, depth, None,
+                                     cs.sm_count(dev)).body == body,
                         f"{name} {rows}x{wc} fuse={depth}: not {body}")
                 swar_launches += body == "swar"
                 case(f"canvas {n}x{fh}x{fw}x{c} {name} fuse={depth}",
@@ -667,7 +674,7 @@ def phase_k1_direct(dev, case) -> dict:
     cell's 1920x5040 RGB and at 1920x2520 grey; serve's canvases at fuse 1
     and 8 (``regs_direct``: the SM rule is ``regs``' alone) and at fuse 1
     under a forced tile height (the shared tile's ``int32``); each through
-    ``case``, every launch counted under the body ``launch_body`` names;
+    ``case``, every launch counted under the body its ``K1Launch`` names;
     then each register instance's registers and local memory from the card
     (``cudaFuncGetAttributes``) and its blocks per SM: no local memory, 2
     blocks an SM; and :func:`direct_canvas_ab`'s times."""
@@ -702,8 +709,8 @@ def phase_k1_direct(dev, case) -> dict:
         frame = (cs.frames_stride(e, fh), fh)
         for depth, bh in ((1, None), (8, None), (1, cs.DEFAULT_BLOCK_H)):
             body = "regs_direct" if bh is None else "int32"
-            require(cs.launch_body(e, c, depth, rows, wc, bh,
-                                   cs.sm_count(dev)) == body,
+            require(cs.k1_launch(e, rows, wc, c, depth, bh,
+                                 cs.sm_count(dev)).body == body,
                     f"edge {rows}x{wc} fuse={depth}: not {body}")
             int32_launches += body == "int32"
             case(f"canvas {n}x{fh}x{fw}x{c} edge fuse={depth} block_h={bh}",
@@ -723,9 +730,12 @@ def phase_k1_direct(dev, case) -> dict:
     plans += [(f"regs_direct {n}", direct_plan(n)) for n in DIRECT_PLANS]
     for label, p in plans:
         for c in (1, 3):
-            a = cs.instance_attributes(p, c, cs.DEFAULT_FUSE)
+            rec = cs.k1_launch(p, MAIN_H, MAIN_W * c, c, cs.DEFAULT_FUSE,
+                               None, cs.sm_count(dev))
+            a = cs.instance_attributes(p, c, rec)
             a["blocks_per_sm"] = cs.blocks_per_sm(
-                "stencil_fused", p, 0, cs.DEFAULT_FUSE, c, cs.fused_body(p))
+                "stencil_fused", p, rec.tile_h, rec.fuse, c, rec.body,
+                rec.tile_w)
             require(a["local_bytes"] == 0 and a["registers"] <= 128
                     and a["blocks_per_sm"] == 2,
                     f"{label} C{c}: {a}")
@@ -734,28 +744,15 @@ def phase_k1_direct(dev, case) -> dict:
             "instances": instances, "canvas_ab": direct_canvas_ab(dev)}
 
 
-@contextlib.contextmanager
-def k1_body_forced(body: str):
-    """Every K1 launch inside the block runs ``body``, whatever
-    ``launch_body`` would pick (the launch must fit it)."""
-    from tpu_stencil_torch.ops import cuda_stencil as cs
-
-    keep = cs.launch_body
-    cs.launch_body = lambda *a, **k: body
-    try:
-        yield
-    finally:
-        cs.launch_body = keep
-
-
 def direct_canvas_ab(dev, launches: int = 20) -> dict:
     """Edge at fuse 1, one launch on the frames canvas of each of serve's
     canvases (a 64^2 RGB frame, four 256^2 RGB frames, a 384x2048 grey
     frame) and of larger frames on both sides of the SM rule (1024^2,
     1536^2, 2048^2 RGB): device us a launch (``launches`` back to back on
     the card's clock, median of 7) in ``regs_direct`` and in the shared
-    tile's ``int32``, each held to the plain version, the regs grid's
-    blocks, and the body ``launch_body`` picks."""
+    tile's ``int32`` (each launched from a ``cuda_stencil.K1Launch`` of
+    that body through K1's launcher), each held to the plain version, the
+    regs grid's blocks, and the body ``k1_launch`` picks."""
     from tpu_stencil_torch.ops import cuda_stencil as cs
     from tpu_stencil_torch.tools import _harness
 
@@ -770,14 +767,19 @@ def direct_canvas_ab(dev, launches: int = 20) -> dict:
         y = torch.empty_like(x)
         frame = (cs.frames_stride(e, fh), fh)
         want = cs.stencil_fused_plain(x, e, c, 1, rows - e.halo, frame)
+        # a forced tile height builds the shared tile's record
+        forced = {body: cs.k1_launch(e, rows, wc, c, 1, bh, sms)
+                  for body, bh in (("regs_direct", None),
+                                   ("int32", cs.DEFAULT_BLOCK_H))}
+        require(all(r.body == b for b, r in forced.items()),
+                f"canvas {n}x{fh}x{fw}x{c}: records {forced}")
         row = {"blocks": cs.regs_grid(e, c, 1, rows, wc),
-               "picked": cs.launch_body(e, c, 1, rows, wc, None, sms)}
+               "picked": cs.k1_launch(e, rows, wc, c, 1, None, sms).body}
+        lib = cs._fused_lib()
         for body in ("regs_direct", "int32"):
-            def go(_, body=body):
-                with k1_body_forced(body):
-                    for _ in range(launches):
-                        cs.stencil_fused(x, e, c, 1, rows - e.halo, frame,
-                                         out=y)
+            def go(_, launch=forced[body]):
+                for _ in range(launches):
+                    cs._launch_k1(lib, x, y, launch, c, rows - e.halo, frame)
             run = _harness.device_timed(go, dev)
             row[f"{body}_us"] = statistics.median(
                 run(1) for _ in range(7)) * 1e6 / launches
@@ -1036,7 +1038,9 @@ def phase_k2(dev) -> dict:
     for rows in (near, far):
         img = seeded((rows, MAIN_W, 3), 5, dev)
         fits = cs.resident_feasible(g, rows, MAIN_W * 3, 3, dev)
-        geo = cs.deep_geometry(g, rows, MAIN_W, 3, device=dev)
+        loop = cs.rep_loop(g, rows, MAIN_W * 3, 3, None, None, "deep", dev)
+        geo = ((None, None) if loop.fused is None
+               else (loop.fused.tile_h, loop.fuse))
         cs.reset_launch_counts()
         got = cs.iterate(img, 8, g, schedule="deep")
         counts = cs.launch_counts()
@@ -1197,7 +1201,7 @@ def phase_main_path(dev) -> dict:
     g = plan_of("gaussian")
     want = lowering.iterate(torch.from_numpy(img).to(dev), MAIN_REPS,
                             g).cpu().numpy()
-    fuse = cs.effective_geometry(g, MAIN_H, MAIN_C)[1]
+    fuse = main_fuse(g, dev)
     base = [str(src), str(MAIN_W), str(MAIN_H), str(MAIN_REPS), "rgb",
             "--time", *PALLAS]
     out = {}
@@ -1769,7 +1773,7 @@ def phase_job_hardened(dev) -> dict:
     g = plan_of("gaussian")
     want = lowering.iterate(torch.from_numpy(img).to(dev), MAIN_REPS,
                             g).cpu().numpy()
-    fuse = cs.effective_geometry(g, MAIN_H, MAIN_C)[1]
+    fuse = main_fuse(g, dev)
     k1_window = launches(stencil_fused=len(cs.launch_schedule(MAIN_REPS,
                                                               fuse)))
     base = [str(src), str(MAIN_W), str(MAIN_H), str(MAIN_REPS), "rgb",
@@ -2069,9 +2073,9 @@ def verdict_launches(report: str, rows: int, reps: int) -> dict:
     fields = dict(kv.split("=", 1) for kv in report.split() if "=" in kv)
     if fields.get("schedule") == "deep" and "block_h" not in fields:
         return launches(stencil_resident=1)
-    fz = int(fields["fuse"]) if "fuse" in fields else cs.rep_loop_kernel(
+    fz = int(fields["fuse"]) if "fuse" in fields else cs.rep_loop(
         plan_of("gaussian"), rows, MAIN_W * MAIN_C, MAIN_C, None, None, None,
-        None)[2]
+        None).fuse
     return launches(stencil_fused=len(cs.launch_schedule(reps, fz)))
 
 
@@ -3108,7 +3112,7 @@ def phase_stream_path(dev) -> dict:
 
     d = stream_clip()
     n = STREAM_FRAMES
-    fuse = cs.effective_geometry(plan_of("gaussian"), MAIN_H, MAIN_C)[1]
+    fuse = main_fuse(plan_of("gaussian"), dev)
     per_frame = len(cs.launch_schedule(MAIN_REPS, fuse))
     warm = len(set(cs.launch_schedule(MAIN_REPS, fuse)))
     runs, errs = {}, {}
@@ -5441,7 +5445,9 @@ def tile_ab(img: torch.Tensor, dev) -> dict:
     for body, name in (("swar", "gaussian"), ("acc16", "gaussian7"),
                        ("int32", "edge")):
         p = plan_of(name)
-        bh, fz = cs.effective_geometry(p, MAIN_H, MAIN_C)
+        shared = cs.rep_loop(p, MAIN_H, MAIN_W * MAIN_C, MAIN_C,
+                             cs.DEFAULT_BLOCK_H, None, None, dev).fused
+        bh, fz = shared.tile_h, shared.fuse
         occ[body] = {"filter": name, "block_h": bh, "fuse": fz,
                      "smem_bytes": cs.kernel_smem_bytes("stencil_fused", p,
                                                         bh, fz, MAIN_C),

@@ -324,6 +324,26 @@ def test_forced_geometry_keys_and_measures_at_the_effective_one(plan, jplan,
     assert legacy_calls
 
 
+def test_a_forced_fuse_under_regs_keys_and_probes_the_regs_launch(plan,
+                                                                  cache):
+    # fuse 20 on 1920x2520 RGB runs regs at 20: the probe takes no tile
+    # height (one would force the shared tile, which clamps to 16)
+    calls = []
+
+    def geo(plan, shape, channels, backend, reps=0, schedule=None,
+            block_h=None, fuse=None):
+        calls.append((backend, block_h, fuse))
+        return 1e-6 if backend == "pallas" else 2e-6
+
+    got = autotune.best_full_config(plan, (2520, 1920), 3, measure=geo,
+                                    fuse=20, **CPU)
+    assert got[0] == "pallas" and got[2:] == (None, 20)
+    assert {(bh, fz) for b, bh, fz in calls if b == "pallas"} == {(None, 20)}
+    assert any(k.endswith("|bh=None|fz=20") for k in autotune._load_cache())
+    loop = cs.k1_loop(plan, 2520, 5760, 3, None, 20, None)
+    assert (loop.fused.body, loop.block_h, loop.fuse) == ("regs", None, 20)
+
+
 def test_unforced_geometry_stage_tunes_and_caches(jplan, cache):
     # box: K1 runs the shared tile, whose tile height the grid varies
     plan = lowering.plan_filter(filters.get_filter("box"))
@@ -476,9 +496,9 @@ def test_where_k1_runs_regs_the_stage_varies_only_the_fuse(plan, cache):
     entry = autotune.cached_entry(plan, (4320, 7680), 3, "cpu")
     assert entry["geometry_us_per_rep"]["fuse16"] == 1.0
     # the verdict runs K1 in regs at that depth
-    assert cs.k1_launch(plan, 4320, 7680 * 3, 3, None, 16, "fused",
-                        None) == ("regs", cs.regs_geometry(plan, 3, 16)[0],
-                                  16)
+    loop = cs.k1_loop(plan, 4320, 7680 * 3, 3, None, 16, "fused")
+    assert (loop.fused.body, loop.fused.tile_h, loop.fuse) == (
+        "regs", cs.regs_geometry(plan, 3, 16)[0], 16)
 
 
 def test_unreadable_cache_files_are_cold_misses_with_a_warning(plan, cache):

@@ -147,8 +147,8 @@ def test_deep_past_the_l2_budget_runs_k1(monkeypatch):
     monkeypatch.setattr(cs, "stencil_fused",
                         lambda *a, **k: depths.append(a[3]) or orig(*a, **k))
     got = _port_iterate(img, 9, tplan, schedule="deep")
-    bh, fz = cs.deep_geometry(tplan, 40, 33, 3)
-    assert depths == cs.launch_schedule(9, fz)
+    loop = cs.rep_loop(tplan, 40, 99, 3, None, None, "deep", None)
+    assert depths == cs.launch_schedule(9, loop.fuse)
     np.testing.assert_array_equal(
         got, _jax_iterate(img, 9, jplan, schedule="deep"))
 
@@ -212,11 +212,14 @@ def test_deep_depth_and_feasibility_verdicts():
     assert cs.resident_feasible(g, 2520, 1920 * 3, 3)
     assert not cs.resident_feasible(g, 4320, 7680 * 3, 3)
     assert not cs.resident_feasible(g, 2520, 1920 * 3, 3, l2_bytes=2 ** 20)
-    assert cs.deep_geometry(g, 2520, 1920, 3) == (None, None)
+    assert cs.rep_loop(g, 2520, 5760, 3, None, None, "deep",
+                       None).kernel == "stencil_resident"
     # K1 runs gaussian in regs, at that body's own tile and depth
-    assert cs.deep_geometry(g, 4320, 7680, 3) == (
-        cs.regs_geometry(g, 3, cs.DEFAULT_FUSE)[0], cs.DEFAULT_FUSE)
-    assert cs.deep_geometry(g, 2520, 1920, 3, block_h=64) == (64, 16)
+    past = cs.rep_loop(g, 4320, 23040, 3, None, None, "deep", None)
+    assert (past.fused.body, past.fused.tile_h, past.fuse) == (
+        "regs", cs.regs_geometry(g, 3, cs.DEFAULT_FUSE)[0], cs.DEFAULT_FUSE)
+    forced = cs.rep_loop(g, 2520, 5760, 3, 64, None, "deep", None)
+    assert (forced.fused.tile_h, forced.fuse) == (64, 16)
     f32 = tlowering.plan_filter(tfilters.from_numpy(np.full((3, 3), 0.1)))
     assert not cs.plan_supported(f32, 3)
     assert not cs.resident_feasible(f32, 8, 8, 1)

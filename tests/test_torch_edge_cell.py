@@ -128,13 +128,14 @@ def test_the_job_runs_k1s_direct_register_body_at_the_cells_shape():
                            boundary=cfg["boundary"], device=CPU)
     shape = (cfg["height"], cfg["width"])
     assert model.resolved_config(shape, 3) == ("pallas", "fused")
-    assert model.loop_body(shape, 3, reps=100) == "regs_direct"
-    kernel, rows, wc, _, fuse = model._loop_kernel(shape, 3, None)
-    assert (kernel, rows, wc) == ("stencil_fused", 5040, 5760)
-    assert cs.launch_schedule(100, fuse) == [8] * 12 + [1] * 4
+    loop = model.rep_loop(shape, 3)
+    assert loop.launches(100)[0].body == "regs_direct"
+    assert (loop.kernel, loop.rows, loop.wc) == ("stencil_fused", 5040, 5760)
+    assert cs.launch_schedule(100, loop.fuse) == [8] * 12 + [1] * 4
     # the single-rep tail too: 960 blocks at fuse 1, more than the SMs
-    assert {cs.launch_body(model.plan, 3, d, rows, wc)
+    assert {cs.k1_launch(model.plan, loop.rows, loop.wc, 3, d).body
             for d in (8, 1)} == {"regs_direct"}
+    assert {r.body for r in loop.launches(100)} == {"regs_direct"}
 
 
 def test_the_job_runs_k1s_int32_body_at_the_cells_shape():
@@ -146,12 +147,14 @@ def test_the_job_runs_k1s_int32_body_at_the_cells_shape():
                            block_h=cs.DEFAULT_BLOCK_H, device=CPU)
     shape = (cfg["height"], cfg["width"])
     assert model.resolved_config(shape, 3) == ("pallas", "fused")
-    assert model.loop_body(shape, 3, reps=100) == "int32"
-    kernel, rows, wc, bh, fuse = model._loop_kernel(shape, 3, None)
-    assert (kernel, rows, wc, bh) == ("stencil_fused", 5040, 5760,
-                                      cs.DEFAULT_BLOCK_H)
-    assert {cs.launch_body(model.plan, 3, d, rows, wc, bh)
-            for d in (fuse, 1)} == {"int32"}
+    loop = model.rep_loop(shape, 3)
+    assert loop.launches(100)[0].body == "int32"
+    assert (loop.kernel, loop.rows, loop.wc, loop.block_h) == (
+        "stencil_fused", 5040, 5760, cs.DEFAULT_BLOCK_H)
+    assert {cs.k1_launch(model.plan, loop.rows, loop.wc, 3, d,
+                         loop.block_h).body
+            for d in (loop.fuse, 1)} == {"int32"}
+    assert {r.body for r in loop.launches(100)} == {"int32"}
 
 
 # ---------------------------------------------------------------------------
@@ -198,7 +201,7 @@ def test_the_spec_gives_each_job_cell_its_metrics():
 
 # (rows, W*C, channels): the three job cells and a small RGB canvas.
 LAUNCHES = [(2520, 5760, 3), (5040, 1920, 1), (5040, 5760, 3), (37, 87, 3)]
-# filter: (fused_body, launch_body at fuse 8 and 1 on each of LAUNCHES,
+# filter: (fused_body, k1_launch's body at fuse 8 and 1 on each of LAUNCHES,
 # then at fuse 8 with a forced tile height of 16 on the edge cell's).
 BODIES = {
     "box": ("acc16", ["acc16"] * 8 + ["acc16"]),
@@ -221,9 +224,9 @@ def test_k1s_body_choice_per_filter(name):
     plan = _plan(name)
     fused, launches = BODIES[name]
     assert cs.fused_body(plan) == fused
-    got = [cs.launch_body(plan, ch, fz, rows, wc)
+    got = [cs.k1_launch(plan, rows, wc, ch, fz).body
            for rows, wc, ch in LAUNCHES for fz in (8, 1)]
-    got.append(cs.launch_body(plan, 3, 8, 5040, 5760, 16))
+    got.append(cs.k1_launch(plan, 5040, 5760, 3, 8, 16).body)
     assert got == launches
 
 
@@ -240,10 +243,51 @@ def test_k1s_body_choice_is_unchanged(name):
     # the shared tile's choice for every filter, the direct plans' too
     plan = _plan(name)
     assert cs.tile_body(plan) == TILE_BODIES[name]
-    assert cs.launch_body(plan, 3, 8, 5040, 5760, 16) == TILE_BODIES[name]
+    assert cs.k1_launch(plan, 5040, 5760, 3, 8, 16).body == TILE_BODIES[name]
     for kernel, rows in (("stencil_resident", 64), ("stencil_valid", 16)):
         rec = cs.describe_launch(kernel, plan, rows, 96, 3, fuse=2)
         assert rec["body"] == TILE_BODIES[name]
+
+
+# The cells' images (H, W) and a 64x64 frame in the frames layout, whose
+# single-rep regs grid leaves SMs idle.
+ONE_PLACE = [(2520, 1920), (5040, 1920), (65, 64)]
+
+
+class _Recorder:
+    """A K1 library stub that keeps (body, tile_h, tile_w, fuse) of each
+    launch as the C entry receives them."""
+
+    def __init__(self):
+        self.launches = []
+
+    def stencil_fused_launch(self, src, dst, params, geom, fuse, body,
+                             stream):
+        import ctypes
+
+        g = ctypes.cast(geom, ctypes.POINTER(cs._Geometry)).contents
+        self.launches.append((body, g.tile_h, g.tile_w, fuse))
+        return 0
+
+
+@pytest.mark.parametrize("depth", [8, 1])
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("rows,w", ONE_PLACE)
+@pytest.mark.parametrize("name", sorted(tfilters.FILTERS))
+def test_one_record_decides_k1s_launch(name, rows, w, c, depth, stub_launch,
+                                        monkeypatch):
+    # the record's body and tile are what the library receives and what
+    # describe_launch reports
+    plan = _plan(name)
+    lib = _Recorder()
+    monkeypatch.setattr(cs, "_fused_lib", lambda: lib)
+    launch = cs.k1_launch(plan, rows, w * c, c, depth)
+    cs.stencil_fused(torch.empty((rows, w * c), **META), plan, c, depth)
+    assert lib.launches == [(cs.K1_BODIES.index(launch.body), launch.tile_h,
+                             launch.tile_w, depth)]
+    rec = cs.describe_launch("stencil_fused", plan, rows, w * c, c,
+                             fuse=depth)
+    assert rec["body"] == launch.body
 
 
 # ---------------------------------------------------------------------------

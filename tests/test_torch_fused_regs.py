@@ -6,8 +6,9 @@ direct body's finish, and the per-body launch counter.
 size 3 and 5, which ``swar_ok`` admits) the ``regs`` body, the
 non-negative 3x3 direct plans that need no clip and whose sums fit a
 16-bit field (edge and its alias soft_blur, and two built here) the
-``regs_direct`` body, and every other plan ``tile_body``'s;
-``launch_body`` runs the shared tile where a launch forces a tile height,
+``regs_direct`` body, and every other plan ``tile_body``'s; the
+``K1Launch`` record of ``k1_launch`` runs the shared tile where a launch
+forces a tile height,
 has another channel count, leaves the register body no tile, or, under
 ``regs``, is a single rep whose grid has fewer blocks than the card has
 SMs. The kernels
@@ -150,9 +151,9 @@ def test_direct_plans_outside_the_gate_keep_int32(taps, divisor):
     assert not cs.regs_direct_ok(plan)
     assert cs.fused_body(plan) == cs.tile_body(plan) == "int32"
     for c, rows, wc in ((3, 5040, 5760), (1, 5040, 1920)):
-        assert cs.launch_body(plan, c, 8, rows, wc) == "int32"
-        assert cs.k1_launch(plan, rows, wc, c, None, None, None,
-                            None)[0] == "int32"
+        assert cs.k1_launch(plan, rows, wc, c, 8).body == "int32"
+        assert cs.k1_loop(plan, rows, wc, c, None, None,
+                          None).fused.body == "int32"
     assert cs.regs_geometry(plan, 3, 8) is None
     assert cs._params(plan).div_mul == 0
 
@@ -171,23 +172,23 @@ def test_the_field_bound_admits_2_16_less_1_and_nothing_above():
 @pytest.mark.parametrize("name", DIRECT_FILTERS)
 def test_launch_body_runs_int32_where_regs_direct_cannot(name):
     plan = _plan(name)
-    assert cs.launch_body(plan, 3, 8, 5040, 5760) == "regs_direct"
+    assert cs.k1_launch(plan, 5040, 5760, 3, 8).body == "regs_direct"
     # a forced tile height, a channel count the body is not built for
-    assert cs.launch_body(plan, 3, 8, 5040, 5760, 32) == "int32"
-    assert cs.launch_body(plan, 2, 8, 5040, 3840) == "int32"
-    assert cs.k1_launch(plan, 5040, 5760, 3, 32, None, None,
-                        None)[0] == "int32"
+    assert cs.k1_launch(plan, 5040, 5760, 3, 8, 32).body == "int32"
+    assert cs.k1_launch(plan, 5040, 3840, 2, 8).body == "int32"
+    assert cs.k1_loop(plan, 5040, 5760, 3, 32, None,
+                      None).fused.body == "int32"
     # a single rep on fewer blocks than SMs (serve's canvases) keeps
     # regs_direct, as the same launch on the cell's 960 blocks does
     assert cs.regs_grid(plan, 3, 1, 65, 192) < cs.H100_SMS
-    assert cs.launch_body(plan, 3, 1, 65, 192) == "regs_direct"
+    assert cs.k1_launch(plan, 65, 192, 3, 1).body == "regs_direct"
     assert cs.regs_grid(plan, 3, 1, 5040, 5760) == 960
-    assert cs.launch_body(plan, 3, 1, 5040, 5760) == "regs_direct"
+    assert cs.k1_launch(plan, 5040, 5760, 3, 1).body == "regs_direct"
     # a depth whose ghost bands leave no tile
     deep = next(f for f in range(1, 200)
                 if cs.regs_geometry(plan, 3, f) is None)
-    assert cs.launch_body(plan, 3, deep, 5040, 5760) == "int32"
-    assert cs.launch_body(plan, 3, deep - 1, 5040, 5760) == "regs_direct"
+    assert cs.k1_launch(plan, 5040, 5760, 3, deep).body == "int32"
+    assert cs.k1_launch(plan, 5040, 5760, 3, deep - 1).body == "regs_direct"
 
 
 @pytest.mark.parametrize("taps,divisor,want", [
@@ -303,7 +304,7 @@ def test_the_autotuner_varies_only_the_fuse_under_regs_direct(c, rows, wc):
 
     cands = autotune._geometry_candidates(_plan("edge"), rows, c, None, wc,
                                           None)
-    assert cands and all(req[0] is None and eff[0] == "regs_direct"
+    assert cands and all(req[0] is None and eff.body == "regs_direct"
                          for req, eff in cands)
 
 
@@ -313,17 +314,17 @@ def test_launch_body_runs_the_shared_tile_where_regs_cannot(name):
     cells = {1: (5040, 1920), 3: (2520, 5760)}
     for c in (1, 3):
         for fz in range(1, 9):
-            assert cs.launch_body(plan, c, fz, *cells[c]) == "regs"
+            assert cs.k1_launch(plan, *cells[c], c, fz).body == "regs"
         # a forced tile height is the shared tile's
-        assert cs.launch_body(plan, c, 8, *cells[c], 32) == "swar"
+        assert cs.k1_launch(plan, *cells[c], c, 8, 32).body == "swar"
     # channel counts the body is not built for
-    assert cs.launch_body(plan, 2, 8, 2520, 3840) == "swar"
-    assert cs.launch_body(plan, 4, 1, 2520, 7680) == "swar"
+    assert cs.k1_launch(plan, 2520, 3840, 2, 8).body == "swar"
+    assert cs.k1_launch(plan, 2520, 7680, 4, 1).body == "swar"
     # a depth whose ghost bands leave no tile of the register extent
     deep = next(f for f in range(1, 200)
                 if cs.regs_geometry(plan, 3, f) is None)
-    assert cs.launch_body(plan, 3, deep, *cells[3]) == "swar"
-    assert cs.launch_body(plan, 3, deep - 1, *cells[3]) == "regs"
+    assert cs.k1_launch(plan, *cells[3], 3, deep).body == "swar"
+    assert cs.k1_launch(plan, *cells[3], 3, deep - 1).body == "regs"
     # the rep loop's fused launches take regs' own depth (forced, else
     # DEFAULT_FUSE) whatever the image's height and the schedule: the
     # shared tile's clamps do not cut it
@@ -331,8 +332,8 @@ def test_launch_body_runs_the_shared_tile_where_regs_cannot(name):
         for fz in (None, 8, 16):
             for sched in (None, "deep"):
                 want = cs.DEFAULT_FUSE if fz is None else fz
-                assert cs.k1_launch(plan, n_rows, 5760, 3, None, fz, sched,
-                                    None) == (
+                loop = cs.k1_loop(plan, n_rows, 5760, 3, None, fz, sched)
+                assert (loop.fused.body, loop.fused.tile_h, loop.fuse) == (
                     "regs", cs.regs_geometry(plan, 3, want)[0], want)
     assert cs.effective_geometry(plan, 5, 3)[1] < cs.DEFAULT_FUSE
 
@@ -346,24 +347,24 @@ def test_a_single_rep_launch_that_leaves_sms_idle_runs_the_shared_tile(
     for c, rows, wc in ((3, 65, 192), (3, 4 * 257, 768), (1, 385, 2048),
                         (1, 301, 1917)):
         assert cs.regs_grid(plan, c, 1, rows, wc) < cs.H100_SMS
-        assert cs.launch_body(plan, c, 1, rows, wc) == "swar"
+        assert cs.k1_launch(plan, rows, wc, c, 1).body == "swar"
         # deeper launches recompute the shared tile's ghost rows: regs
-        assert cs.launch_body(plan, c, 8, rows, wc) == "regs"
-        assert cs.k1_launch(plan, rows, wc, c, None, 1, None, None)[:1] == (
-            "swar",)
+        assert cs.k1_launch(plan, rows, wc, c, 8).body == "regs"
+        assert cs.k1_loop(plan, rows, wc, c, None, 1,
+                          None).fused.body == "swar"
     # eight 768x768 grey frames, two 1024x1024 RGB ones, the cells' shapes
     for c, rows, wc in ((1, 8 * 769, 768), (3, 2 * 1025, 3072),
                         (3, 2520, 5760), (1, 5040, 1920)):
         assert cs.regs_grid(plan, c, 1, rows, wc) >= cs.H100_SMS
-        assert cs.launch_body(plan, c, 1, rows, wc) == "regs"
+        assert cs.k1_launch(plan, rows, wc, c, 1).body == "regs"
     # the line: as many blocks as the card has SMs runs regs, one fewer not
     th, tw, _ = cs.regs_geometry(plan, 1, 1)
     assert cs.regs_grid(plan, 1, 1, 12 * th, 11 * tw) == 132
-    assert cs.launch_body(plan, 1, 1, 12 * th, 11 * tw, sms=132) == "regs"
-    assert cs.launch_body(plan, 1, 1, 12 * th, 11 * tw, sms=133) == "swar"
-    assert cs.launch_body(plan, 1, 1, 12 * th, 10 * tw, sms=132) == "swar"
-    assert cs.launch_body(plan, 1, 1, 12 * th, 10 * tw + 1,
-                          sms=132) == "regs"
+    assert cs.k1_launch(plan, 12 * th, 11 * tw, 1, 1, sms=132).body == "regs"
+    assert cs.k1_launch(plan, 12 * th, 11 * tw, 1, 1, sms=133).body == "swar"
+    assert cs.k1_launch(plan, 12 * th, 10 * tw, 1, 1, sms=132).body == "swar"
+    assert cs.k1_launch(plan, 12 * th, 10 * tw + 1, 1, 1,
+                        sms=132).body == "regs"
 
 
 # ---------------------------------------------------------------------------
@@ -570,6 +571,37 @@ def test_body_launches_count_each_body(monkeypatch):
     assert cs.body_rep_counts() == {"regs_direct": 100, "int32": 9}
     cs.reset_launch_counts()
     assert cs.body_launch_counts() == {}
+
+
+def test_a_cached_launch_builds_no_params(monkeypatch):
+    import contextlib
+
+    monkeypatch.setattr(cs, "_fused_lib", lambda: _FakeLib())
+    monkeypatch.setattr(cs, "_check_cuda", lambda *ts: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None: _Stream)
+    monkeypatch.setattr(torch.Tensor, "data_ptr", lambda self: id(self))
+    x = torch.empty((2520, 5760), dtype=torch.uint8, device="meta")
+    g = _plan("gaussian")
+    for depth in (8, 1):
+        cs.stencil_fused(x, g, 3, depth)
+    built = []
+
+    class Spy(cs._Params):
+        def __init__(self, *a, **k):
+            built.append(a)
+            super().__init__(*a, **k)
+
+    monkeypatch.setattr(cs, "_Params", Spy)
+    # the rep loop's launches take their records, structs included, from
+    # the cache: no launch builds the plan's parameters again
+    cs.iterate(x.reshape(2520, 1920, 3), 100, g)
+    for depth in (8, 1):
+        cs.stencil_fused(x, g, 3, depth)
+    assert built == []
+    assert cs.k1_launch(g, 2520, 5760, 3, 8) is cs.k1_launch(
+        g, 2520, 5760, 3, 8)
 
 
 def test_cpu_runs_count_no_body():

@@ -320,9 +320,10 @@ def test_feasibility_line():
     rows = int(cs.RESIDENT_L2_SHARE * cs.H100_L2_BYTES) // (2 * 5760)
     assert cs.resident_feasible(g, rows, 5760, 3)
     assert not cs.resident_feasible(g, rows + 1, 5760, 3)
-    assert cs.deep_geometry(g, rows, 1920, 3) == (None, None)
-    assert cs.deep_geometry(g, rows + 1, 1920, 3) == cs.k1_launch(
-        g, rows + 1, 5760, 3, None, None, "deep", None)[1:]
+    assert cs.rep_loop(g, rows, 5760, 3, None, None, "deep",
+                       None).kernel == "stencil_resident"
+    past = cs.rep_loop(g, rows + 1, 5760, 3, None, None, "deep", None)
+    assert past == cs.k1_loop(g, rows + 1, 5760, 3, None, None, "deep")
 
 
 RESIDENT_GEOMETRY = {  # (block_h, fuse) at 1920x2520, RGB and grey

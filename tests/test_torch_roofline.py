@@ -50,10 +50,11 @@ def test_pallas_traffic_follows_the_launched_depth():
         FRAME, "pallas", "gaussian", 2520, schedule="deep", w_img=1920,
         channels=3, reps=40) == 2.0 * FRAME / 8
     # deep past the L2 budget: K1 at the deep trapezoid depth
-    deep = cs.deep_geometry(g, 4320, 7680, 3)
-    assert deep[1] is not None
+    deep = cs.rep_loop(g, 4320, 7680 * 3, 3, None, None, "deep", None)
+    assert deep.fuse is not None
     assert roofline.effective_fuse("gaussian", 4320, schedule="deep",
-                                   w_img=7680, channels=3, reps=1000) == deep[1]
+                                   w_img=7680, channels=3,
+                                   reps=1000) == deep.fuse
     # without a width the resident kernel is taken as infeasible
     assert roofline.effective_fuse("gaussian", 2520, schedule="deep",
                                    channels=3) == cs.effective_geometry(
@@ -68,6 +69,23 @@ def test_pallas_traffic_follows_the_launched_depth():
     # many channels: the fuse shared memory still holds, as the launch clamps
     assert roofline.effective_fuse("gaussian", 64, channels=200) == (
         cs.effective_geometry(g, 64, 200)[1]) < 8
+
+
+def test_a_forced_fuse_counts_the_records_depth():
+    g = _plan("gaussian")
+    # fuse 20 on 1920x2520 RGB runs regs at 20 (an 88x128 register tile),
+    # where the shared tile's clamp would stop at 16
+    assert roofline.effective_fuse("gaussian", 2520, fuse=20, w_img=1920,
+                                   channels=3) == 20
+    assert roofline.effective_fuse("gaussian", 2520, fuse=20,
+                                   channels=3) == 20
+    assert roofline.analytic_bytes_per_rep(
+        FRAME, "pallas", "gaussian", 2520, fuse=20, w_img=1920,
+        channels=3) == 2.0 * FRAME / 20
+    assert cs.effective_geometry(g, 2520, 3, None, 20)[1] == 16
+    loop = cs.k1_loop(g, 2520, 5760, 3, None, 20, None)
+    assert (loop.fused.body, loop.fused.tile_h, loop.fuse) == ("regs", 88,
+                                                               20)
 
 
 def test_achieved_and_frames():

@@ -170,7 +170,7 @@ def test_autotune_grid_admits_what_swar_admits():
     assert cs.tile_smem_bytes(g, 128, 20, 2, body="int32") > cs.SMEM_LIMIT
     # grey: K1 runs regs, where the grid varies only the fuse
     cands = autotune._geometry_candidates(g, 2520, 1, None, 1920, None)
-    assert cands and all(req[0] is None and eff[0] == "regs"
+    assert cands and all(req[0] is None and eff.body == "regs"
                          for req, eff in cands)
 
 
@@ -319,7 +319,7 @@ def test_wrappers_pass_the_plans_body(name, kernel, monkeypatch):
             cs.K1_BODIES.index(cs.fused_body(plan))}
         lib.bodies.clear()
         # a single rep on these few-block frames: regs loses it to the
-        # shared tile (launch_body), regs_direct keeps it
+        # shared tile (k1_launch), regs_direct keeps it
         cs.iterate_frames(torch.empty((3, 20, 16, 3), **meta), 1, plan)
         single = (cs.tile_body(plan) if cs.fused_body(plan) == cs.REGS
                   else cs.fused_body(plan))

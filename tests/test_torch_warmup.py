@@ -58,9 +58,9 @@ def _spy(monkeypatch, name):
     (40, 8, [8]), (43, 8, [8, 1]), (5, 8, [1]), (0, 8, []), (9, 1, [1]),
 ])
 def test_warm_depths_cover_every_launch_depth(reps, fuse, want):
-    kernel, _, fz = cs.rep_loop_kernel(GAUSS, H, W * 3, 3, None, fuse, None,
-                                       CPU)
-    assert (kernel, fz) == ("stencil_fused", fuse)
+    loop = cs.rep_loop(GAUSS, H, W * 3, 3, None, fuse, None, CPU)
+    fz = loop.fuse
+    assert (loop.kernel, fz) == ("stencil_fused", fuse)
     got = cs.warm_depths([reps], fz)
     assert got == want
     assert set(got) == set(cs.launch_schedule(reps, fuse))
@@ -70,14 +70,15 @@ def test_warm_depths_cover_every_launch_depth(reps, fuse, want):
 
 
 def test_warm_depths_deep_is_one_resident_launch():
-    assert cs.rep_loop_kernel(GAUSS, H, W * 3, 3, None, None, "deep",
-                              CPU) == ("stencil_resident", None, None)
+    loop = cs.rep_loop(GAUSS, H, W * 3, 3, None, None, "deep", CPU)
+    assert (loop.kernel, loop.fuse, loop.block_h) == ("stencil_resident",
+                                                      None, None)
     assert cs.warm_depths([40, 7], None) == [1]
     assert cs.warm_depths([0], None) == []
     # A forced geometry forces K1 at the deep depth.
-    kernel, _, fz = cs.rep_loop_kernel(GAUSS, H, W * 3, 3, None, 4, "deep",
-                                       CPU)
-    assert (kernel, fz) == ("stencil_fused", 4)
+    loop = cs.rep_loop(GAUSS, H, W * 3, 3, None, 4, "deep", CPU)
+    fz = loop.fuse
+    assert (loop.kernel, fz) == ("stencil_fused", 4)
     assert cs.warm_depths([40], fz) == [4]
 
 

@@ -370,7 +370,7 @@ class JobResult:
     # Measurements the autotuner made for this job, all before the compute
     # window (0: a warm cache, an explicit backend, or no card).
     tune_probes: int = 0
-    # The tile body the kernels ran (K1's cuda_stencil.launch_body, K2's and
+    # The tile body the kernels ran (K1's cuda_stencil.K1Launch, K2's and
     # K3's cuda_stencil.tile_body); None off the kernels.
     body: Optional[str] = None
     # Kernel launches of the warm-up before the window, by kernel name
@@ -382,21 +382,24 @@ class JobResult:
     overlap: Optional[str] = None
 
 
-def _ran_geometry(model: IteratedConv2D, rows: int, w: int, channels: int,
-                  schedule: Optional[str]):
-    """The (block_h, fuse) to report for a ``rows``-tall kernel launch:
-    a deep run reports what ran (None, None for the resident kernel);
-    otherwise what K1 launches at (:func:`cuda_stencil.k1_launch`) when
-    the user forced either knob or the autotuner picked a non-default one
-    for this shape."""
-    bh, fz = model.resolved_geometry((rows, w), channels)
-    if schedule == cuda_stencil.DEEP:
-        return cuda_stencil.deep_geometry(model.plan, rows, w, channels,
-                                          bh, fz, model.device)
-    if bh is None and fz is None:
-        return None, None
-    return cuda_stencil.k1_launch(model.plan, rows, w * channels, channels,
-                                  bh, fz, schedule, model.device)[1:]
+def _ran_launch(model: IteratedConv2D, shape: Tuple[int, int],
+               channels: int, n_frames: Optional[int], schedule: Optional[str],
+               reps: int) -> Tuple[Optional[int], Optional[int], str]:
+    """(block_h, fuse, body) to report for the rep loop on ``shape``
+    (``n_frames``: the frames' tall layout), from the model's
+    :class:`cuda_stencil.RepLoop`: the body of a ``reps``-rep call's first
+    launch (K2's :func:`cuda_stencil.tile_body`), and the tile height and
+    depth of its fused K1 launch for a deep run (None, None for K2) or
+    where the user forced either knob or the autotuner picked a
+    non-default one for this shape."""
+    loop = model.rep_loop(shape, channels, n_frames)
+    if loop.kernel == "stencil_resident":
+        return None, None, cuda_stencil.tile_body(model.plan)
+    body = (loop.launches(reps)[:1] or [loop.fused])[0].body
+    if (schedule != cuda_stencil.DEEP
+            and model.resolved_geometry(shape, channels) == (None, None)):
+        return None, None, body
+    return loop.fused.tile_h, loop.fuse, body
 
 
 def run_job(cfg: JobConfig, device: Optional[torch.device] = None,
@@ -509,19 +512,13 @@ def run_job(cfg: JobConfig, device: Optional[torch.device] = None,
         shape2 = (cfg.height, cfg.width)
         if cfg.frames > 1:
             backend, schedule = model.batch_config(shape2, cfg.channels)
-            geo_rows = cuda_stencil.frames_rows(model.plan, cfg.height,
-                                                share)
         else:
             backend, schedule = model.resolved_config(shape2, cfg.channels)
-            geo_rows = cfg.height
-        bh, fz = (None, None)
-        body = None
+        bh, fz, body = None, None, None
         if backend == "pallas":
-            bh, fz = _ran_geometry(model, geo_rows, cfg.width, cfg.channels,
-                                   schedule)
-            body = model.loop_body(shape2, cfg.channels,
-                                   share if cfg.frames > 1 else None,
-                                   cfg.repetitions)
+            bh, fz, body = _ran_launch(model, shape2, cfg.channels,
+                                       share if cfg.frames > 1 else None,
+                                       schedule, cfg.repetitions)
         if obs.introspect.enabled():
             obs.introspect.capture(
                 "driver.warmup",
@@ -812,10 +809,8 @@ def _run_frames_multiprocess(cfg: JobConfig, model: IteratedConv2D,
     bh, fz, body = None, None, None
     if backend == "pallas":
         n_share = _share(n_local or per, len(run_devices))
-        bh, fz = _ran_geometry(
-            model, cuda_stencil.frames_rows(model.plan, h, n_share),
-            w, ch, schedule)
-        body = model.loop_body((h, w), ch, n_share, cfg.repetitions)
+        bh, fz, body = _ran_launch(model, (h, w), ch, n_share, schedule,
+                                   cfg.repetitions)
     return JobResult(
         output_path=cfg.output_path,
         compute_seconds=compute_seconds,

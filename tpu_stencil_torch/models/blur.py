@@ -159,22 +159,20 @@ class IteratedConv2D(torch.nn.Module):
             cuda_stencil.build_kernels()
         self.resolved_config(shape, channels)
 
-    def _loop_kernel(self, shape: Tuple[int, int], channels: int,
-                     n_frames: Optional[int]):
-        """(kernel, rows, wc, block_h, fuse) of the rep loop's flat launch
-        for ``shape`` (``n_frames``: the frames' tall layout), as
-        :func:`cuda_stencil.rep_loop_kernel` chooses it; None off the
-        kernels."""
+    def rep_loop(self, shape: Tuple[int, int], channels: int,
+                 n_frames: Optional[int] = None
+                 ) -> Optional[cuda_stencil.RepLoop]:
+        """The launches of the rep loop on ``shape`` (``n_frames``: the
+        frames' tall layout), as :func:`cuda_stencil.rep_loop` plans them
+        at the resolved schedule and geometry; None off the kernels."""
         backend, schedule = self.resolved_config(shape, channels)
         if backend != "pallas":
             return None
         rows = (shape[0] if n_frames is None
                 else cuda_stencil.frames_rows(self.plan, shape[0], n_frames))
-        wc = shape[1] * channels
         bh, fz = self.resolved_geometry(shape, channels)
-        kernel, bh, fz = cuda_stencil.rep_loop_kernel(
-            self.plan, rows, wc, channels, bh, fz, schedule, self.device)
-        return kernel, rows, wc, bh, fz
+        return cuda_stencil.rep_loop(self.plan, rows, shape[1] * channels,
+                                     channels, bh, fz, schedule, self.device)
 
     def warm_reps(self, shape: Tuple[int, int], channels: int,
                   calls: Iterable[int],
@@ -184,24 +182,9 @@ class IteratedConv2D(torch.nn.Module):
         each call a timed window makes) launch on ``shape``
         (:func:`cuda_stencil.warm_depths`). The driver's warm-up runs
         them on a scratch copy before the window."""
-        loop = self._loop_kernel(shape, channels, n_frames)
+        loop = self.rep_loop(shape, channels, n_frames)
         return cuda_stencil.warm_depths(
-            calls, None if loop is None else loop[4])
-
-    def loop_body(self, shape: Tuple[int, int], channels: int,
-                  n_frames: Optional[int] = None,
-                  reps: Optional[int] = None) -> Optional[str]:
-        """The tile body the first launch of a ``reps``-rep loop runs on
-        ``shape`` (``n_frames``: the frames' tall layout),
-        :func:`cuda_stencil.rep_loop_body`'s; None off the kernels."""
-        loop = self._loop_kernel(shape, channels, n_frames)
-        if loop is None:
-            return None
-        _, schedule = self.resolved_config(shape, channels)
-        bh, fz = self.resolved_geometry(shape, channels)
-        return cuda_stencil.rep_loop_body(self.plan, loop[1], loop[2],
-                                          channels, bh, fz, schedule,
-                                          self.device, reps)
+            calls, None if loop is None else loop.fuse)
 
     def describe_launches(self, shape: Tuple[int, int], channels: int,
                           depths: Iterable[int],
@@ -209,14 +192,12 @@ class IteratedConv2D(torch.nn.Module):
         """The kernel instances calls of ``depths`` reps launch on
         ``shape`` (:func:`cuda_stencil.describe_launch`); empty off the
         kernels."""
-        loop = self._loop_kernel(shape, channels, n_frames)
+        loop = self.rep_loop(shape, channels, n_frames)
         if loop is None:
             return []
-        kernel, rows, wc, _, _ = loop
-        forced_bh = self.resolved_geometry(shape, channels)[0]
         return [cuda_stencil.describe_launch(
-            kernel, self.plan, rows, wc, channels, forced_bh, d, self.device)
-            for d in depths]
+            loop.kernel, self.plan, loop.rows, loop.wc, channels,
+            loop.block_h, d, self.device) for d in depths]
 
     def _place(self, img) -> torch.Tensor:
         """``img`` on the model's device, waited for: a profiler-only

@@ -26,7 +26,7 @@
 // exchange of pair rows between warps and one barrier a rep; and a fifth,
 // `regs_direct`, the same layout for non-negative 3x3 direct plans (edge).
 // The host runs them for the plans and launches they take
-// (cuda_stencil.launch_body), the shared tile's body otherwise; K2 and K3
+// (cuda_stencil.k1_launch), the shared tile's body otherwise; K2 and K3
 // keep the shared tile.
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a -O3 into a shared

@@ -7,10 +7,9 @@ kernel of the JAX package's ``ops/pallas_stencil.py``:
   ``_sep_kernel``): ``fuse`` reps per trip through device memory, one tile
   per block with its ghost bands: in registers under K1's own ``regs``
   and ``regs_direct`` bodies (:func:`regs_geometry`'s tile), else
-  ``block_h`` rows by
-  :data:`TILE_W` flat lanes in shared memory. :func:`iterate` runs ``reps
-  // fuse`` fused launches, then ``reps % fuse`` single-rep launches,
-  ping-ponging two uint8 buffers.
+  ``block_h`` rows by :data:`TILE_W` flat lanes in shared memory.
+  :func:`iterate` runs ``reps // fuse`` fused launches, then ``reps %
+  fuse`` single-rep launches, ping-ponging two uint8 buffers.
 * **K2** :func:`stencil_resident` (``csrc/stencil_resident.cu``, replaces
   ``_resident_kernel``): the whole rep loop in one cooperative launch, a
   persistent grid striding over K1's tiles and running ``fuse`` reps of
@@ -54,10 +53,14 @@ and both passes in registers, neighbour lanes by warp shuffle) for the
 binomial plans, and ``regs_direct`` (the same layout, 3x3 taps on packed
 words, an exact finish per field) for the non-negative 3x3 direct plans
 (:func:`regs_direct_ok`), which :func:`fused_body` picks from the plan
-alone and :func:`launch_body` runs wherever the launch's own arguments
-allow it (their geometry is :func:`regs_geometry`'s). Each body is its
-own kernel instance in the library; the wrapper passes the body's index
-and nothing substitutes another body.
+alone. Each body is its own kernel instance in the library; the wrapper
+passes the body's index and nothing substitutes another body.
+
+K1's launch is decided in one place, :func:`k1_launch`: a cached, frozen
+:class:`K1Launch` of its body, tile, fuse, grid and C structs.
+:func:`rep_loop` names a rep loop's kernel and K1's depths and records;
+every other reader (the launch, driver, model, autotuner, roofline and
+tools) takes its answer from those.
 
 Geometry is re-derived for Hopper: the TPU's 16 MiB VMEM budget becomes
 the 227 KB of shared memory a block may use (the ghost band must fit the
@@ -68,6 +71,7 @@ for the resident kernel, a share of the L2.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 import threading
@@ -311,35 +315,6 @@ def regs_grid(plan: StencilPlan, channels: int, fuse: int, rows: int,
     return -(-rows // tile_h) * -(-wc // tile_w)
 
 
-@functools.lru_cache(maxsize=1024)
-def launch_body(plan: StencilPlan, channels: int, fuse: int, rows: int,
-                wc: int, block_h: Optional[int] = None,
-                sms: int = H100_SMS) -> str:
-    """The body one K1 launch of ``fuse`` reps on a flat (rows, wc) image
-    runs: :func:`fused_body`'s, except that a launch a register body
-    (``regs``, ``regs_direct``) cannot take, or that ``regs`` loses, runs
-    :func:`tile_body`'s. A register body cannot take a forced tile height
-    (``block_h``; the register extent sets its own), a channel count it is
-    not built for, or a ``fuse`` whose ghost bands leave no tile
-    (:func:`regs_geometry`). ``regs`` loses a single-rep launch whose grid
-    has fewer blocks than the card (``sms``) has SMs: with no ghost rows
-    to recompute, ``swar``'s 3-4x more threads a pixel fill the card that
-    ``regs`` leaves idle (5.4-5.9 against 6.1-8.1 us a launch on an H100 at
-    1-48 blocks; from 196 blocks, and at fuse 8 at every size, ``regs``
-    won). ``regs_direct`` keeps such launches: against ``int32`` it read
-    9.6-13.6 against 10.3-30.9 us a launch at 1-260 blocks, but for 11.6
-    against 10.6 on four 256x256 RGB frames (36 blocks)."""
-    body = fused_body(plan)
-    if body not in REGS_BODIES:
-        return body
-    if (block_h is not None or channels not in REGS_CHANNELS
-            or regs_geometry(plan, channels, fuse) is None
-            or (body == REGS and fuse == 1
-                and regs_grid(plan, channels, 1, rows, wc) < sms)):
-        return tile_body(plan)
-    return body
-
-
 def tile_smem_bytes(plan: StencilPlan, block_h: int, fuse: int,
                     channels: int, tile_w: int = TILE_W,
                     body: Optional[str] = None) -> int:
@@ -567,19 +542,128 @@ def resident_feasible(plan: StencilPlan, n_rows: int, wc: int,
     return coop and 2 * n_rows * wc <= RESIDENT_L2_SHARE * l2
 
 
-def deep_geometry(plan: StencilPlan, n_rows: int, w: int, channels: int,
-                  block_h: Optional[int] = None, fuse: Optional[int] = None,
-                  device: Optional[torch.device] = None
-                  ) -> Tuple[Optional[int], Optional[int]]:
-    """The (block_h, fuse) a 'deep' launch reports: (None, None) when the
-    resident kernel runs (no static geometry), else what K1 launches at
-    under 'deep' (:func:`k1_launch`). Forced geometry forces K1."""
-    if (block_h is None and fuse is None
-            and resident_feasible(plan, n_rows, w * channels, channels,
-                                  device)):
-        return None, None
-    return k1_launch(plan, n_rows, w * channels, channels, block_h, fuse,
-                     DEEP, device)[1:]
+# ---------------------------------------------------------------------------
+# K1's launch: one record, decided once
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class K1Launch:
+    """One K1 launch of ``fuse`` reps (:func:`k1_launch`): its body, output
+    tile, grid (blocks along the lanes, the rows), threads per block,
+    dynamic shared memory, and the plan's C parameters."""
+
+    body: str
+    tile_h: int
+    tile_w: int
+    fuse: int
+    grid: Tuple[int, int]
+    threads: int
+    smem_bytes: int
+    params: _Params = dataclasses.field(compare=False, repr=False)
+
+
+@functools.lru_cache(maxsize=1024)
+def k1_launch(plan: StencilPlan, rows: int, wc: int, channels: int,
+              fuse: int, block_h: Optional[int] = None,
+              sms: int = H100_SMS) -> K1Launch:
+    """The one place K1's launch is decided: the :class:`K1Launch` of one
+    launch of ``fuse`` reps on a flat (rows, wc) image over ``sms`` SMs.
+    It runs :func:`fused_body`'s register body (``regs``, ``regs_direct``)
+    at :func:`regs_geometry`'s tile where no tile height is forced
+    (``block_h``; the register extent sets its own), the channel count is
+    one the body is built for, and the ghost bands of ``fuse`` reps leave
+    a tile; except that ``regs`` loses a single-rep launch whose grid has
+    fewer blocks than the card has SMs: with no ghost rows to recompute,
+    ``swar``'s 3-4x more threads a pixel fill the card that ``regs``
+    leaves idle (5.4-5.9 against 6.1-8.1 us a launch on an H100 at 1-48
+    blocks; from 196 blocks, and at fuse 8 at every size, ``regs`` won).
+    ``regs_direct`` keeps such launches: against ``int32`` it read
+    9.6-13.6 against 10.3-30.9 us a launch at 1-260 blocks, but for 11.6
+    against 10.6 on four 256x256 RGB frames (36 blocks). Every other
+    launch runs :func:`tile_body`'s shared tile, ``block_h`` rows (None:
+    :func:`effective_block_h`'s) by :data:`TILE_W` lanes."""
+    body = fused_body(plan)
+    regs = (regs_geometry(plan, channels, fuse) if body in REGS_BODIES
+            and block_h is None and channels in REGS_CHANNELS else None)
+    if regs and body == REGS and fuse == 1 and regs_grid(
+            plan, channels, 1, rows, wc) < sms:
+        regs = None
+    if regs:
+        tile_h, tile_w, warps = regs
+        threads, smem = 32 * warps, regs_smem_bytes()
+    else:
+        body, tile_w = tile_body(plan), TILE_W
+        tile_h = block_h or effective_block_h(plan, rows, channels)
+        threads = block_threads(plan, fuse, channels)
+        smem = tile_smem_bytes(plan, tile_h, fuse, channels, body=body)
+    return K1Launch(body, tile_h, tile_w, fuse,
+                    (-(-wc // tile_w), -(-rows // tile_h)), threads, smem,
+                    _params(plan))
+
+
+@dataclasses.dataclass(frozen=True)
+class RepLoop:
+    """A rep loop on a flat (rows, wc) image (:func:`rep_loop`): K2
+    ``stencil_resident`` (its geometry its own), or K1 ``stencil_fused`` at
+    ``fuse`` reps a fused launch and ``block_h`` (a forced tile height,
+    clamped; None: each launch's own), with the records of its fused and
+    single-rep launches."""
+
+    kernel: str
+    rows: int
+    wc: int
+    fuse: Optional[int] = None
+    block_h: Optional[int] = None
+    fused: Optional[K1Launch] = None
+    single: Optional[K1Launch] = None
+
+    def launches(self, reps: int) -> List[K1Launch]:
+        """K1's launches of a ``reps``-rep call, in order
+        (:func:`launch_schedule`)."""
+        return [self.fused if d == self.fuse else self.single
+                for d in launch_schedule(reps, self.fuse)]
+
+
+@functools.lru_cache(maxsize=1024)
+def k1_loop(plan: StencilPlan, rows: int, wc: int, channels: int,
+            block_h: Optional[int], fuse: Optional[int],
+            schedule: Optional[str], sms: int = H100_SMS) -> RepLoop:
+    """K1's rep loop on a flat (rows, wc) image over ``sms`` SMs: a
+    register body at the forced ``fuse`` or :data:`DEFAULT_FUSE`, whatever
+    the schedule and the image's height, where :func:`k1_launch` runs one
+    at that depth; else the shared tile at :func:`effective_geometry`'s
+    (block_h, fuse). ('deep' deepens the shared tile's launches to cut its
+    trips through device memory; a ``regs`` rep is cheapest at 8: 5.66 us
+    at 1920x2520 RGB on an H100, 6.49 at 12, 7.10 at 16.)"""
+    if block_h is None:
+        fz = DEFAULT_FUSE if fuse is None else fuse
+        fused = k1_launch(plan, rows, wc, channels, fz, None, sms)
+        if fused.body not in REGS_BODIES:
+            fz = effective_geometry(plan, rows, channels, None, fuse,
+                                    schedule=schedule)[1]
+            fused = k1_launch(plan, rows, wc, channels, fz, None, sms)
+    else:
+        block_h, fz = effective_geometry(plan, rows, channels, block_h, fuse,
+                                         schedule=schedule)
+        fused = k1_launch(plan, rows, wc, channels, fz, block_h, sms)
+    return RepLoop("stencil_fused", rows, wc, fz, block_h, fused,
+                   k1_launch(plan, rows, wc, channels, 1, block_h, sms))
+
+
+def rep_loop(plan: StencilPlan, rows: int, wc: int, channels: int,
+             block_h: Optional[int], fuse: Optional[int],
+             schedule: Optional[str],
+             device: Optional[torch.device]) -> RepLoop:
+    """The launches of a rep loop on a flat (rows, wc) image: K2 for an
+    unforced 'deep' run that :func:`resident_feasible` admits, else K1's
+    (:func:`k1_loop`, over the device's SMs)."""
+    sched = check_schedule(schedule)
+    if (sched == DEEP and block_h is None and fuse is None
+            and resident_feasible(plan, rows, wc, channels, device)):
+        return RepLoop("stencil_resident", rows, wc)
+    return k1_loop(plan, rows, wc, channels, block_h, fuse, sched,
+                   sm_count(device))
 
 
 def frames_stride(plan: StencilPlan, frame_h: int) -> int:
@@ -706,7 +790,10 @@ class _ValidGeometry(ctypes.Structure):
     ]
 
 
+@functools.lru_cache(maxsize=256)
 def _params(plan: StencilPlan) -> _Params:
+    """The plan's ``StencilParams``, built once per plan (read-only: every
+    launch of the plan passes the same struct)."""
     p = _Params()
     p.kind = 0 if plan.kind == "sep_int" else 1
     p.k = plan.k
@@ -787,67 +874,63 @@ def _tile_lib(kernel: str) -> ctypes.CDLL:
     return _fused_lib() if kernel == "stencil_fused" else _valid_lib()
 
 
-def _tile_query(kernel: str, fn: str, plan: StencilPlan, block_h: int,
-                fuse: int, channels: int, body: Optional[str], *extra):
+def _tile_query(kernel: str, fn: str, plan: StencilPlan, channels: int,
+                body: str, tile_h: int, tile_w: int, fuse: int, *extra):
     """(library, result) of the C query ``{kernel}_{fn}`` (kernel:
-    stencil_fused or stencil_valid) for one tile of ``body`` (default
-    :func:`tile_body`) at (block_h, fuse); a ``regs`` tile at
-    :func:`regs_geometry`'s (``block_h`` unused)."""
-    body = tile_body(plan) if body is None else body
-    if kernel == "stencil_fused" and body in REGS_BODIES:
-        th, tw, _ = regs_geometry(plan, channels, fuse)
-        geom = _Geometry(th, tw, th, channels, 0, 0, th, tw)
-    elif kernel == "stencil_fused":
-        geom = _Geometry(block_h, TILE_W, block_h, channels, 0, 0, block_h,
-                         TILE_W)
+    stencil_fused or stencil_valid) for one tile of ``body``, ``tile_h``
+    rows by ``tile_w`` lanes (K3: :data:`TILE_W`), at ``fuse`` reps."""
+    if kernel == "stencil_fused":
+        geom = _Geometry(tile_h, tile_w, tile_h, channels, 0, 0, tile_h,
+                         tile_w)
     else:
         g = fuse * plan.halo
-        geom = _ValidGeometry(block_h + 2 * g, TILE_W + 2 * g * channels,
-                              block_h, TILE_W, channels, 0, 0, block_h,
-                              TILE_W, block_h, TILE_W,
+        geom = _ValidGeometry(tile_h + 2 * g, TILE_W + 2 * g * channels,
+                              tile_h, TILE_W, channels, 0, 0, tile_h,
+                              TILE_W, tile_h, TILE_W,
                               TILE_W + 2 * g * channels, TILE_W)
     lib = _tile_lib(kernel)
-    params = _params(plan)
     return lib, getattr(lib, f"{kernel}_{fn}")(
-        ctypes.addressof(params), ctypes.addressof(geom), fuse,
+        ctypes.addressof(_params(plan)), ctypes.addressof(geom), fuse,
         K1_BODIES.index(body), *extra)
 
 
 def kernel_smem_bytes(kernel: str, plan: StencilPlan, block_h: int,
-                      fuse: int, channels: int,
-                      body: Optional[str] = None) -> int:
-    """What the built library of ``kernel`` says a tile of ``body`` takes;
-    :func:`tile_smem_bytes` is the host model of it."""
-    return int(_tile_query(kernel, "smem", plan, block_h, fuse, channels,
-                           body)[1])
+                      fuse: int, channels: int) -> int:
+    """What the built library of ``kernel`` says a shared tile of
+    :func:`tile_body`'s at (block_h, fuse) takes; :func:`tile_smem_bytes`
+    is the host model of it."""
+    return int(_tile_query(kernel, "smem", plan, channels, tile_body(plan),
+                           block_h, TILE_W, fuse)[1])
 
 
 def blocks_per_sm(kernel: str, plan: StencilPlan, block_h: int, fuse: int,
-                  channels: int, body: Optional[str] = None) -> int:
-    """Resident blocks per SM of ``kernel``'s instance for ``body``
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current card)."""
+                  channels: int, body: Optional[str] = None,
+                  tile_w: int = TILE_W) -> int:
+    """Resident blocks per SM of ``kernel``'s instance for a tile of
+    ``body`` (default :func:`tile_body`), ``block_h`` rows by ``tile_w``
+    lanes, at ``fuse`` reps (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    on the current card)."""
     blocks = ctypes.c_int(0)
-    lib, rc = _tile_query(kernel, "occupancy", plan, block_h, fuse,
-                          channels, body, ctypes.addressof(blocks))
+    lib, rc = _tile_query(kernel, "occupancy", plan, channels,
+                          tile_body(plan) if body is None else body, block_h,
+                          tile_w, fuse, ctypes.addressof(blocks))
     _raise_on(rc, lib, f"{kernel}_error_string", f"{kernel} occupancy")
     return blocks.value
 
 
-def instance_attributes(plan: StencilPlan, channels: int, fuse: int,
-                        body: Optional[str] = None) -> Dict[str, int]:
+def instance_attributes(plan: StencilPlan, channels: int,
+                        launch: K1Launch) -> Dict[str, int]:
     """Registers a thread and local-memory bytes a thread of the K1
-    instance that runs ``plan`` in ``body`` (default :func:`fused_body`'s)
-    at ``fuse`` reps, as the card reports them (cudaFuncGetAttributes): a
-    spill shows as local memory."""
+    instance that ``launch`` runs ``plan`` with, as the card reports them
+    (cudaFuncGetAttributes): a spill shows as local memory."""
     out = (ctypes.c_int * 2)()
-    body = fused_body(plan) if body is None else body
     # declared here, not in _fused_lib: every K1 launch loads the library
     fn = _fused_lib().stencil_fused_attributes
     fn.argtypes = [_P, _P, ctypes.c_int, ctypes.c_int, _P]
     fn.restype = ctypes.c_int
-    lib, rc = _tile_query("stencil_fused", "attributes", plan,
-                          DEFAULT_BLOCK_H, fuse, channels, body,
-                          ctypes.addressof(out))
+    lib, rc = _tile_query("stencil_fused", "attributes", plan, channels,
+                          launch.body, launch.tile_h, launch.tile_w,
+                          launch.fuse, ctypes.addressof(out))
     _raise_on(rc, lib, "stencil_fused_error_string",
               "stencil_fused attributes")
     return {"registers": out[0], "local_bytes": out[1]}
@@ -924,30 +1007,31 @@ def describe_launch(kernel: str, plan: StencilPlan, rows: int, wc: int,
     ``fuse`` reps and K2 ``stencil_resident`` on a flat (rows, wc) image,
     K3 ``stencil_valid`` on one tile's (rows, wc) interior at ``fuse``
     reps; ``block_h`` a forced tile height (None: the kernel's own). Its
-    body (K1's :func:`launch_body`), tile, grid, threads per block and
-    dynamic shared memory (the host model's), and on a card its resident
-    blocks per SM (the library's occupancy query; K2's grid too) and
-    registers (the build's ``-Xptxas -v`` lines; under ``regs_direct``,
-    :func:`instance_attributes`'); None for those on the
-    CPU."""
+    body, tile, grid, threads per block and dynamic shared memory (K1's
+    from its :class:`K1Launch`, the fused launch of :func:`k1_loop`; K2's
+    and K3's from the host model), and on a card its resident blocks per
+    SM (the library's occupancy query; K2's grid too) and registers (the
+    build's ``-Xptxas -v`` lines; under ``regs_direct``,
+    :func:`instance_attributes`'); None for those on the CPU."""
     on_card = device is not None and torch.device(device).type == "cuda"
-    body, tw = tile_body(plan), TILE_W
-    if kernel == "stencil_resident":
-        bh, fz = resident_geometry(plan, rows, wc, channels,
-                                   device_caps(device)[1])
-    elif kernel == "stencil_valid":
-        bh, fz = valid_geometry(plan, rows, channels, fuse, block_h)
+    if kernel == "stencil_fused":
+        k1 = k1_loop(plan, rows, wc, channels, block_h, fuse, None,
+                     sm_count(device)).fused
+        body, bh, tw, fz, grid, threads, smem = (
+            k1.body, k1.tile_h, k1.tile_w, k1.fuse, list(k1.grid),
+            k1.threads, k1.smem_bytes)
     else:
-        body, bh, fz = k1_launch(plan, rows, wc, channels, block_h, fuse,
-                                 None, device)
-    threads = block_threads(plan, fz, channels)
-    smem = tile_smem_bytes(plan, bh, fz, channels)
-    if body in REGS_BODIES:
-        tw = regs_geometry(plan, channels, fz)[1]
-        threads, smem = 32 * REGS_WARPS, regs_smem_bytes()
-    # K2's grid is the co-resident blocks, which only the card knows.
-    grid = (None if kernel == "stencil_resident"
-            else [-(-wc // tw), -(-rows // bh)])
+        body, tw = tile_body(plan), TILE_W
+        if kernel == "stencil_resident":
+            bh, fz = resident_geometry(plan, rows, wc, channels,
+                                       device_caps(device)[1])
+        else:
+            bh, fz = valid_geometry(plan, rows, channels, fuse, block_h)
+        threads = block_threads(plan, fz, channels)
+        smem = tile_smem_bytes(plan, bh, fz, channels)
+        # K2's grid is the co-resident blocks, which only the card knows.
+        grid = (None if kernel == "stencil_resident"
+                else [-(-wc // tw), -(-rows // bh)])
     rec = {"kernel": kernel, "body": body, "block_h": bh, "tile_w": tw,
            "fuse": fz, "grid": grid, "threads": threads, "smem_bytes": smem,
            "blocks_per_sm": None, "registers": None}
@@ -959,10 +1043,10 @@ def describe_launch(kernel: str, plan: StencilPlan, rows: int, wc: int,
         else:
             with torch.cuda.device(device):
                 rec["blocks_per_sm"] = blocks_per_sm(kernel, plan, bh, fz,
-                                                     channels, body)
+                                                     channels, body, tw)
         if body == REGS_DIRECT:  # its instance is the library's choice
             with torch.cuda.device(device):
-                a = instance_attributes(plan, channels, fz, body)
+                a = instance_attributes(plan, channels, k1)
             regs = {"registers": a["registers"],
                     "spill": f"{a['local_bytes']} bytes local memory"}
         else:
@@ -1029,12 +1113,11 @@ def stencil_fused(x2: torch.Tensor, plan: StencilPlan, channels: int,
                   block_h: Optional[int] = None,
                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K1: ``fuse`` reps of the flat (rows, W*C) uint8 image ``x2`` into
-    ``out`` (allocated when None; must not alias ``x2``), in the body
-    :func:`launch_body` names: a register body at :func:`regs_geometry`'s
-    tile, or the shared tile's body at ``block_h`` rows (None:
-    :func:`effective_block_h`'s; a forced height runs the shared tile).
-    ``rows_real``: rows past it lie outside the image; ``frame`` =
-    (stride, frame_h) marks the frames layout. CPU tensors run
+    ``out`` (allocated when None; must not alias ``x2``), as the
+    :class:`K1Launch` of :func:`k1_launch` for this shape, depth and
+    forced tile height ``block_h`` runs them (a forced height runs the
+    shared tile). ``rows_real``: rows past it lie outside the image;
+    ``frame`` = (stride, frame_h) marks the frames layout. CPU tensors run
     :func:`stencil_fused_plain`."""
     _check_input(x2)
     rows_real = x2.shape[0] if rows_real is None else rows_real
@@ -1047,29 +1130,31 @@ def stencil_fused(x2: torch.Tensor, plan: StencilPlan, channels: int,
     _check_input(out)
     if out.data_ptr() == x2.data_ptr() or out.shape != x2.shape:
         raise ValueError("out must be a distinct buffer of x2's shape")
-    body = launch_body(plan, channels, fuse, x2.shape[0], x2.shape[1],
-                       block_h, sm_count(x2.device))
-    params = _params(plan)
-    if body in REGS_BODIES:
-        tile_h, tile_w, _ = regs_geometry(plan, channels, fuse)
-    else:
-        tile_h = (effective_block_h(plan, x2.shape[0], channels)
-                  if block_h is None else block_h)
-        tile_w = TILE_W
-    geom = _geometry(x2, channels, rows_real, frame, tile_h, tile_w)
-    with torch.cuda.device(x2.device):
-        rc = lib.stencil_fused_launch(
-            x2.data_ptr(), out.data_ptr(), ctypes.addressof(params),
-            ctypes.addressof(geom), fuse, K1_BODIES.index(body),
-            torch.cuda.current_stream(x2.device).cuda_stream,
-        )
-    _raise_on(rc, lib, "stencil_fused_error_string", "stencil_fused")
-    _count(stencil_fused, body, fuse)
+    _launch_k1(lib, x2, out, k1_launch(plan, *x2.shape, channels, fuse,
+                                       block_h, sm_count(x2.device)),
+               channels, rows_real, frame)
     return out
 
 
+def _launch_k1(lib, x2: torch.Tensor, out: torch.Tensor, launch: K1Launch,
+               channels: int, rows_real: int, frame) -> None:
+    """K1's ``launch`` from ``x2`` into ``out`` (checked by the caller),
+    counted by body; only its ``StencilGeometry`` is built per call."""
+    geom = _geometry(x2, channels, rows_real, frame, launch.tile_h,
+                     launch.tile_w)
+    with torch.cuda.device(x2.device):
+        rc = lib.stencil_fused_launch(
+            x2.data_ptr(), out.data_ptr(), ctypes.addressof(launch.params),
+            ctypes.addressof(geom), launch.fuse,
+            K1_BODIES.index(launch.body),
+            torch.cuda.current_stream(x2.device).cuda_stream,
+        )
+    _raise_on(rc, lib, "stencil_fused_error_string", "stencil_fused")
+    _count(stencil_fused, launch.body, launch.fuse)
+
+
 stencil_fused.launches = 0
-# K1's launches, and the reps they ran, by the body they ran (launch_body),
+# K1's launches, and the reps they ran, by the body their K1Launch names,
 # under the same lock.
 stencil_fused.body_launches = {}
 stencil_fused.body_reps = {}
@@ -1224,72 +1309,6 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 
 
-def rep_loop_kernel(plan: StencilPlan, rows: int, wc: int, channels: int,
-                    block_h: Optional[int], fuse: Optional[int],
-                    schedule: Optional[str],
-                    device: Optional[torch.device]
-                    ) -> Tuple[str, Optional[int], Optional[int]]:
-    """The kernel a rep loop on a flat (rows, wc) image launches, with the
-    (block_h, fuse) it launches at: ``("stencil_resident", None, None)``
-    (K2, its geometry its own) for an unforced 'deep' run that
-    :func:`resident_feasible` admits, else ``"stencil_fused"`` (K1) at
-    :func:`k1_launch`'s."""
-    sched = check_schedule(schedule)
-    if (sched == DEEP and block_h is None and fuse is None
-            and resident_feasible(plan, rows, wc, channels, device)):
-        return "stencil_resident", None, None
-    _, bh, fz = k1_launch(plan, rows, wc, channels, block_h, fuse, sched,
-                          device)
-    return "stencil_fused", bh, fz
-
-
-def k1_launch(plan: StencilPlan, rows: int, wc: int, channels: int,
-              block_h: Optional[int], fuse: Optional[int],
-              schedule: Optional[str], device: Optional[torch.device]
-              ) -> Tuple[str, int, int]:
-    """(body, tile_h, fuse) of a rep loop's fused K1 launches on a flat
-    (rows, wc) image: a register body (``regs``, ``regs_direct``) at the
-    forced ``fuse`` or :data:`DEFAULT_FUSE`, whatever the schedule and the
-    image's height, and at :func:`regs_geometry`'s tile, where
-    :func:`launch_body` runs it there; else the shared tile at
-    :func:`effective_geometry`. ('deep' deepens the shared tile's launches
-    to cut its trips through device memory; a ``regs`` rep is cheapest at
-    8: 5.66 us at 1920x2520 RGB on an H100, 6.49 at 12, 7.10 at 16.)"""
-    sms = sm_count(device)
-    if block_h is None:
-        fz = DEFAULT_FUSE if fuse is None else fuse
-        body = launch_body(plan, channels, fz, rows, wc, None, sms)
-        if body in REGS_BODIES:
-            return body, regs_geometry(plan, channels, fz)[0], fz
-    bh, fz = effective_geometry(plan, rows, channels, block_h, fuse,
-                                schedule=schedule)
-    body = launch_body(plan, channels, fz, rows, wc, block_h, sms)
-    if body in REGS_BODIES:
-        bh = regs_geometry(plan, channels, fz)[0]
-    return body, bh, fz
-
-
-def rep_loop_body(plan: StencilPlan, rows: int, wc: int, channels: int,
-                  block_h: Optional[int], fuse: Optional[int],
-                  schedule: Optional[str], device: Optional[torch.device],
-                  reps: Optional[int] = None) -> str:
-    """The body the first launch of a rep loop of ``reps`` reps runs
-    (:func:`rep_loop_kernel`; None: a launch of the loop's own depth):
-    K1's :func:`k1_launch` body, or :func:`launch_body`'s single rep where
-    ``reps`` is below the depth; K2's :func:`tile_body`."""
-    sched = check_schedule(schedule)
-    kernel, _, _ = rep_loop_kernel(plan, rows, wc, channels, block_h, fuse,
-                                   sched, device)
-    if kernel == "stencil_resident":
-        return tile_body(plan)
-    body, _, fz = k1_launch(plan, rows, wc, channels, block_h, fuse, sched,
-                            device)
-    if reps is not None and 0 < reps < fz:
-        return launch_body(plan, channels, 1, rows, wc, block_h,
-                           sm_count(device))
-    return body
-
-
 def warm_depths(calls: Iterable[int], fuse: Optional[int]) -> List[int]:
     """Rep counts, one call of a rep loop each, that between them launch
     every kernel instance that calls of ``calls`` reps launch: for a loop
@@ -1309,28 +1328,25 @@ def _run_rep_loop(x2: torch.Tensor, repetitions: int, plan: StencilPlan,
                   rows_real: int, channels: int, block_h: Optional[int],
                   fuse: Optional[int], schedule: Optional[str],
                   frame=None) -> torch.Tensor:
-    """Run ``repetitions`` on the flat (rows, W*C) image: K2 for an
-    unforced 'deep' run that :func:`resident_feasible` admits, else K1 as
-    fused launches plus single-rep remainders over two ping-pong buffers,
-    each in :func:`launch_body`'s body."""
+    """Run ``repetitions`` on the flat (rows, W*C) image as
+    :func:`rep_loop` plans them: K2's one launch, or K1's fused launches
+    plus single-rep remainders over two ping-pong buffers, each launch
+    :func:`stencil_fused` of its depth at the loop's tile height."""
     rows, wc = x2.shape
     check_schedule(schedule)
     if repetitions == 0:
         return x2.clone()
-    kernel, bh, fz = rep_loop_kernel(plan, rows, wc, channels, block_h,
-                                     fuse, schedule, x2.device)
-    if kernel == "stencil_resident":
+    loop = rep_loop(plan, rows, wc, channels, block_h, fuse, schedule,
+                    x2.device)
+    if loop.kernel == "stencil_resident":
         return stencil_resident(x2, plan, channels, repetitions, rows_real,
                                 frame)
-    depths = launch_schedule(repetitions, fz)
+    depths = launch_schedule(repetitions, loop.fuse)
     bufs = [torch.empty_like(x2) for _ in range(min(2, len(depths)))]
-    # A forced tile height is K1's to honour (it runs the shared tile); an
-    # unforced one leaves the launch its own.
-    bh = None if block_h is None else bh
     cur = x2
     for i, depth in enumerate(depths):
         cur = stencil_fused(cur, plan, channels, depth, rows_real, frame,
-                            block_h=bh, out=bufs[i % 2])
+                            block_h=loop.block_h, out=bufs[i % 2])
     return cur
 
 

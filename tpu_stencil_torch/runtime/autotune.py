@@ -258,7 +258,7 @@ def _steady_state_per_rep(run, reps: int) -> float:
 # rows, not hundreds; candidates past the limit in the plan's body are
 # pruned before any measurement (cuda_stencil.tile_smem_bytes) and
 # candidates that launch as an earlier one does are skipped
-# (effective_geometry). fuse 4/5/10/20/40:
+# (cuda_stencil.rep_loop's launch). fuse 4/5/10/20/40:
 # `reps % fuse` runs as single-rep launches, which taxes fuses that do not
 # divide the reference's 40-rep jobs, so every divisor of 40 that a tile
 # can hold is in the grid; 16 and 32 are there for rep counts that are
@@ -299,37 +299,33 @@ def _measure_takes_geometry(measure) -> bool:
 
 def _geometry_candidates(plan: StencilPlan, n_rows: int, channels: int,
                          schedule: Optional[str], wc: int, device):
-    """The grid's candidates worth a measurement, as (requested,
-    effective) pairs: inside shared memory as requested, and launching
-    differently from the default and from each other. Where the default
-    launch runs one of K1's register bodies (``regs``, ``regs_direct``), a
-    tile height would force the shared tile (2.6x slower a rep at the job
-    cells' shapes under ``regs``), so the grid varies only the fuse:
-    ``(None, fuse)`` for each of its depths that the body runs
-    (:func:`cuda_stencil.k1_launch`)."""
-    body = cs.rep_loop_body(plan, n_rows, wc, channels, None, None, schedule,
-                            device)
-    if body in cs.REGS_BODIES:
-        seen = {cs.k1_launch(plan, n_rows, wc, channels, None, None,
-                             schedule, device)}
-        out = []
-        for gfz in sorted({gfz for _, gfz in _GEOMETRY_GRID}):
-            eff = cs.k1_launch(plan, n_rows, wc, channels, None, gfz,
-                               schedule, device)
-            if eff[0] == body and eff not in seen:
-                seen.add(eff)
-                out.append(((None, gfz), eff))
-        return out
-    seen = {cs.effective_geometry(plan, n_rows, channels, schedule=schedule)}
-    out = []
-    for gbh, gfz in _GEOMETRY_GRID:
-        if cs.tile_smem_bytes(plan, gbh, gfz, channels) > cs.SMEM_LIMIT:
-            continue
-        eff = cs.effective_geometry(plan, n_rows, channels, gbh, gfz)
-        if eff in seen:
-            continue
-        seen.add(eff)
-        out.append(((gbh, gfz), eff))
+    """The grid's candidates worth a measurement, as (requested, launch)
+    pairs, ``launch`` the fused :class:`cuda_stencil.K1Launch` the request
+    runs (:func:`cuda_stencil.rep_loop`): inside shared memory as
+    requested, and launching differently from the default and from each
+    other. Where the default launch runs one of K1's register bodies
+    (``regs``, ``regs_direct``), a tile height would force the shared tile
+    (2.6x slower a rep at the job cells' shapes under ``regs``), so the
+    grid varies only the fuse: ``(None, fuse)`` for each of its depths
+    that the body runs."""
+    def launch(bh, fz):
+        return cs.rep_loop(plan, n_rows, wc, channels, bh, fz, schedule,
+                           device).fused
+
+    default = launch(None, None)  # None where K2 runs
+    regs = default is not None and default.body in cs.REGS_BODIES
+    if regs:
+        grid = [(None, fz) for fz in sorted({fz for _, fz in _GEOMETRY_GRID})]
+    else:  # the shared tile's default and its grid, inside shared memory
+        default = launch(cs.DEFAULT_BLOCK_H, None)
+        grid = [g for g in _GEOMETRY_GRID
+                if cs.tile_smem_bytes(plan, *g, channels) <= cs.SMEM_LIMIT]
+    seen, out = {default}, []
+    for req in grid:
+        eff = launch(*req)
+        if eff not in seen and eff.body == default.body:
+            seen.add(eff)
+            out.append((req, eff))
     return out
 
 
@@ -376,14 +372,15 @@ def best_full_config(
     if force_schedule is not None:
         force_schedule = cs.effective_schedule(force_schedule)
         key += f"|forced={force_schedule}"
-    # Key and measure at the EFFECTIVE geometry, so requested values that
+    # Key and measure at the launch the forced geometry runs (its K1 loop:
+    # a register body takes no tile height), so requested values that
     # launch identically share one entry and one sweep.
     geo_kw = {}
     if block_h is not None or fuse is not None:
-        eff_bh, eff_fz = cs.effective_geometry(
-            plan, shape[0], channels, block_h, fuse, schedule=force_schedule)
-        key += f"|bh={eff_bh}|fz={eff_fz}"
-        geo_kw = {"block_h": eff_bh, "fuse": eff_fz}
+        loop = cs.k1_loop(plan, shape[0], shape[1] * channels, channels,
+                          block_h, fuse, force_schedule, cs.sm_count(device))
+        key += f"|bh={loop.block_h}|fz={loop.fuse}"
+        geo_kw = {"block_h": loop.block_h, "fuse": loop.fuse}
     store = _load_cache() if cache else {}
     hit = store.get(key)
     if (

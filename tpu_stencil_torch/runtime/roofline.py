@@ -88,8 +88,10 @@ def effective_fuse(filter_name: str, h_img: int,
     """Reps per trip through device memory that
     :func:`tpu_stencil_torch.ops.cuda_stencil.iterate` achieves for this
     (filter, image height): device-memory traffic per rep is divided by
-    it. Mirrors the launch: K1's clamped fuse (``block_h``/``fuse``: a
-    forced or tuned geometry; None = module defaults); under
+    it. Mirrors the launch: K1's fused depth, its
+    :class:`~tpu_stencil_torch.ops.cuda_stencil.RepLoop`'s
+    (``block_h``/``fuse``: a forced or tuned geometry; None = module
+    defaults); under
     ``schedule='deep'``, when the resident kernel runs, ``reps`` over K2's
     grid syncs (one round trip of the image through its two buffers per
     sync; K2's reps per sync without ``reps``; ``w_img``/``channels`` feed
@@ -109,8 +111,9 @@ def effective_fuse(filter_name: str, h_img: int,
         fz = cs.resident_geometry(plan, rows, w_img * channels, channels,
                                   cs.device_caps(device)[1])[1]
         return reps / len(cs.launch_schedule(reps, fz)) if reps else fz
-    return cs.effective_geometry(plan, rows, channels, block_h, fuse,
-                                 schedule=sched)[1]
+    # K1's fused depth does not depend on the image's width
+    return cs.k1_loop(plan, rows, (w_img or 1) * channels, channels,
+                      block_h, fuse, sched, cs.sm_count(device)).fuse
 
 
 def analytic_bytes_per_rep(frame_bytes: int, backend: str,

@@ -72,17 +72,18 @@ def run_sweep(cands: List[tuple], device: torch.device, shape=(H, W),
           file=out, flush=True)
     want_by_fz, runs, rows = {}, {}, []
     for bh, fz in cands:
-        eff = cs.effective_geometry(plan, shape[0], channels, bh, fz)
+        eff = cs.rep_loop(plan, shape[0], shape[1] * channels, channels, bh,
+                          fz, None, device).fused
 
         def fn(n, _bh=bh, _fz=fz):
             return cs.iterate(img, n, plan, block_h=_bh, fuse=_fz)
 
-        if eff[1] not in want_by_fz:
-            want_by_fz[eff[1]] = lowering.iterate(img, eff[1], plan)
-        ok = bool(torch.equal(fn(eff[1]), want_by_fz[eff[1]]))
+        if eff.fuse not in want_by_fz:
+            want_by_fz[eff.fuse] = lowering.iterate(img, eff.fuse, plan)
+        ok = bool(torch.equal(fn(eff.fuse), want_by_fz[eff.fuse]))
         run = _harness.timed(fn, device)
-        runs[(bh, fz)] = (run, max(eff[1], reps - reps % eff[1]))
-        rows.append({"block_h": eff[0], "fuse": eff[1], "exact": ok,
+        runs[(bh, fz)] = (run, max(eff.fuse, reps - reps % eff.fuse))
+        rows.append({"block_h": eff.tile_h, "fuse": eff.fuse, "exact": ok,
                      "requested": (bh, fz), "run": run})
     per_rep = _harness.interleaved_per_rep(runs, rounds)
     for row in rows:

@@ -154,9 +154,9 @@ def variant_fn(name: str, plan, img: torch.Tensor):
     rows = img.shape[0]
     channels = img.shape[2] if img.dim() == 3 else 1
     if name == "shipped":
-        fuse = cs.rep_loop_kernel(plan, rows, img.numel() // rows, channels,
-                                  None, None, None, img.device)[2]
-        return (lambda n: cs.iterate(img, n, plan)), fuse
+        loop = cs.rep_loop(plan, rows, img.numel() // rows, channels, None,
+                           None, None, img.device)
+        return (lambda n: cs.iterate(img, n, plan)), loop.fuse
     if name == "xla":
         return (lambda n: lowering.iterate(img, n, plan)), 1
     form = _k2_form(name)
@@ -221,8 +221,8 @@ def run_lab(names: List[str], device: torch.device, shape=(H, W),
     if "current" in result and "shipped" in result:
         ratio = result["current"]["us_per_rep"] / result["shipped"][
             "us_per_rep"]
-        body = cs.launch_body(plan, channels, fns["shipped"][1], shape[0],
-                              shape[1] * channels)
+        body = cs.rep_loop(plan, shape[0], shape[1] * channels, channels,
+                           None, None, None, device).fused.body
         print(f"current / shipped = {ratio:.3f}  (baseline: K1 before "
               f"its tile redesign / K1 as shipped, body {body})",
               file=out, flush=True)
