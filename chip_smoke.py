@@ -352,6 +352,22 @@ grow by at least an instruction an element and operation from 8 to 16
    ``padding=k//2``) and its bound; 4 frames
    as one tall launch against 1 frame; and each body's resident blocks per
    SM at 32x8 (the library's occupancy query).
+21. ``place_overlap`` — the model's placement of a pinned host input, at
+   each job cell's shape and filter (1920x2520 RGB gaussian, 1920x5040
+   grey gaussian, 1920x5040 RGB edge) x100: 8 ``forward`` calls from a
+   ring of 4 pinned inputs, each input overwritten with 0xFF as soon as
+   its call returns, every output byte-equal to the blocking placement's
+   (a pageable input) and to the plain version's; K1's launches and reps
+   by body alike on both paths; ``blur.placement_counts`` at 8
+   ``overlapped`` and 4 ``blocking``; one ``torch.profiler`` capture
+   (the device's activities) of four pairs, the blocking placement of a
+   pinned input and then the overlapped one, in which an overlapped call
+   issues its first K1 launch while its H2D copy runs (the stream's
+   query at that launch; never so on the blocking path) and each
+   overlapped call's first K1 kernel follows its copy closer than the
+   blocking call's; then ms a job of
+   the two placements taking turns, each job fetched into a pinned
+   buffer and waited for.
 
 Then the ``{"kernels": [...]}`` line (for K1, K2 and K3 ``launches`` are
 the main path's timed window's and ``warmup_launches`` its warm-up's; K1
@@ -5545,6 +5561,191 @@ def check_op_chain_sass(inst: dict) -> dict:
     return out
 
 
+# The job cells' shapes and filters: (label, (H, W[, C]), filter).
+PLACE_CELLS = (("rgb2520", (2520, 1920, 3), "gaussian"),
+               ("grey5040", (5040, 1920), "gaussian"),
+               ("rgb5040edge", (5040, 1920, 3), "edge"))
+PLACE_REPS, PLACE_RING, PLACE_CALLS = 100, 4, 8
+# Profiled (blocking, overlapped) pairs a cell. Grey's 0.22 ms copy is
+# about as long as the host's prelude to the first launch, so a single
+# call's launch lands after the copy about one time in four.
+PLACE_PROFILED = 4
+
+
+def copy_then_k1(prof) -> list:
+    """Per host-to-card copy of a capture, in order, on the device's
+    clock: the copy's µs and the µs from its end to the start of the
+    first ``stencil_fused*`` kernel after it (a launch queued behind the
+    copy starts on its heels; one issued after it waits for the host)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == cuda]
+    copies = sorted((e.start_ns(), e.end_ns()) for e in events
+                    if "HtoD" in e.name())
+    k1 = sorted(e.start_ns() for e in events if K1_NAME in e.name())
+    return [{"copy_us": (c1 - c0) / 1e3,
+             "copy_end_to_k1_start_us": (next(k for k in k1 if k >= c0)
+                                         - c1) / 1e3}
+            for c0, c1 in copies]
+
+
+def phase_place_overlap(dev) -> dict:
+    """``IteratedConv2D.forward`` on a ring of pinned inputs (the job
+    cells' placement, overlapped: the copy non-blocking, K1's launches
+    behind it, its event waited for before return) at each job cell's
+    shape and filter, x100: each input overwritten with 0xFF as soon as
+    its call returns, every output byte-equal to the blocking placement's
+    (a pageable input) and to the plain version's; K1's launches and reps
+    by body alike on both paths; ``placement_counts`` moving by one a
+    call on each path; at each call's first K1 launch, whether the
+    stream still runs the copy (``stream.query()``: never on the
+    blocking path). Then profiled pairs (the blocking placement of a
+    pinned input, then the overlapped one), four times: an overlapped
+    call's first K1 launch is issued while its copy runs, and each
+    overlapped call's first K1 kernel follows its copy closer than the
+    blocking call's. Then ms a job, the
+    two placements of one pinned ring taking turns, each job fetched into
+    a pinned buffer and waited for (the job cells' loop)."""
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+
+    stream = torch.cuda.current_stream(dev)
+    armed = []
+    launch_k1 = cs._launch_k1
+
+    def first_launch(*args, **kw):  # the copy in flight at a first launch?
+        if armed:
+            probe.in_flight.append(not stream.query())
+            armed.clear()
+        return launch_k1(*args, **kw)
+
+    def probe(fn, x):
+        armed.append(True)
+        return fn(x)
+
+    probe.in_flight = []
+    out = {}
+    cs._launch_k1 = first_launch
+    try:
+        for label, shape, name in PLACE_CELLS:
+            out[label] = place_overlap_cell(dev, label, shape, name, probe)
+    finally:
+        cs._launch_k1 = launch_k1
+    missed = [label for label, r in out.items() if not any(
+        d["copy_in_flight"] for d in r["profiled"]["overlapped"])]
+    require(not missed, f"place_overlap {missed}: every profiled "
+            f"overlapped call issued its first K1 launch after its copy "
+            f"ended: {out}")
+    return {"phase": "place_overlap", "ok": True, "cells": out}
+
+
+def place_overlap_cell(dev, label, shape, name, probe) -> dict:
+    """:func:`phase_place_overlap` at one cell's shape and filter;
+    ``probe(fn, x)`` runs ``fn(x)`` and appends to ``probe.in_flight``
+    whether the copy still ran at the call's first K1 launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_stencil_torch.models import blur
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+
+    def moved(fn, x):
+        before = cs.body_launch_counts(), cs.body_rep_counts()
+        y = probe(fn, x)
+        after = cs.body_launch_counts(), cs.body_rep_counts()
+        return y, [blur._delta(b, a) for b, a in zip(before, after)]
+
+    plan = plan_of(name)
+    model = blur.IteratedConv2D(name, backend="pallas", device=dev)
+    model.prepare(shape[:2], shape[2] if len(shape) == 3 else 1)
+    rng = np.random.default_rng(25)
+    src = [rng.integers(0, 256, shape, np.uint8) for _ in range(PLACE_RING)]
+    ring = [torch.from_numpy(a).pin_memory() for a in src]
+    model(ring[0], PLACE_REPS)  # the kernels built and warmed
+    want = [flat_plain(torch.from_numpy(a).to(dev), plan, PLACE_REPS).cpu()
+            for a in src]
+    placed = blur.placement_counts()
+
+    def run(x):
+        return model(x, PLACE_REPS)
+
+    blocking, per_call = [], []
+    for a in src:
+        y, by_body = moved(run, torch.from_numpy(a))
+        blocking.append(y.cpu())
+        per_call.append(by_body)
+    blocking_in_flight = probe.in_flight[-PLACE_RING:]
+    ys, over_calls = [], []
+    for k in range(PLACE_CALLS):
+        slot = k % PLACE_RING
+        ring[slot].copy_(torch.from_numpy(src[slot]))
+        y, by_body = moved(run, ring[slot])
+        ring[slot].fill_(0xFF)  # the caller's buffer, free on return
+        over_calls.append(by_body)
+        ys.append((slot, y))
+    over_in_flight = probe.in_flight[-PLACE_CALLS:]
+    counts = blur._delta(placed, blur.placement_counts())
+    require(counts == {"overlapped": PLACE_CALLS, "blocking": PLACE_RING},
+            f"place_overlap {label}: placements {counts}")
+    require(all(over_calls[k] == per_call[k % PLACE_RING]
+                for k in range(PLACE_CALLS)),
+            f"place_overlap {label}: K1's launches by body {over_calls} "
+            f"against the blocking path's {per_call}")
+    require(not any(blocking_in_flight),
+            f"place_overlap {label}: a blocking copy still ran at its "
+            f"call's first launch: {blocking_in_flight}")
+    blocking_errs = [max_err(b, w) for b, w in zip(blocking, want)]
+    got = [(slot, y.cpu()) for slot, y in ys]
+    errs = [max(max_err(y, want[slot]), max_err(y, blocking[slot]))
+            for slot, y in got]
+    require(max(blocking_errs) == 0 and max(errs) == 0,
+            f"place_overlap {label}: max abs err {errs} overlapped, "
+            f"{blocking_errs} blocking, against the plain version")
+
+    # Profiled pairs: the blocking placement of a pinned input (the
+    # model's sequence before the overlap), then the overlapped one. The
+    # device's activities alone, so the host runs at its untraced pace.
+    for t, a in zip(ring, src):
+        t.copy_(torch.from_numpy(a))
+    paths = {"blocking": lambda x: model.run_on(model._place(x), PLACE_REPS),
+             "overlapped": run}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PLACE_PROFILED):
+            for fn, x in zip(paths.values(), ring):
+                probe(fn, x)
+                torch.cuda.synchronize()
+    seen = copy_then_k1(prof)
+    require(len(seen) == 2 * PLACE_PROFILED,
+            f"place_overlap {label}: {len(seen)} H2D copies profiled for "
+            f"{2 * PLACE_PROFILED} calls")
+    for d, flag in zip(seen, probe.in_flight[-2 * PLACE_PROFILED:]):
+        d["copy_in_flight"] = flag
+    profiled = {p: seen[i::2] for i, p in enumerate(paths)}
+    require(all(o["copy_end_to_k1_start_us"] < b["copy_end_to_k1_start_us"]
+                for b, o in zip(*profiled.values())),
+            f"place_overlap {label}: K1 followed an overlapped copy no "
+            f"closer than the blocking one: {profiled}")
+
+    # ms a job, the two placements of one pinned ring taking turns.
+    fetched = [torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+               for _ in range(PLACE_RING)]
+    stream = torch.cuda.current_stream(dev)
+    ms = {p: [] for p in paths}
+    for _ in range(5):
+        for p, fn in paths.items():
+            t0 = time.perf_counter()
+            for k in range(100):
+                fetched[k % PLACE_RING].copy_(fn(ring[k % PLACE_RING]),
+                                              non_blocking=True)
+                stream.synchronize()
+            ms[p].append((time.perf_counter() - t0) * 10)
+    return {"shape": list(shape), "filter": name, "reps": PLACE_REPS,
+            "calls": PLACE_CALLS, "max_abs_err": max(errs),
+            "placements": counts, "k1_bodies_per_call": per_call[0],
+            "copy_in_flight_at_first_launch": sum(over_in_flight),
+            "profiled": profiled,
+            "job_ms": {p: statistics.median(v) for p, v in ms.items()},
+            "job_ms_rounds": ms}
+
+
 def run(dev: torch.device) -> None:
     """Every phase on ``dev``; raises on any failure."""
     from tpu_stencil_torch.ops import _build
@@ -5636,6 +5837,7 @@ def run(dev: torch.device) -> None:
     emit(fed_ctrl)
     times = phase_times(dev)
     emit(times)
+    emit(phase_place_overlap(dev))
 
     runs = main_path["runs"]
     common = {"route": "cuda", "plain_ms": times["plain_ms"],

@@ -21,11 +21,17 @@ verdict unless ``schedule``/``block_h``/``fuse`` force it; on the CPU the
 answer is torch ops, without a measurement. As in the JAX package,
 periodic boundaries, ``direct_f32`` plans and plans the kernels do not take
 run the torch-ops lowering, and the model reports that (``xla``).
+
+A pinned host input bound for a card is copied non-blocking, and the
+call's launches queue behind the copy on the same stream; the call waits
+for the copy alone before it returns, so the host's issue overlaps the
+copy and the kernels (:func:`placement_counts`).
 """
 
 from __future__ import annotations
 
-from typing import Iterable, List, Optional, Tuple, Union
+import threading
+from typing import Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -43,6 +49,33 @@ def _delta(before: dict, after: dict) -> dict:
     """The counters of ``after`` that moved since ``before``, by how much."""
     return {k: n - before.get(k, 0) for k, n in after.items()
             if n != before.get(k, 0)}
+
+
+_PLACEMENT_LOCK = threading.Lock()
+_placements = {"overlapped": 0, "blocking": 0}
+
+
+def _count_placement(kind: str) -> None:
+    with _PLACEMENT_LOCK:
+        _placements[kind] += 1
+
+
+def placement_counts() -> Dict[str, int]:
+    """How many ``forward``/``batch`` calls of this process placed their
+    input ``overlapped`` (a pinned host tensor bound for a card: copied
+    non-blocking, the launches queued behind it) or ``blocking`` (every
+    other input: numpy, pageable or already on the device, or a CPU
+    model), a copy."""
+    with _PLACEMENT_LOCK:
+        return dict(_placements)
+
+
+def _overlaps(img, device: torch.device) -> bool:
+    """Whether ``img``'s copy to ``device`` can run behind the host's
+    issue: a pinned CPU tensor bound for a card. A pageable source gives
+    no overlap, so every other input keeps the blocking copy."""
+    return (device.type == "cuda" and isinstance(img, torch.Tensor)
+            and img.device.type == "cpu" and img.is_pinned())
 
 
 class IteratedConv2D(torch.nn.Module):
@@ -199,6 +232,34 @@ class IteratedConv2D(torch.nn.Module):
             loop.kernel, self.plan, loop.rows, loop.wc, channels,
             loop.block_h, d, self.device) for d in depths]
 
+    def _place_and_run(self, run, img, repetitions: int) -> torch.Tensor:
+        """``run(x, repetitions)`` on ``img`` placed on the model's device
+        as ``x``. Where :func:`_overlaps`, the copy is issued non-blocking
+        on the current stream with an event behind it, ``run``'s launches
+        queue behind the copy, and the event is waited for before this
+        returns or raises, so the caller may rewrite ``img`` at once (the
+        output may still be computing: a read of it orders after it); the
+        profiler-only ``model.place`` span (args ``bytes`` and
+        ``overlapped``) then holds ``run``'s ``model.issue``. Otherwise
+        the input is placed and waited for first, the two spans
+        siblings."""
+        if not _overlaps(img, self.device):
+            _count_placement("blocking")
+            return run(self._place(img), repetitions)
+        _count_placement("overlapped")
+        with _tracing.span("model.place", "model", profiler_only=True) as s:
+            stream = torch.cuda.current_stream(self.device)
+            x = img.to(device=self.device, dtype=torch.uint8,
+                       non_blocking=True)
+            copied = stream.record_event()
+            try:
+                out = run(x, repetitions)
+            finally:
+                copied.synchronize()
+            if s.recording:
+                s.args.update(bytes=x.nbytes, overlapped=True)
+            return out
+
     def _place(self, img) -> torch.Tensor:
         """``img`` on the model's device, waited for: a profiler-only
         ``model.place`` span (arg ``bytes``) while a profiler collects."""
@@ -245,8 +306,9 @@ class IteratedConv2D(torch.nn.Module):
     def forward(self, img_u8, repetitions: int) -> torch.Tensor:
         """``repetitions`` stencil applications of an (H, W[, C]) uint8
         image (numpy or tensor; placed on the model's device). The input
-        is never written."""
-        return self.run_on(self._place(img_u8), repetitions)
+        is never written, and the caller may rewrite it once the call
+        returns."""
+        return self._place_and_run(self.run_on, img_u8, repetitions)
 
     def run_on(self, x: torch.Tensor, repetitions: int) -> torch.Tensor:
         """:meth:`forward` on the device ``x`` (a uint8 tensor) lies on,
@@ -278,8 +340,9 @@ class IteratedConv2D(torch.nn.Module):
         return self.resolved_config(frame_shape, channels)
 
     def batch(self, imgs_u8, repetitions: int) -> torch.Tensor:
-        """Batched video/burst mode: (N, H, W[, C]) frames, never mixed."""
-        return self.batch_on(self._place(imgs_u8), repetitions)
+        """Batched video/burst mode: (N, H, W[, C]) frames, never mixed;
+        placed as :meth:`forward` places its image."""
+        return self._place_and_run(self.batch_on, imgs_u8, repetitions)
 
     def batch_on(self, x: torch.Tensor, repetitions: int) -> torch.Tensor:
         """:meth:`batch` on the device ``x`` lies on (see :meth:`run_on`)."""
