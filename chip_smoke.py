@@ -368,6 +368,18 @@ grow by at least an instruction an element and operation from 8 to 16
    blocking call's; then ms a job of
    the two placements taking turns, each job fetched into a pinned
    buffer and waited for.
+22. ``mesh_replay`` — ``ShardedRunner.run_host`` on 1920x5040 grey
+   gaussian x100 over a 2x2 mesh (four cards where the machine has them,
+   else the one card named four times): the first call captures the job
+   as one graph over the cards, and 8 calls from a ring of 4 pinned tile
+   grids, each overwritten with 0xFF as soon as its call returns, replay
+   it; every output, fetched by ``fetch_into`` (two results held at once
+   among them), byte-equal to the eager chunks' (``put``/``run``/
+   ``fetch``) and to K1 on the whole image; a call under a
+   ``torch.profiler`` runs the chunks, not the replay, and equals them
+   too; then ms a job of the eager pinned placement and the replay
+   taking turns, each job fetched into a pinned tile grid and waited
+   for.
 
 Then the ``{"kernels": [...]}`` line (for K1, K2 and K3 ``launches`` are
 the main path's timed window's and ``warmup_launches`` its warm-up's; K1
@@ -5638,6 +5650,98 @@ def phase_place_overlap(dev) -> dict:
     return {"phase": "place_overlap", "ok": True, "cells": out}
 
 
+MESH_REPLAY_SHAPE, MESH_REPLAY_REPS, MESH_REPLAY_CALLS = (5040, 1920), 100, 8
+
+
+def phase_mesh_replay() -> dict:
+    """``ShardedRunner.run_host`` replaying its captured job (the mesh
+    cell's path) against the eager chunks; see the module docstring."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_stencil_torch.models.blur import IteratedConv2D
+    from tpu_stencil_torch.ops import cuda_stencil as cs
+    from tpu_stencil_torch.parallel.sharded import ShardedRunner
+
+    n = torch.cuda.device_count()
+    devices = [torch.device("cuda", k % n) for k in range(4)]
+    h, w = MESH_REPLAY_SHAPE
+    reps = MESH_REPLAY_REPS
+    model = IteratedConv2D("gaussian", backend="pallas", device=devices[0])
+    runner = ShardedRunner(model, (h, w), 1, mesh_shape=(2, 2),
+                           devices=devices)
+    runner.prepare()
+    rng = np.random.default_rng(26)
+    src = [rng.integers(0, 256, (h, w), np.uint8) for _ in range(4)]
+    ring = [runner.host_tiles(a, pin=True) for a in src]
+    outs = [runner.host_tiles(pin=True) for _ in range(4)]
+    require(runner._replayable(ring[0]),
+            f"mesh_replay: the runner does not replay on {devices}")
+    eager = [runner.fetch(runner.run(runner.put(a), reps)) for a in src]
+    k1 = [cs.iterate(torch.from_numpy(a).to(devices[0]), reps,
+                     model.plan).cpu().numpy() for a in src]
+    require(all(np.array_equal(e, k) for e, k in zip(eager, k1)),
+            "mesh_replay: the eager chunks disagree with K1")
+
+    def stitched(grid):
+        return np.concatenate([np.concatenate([t.numpy() for t in row], 1)
+                               for row in grid], 0)[:h, :w]
+
+    t0 = time.perf_counter()
+    runner.fetch_into(runner.run_host(ring[0], reps), outs[0])
+    capture_s = time.perf_counter() - t0
+    rep = runner._replays[reps]
+    errs = []
+    for k in range(MESH_REPLAY_CALLS):
+        slot = k % 4
+        for t, a in zip((t for row in ring[slot] for t in row),
+                        (t for row in runner.host_tiles(src[slot])
+                         for t in row)):
+            t.copy_(a)
+        y = runner.run_host(ring[slot], reps)
+        for t in (t for row in ring[slot] for t in row):
+            t.fill_(0xFF)  # the caller's tiles, free on return
+        if k == 2:  # two results held at once
+            y2 = runner.run_host(runner.host_tiles(src[3], pin=True), reps)
+            runner.fetch_into(y2, outs[3])
+            errs.append(int(not np.array_equal(stitched(outs[3]), eager[3])))
+        runner.fetch_into(y, outs[slot])
+        errs.append(int(not np.array_equal(stitched(outs[slot]),
+                                           eager[slot])))
+    require(not any(errs), f"mesh_replay: replays differ from the eager "
+            f"chunks: {errs}")
+    for t, a in zip(ring, src):
+        for x, b in zip((x for row in t for x in row),
+                        (x for row in runner.host_tiles(a) for x in row)):
+            x.copy_(b)
+
+    with profile(activities=[ProfilerActivity.CUDA]):
+        profiled_replays = runner._replayable(ring[0])
+        runner.fetch_into(runner.run_host(ring[1], reps), outs[1])
+    require(not profiled_replays and np.array_equal(stitched(outs[1]),
+                                                    eager[1]),
+            "mesh_replay: a profiled call replayed, or its chunks differ")
+
+    ms = {"eager": [], "replay": []}
+    paths = {"eager": lambda g: runner._place_and_run(g, reps),
+             "replay": lambda g: runner.run_host(g, reps)}
+    for _ in range(5):
+        for p, fn in paths.items():
+            t0 = time.perf_counter()
+            for k in range(40):
+                runner.fetch_into(fn(ring[k % 4]), outs[k % 4])
+            ms[p].append((time.perf_counter() - t0) * 1e3 / 40)
+    return {"phase": "mesh_replay", "ok": True,
+            "devices": [str(d) for d in devices],
+            "peer": {f"{a}-{b}": torch.cuda.can_device_access_peer(a, b)
+                     for a in range(n) for b in range(n) if a != b},
+            "capture_s": capture_s, "graph_launches": rep.launches,
+            "calls": MESH_REPLAY_CALLS + 1,
+            "job_ms": {p: statistics.median(v) for p, v in ms.items()},
+            "job_ms_rounds": ms,
+            "memory_allocated": [torch.cuda.max_memory_allocated(k)
+                                 for k in range(n)]}
+
+
 def place_overlap_cell(dev, label, shape, name, probe) -> dict:
     """:func:`phase_place_overlap` at one cell's shape and filter;
     ``probe(fn, x)`` runs ``fn(x)`` and appends to ``probe.in_flight``
@@ -5838,6 +5942,7 @@ def run(dev: torch.device) -> None:
     times = phase_times(dev)
     emit(times)
     emit(phase_place_overlap(dev))
+    emit(phase_mesh_replay())
 
     runs = main_path["runs"]
     common = {"route": "cuda", "plain_ms": times["plain_ms"],

@@ -26,15 +26,80 @@ transport.Batch` per phase).
 
 A grid is a list of R rows of C tiles; tile dims 0 and 1 are its rows and
 columns (a trailing channel dim rides along).
+
+Every phase (one axis here, one edge or corner hop of
+:mod:`tpu_stencil_torch.parallel.overlap`) is counted in the process
+counter :func:`exchange_counts` (its strips, and the strips and bytes that
+cross devices) and, while a ``torch.profiler`` collects, recorded as a
+profiler-only ``sharded.exchange`` span (:func:`phase_span`).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import threading
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from tpu_stencil_torch.obs import tracing as _tracing
+
 Grid = List[List[Optional[torch.Tensor]]]
+
+_COUNT_LOCK = threading.Lock()
+_counts = {"phases": 0, "strips": 0, "peer_strips": 0, "peer_bytes": 0}
+
+
+def exchange_counts() -> Dict[str, int]:
+    """This process's exchange so far, a copy: ``phases`` (an axis, or an
+    edge or corner hop), ``strips`` (ghost strips filled from a neighbour
+    tile this process holds, or received from another process; a zero
+    boundary strip is none), and of those ``peer_strips`` and
+    ``peer_bytes``, the ones that crossed to another device or process."""
+    with _COUNT_LOCK:
+        return dict(_counts)
+
+
+def reset_exchange_counts() -> None:
+    with _COUNT_LOCK:
+        for k in _counts:
+            _counts[k] = 0
+
+
+class Tally:
+    """One phase's strips, counted as they are issued and added to
+    :func:`exchange_counts` at once when the phase closes."""
+
+    __slots__ = ("strips", "peer_strips", "nbytes", "peer_bytes")
+
+    def __init__(self) -> None:
+        self.strips = self.peer_strips = self.nbytes = self.peer_bytes = 0
+
+    def add(self, strip: torch.Tensor, peer: bool) -> None:
+        n = strip.numel() * strip.element_size()
+        self.strips += 1
+        self.nbytes += n
+        if peer:
+            self.peer_strips += 1
+            self.peer_bytes += n
+
+    def close(self, span) -> None:
+        with _COUNT_LOCK:
+            _counts["phases"] += 1
+            _counts["strips"] += self.strips
+            _counts["peer_strips"] += self.peer_strips
+            _counts["peer_bytes"] += self.peer_bytes
+        if span.recording:
+            span.args.update(strips=self.strips,
+                             peer_strips=self.peer_strips, bytes=self.nbytes)
+
+
+def phase_span(depth: int, **args):
+    """The profiler-only ``sharded.exchange`` span of one phase (arg
+    ``depth``, the ghost width; :meth:`Tally.close` adds ``strips``,
+    ``peer_strips`` and ``bytes``): a shared no-op unless a profiler
+    collects."""
+    return _tracing.span("sharded.exchange", "sharded", profiler_only=True,
+                         depth=depth, **args)
 
 
 def _edge(x: torch.Tensor, dim: int, lo: bool, halo: int) -> torch.Tensor:
@@ -53,16 +118,27 @@ def halo_exchange_axis(tiles: Grid, halo: int, dim: int,
     """Extend every tile by ``halo`` ghost elements on both sides of
     ``dim`` (0 = rows, 1 = cols), filled from its neighbours along that
     axis of the grid. ``peers``: the tile owners when the grid spans
-    several processes (remote tiles are ``None`` and stay so)."""
+    several processes (remote tiles are ``None`` and stay so). One
+    phase: one ``sharded.exchange`` span (arg ``axis``), the ghost
+    assembly inside it."""
     if boundary not in ("zero", "periodic"):
         raise ValueError(f"unknown boundary {boundary!r}")
     if halo == 0:
         return [list(row) for row in tiles]
+    axis = "rows" if dim == 0 else "cols"
+    with phase_span(halo, axis=axis) as span:
+        tally = Tally()
+        out = _exchange_axis(tiles, halo, dim, boundary, peers, axis, tally)
+        tally.close(span)
+    return out
+
+
+def _exchange_axis(tiles: Grid, halo: int, dim: int, boundary: str, peers,
+                   axis: str, tally: Tally) -> Grid:
     n_r, n_c = len(tiles), len(tiles[0])
     n = n_r if dim == 0 else n_c
     slots = ("n", "s") if dim == 0 else ("w", "e")
-    batch = None if peers is None else peers.batch(
-        f"halo.exchange[{'rows' if dim == 0 else 'cols'}]")
+    batch = None if peers is None else peers.batch(f"halo.exchange[{axis}]")
 
     def at(i: int, j: int, k: int):
         # The position k along the exchange axis, in (i, j)'s line.
@@ -82,11 +158,13 @@ def halo_exchange_axis(tiles: Grid, halo: int, dim: int,
                 si, sj = at(i, j, (k + step) % n)
                 src = tiles[si][sj]
                 if x is not None and src is not None:
-                    ghosts[i, j, side] = _edge(src, dim, side == 1,
-                                               halo).to(x.device)
+                    g = ghosts[i, j, side] = _edge(src, dim, side == 1,
+                                                   halo).to(x.device)
+                    tally.add(g, src.device != x.device)
                 elif x is not None:
-                    ghosts[i, j, side] = _zeros_strip(x, dim, halo)
-                    batch.recv((i, j), slot, (si, sj), ghosts[i, j, side])
+                    g = ghosts[i, j, side] = _zeros_strip(x, dim, halo)
+                    batch.recv((i, j), slot, (si, sj), g)
+                    tally.add(g, True)
                 elif src is not None:
                     batch.send((i, j), slot, _edge(src, dim, side == 1, halo))
     if batch is not None:

@@ -64,9 +64,10 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from tpu_stencil_torch.config import OVERLAP_MODES
+from tpu_stencil_torch.obs import tracing as _tracing
 from tpu_stencil_torch.ops import cuda_stencil as cs
 from tpu_stencil_torch.ops import lowering as _lowering
-from tpu_stencil_torch.parallel.halo import Grid
+from tpu_stencil_torch.parallel.halo import Grid, Tally, phase_span
 
 # Numeric codes the ``overlap_mode`` gauge reports (resolved modes only:
 # "auto" always resolves to one of these before anything runs). AUTO_CODE
@@ -315,17 +316,22 @@ def _strip(slab: Slab, i: int, j: int, name: str, d: int, ghost: bool
             else e[d:d + th, twc:twc + dc])
 
 
-def _move(slab: Slab, batch, into: Tuple[int, int], slot: str,
-          frm: Tuple[int, int], dst: Callable[[], torch.Tensor],
+def _move(slab: Slab, batch, tally: Tally, into: Tuple[int, int],
+          slot: str, frm: Tuple[int, int], dst: Callable[[], torch.Tensor],
           src: Callable[[], torch.Tensor]) -> None:
     """One strip from tile ``frm`` to slot ``slot`` of tile ``into``:
     a copy when this process holds both, a receive or a send on ``batch``
-    when it holds one, nothing when it holds neither."""
+    when it holds one, nothing when it holds neither; a strip that lands
+    here is counted on ``tally``."""
     here, there = slab.local(*into), slab.local(*frm)
     if here and there:
-        dst().copy_(src())
+        tally.add(dst().copy_(src()),
+                  slab.devices[into[0]][into[1]]
+                  != slab.devices[frm[0]][frm[1]])
     elif here:
-        batch.recv(into, slot, frm, dst())
+        strip = dst()
+        batch.recv(into, slot, frm, strip)
+        tally.add(strip, True)
     elif there:
         batch.send(into, slot, src())
 
@@ -343,15 +349,19 @@ def exchange_edge(slab: Slab, name: str, d: int,
     mirror = {"n": "s", "s": "n", "w": "e", "e": "w"}[name]
     batch = (None if slab.peers is None
              else slab.peers.batch(f"overlap.exchange_edge[{name}]"))
-    for i in range(slab.grid[0]):
-        for j in range(slab.grid[1]):
-            nb = _neighbour(slab.grid, i, j, step, boundary)
-            if nb is not None:
-                _move(slab, batch, (i, j), name, nb,
-                      lambda: _strip(slab, i, j, name, d, True),
-                      lambda: _strip(slab, nb[0], nb[1], mirror, d, False))
-    if batch is not None:
-        batch.run()
+    with phase_span(d, edge=name) as span:
+        tally = Tally()
+        for i in range(slab.grid[0]):
+            for j in range(slab.grid[1]):
+                nb = _neighbour(slab.grid, i, j, step, boundary)
+                if nb is not None:
+                    _move(slab, batch, tally, (i, j), name, nb,
+                          lambda: _strip(slab, i, j, name, d, True),
+                          lambda: _strip(slab, nb[0], nb[1], mirror, d,
+                                         False))
+        if batch is not None:
+            batch.run()
+        tally.close(span)
 
 
 def _corner_pack(slab: Slab, i: int, j: int, d: int, lane0: int
@@ -379,20 +389,25 @@ def exchange_corners(slab: Slab, d: int, boundary: str = "zero") -> None:
     twc, dc = slab.twc, d * slab.channels
     batch = (None if slab.peers is None
              else slab.peers.batch("overlap.exchange_corners"))
-    for i in range(slab.grid[0]):
-        for j in range(slab.grid[1]):
-            west = _neighbour(slab.grid, i, j, (0, -1), boundary)
-            if west is not None:
-                _move(slab, batch, (i, j), "corners_w", west,
-                      lambda: _corner_pack(slab, i, j, d, 0),
-                      lambda: _corner_pack(slab, west[0], west[1], d, twc))
-            east = _neighbour(slab.grid, i, j, (0, 1), boundary)
-            if east is not None:
-                _move(slab, batch, (i, j), "corners_e", east,
-                      lambda: _corner_pack(slab, i, j, d, dc + twc),
-                      lambda: _corner_pack(slab, east[0], east[1], d, dc))
-    if batch is not None:
-        batch.run()
+    with phase_span(d, edge="corners") as span:
+        tally = Tally()
+        for i in range(slab.grid[0]):
+            for j in range(slab.grid[1]):
+                west = _neighbour(slab.grid, i, j, (0, -1), boundary)
+                if west is not None:
+                    _move(slab, batch, tally, (i, j), "corners_w", west,
+                          lambda: _corner_pack(slab, i, j, d, 0),
+                          lambda: _corner_pack(slab, west[0], west[1], d,
+                                               twc))
+                east = _neighbour(slab.grid, i, j, (0, 1), boundary)
+                if east is not None:
+                    _move(slab, batch, tally, (i, j), "corners_e", east,
+                          lambda: _corner_pack(slab, i, j, d, dc + twc),
+                          lambda: _corner_pack(slab, east[0], east[1], d,
+                                               dc))
+        if batch is not None:
+            batch.run()
+        tally.close(span)
 
 
 def exchange_edge_slab(slab: Slab, d: int, boundary: str = "zero",
@@ -506,6 +521,25 @@ class PieceKernel:
         out.copy_(res.reshape(out.shape))
 
 
+def issued(run: Callable[[], object], reps: int):
+    """``run()``, K3's launches of one chunk of ``reps`` reps, inside a
+    profiler-only ``sharded.issue`` span while a profiler collects: args
+    ``reps``, ``launches`` (the chunk's delta of
+    :func:`cuda_stencil.launch_counts`, 0 for the kernels' plain versions
+    on the CPU) and ``kernel`` (the kernels launched, else ``pallas``)."""
+    if not _tracing.profiling():
+        return run()
+    with _tracing.span("sharded.issue", "sharded", profiler_only=True) as s:
+        before = cs.launch_counts()
+        out = run()
+        if s.recording:
+            moved = {k: n - before[k] for k, n in cs.launch_counts().items()
+                     if n != before[k]}
+            s.args.update(kernel="+".join(moved) or "pallas", reps=int(reps),
+                          launches=sum(moved.values()))
+        return out
+
+
 def _on(streams: Optional[Streams], which: str, dev):
     """``streams.on(which, dev)``, or nothing without streams."""
     return (contextlib.nullcontext() if streams is None
@@ -531,7 +565,18 @@ def _chunk(slab: Slab, kernel: PieceKernel, mode: str, boundary: str,
     interior pieces on the side stream, the exchange (unless
     ``exchanged``) on the caller's, the border pieces after it (all of it
     under the split, each after its own edge under ``edge``), then the
-    join."""
+    join. Under K3 the chunk is one ``sharded.issue`` span
+    (:func:`issued`), its exchange's spans inside it."""
+    if kernel.backend == "pallas":
+        issued(lambda: _pieces(slab, kernel, mode, boundary, mask, streams,
+                               exchanged), kernel.n_fused)
+    else:
+        _pieces(slab, kernel, mode, boundary, mask, streams, exchanged)
+
+
+def _pieces(slab: Slab, kernel: PieceKernel, mode: str, boundary: str,
+            mask: Optional[Grid], streams: Optional[Streams],
+            exchanged: bool) -> None:
     d = kernel.depth
     k_out = 1 - slab.cur
     rects = piece_rects(mode, slab.th, slab.tw, d, slab.channels)

@@ -40,6 +40,23 @@ sequence is rank 0's (:func:`_agreed_config`, ``_agreed_overlap``): ranks
 that disagreed on the backend, the chunk depth or the overlap mode would
 issue different sends and receives and hang.
 
+A caller that keeps its images as host tile grids (:meth:`ShardedRunner.
+host_tiles`, page-locked on a card) runs them by :meth:`ShardedRunner.
+run_host`: each pinned tile's copy is issued non-blocking on its card's
+current stream, the chunks queue behind the copies, and the copies alone
+are waited for before the call returns; :meth:`ShardedRunner.fetch_into`
+brings the tiles back into a host tile grid, unstitched, as each rank of
+the reference writes its own tile. On cards that reach each other's
+memory, a K3 run of one process under the ``off`` schedule is captured
+once per rep count as one CUDA graph over every card (:class:`_Replay`)
+and replayed: the same exchange and launches, issued by the device
+instead of ~30 host calls a chunk. While a ``torch.profiler`` collects,
+the chunks run instead, and record profiler-only spans: ``sharded.place``
+around a placement and the run behind it, one ``sharded.exchange`` per
+exchange phase (:func:`tpu_stencil_torch.parallel.halo.phase_span`) and
+one ``sharded.issue`` per chunk of K3 launches
+(:func:`tpu_stencil_torch.parallel.overlap.issued`).
+
 The process-shared runner cache (:func:`shared_runner`,
 :func:`cached_runner`) holds the runners the sharded stream and the
 temporal pipeline build, keyed by everything a runner depends on, so one
@@ -49,6 +66,7 @@ process never resolves (nor autotunes) the same runner twice.
 from __future__ import annotations
 
 import collections
+import contextlib
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -56,6 +74,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from tpu_stencil_torch.obs import tracing as _tracing
 from tpu_stencil_torch.obs.tracing import fence
 from tpu_stencil_torch.ops import cuda_stencil as cs
 from tpu_stencil_torch.ops import lowering as _lowering
@@ -120,8 +139,17 @@ def _valid_chunk(tiles: Grid, ext: Grid, plan: _lowering.StencilPlan,
                  fuse: int, global_shape: Tuple[int, int],
                  block_h: Optional[int] = None) -> Grid:
     """K3 at ``fuse`` reps on every ghost-extended tile of ``ext`` (the
-    exchange of ``tiles``). Tile (i, j)'s interior starts at global row
+    exchange of ``tiles``), one ``sharded.issue`` span
+    (:func:`overlap.issued`). Tile (i, j)'s interior starts at global row
     ``i * th`` and flat lane ``j * tw * C``."""
+    return overlap_mod.issued(
+        lambda: _launch_chunk(tiles, ext, plan, fuse, global_shape, block_h),
+        fuse)
+
+
+def _launch_chunk(tiles: Grid, ext: Grid, plan: _lowering.StencilPlan,
+                  fuse: int, global_shape: Tuple[int, int],
+                  block_h: Optional[int]) -> Grid:
     g = fuse * plan.halo
     out = []
     for i, (row, erow) in enumerate(zip(tiles, ext)):
@@ -364,6 +392,10 @@ class ShardedRunner:
                 mask = np.repeat(mask[..., None], channels, axis=-1)
             self._mask = self.split(mask)
         self._streams = overlap_mod.Streams()
+        # run_host's captured jobs, one a rep count, and whether every two
+        # of the cards reach each other's memory (asked once).
+        self._replays: Dict[int, "_Replay"] = {}
+        self._peer_ok: Optional[bool] = None
         # The overlap schedule, resolved after the chunk depth (auto
         # measures this runner's own chunks): 'split' is one exchange per
         # rep, 'edge' keeps a ghost-free interior at every chunk depth.
@@ -718,23 +750,23 @@ class ShardedRunner:
                 verdicts[name] = f"error: {type(e).__name__}"
         return verdicts
 
+    def _cut(self, padded: np.ndarray, i: int, j: int) -> torch.Tensor:
+        """Tile (i, j) of a padded global array, a contiguous CPU tensor."""
+        th, tw = self.tile
+        return torch.from_numpy(np.ascontiguousarray(
+            padded[i * th:(i + 1) * th, j * tw:(j + 1) * tw]))
+
     def split(self, padded: np.ndarray) -> Grid:
         """Cut a padded global (H, W[, C]) array into the tile grid, each
         tile this process holds on its mesh device (``None`` for another
         rank's)."""
-        th, tw = self.tile
         return [
-            [torch.from_numpy(np.ascontiguousarray(
-                padded[i * th:(i + 1) * th, j * tw:(j + 1) * tw]))
-             .to(dev) if self.mesh.is_local(i, j) else None
-             for j, dev in enumerate(row)]
+            [self._cut(padded, i, j).to(dev) if self.mesh.is_local(i, j)
+             else None for j, dev in enumerate(row)]
             for i, row in enumerate(self.mesh.devices)
         ]
 
-    def put(self, img: np.ndarray) -> Grid:
-        """Pad to the tile grid and place every tile on its device — the
-        analog of every rank loading its rows
-        (``mpi/mpi_convolution.c:126-141``)."""
+    def _padded(self, img) -> np.ndarray:
         img = np.asarray(img, dtype=np.uint8)
         if img.shape[:2] != (self.h, self.w):
             raise ValueError(f"image shape {img.shape} != {(self.h, self.w)}")
@@ -742,7 +774,120 @@ class ShardedRunner:
         pw = self.padded_shape[1] - self.w
         if ph or pw:
             img = np.pad(img, [(0, ph), (0, pw)] + [(0, 0)] * (img.ndim - 2))
-        return self.split(img)
+        return img
+
+    def put(self, img: np.ndarray) -> Grid:
+        """Pad to the tile grid and place every tile on its device — the
+        analog of every rank loading its rows
+        (``mpi/mpi_convolution.c:126-141``)."""
+        return self.split(self._padded(img))
+
+    def host_tiles(self, img: Optional[np.ndarray] = None,
+                   pin: bool = False) -> Grid:
+        """A host tile grid: ``img`` padded and cut into contiguous CPU
+        tiles (uninitialised tiles of the tile shape when ``img`` is
+        None: the buffers of :meth:`fetch_into`), page-locked when
+        ``pin``; ``None`` for another rank's tile."""
+        padded = None if img is None else self._padded(img)
+        dims = self.tile + ((self.channels,) if self.channels != 1 else ())
+
+        def tile(i, j):
+            if padded is None:
+                return torch.empty(dims, dtype=torch.uint8, pin_memory=pin)
+            t = self._cut(padded, i, j)
+            return t.pin_memory() if pin else t
+
+        r, c = self.mesh_shape
+        return [[tile(i, j) if self.mesh.is_local(i, j) else None
+                 for j in range(c)] for i in range(r)]
+
+    def run_host(self, host: Grid, repetitions: int) -> Grid:
+        """:meth:`run` on a host tile grid (:meth:`host_tiles`), each tile
+        placed on its mesh device inside a profiler-only ``sharded.place``
+        span (args ``bytes`` and ``cards``, the distinct devices placed
+        on) that holds the run. A page-locked tile bound for a card is
+        copied non-blocking with an event behind it, the run queues behind
+        the copies, and every event is waited for before this returns or
+        raises, so the caller may rewrite ``host`` at once (the output may
+        still be computing: a read of it on the card's current stream
+        orders after it). Where :meth:`_replayable` holds, the run is a
+        replay of the job captured once for this rep count
+        (:class:`_Replay`); else the copies are issued on each card's
+        current stream and the chunks behind them, with their spans. Any
+        other tile is placed and waited for first."""
+        with _tracing.span("sharded.place", "sharded",
+                           profiler_only=True) as s:
+            reps = int(repetitions)
+            if self._replayable(host):
+                rep = self._replays.get(reps)
+                if rep is None:
+                    rep = self._replays[reps] = _Replay(self, host, reps)
+                out = rep.run(host)
+            else:
+                out = self._place_and_run(host, reps)
+            if s.recording:
+                s.args.update(bytes=sum(t.nbytes for row in host
+                                        for t in row if t is not None),
+                              cards=len(set(self.devices)))
+            return out
+
+    def _replayable(self, host: Grid) -> bool:
+        """Whether :meth:`run_host` replays a captured graph for ``host``:
+        K3 under the ``off`` schedule in one process, every tile
+        page-locked and bound for a card, every two of the cards able to
+        reach each other's memory (a copy between cards that cannot goes
+        through the host, which no graph holds), and no profiler
+        collecting: a replay records none of the exchange's spans, and a
+        window of replays is ~460 device operations a job, more than a
+        profiler's capture of a whole window can process."""
+        if not (self.backend == "pallas" and self.overlap == "off"
+                and self.peers is None and not _tracing.profiling()
+                and torch.cuda.is_available()
+                and all(d.type == "cuda" for d in self.devices)
+                and all(t.is_pinned() for row in host for t in row)):
+            return False
+        if self._peer_ok is None:
+            cards = {torch.cuda.current_device() if d.index is None
+                     else d.index for d in self.devices}
+            self._peer_ok = all(torch.cuda.can_device_access_peer(a, b)
+                                for a in cards for b in cards if a != b)
+        return self._peer_ok
+
+    def _place_and_run(self, host: Grid, reps: int) -> Grid:
+        """:meth:`run_host`'s placement and run by the chunks."""
+        events = []
+        tiles: Grid = []
+        for row, drow in zip(host, self.mesh.devices):
+            out_row = []
+            for t, dev in zip(row, drow):
+                if t is None:
+                    out_row.append(None)
+                elif dev.type == "cuda" and t.is_pinned():
+                    out_row.append(t.to(dev, non_blocking=True))
+                    events.append(
+                        torch.cuda.current_stream(dev).record_event())
+                else:
+                    out_row.append(t.to(dev))
+            tiles.append(out_row)
+        try:
+            return self.run(tiles, reps)
+        finally:
+            for ev in events:
+                ev.synchronize()
+
+    def fetch_into(self, tiles: Grid, host: Grid) -> Grid:
+        """The padded tile grid ``tiles`` (:meth:`run`'s) copied into the
+        host tile grid ``host`` (:meth:`host_tiles`' shapes): every copy
+        issued non-blocking, then every card waited for. Returns
+        ``host``."""
+        for row, hrow in zip(tiles, host):
+            for t, h in zip(row, hrow):
+                if t is not None:
+                    h.copy_(t, non_blocking=True)
+        for dev in dict.fromkeys(self.devices):
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
+        return host
 
     def run(self, tiles: Grid, repetitions: int) -> Grid:
         """``repetitions`` reps on the tiles (which are not written).
@@ -760,6 +905,101 @@ class ShardedRunner:
         rows = [np.concatenate([t.cpu().numpy() for t in row], axis=1)
                 for row in tiles]
         return np.concatenate(rows, axis=0)[: self.h, : self.w]
+
+
+class _Replay:
+    """One job of ``reps`` reps on a runner's cards, captured once as a CUDA
+    graph that spans the cards, and replayed from page-locked host tiles.
+
+    Capture: the graph's input tiles placed from the first job's host
+    tiles; one eager run on a side stream per card (K3 built, peer access
+    on, the allocator warm); then the run again under capture on those
+    streams, the other cards' streams forked from the first card's and
+    joined back into it, and each card's allocations in a pool of the
+    graph's own (the first card's by the graph, the others' by a
+    ``MemPool`` each), so nothing outside the graph reuses memory a replay
+    writes. A replay copies each host tile into the graph's input on its
+    card's side stream, behind the last job's clones, launches the graph
+    behind the copies, and clones each output on the caller's current
+    stream of its card behind the graph, so a result outlives the next
+    replay; the copies are waited for before it returns or raises."""
+
+    def __init__(self, runner: "ShardedRunner", host: Grid, reps: int):
+        self.grid = runner.mesh.devices
+        self.devices = list(dict.fromkeys(runner.devices))
+        self.streams = {d: torch.cuda.Stream(d) for d in self.devices}
+        self.inputs = _map(lambda t, d: t.to(d), host, self.grid)
+        self.cloned: Dict[torch.device, torch.cuda.Event] = {}
+        self._sync()
+        with self._on_streams():
+            runner.run(self.inputs, reps)
+        self._sync()
+        first = self.devices[0]
+        self.pools = {}
+        for d in self.devices[1:]:
+            with torch.cuda.device(d):
+                self.pools[d] = torch.cuda.MemPool()
+        self.graph = torch.cuda.CUDAGraph()
+        before = cs.launch_counts()
+        with contextlib.ExitStack() as stack:
+            for d, pool in self.pools.items():
+                stack.enter_context(torch.cuda.use_mem_pool(pool, d))
+            stack.enter_context(self._on_streams())
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                fork = self.streams[first].record_event()
+                for d in self.devices[1:]:
+                    self.streams[d].wait_event(fork)
+                self.outputs = runner.run(self.inputs, reps)
+                for d in self.devices[1:]:
+                    self.streams[first].wait_event(
+                        self.streams[d].record_event())
+            finally:
+                self.graph.capture_end()
+        # K3's launches the graph holds
+        self.launches = sum(n - before[k]
+                            for k, n in cs.launch_counts().items())
+
+    def _sync(self) -> None:
+        for d in self.devices:
+            torch.cuda.synchronize(d)
+
+    def _on_streams(self):
+        """Every card's side stream current; the first card's last, so it
+        is also the current device."""
+        stack = contextlib.ExitStack()
+        for d in self.devices[1:] + self.devices[:1]:
+            stack.enter_context(torch.cuda.stream(self.streams[d]))
+        return stack
+
+    def run(self, host: Grid) -> Grid:
+        first = self.streams[self.devices[0]]
+        events = []
+        for row, xrow, drow in zip(host, self.inputs, self.grid):
+            for t, x, d in zip(row, xrow, drow):
+                s = self.streams[d]
+                if d in self.cloned:
+                    s.wait_event(self.cloned[d])
+                with torch.cuda.stream(s):
+                    x.copy_(t, non_blocking=True)
+                events.append(s.record_event())
+                first.wait_event(events[-1])
+        try:
+            with torch.cuda.stream(first):
+                self.graph.replay()
+            done = first.record_event()
+            out: Grid = []
+            for yrow, drow in zip(self.outputs, self.grid):
+                out.append([])
+                for y, d in zip(yrow, drow):
+                    cur = torch.cuda.current_stream(d)
+                    cur.wait_event(done)
+                    out[-1].append(y.clone())
+                    self.cloned[d] = cur.record_event()
+            return out
+        finally:
+            for ev in events:
+                ev.synchronize()
 
 
 # ---------------------------------------------------------------------------
