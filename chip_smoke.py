@@ -379,7 +379,19 @@ grow by at least an instruction an element and operation from 8 to 16
    ``torch.profiler`` runs the chunks, not the replay, and equals them
    too; then ms a job of the eager pinned placement and the replay
    taking turns, each job fetched into a pinned tile grid and waited
-   for.
+   for. ``halo_fill``'s launch counter is set to 0 just before the phase
+   and read after it (``fill_launches``, equal to the ``fills`` that
+   ``halo.fill_counts()`` gained).
+23. ``halo_fill`` — the ghost rings of the mesh cell's 2x2 grid of
+   2520x960 grey tiles (on the cards of ``mesh_replay``), filled from
+   the slab's piece tables at depths 8 (a chunk of 8 reps) and 1 (a
+   single-rep tail): one launch of ``halo_fill`` a tile against
+   ``fill_plain`` (a ``copy_`` a piece) on slabs of the same tiles, every
+   byte of both buffers equal, and every ring equal to ``halo_exchange``'s
+   ghost-extended tile; then the card's ms of one fill of the grid (CUDA
+   events around each card's launches, the slowest card, median of
+   rounds) for the kernel and for ``fill_plain``, beside the bound of the
+   ring's bytes over the link they cross.
 
 Then the ``{"kernels": [...]}`` line (for K1, K2 and K3 ``launches`` are
 the main path's timed window's and ``warmup_launches`` its warm-up's; K1
@@ -392,7 +404,9 @@ those of the sharded streams in ``shard_stream_path``; K1 and K3 add
 adds ``net_launches``, those of the network tier in ``net_path``, and
 ``fed_launches``, those of the federation in ``fed_ctrl_path``; L2
 adds ``tile_ms``, its body ``tile`` (K1's shipped tile) from phase
-``l2``'s table beside ``current``, the baseline), the ``nvidia-smi``
+``l2``'s table beside ``current``, the baseline; ``halo_fill``'s
+``launches`` are those of phase ``mesh_replay``, its ``ms``, ``bound_ms``
+and ``library_ms`` phase ``halo_fill``'s at depth 8), the ``nvidia-smi``
 name/power-limit line, and last ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero before that line; without a CUDA device the script exits
 non-zero at once.
@@ -5660,8 +5674,12 @@ def phase_mesh_replay() -> dict:
 
     from tpu_stencil_torch.models.blur import IteratedConv2D
     from tpu_stencil_torch.ops import cuda_stencil as cs
+    from tpu_stencil_torch.ops import halo_fill
+    from tpu_stencil_torch.parallel import halo
     from tpu_stencil_torch.parallel.sharded import ShardedRunner
 
+    halo_fill.launch.launches = 0
+    fills = halo.fill_counts()["fills"]
     n = torch.cuda.device_count()
     devices = [torch.device("cuda", k % n) for k in range(4)]
     h, w = MESH_REPLAY_SHAPE
@@ -5730,16 +5748,110 @@ def phase_mesh_replay() -> dict:
             for k in range(40):
                 runner.fetch_into(fn(ring[k % 4]), outs[k % 4])
             ms[p].append((time.perf_counter() - t0) * 1e3 / 40)
+    fill_launches = halo_fill.launch.launches
+    fills = halo.fill_counts()["fills"] - fills
+    # every eager job (the chunks, the replay's warm-up run and its
+    # capture) fills four rings a chunk; replays launch nothing from the
+    # host
+    a_job = 4 * len(cs.launch_schedule(reps, runner.fuse))
+    require(fill_launches == fills and fill_launches > 0
+            and fill_launches % a_job == 0,
+            f"mesh_replay: {fill_launches} halo_fill launches, {fills} "
+            f"fills counted")
     return {"phase": "mesh_replay", "ok": True,
             "devices": [str(d) for d in devices],
             "peer": {f"{a}-{b}": torch.cuda.can_device_access_peer(a, b)
                      for a in range(n) for b in range(n) if a != b},
             "capture_s": capture_s, "graph_launches": rep.launches,
+            "fill_launches": fill_launches,
             "calls": MESH_REPLAY_CALLS + 1,
             "job_ms": {p: statistics.median(v) for p, v in ms.items()},
             "job_ms_rounds": ms,
             "memory_allocated": [torch.cuda.max_memory_allocated(k)
                                  for k in range(n)]}
+
+
+HALO_FILL_DEPTHS, HALO_FILL_ROUNDS = (8, 1), 50
+
+
+def phase_halo_fill() -> dict:
+    """``halo_fill`` on the mesh cell's tiles against ``fill_plain`` and
+    the strip exchange; see the module docstring."""
+    from tpu_stencil_torch.ops import halo_fill
+    from tpu_stencil_torch.parallel import fill, halo
+    from tpu_stencil_torch.runtime import roofline
+
+    n = torch.cuda.device_count()
+    devices = [torch.device("cuda", k % n) for k in range(4)]
+    h, w = MESH_REPLAY_SHAPE
+    rng = np.random.default_rng(27)
+    tiles = [[torch.from_numpy(rng.integers(0, 256, (h // 2, w // 2),
+                                            np.uint8)).to(devices[2 * i + j])
+              for j in range(2)] for i in range(2)]
+    cards = [[t.device for t in row] for row in tiles]
+    used = list(dict.fromkeys(devices))
+
+    def sync():
+        for d in used:
+            torch.cuda.synchronize(d)
+
+    def fill_ms(fn, st, d):
+        """The slowest card's ms of one fill of every ring, CUDA events
+        around each card's launches, median of the rounds."""
+        by_card = {c: [(i, j) for i, j in st.slab.local_tiles()
+                       if cards[i][j] == c] for c in used}
+        rounds = []
+        for _ in range(HALO_FILL_ROUNDS + 1):
+            evs = {}
+            for c, idx in by_card.items():
+                with torch.cuda.device(c):
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    for i, j in idx:
+                        fn(st.table(i, j, d))
+                    b.record()
+                evs[c] = (a, b)
+            sync()
+            rounds.append(max(a.elapsed_time(b) for a, b in evs.values()))
+        return statistics.median(rounds[1:])
+
+    out = {}
+    for d in HALO_FILL_DEPTHS:
+        kern = fill._State(tiles, max(HALO_FILL_DEPTHS), cards)
+        plain = fill._State(tiles, max(HALO_FILL_DEPTHS), cards)
+        tables = [(kern.table(i, j, d), plain.table(i, j, d))
+                  for i, j in kern.slab.local_tiles()]
+        for k, p in tables:
+            halo_fill.launch(k)
+            halo_fill.fill_plain(p)
+        sync()
+        bad = sum(int((a.cpu() != b.cpu()).sum()) for a, b in
+                  zip(kern.slab.buffers, plain.slab.buffers))
+        strips = halo.halo_exchange(tiles, d)
+        sync()
+        bad_strips = sum(
+            int((kern.slab.ext(i, j, d).cpu() != strips[i][j].cpu()).sum())
+            for i, j in kern.slab.local_tiles())
+        require(bad == 0 and bad_strips == 0,
+                f"halo_fill: depth {d}: {bad} bytes differ from fill_plain, "
+                f"{bad_strips} from halo_exchange")
+        # the ring's bytes, read once and written once, on the busiest
+        # card over the link its pieces cross (a copy on one card)
+        ring = {c: 0 for c in used}
+        for (k, _), (i, j) in zip(tables, kern.slab.local_tiles()):
+            ring[cards[i][j]] += k.nbytes
+        bound = max(ring.values()) / roofline.device_link_bytes_per_s(
+            len(used) == 1) * 1e3
+        out[d] = {"ms": fill_ms(halo_fill.launch, kern, d),
+                  "library_ms": fill_ms(halo_fill.fill_plain, plain, d),
+                  "bound_ms": bound, "max_abs_err": 0,
+                  "pieces": sum(len(k) for k, _ in tables),
+                  "peer_pieces": sum(k.peer_pieces for k, _ in tables),
+                  "ring_bytes": sum(ring.values())}
+    return {"phase": "halo_fill", "ok": True,
+            "devices": [str(d) for d in devices],
+            "tile": [h // 2, w // 2], "depths": out}
 
 
 def place_overlap_cell(dev, label, shape, name, probe) -> dict:
@@ -5878,8 +5990,8 @@ def run(dev: torch.device) -> None:
     t0 = time.perf_counter()
     variants = [lab.parse_variant(n) for n in kernel_lab.DEFAULT_VARIANTS
                 if n not in kernel_lab.SPECIAL + tuple(kernel_lab.K2_FORMS)]
-    targets = [*_build.JOB_KERNELS, "op_chain", *lab.lab_targets(variants),
-               lab.BAND_TARGET, "crc32c"]
+    targets = [*_build.JOB_KERNELS, "halo_fill", "op_chain",
+               *lab.lab_targets(variants), lab.BAND_TARGET, "crc32c"]
     built = _build.build(targets)
 
     def label(t):
@@ -5942,7 +6054,10 @@ def run(dev: torch.device) -> None:
     times = phase_times(dev)
     emit(times)
     emit(phase_place_overlap(dev))
-    emit(phase_mesh_replay())
+    mesh_replay = phase_mesh_replay()
+    emit(mesh_replay)
+    fills = phase_halo_fill()
+    emit(fills)
 
     runs = main_path["runs"]
     common = {"route": "cuda", "plain_ms": times["plain_ms"],
@@ -6078,6 +6193,22 @@ def run(dev: torch.device) -> None:
                  "mxu_rows_bf16"],
              "library_ms": times["mxu_rows_bf16_library_ms"],
              "unit": times["mxu_rows_bf16_unit"]}},
+        # The mesh's ghost rings: the launches of the mesh cell's path
+        # (phase mesh_replay), the times of one fill of the 2x2 grid's
+        # rings at depth 8 (phase halo_fill), the library a copy_ a piece.
+        {"name": "halo_fill",
+         "source": "tpu_stencil_torch/ops/csrc/halo_fill.cu",
+         "replaces": "tpu_stencil/parallel/halo.py:91",
+         "launches": mesh_replay["fill_launches"], "warmup_launches": 0,
+         "max_abs_err": max(v["max_abs_err"]
+                            for v in fills["depths"].values()),
+         "route": "cuda", "ok": True,
+         "ms": fills["depths"][8]["ms"],
+         "bound_ms": fills["depths"][8]["bound_ms"], "bound_by": "bytes",
+         "library_ms": fills["depths"][8]["library_ms"],
+         "tail_ms": fills["depths"][1]["ms"],
+         "unit": "ms per fill of a 2x2 grid of 2520x960 grey tiles' "
+                 "rings, depth 8, slowest card (tail_ms: depth 1)"},
     ]})
     print(nvidia_smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -36,7 +36,9 @@ from tpu_stencil_torch import driver as tdriver
 from tpu_stencil_torch.io import native, raw
 from tpu_stencil_torch.models.blur import IteratedConv2D
 from tpu_stencil_torch.ops import cuda_stencil as cs
-from tpu_stencil_torch.parallel import distributed, halo, mesh, partition
+from tpu_stencil_torch.ops import halo_fill
+from tpu_stencil_torch.parallel import (distributed, fill, halo, mesh,
+                                        partition)
 from tpu_stencil_torch.parallel.sharded import ShardedRunner
 from tpu_stencil_torch.utils.timing import Timer
 
@@ -276,6 +278,64 @@ def test_runner_rejections():
     tr = _port_runner((2, 2), (32, 40), "xla", "gaussian")
     with pytest.raises(ValueError, match="image shape"):
         tr.put(_img((31, 40)))
+
+
+# -- the pulled ghost ring (parallel/fill.py) -------------------------------
+#
+# The cards run the ``off`` chunks on a persistent slab whose rings each
+# tile pulls from its neighbours; its plain version runs here on CPU tiles,
+# held against the JAX package's exchange and runner.
+
+FILL_GRIDS = [(1, 1), (1, 2), (2, 1), (2, 2), (2, 3), (2, 4)]
+
+
+def _ring_image(slab, d):
+    """Every tile's ``d``-deep ghost-extended window in the slab's current
+    buffer, stitched as ``_jax_exchange`` stitches its tiles."""
+    c = slab.channels
+    rows = []
+    for i in range(slab.grid[0]):
+        row = []
+        for j in range(slab.grid[1]):
+            e = slab.ext(i, j, d).numpy()
+            row.append(e.reshape(e.shape[0], -1, c) if c != 1 else e)
+        rows.append(np.concatenate(row, 1))
+    return np.concatenate(rows, 0)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 8])
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("grid", FILL_GRIDS, ids=str)
+def test_the_pulled_ring_matches_jax(grid, channels, depth):
+    dims = (11 * grid[0], 9 * grid[1])
+    img = _img(dims + ((channels,) if channels != 1 else ()),
+               seed=67 + depth)
+    want = _jax_exchange(img, grid, depth, "zero")
+    tiles = _tiles(img, grid)
+    st = fill._State(tiles, 8, [[CPU] * grid[1] for _ in range(grid[0])])
+    for i, j in st.slab.local_tiles():
+        halo_fill.launch(st.table(i, j, depth))
+    np.testing.assert_array_equal(_ring_image(st.slab, depth), want)
+
+
+@pytest.mark.parametrize("fuse", [1, 2, 8])
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("grid", FILL_GRIDS, ids=str)
+def test_the_fill_path_matches_jax(grid, channels, fuse):
+    shape = (16 * grid[0], 18 * grid[1]) + ((channels,) if channels != 1
+                                            else ())
+    jr = _jax_runner(grid, shape, "pallas", "gaussian", "zero")
+    tr = _port_runner(grid, shape, "pallas", "gaussian")
+    assert not tr.needs_mask
+    f = fill.Filler(tr.model.plan, fuse, tr._global_shape)
+    assert f.depth == fuse
+    held = []
+    for k, reps in enumerate([17, 9]):  # two jobs on one slab, both held
+        img = _img(shape, seed=68 + k)
+        held.append((f.run(tr.put(img), reps),
+                     jr.fetch(jr.run(jr.put(img), reps))))
+    for got, want in held:
+        np.testing.assert_array_equal(tr.fetch(got), want)
 
 
 # -- sharded I/O ------------------------------------------------------------

@@ -51,6 +51,7 @@ SOURCES: Dict[str, tuple] = {
     "stencil_resident": ("stencil_resident.cu", "stencil_tile.cuh"),
     "stencil_valid": ("stencil_valid.cu", "stencil_tile.cuh"),
     "stencil_lab": ("stencil_lab.cu", "stencil_tile.cuh"),
+    "halo_fill": ("halo_fill.cu",),
     "op_chain": ("op_chain.cu",),
     "crc32c": ("crc32c.cpp",),
 }

@@ -32,12 +32,21 @@ Every phase (one axis here, one edge or corner hop of
 counter :func:`exchange_counts` (its strips, and the strips and bytes that
 cross devices) and, while a ``torch.profiler`` collects, recorded as a
 profiler-only ``sharded.exchange`` span (:func:`phase_span`).
+
+The cards' own exchange (:mod:`tpu_stencil_torch.parallel.fill`) moves no
+strip: each tile's ghost ring is pulled into a persistent slab by one
+launch of ``halo_fill`` a chunk. Its geometry is :func:`ring_pieces`, the
+up to eight rectangles (four edge strips, four corners) of a tile's ring
+and the neighbour interiors they come from; corners come straight from the
+diagonal neighbour, which equals the rows-then-cols routing here. Its
+launches are counted in :func:`fill_counts`, never in
+:func:`exchange_counts`.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -45,8 +54,12 @@ from tpu_stencil_torch.obs import tracing as _tracing
 
 Grid = List[List[Optional[torch.Tensor]]]
 
+# Rect = (row_lo, row_hi, lane_lo, lane_hi), lanes flat (pixel * C).
+Rect = Tuple[int, int, int, int]
+
 _COUNT_LOCK = threading.Lock()
 _counts = {"phases": 0, "strips": 0, "peer_strips": 0, "peer_bytes": 0}
+_fills = {"fills": 0, "pieces": 0, "peer_pieces": 0, "bytes": 0}
 
 
 def exchange_counts() -> Dict[str, int]:
@@ -91,6 +104,77 @@ class Tally:
         if span.recording:
             span.args.update(strips=self.strips,
                              peer_strips=self.peer_strips, bytes=self.nbytes)
+
+
+def fill_counts() -> Dict[str, int]:
+    """This process's ghost-ring fills so far
+    (:mod:`tpu_stencil_torch.parallel.fill`), a copy: ``fills`` (launches
+    of ``halo_fill``, one a tile a chunk that has a neighbour), ``pieces``
+    (the ring pieces they filled), of those ``peer_pieces`` (read from
+    another card) and ``bytes`` (every piece's)."""
+    with _COUNT_LOCK:
+        return dict(_fills)
+
+
+def reset_fill_counts() -> None:
+    with _COUNT_LOCK:
+        for k in _fills:
+            _fills[k] = 0
+
+
+def count_fill(pieces: int, peer_pieces: int, nbytes: int) -> None:
+    """One fill of ``pieces`` pieces, added to :func:`fill_counts`."""
+    with _COUNT_LOCK:
+        _fills["fills"] += 1
+        _fills["pieces"] += pieces
+        _fills["peer_pieces"] += peer_pieces
+        _fills["bytes"] += nbytes
+
+
+class RingPiece(NamedTuple):
+    """One rectangle of a tile's ghost ring: ``name`` (an edge ``n s w e``
+    or a corner ``nw ne sw se``), ``src`` the neighbour tile (i, j) it
+    comes from, ``src_rect`` in that neighbour's (th, tw*C) interior,
+    ``dst_rect`` in the receiving tile's d-deep ghost-extended window
+    ((th + 2d, (tw + 2d) * C), the tile at rows [d, d + th))."""
+
+    name: str
+    src: Tuple[int, int]
+    src_rect: Rect
+    dst_rect: Rect
+
+
+# Ring piece -> its neighbour's grid step.
+RING_STEPS = {"n": (-1, 0), "s": (1, 0), "w": (0, -1), "e": (0, 1),
+              "nw": (-1, -1), "ne": (-1, 1), "sw": (1, -1), "se": (1, 1)}
+
+
+def ring_pieces(grid: Tuple[int, int], i: int, j: int, th: int, twc: int,
+                channels: int, d: int) -> List[RingPiece]:
+    """The pieces of tile (i, j)'s ``d``-deep ghost ring under the zero
+    boundary, in :data:`RING_STEPS` order: one for each of the eight
+    neighbours the ``grid`` has. A piece with no neighbour is left out:
+    that ghost is the never-written zero ring. Needs ``d <= th`` and ``d *
+    channels <= twc`` (one neighbour supplies the whole piece)."""
+    dc = d * channels
+    if d < 0 or d > th or dc > twc:
+        raise ValueError(
+            f"a {d}-deep ring needs a tile of at least {d} rows and {dc} "
+            f"lanes, got {th}x{twc}")
+    if d == 0:
+        return []
+    # Step along an axis -> (source range, destination range).
+    rows = {-1: ((th - d, th), (0, d)), 0: ((0, th), (d, d + th)),
+            1: ((0, d), (d + th, 2 * d + th))}
+    lanes = {-1: ((twc - dc, twc), (0, dc)), 0: ((0, twc), (dc, dc + twc)),
+             1: ((0, dc), (dc + twc, 2 * dc + twc))}
+    out = []
+    for name, (si, sj) in RING_STEPS.items():
+        ni, nj = i + si, j + sj
+        if 0 <= ni < grid[0] and 0 <= nj < grid[1]:
+            (sr, dr), (sl, dl) = rows[si], lanes[sj]
+            out.append(RingPiece(name, (ni, nj), sr + sl, dr + dl))
+    return out
 
 
 def phase_span(depth: int, **args):

@@ -9,7 +9,10 @@ mesh device (:mod:`tpu_stencil_torch.parallel.mesh`); when the mesh spans
 several processes a process holds, places, runs and writes only its own
 tiles (a grid holds ``None`` for another rank's) and the exchange reaches
 the others through :mod:`tpu_stencil_torch.parallel.transport`. The rep
-loop is a Python loop and every step builds fresh tiles.
+loop is a Python loop and every step builds fresh tiles, except where K3's
+``off`` chunks run on cards that reach each other's memory: there the
+chunks run in place on a persistent slab whose ghost rings each card pulls
+from its neighbours (:mod:`tpu_stencil_torch.parallel.fill`).
 
 Two local steps, as in the JAX package:
 
@@ -76,8 +79,10 @@ import torch
 
 from tpu_stencil_torch.obs import tracing as _tracing
 from tpu_stencil_torch.obs.tracing import fence
+from tpu_stencil_torch.ops import _build
 from tpu_stencil_torch.ops import cuda_stencil as cs
 from tpu_stencil_torch.ops import lowering as _lowering
+from tpu_stencil_torch.parallel import fill as fill_mod
 from tpu_stencil_torch.parallel import overlap as overlap_mod
 from tpu_stencil_torch.parallel import partition
 from tpu_stencil_torch.parallel.halo import Grid, halo_exchange
@@ -183,7 +188,10 @@ def build_sharded_iterate(plan: _lowering.StencilPlan, needs_mask: bool,
     ``reps % fuse`` remainder one rep at a time (``global_shape`` = padded
     (rows, cols * C) required); any other backend runs one torch-ops rep
     per chunk. ``mask`` (a grid like the tiles, or None) multiplies every
-    step's result.
+    step's result. Under ``off`` in one process with no mask, K3's chunks
+    on tiles whose cards reach each other run on a persistent slab with
+    pulled ghost rings (:class:`fill.Filler`, whose slabs this function's
+    result keeps); anywhere else they exchange strips.
 
     ``overlap``: a *resolved* mode. ``off`` runs the monolithic chunk
     (:func:`_pallas_local_chunk`, :func:`_local_step`); ``split``/
@@ -233,7 +241,11 @@ def build_sharded_iterate(plan: _lowering.StencilPlan, needs_mask: bool,
 
         return iterate
 
+    filler = None
     if backend == "pallas":
+        if peers is None and not needs_mask:
+            filler = fill_mod.Filler(plan, fuse, global_shape, block_h)
+
         def step_chunk(tiles, n_fused, mask):
             return _pallas_local_chunk(tiles, plan, n_fused, global_shape,
                                        mask, block_h=block_h, peers=peers)
@@ -242,6 +254,8 @@ def build_sharded_iterate(plan: _lowering.StencilPlan, needs_mask: bool,
             return _local_step(tiles, plan, mask, boundary, peers)
 
     def iterate(tiles: Grid, reps: int, mask: Optional[Grid] = None) -> Grid:
+        if filler is not None and filler.engages(tiles, mask):
+            return filler.run(tiles, reps)
         tiles = [list(row) for row in tiles]
         for n in cs.launch_schedule(int(reps), fuse):
             tiles = step_chunk(tiles, n, mask)
@@ -483,11 +497,16 @@ class ShardedRunner:
         return self.mesh.flat()
 
     def prepare(self) -> None:
-        """Build (or load) K3 when this runner launches it, so no build
-        lands in a timed window. Launches nothing."""
+        """Build (or load) K3 when this runner launches it, and
+        ``halo_fill`` when its chunks may pull their ghost rings
+        (:mod:`tpu_stencil_torch.parallel.fill`), so no build lands in a
+        timed window. Launches nothing."""
         if self.backend == "pallas" and any(
                 d.type == "cuda" for d in self.devices):
-            cs.build_kernels()
+            fills = (self.overlap == "off" and self.peers is None
+                     and not self.needs_mask)
+            _build.build(_build.JOB_KERNELS + (("halo_fill",) if fills
+                                               else ()))
 
     def warm_reps(self, calls) -> List[int]:
         """Rep counts, one :meth:`run` each, that between them launch every
@@ -912,8 +931,11 @@ class _Replay:
     graph that spans the cards, and replayed from page-locked host tiles.
 
     Capture: the graph's input tiles placed from the first job's host
-    tiles; one eager run on a side stream per card (K3 built, peer access
-    on, the allocator warm); then the run again under capture on those
+    tiles; the runner's rep loop built anew for the graph (where the
+    chunks pull their ghost rings, :mod:`~tpu_stencil_torch.parallel.
+    fill`, its slab is the graph's alone); one eager run on a side stream
+    per card (K3 built, peer access on, the allocator and the slab made);
+    then the run again under capture on those
     streams, the other cards' streams forked from the first card's and
     joined back into it, and each card's allocations in a pool of the
     graph's own (the first card's by the graph, the others' by a
@@ -930,9 +952,12 @@ class _Replay:
         self.streams = {d: torch.cuda.Stream(d) for d in self.devices}
         self.inputs = _map(lambda t, d: t.to(d), host, self.grid)
         self.cloned: Dict[torch.device, torch.cuda.Event] = {}
+        # The runner's rep loop built anew: a slab of its own where the
+        # chunks pull their rings (fill.py), which no other job touches.
+        run = runner._build(runner.overlap)
         self._sync()
         with self._on_streams():
-            runner.run(self.inputs, reps)
+            run(self.inputs, reps, runner._mask)
         self._sync()
         first = self.devices[0]
         self.pools = {}
@@ -950,7 +975,7 @@ class _Replay:
                 fork = self.streams[first].record_event()
                 for d in self.devices[1:]:
                     self.streams[d].wait_event(fork)
-                self.outputs = runner.run(self.inputs, reps)
+                self.outputs = run(self.inputs, reps, runner._mask)
                 for d in self.devices[1:]:
                     self.streams[first].wait_event(
                         self.streams[d].record_event())
